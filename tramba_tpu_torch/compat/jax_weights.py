@@ -1,0 +1,127 @@
+"""flax Tramba-V parameter tree -> reference PyTorch state dict.
+
+The exact inverse of ``tramba_tpu/compat/torch_weights.convert_tramba_v``
+(numpy only, importable without jax): ``convert_tramba_v(params_from_jax(p))``
+gives ``p`` back leaf for leaf.  The result loads into
+``tramba_tpu_torch.models.tramba.TrambaV`` with ``strict=True``, so both
+packages can run the same weights.
+
+Layout rules (inverse of torch_weights.py:7-13): Dense kernel (in, out) ->
+Linear weight (out, in); Conv kernel (kh, kw, in/g, out) -> Conv2d weight
+(out, in/g, kh, kw); LayerNorm scale/bias -> weight/bias; SS2D A_logs
+(K, D, N) -> (K*D, N) and Ds (K, D) -> (K*D,).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax"]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+
+
+def _linear(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _ln(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _ss2d(sd, prefix, p):
+    _linear(sd, f"{prefix}.in_proj", p["in_proj"])
+    _conv(sd, f"{prefix}.conv2d", p["conv2d"])
+    for name in ("x_proj_weight", "dt_projs_weight", "dt_projs_bias"):
+        sd[f"{prefix}.{name}"] = _t(p[name])
+    K, D, N = np.shape(p["A_logs"])
+    sd[f"{prefix}.A_logs"] = _t(np.reshape(p["A_logs"], (K * D, N)))
+    sd[f"{prefix}.Ds"] = _t(np.reshape(p["Ds"], (K * D,)))
+    _ln(sd, f"{prefix}.out_norm", p["out_norm"])
+    _linear(sd, f"{prefix}.out_proj", p["out_proj"])
+
+
+def _mlp(sd, prefix, p):
+    _linear(sd, f"{prefix}.fc1", p["fc1"])
+    _linear(sd, f"{prefix}.fc2", p["fc2"])
+    for k in (3, 5, 7):
+        if f"dwc{k}" in p:
+            _conv(sd, f"{prefix}.dwc{k}.dw_conv", p[f"dwc{k}"]["Conv_0"])
+
+
+def _expand(sd, prefix, p):
+    _linear(sd, f"{prefix}.expand", p["expand"])
+    _ln(sd, f"{prefix}.norm", p["norm"])
+
+
+def _block(sd, prefix, p):
+    for norm in ("norm", "norm1", "norm2"):
+        if norm in p:
+            _ln(sd, f"{prefix}.{norm}", p[norm])
+    _ss2d(sd, f"{prefix}.op", p["op"])
+    _mlp(sd, f"{prefix}.mlp", p["mlp"])
+
+
+def _freq_block(sd, prefix, p):
+    _ln(sd, f"{prefix}.norm1", p["norm1"])
+    a = p["attn"]
+    for name in ("h_expand", "l_expand"):
+        _expand(sd, f"{prefix}.attn.{name}", a[name])
+    for name in ("h_ssm", "l_ssm"):
+        _ss2d(sd, f"{prefix}.attn.{name}", a[name])
+    _linear(sd, f"{prefix}.attn.concat_back_dim", a["concat_back_dim"])
+    _ln(sd, f"{prefix}.norm2", p["norm2"])
+    _mlp(sd, f"{prefix}.mlp", p["mlp"])
+
+
+def _indexed(tree: Mapping, pattern: str):
+    """Sorted (ints..., value) for the keys of ``tree`` matching ``pattern``."""
+    out = []
+    for k, v in tree.items():
+        m = re.fullmatch(pattern, k)
+        if m:
+            out.append(tuple(int(g) for g in m.groups()) + (v,))
+    return sorted(out, key=lambda t: t[:-1])
+
+
+def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax Tramba-V variables ({"params": {...}} or the params tree itself),
+    leaves as numpy arrays -> reference state dict of fp32 CPU tensors."""
+    p = variables.get("params", variables)
+    enc, dec = p["vssm_encoder"], p["decoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    for idx, name in ((0, "patch_embed_conv1"), (5, "patch_embed_conv2")):
+        _conv(sd, f"vssm_encoder.patch_embed.{idx}", enc[name])
+    for idx, name in ((2, "patch_embed_norm1"), (7, "patch_embed_norm2")):
+        _ln(sd, f"vssm_encoder.patch_embed.{idx}", enc[name])
+    for s, d, blk in _indexed(enc, r"layers_(\d+)_block_(\d+)"):
+        _block(sd, f"vssm_encoder.layers.{s}.blocks.{d}", blk)
+    for s, conv in _indexed(enc, r"downsample_(\d+)_conv"):
+        _conv(sd, f"vssm_encoder.downsample.{s}.1", conv)
+        _ln(sd, f"vssm_encoder.downsample.{s}.3", enc[f"downsample_{s}_norm"])
+    for s, e in _indexed(dec, r"expand_(\d+)"):
+        _expand(sd, f"decoder.expand_layers.{s}", e)
+    for s, g in _indexed(dec, r"guide_(\d+)"):
+        _freq_block(sd, f"decoder.guide_layers.{s}", g)
+    for s, c in _indexed(dec, r"concat_back_dim_(\d+)"):
+        _linear(sd, f"decoder.concat_back_dim.{s}", c)
+    for s, d, blk in _indexed(dec, r"stage_(\d+)_block_(\d+)"):
+        _block(sd, f"decoder.stage_layers.{s}.blocks.{d}", blk)
+    for s, c in _indexed(dec, r"seg_(\d+)"):
+        _conv(sd, f"decoder.seg_layers.{s}", c)
+    return sd

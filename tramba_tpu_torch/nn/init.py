@@ -1,0 +1,39 @@
+"""Seeded weight init, following the JAX package's initializers.
+
+Linear weights: truncated normal, std 0.02 (VSSMEncoder._init_weights,
+vmamba.py:459-471); conv weights: kaiming normal (a=1e-2, fan_in); biases 0;
+LayerNorm 1 / 0; SS2D's own parameters by ``SS2D.reset_ssm_parameters``.
+Every draw comes from the one ``torch.Generator`` passed in, in module order.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from tramba_tpu_torch.nn.ssm import SS2D
+
+__all__ = ["init_weights"]
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(2.0 / (1.0 + 1e-2 ** 2)) / math.sqrt(fan_in)
+            nn.init.normal_(m.weight, 0.0, std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, SS2D):
+            m.reset_ssm_parameters(generator)
+    return model
