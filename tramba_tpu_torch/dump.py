@@ -1,11 +1,13 @@
 """TSOD saliency-map dump on the card: ``python -m tramba_tpu_torch.dump``.
 
 Port of ``test_TSOD.py``, with its flags.  Builds the model on CUDA in fp32
-with TF32 off (matmuls and cuDNN convolutions both), loads each reference
-``.pth`` given with ``--ckpt`` (strict), writes one uint8 PNG per test image
-of ``<data_root>/Test`` to ``<save_root>/<method>/TSOD`` at the image's
-original size, and with ``--measure_fps`` runs the 200-iteration FPS loop.
-Without ``--ckpt`` the weights are drawn from seed 0.  Requires CUDA.
+with TF32 off (matmuls and cuDNN convolutions both), or with
+``--dtype bfloat16`` in bf16 (the forward ``bench.py`` times), loads each
+reference ``.pth`` given with ``--ckpt`` (strict; parameters stay fp32 in
+both dtypes), writes one uint8 PNG per test image of ``<data_root>/Test`` to
+``<save_root>/<method>/TSOD`` at the image's original size, and with
+``--measure_fps`` runs the 200-iteration FPS loop.  Without ``--ckpt`` the
+weights are drawn from seed 0.  Requires CUDA.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ def main(argv=None) -> None:
     parser.add_argument("--batch_size", default=8, type=int)
     parser.add_argument("--measure_fps", action="store_true",
                         help="run the 200-iteration FPS loop (test_TSOD.py:71-108)")
+    parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                        help="compute dtype (bfloat16: kernels K5-K7 and bf16 K1-K4)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -52,7 +56,8 @@ def main(argv=None) -> None:
 
     for ckpt in args.ckpt or [None]:
         print(ckpt or "no checkpoint: random weights from seed 0", flush=True)
-        model = build(args.method, args.img_size, seed=None if ckpt else 0)
+        model = build(args.method, args.img_size, seed=None if ckpt else 0,
+                      dtype=getattr(torch, args.dtype))
         if ckpt:
             load_checkpoint(model, ckpt)
         model = model.to(device).eval()

@@ -25,8 +25,11 @@ _NOT_PORTED = {
 
 
 def build(method: str, img_size: int = 384, *, device="cpu", seed: Optional[int] = 0,
-          **overrides) -> TrambaV:
-    """Build ``method`` in eval mode on ``device``.  The weights are drawn on
+          dtype: torch.dtype = torch.float32, **overrides) -> TrambaV:
+    """Build ``method`` in eval mode on ``device``, computing in ``dtype``
+    (``torch.float32``, or ``torch.bfloat16``: JAX ``build(...,
+    dtype=jnp.bfloat16)``, the forward ``bench.py`` times).  Parameters are
+    fp32 in both, so one state dict serves both.  The weights are drawn on
     the CPU from ``torch.Generator().manual_seed(seed)`` and then moved, so a
     seed gives the same weights on every device; ``seed=None`` leaves torch's
     default init (for a checkpoint to overwrite).  ``overrides`` (dims,
@@ -35,7 +38,7 @@ def build(method: str, img_size: int = 384, *, device="cpu", seed: Optional[int]
         raise NotImplementedError(f"{method} is not ported yet: {_NOT_PORTED[method]}")
     if method not in METHODS:
         raise ValueError(f"unknown method: {method!r}; known: {METHODS + tuple(_NOT_PORTED)}")
-    model = TrambaV(img_size=img_size, **overrides)
+    model = TrambaV(img_size=img_size, dtype=dtype, **overrides)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -5,7 +5,9 @@ Port of ``tramba_tpu/models/vssm_encoder.py`` (reference
 with LayerNorms and a GELU between, stages of VSSBlocks, and a stride-2 conv
 + LN downsample between stages.  Module names follow the reference state
 dict (``patch_embed.{0,2,5,7}``, ``layers.{s}.blocks.{d}``,
-``downsample.{s}.{1,3}``).
+``downsample.{s}.{1,3}``).  The stem and downsample convs and LayerNorms run
+in the input's dtype (cuDNN and torch ops, outside the kernels, as JAX runs
+them outside Pallas); the blocks take the model dtype.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ class _Stage(nn.Module):
 
 
 class VSSMEncoder(nn.Module):
-    def __init__(self, depths: Sequence[int] = (2, 2, 15, 2), dims: int = 128):
+    def __init__(self, depths: Sequence[int] = (2, 2, 15, 2), dims: int = 128,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         widths = [dims * 2 ** i for i in range(len(depths))]
         self.patch_embed = nn.ModuleDict({
@@ -44,7 +47,8 @@ class VSSMEncoder(nn.Module):
             "7": LayerNorm(widths[0]),
         })
         self.layers = nn.ModuleList(
-            _Stage([VSSBlock(w) for _ in range(d)]) for w, d in zip(widths, depths))
+            _Stage([VSSBlock(w, dtype=dtype) for _ in range(d)])
+            for w, d in zip(widths, depths))
         self.downsample = nn.ModuleList(
             nn.ModuleDict({"1": nn.Conv2d(w, 2 * w, 3, stride=2, padding=1),
                            "3": LayerNorm(2 * w)})

@@ -3,7 +3,9 @@
 Port of ``tramba_tpu/nn/freq.py:38-117`` (reference ``freq_mamba.py``): 2-D
 DCT quadrants -> FreqExpand2D back to full resolution -> a ``window`` SS2D
 on the high band and a ``dilation`` SS2D on the low band -> concat-dense ->
-sigmoid gate on the input.
+sigmoid gate on the input.  The DCT and the gate run in the model dtype
+(``nn/freq.py:54-57``); in bf16 the guide SS2Ds run kernel K5 without a
+LayerNorm, and the FFN kernel K6.
 """
 
 from __future__ import annotations
@@ -23,13 +25,15 @@ class FreqSS2D(nn.Module):
     """``window``: high-band window size (from the resolution);
     ``dilation``: low-band dilation rate."""
 
-    def __init__(self, dim: int, window: int, dilation: int = 4):
+    def __init__(self, dim: int, window: int, dilation: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim = dim
         self.h_expand = FreqExpand2D(dim)
         self.l_expand = FreqExpand2D(dim)
-        self.h_ssm = SS2D(dim, k_group=4, scan_kind="window", scan_param=window)
-        self.l_ssm = SS2D(dim, k_group=4, scan_kind="dilation", scan_param=dilation)
+        self.h_ssm = SS2D(dim, k_group=4, scan_kind="window", scan_param=window, dtype=dtype)
+        self.l_ssm = SS2D(dim, k_group=4, scan_kind="dilation", scan_param=dilation,
+                          dtype=dtype)
         self.concat_back_dim = nn.Linear(2 * dim, dim, bias=False)
 
     def forward(self, x):
@@ -38,7 +42,7 @@ class FreqSS2D(nn.Module):
         l_out = self.l_ssm(self.l_expand(low))
         # concat + dense as two products on the weight's halves: the
         # (B, H, W, 2C) concat never materializes
-        w = self.concat_back_dim.weight
+        w = self.concat_back_dim.weight.to(x.dtype)
         attn = h_out @ w[:, : self.dim].t() + l_out @ w[:, self.dim:].t()
         return torch.sigmoid(attn) * x
 
@@ -46,13 +50,14 @@ class FreqSS2D(nn.Module):
 class FreqBlock(nn.Module):
     """x + FreqSS2D(LN(x)); x + Mlp(LN(x)) (freq_mamba.py:60-82)."""
 
-    def __init__(self, dim: int, window: int, dilation: int = 4, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, window: int, dilation: int = 4, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = FreqSS2D(dim, window, dilation)
+        self.attn = FreqSS2D(dim, window, dilation, dtype)
         self.norm2 = LayerNorm(dim)
-        self.mlp = ffn_branch(dim, mlp_ratio, "plain")
+        self.mlp = ffn_branch(dim, mlp_ratio, "plain", dtype)
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        return x + self.mlp(x, self.norm2)

@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (``tramba_tpu_torch/csrc``).
 
-The sources have a plain C interface and include no PyTorch header, so one
-``nvcc`` call builds them in seconds into a shared library that ``ctypes``
-loads.  The library goes to ``tramba_tpu_torch/_build/`` (listed in
+The sources have a plain C interface and include no PyTorch header, so
+``nvcc`` builds them in seconds (one process per source, in parallel, then
+one link) into a shared library that ``ctypes`` loads.  The library goes to ``tramba_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name that carries a hash of the sources, so an edited
 source is rebuilt and an unchanged one is loaded as it is.  Nothing is built
 when this module is imported: the first kernel launch builds.  A missing
@@ -21,22 +21,35 @@ import tempfile
 
 import torch
 
-__all__ = ["on_card", "check_f32", "library", "build", "launch", "stream_handle"]
+__all__ = ["on_card", "check_args", "F32", "BF16", "F32_BF16", "library", "build", "launch",
+           "stream_handle"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ss2d.cu", "expand.cu")
+SOURCES = ("ss2d.cu", "expand.cu", "prologue.cu", "mlp.cu")
 HEADERS = ("common.cuh",)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signature of each launcher: pointers, ints, then the stream
 _SIGNATURES = {
-    "ss2d_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
-    "ss2d_merge_launch": [_P] * 6 + [_I] * 6 + [_P],
-    "expand_ln_launch": [_P] * 5 + [_I] * 5 + [_P],
-    "final_head_launch": [_P] * 7 + [_L, _I, _P],
+    "ss2d_scan_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "ss2d_merge_launch": [_P] * 6 + [_I] * 7 + [_P],
+    "expand_ln_launch": [_P] * 5 + [_I] * 6 + [_P],
+    "final_head_launch": [_P] * 7 + [_L, _I, _I, _P],
+    "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _P],
+    "prologue_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "ln_mlp_splits": [_L, _I, _I, _IP],
+    "ln_mlp_launch": [_P] * 7 + [_L, _I, _I, _I, _P],
+    "ln_dwms_mlp_splits": [_I] * 5 + [_IP],
+    "ln_dwms_mlp_launch": [_P] * 13 + [_I] * 6 + [_P],
 }
+
+# dtypes a kernel argument may take (see check_args)
+F32 = (torch.float32,)
+BF16 = (torch.bfloat16,)
+F32_BF16 = (torch.float32, torch.bfloat16)
 
 
 def on_card(x: torch.Tensor) -> bool:
@@ -49,13 +62,16 @@ def on_card(x: torch.Tensor) -> bool:
     raise RuntimeError(f"no kernel or plain version for device {x.device}")
 
 
-def check_f32(**tensors) -> None:
-    """The kernels take contiguous, 16-byte aligned fp32 CUDA tensors."""
-    for name, t in tensors.items():
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected a float32 CUDA tensor, got {t.dtype} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+def check_args(**args) -> None:
+    """Each keyword is ``(tensor, dtypes)``: the kernel takes the tensor as a
+    contiguous, 32-byte aligned CUDA tensor of one of ``dtypes`` (``F32``,
+    ``BF16`` or ``F32_BF16``); anything else raises."""
+    for name, (t, dtypes) in args.items():
+        if not t.is_cuda or t.dtype not in dtypes:
+            want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{name}: expected a {want} CUDA tensor, got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 32:
+            raise ValueError(f"{name}: must be contiguous and 32-byte aligned")
 
 
 def _nvcc() -> str:
@@ -77,21 +93,31 @@ def _digest() -> str:
 
 def build() -> str:
     """Compile the kernels for sm_90a unless an up-to-date build exists;
-    returns the library path."""
+    returns the library path.  One ``nvcc`` per source, all started
+    together, then one link."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"libtramba_kernels_{_digest()}.so")
     if os.path.exists(out):
         return out
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-o", tmp]
-    cmd += [os.path.join(CSRC, s) for s in SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
+             "-Xcompiler", "-fPIC"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.replace(".cu", ".o")) for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", os.path.join(CSRC, src), "-o", obj],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src, p.returncode, log) for src, p, log in zip(SOURCES, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{src} ({rc}):\n{log}"
+                                                            for src, rc, log in failed))
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        os.replace(lib, out)
     return out
 
 

@@ -1,7 +1,9 @@
 """2-D DCT quadrants of the DFVSS guides, as plain matrix products.
 
 Port of ``tramba_tpu/ops/dct.py:59-74`` ``dct2d_quadrants``.  JAX computes
-it outside any Pallas kernel, so it stays ``torch.matmul`` here.
+it outside any Pallas kernel, so it stays ``torch.matmul`` here.  It runs in
+the input's dtype, the bf16 model's included (``nn/freq.py:54-57``): the
+basis is cast to it.
 """
 
 from __future__ import annotations

@@ -8,7 +8,10 @@ of device memory.  Both run in ``csrc/expand.cu``.
 
 The wrappers pick by the tensors' device as in ``ops/fused_ss2d.py``, and
 count launches in ``<wrapper>.launches``.  Weights are in torch.nn.Linear
-layout (out_features, in_features).
+layout (out_features, in_features).  ``x`` and the expand weight are both
+fp32 or both bf16 (the output takes their dtype); the LayerNorm and head
+parameters are fp32, and the LayerNorm runs in fp32 on the unrounded expand,
+as ``_expand_pallas`` and ``_final_head_pallas`` do.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
-from tramba_tpu_torch.ops._native import check_f32, on_card
+from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, on_card
 
 __all__ = ["pixel_shuffle", "expand_ln", "expand_ln_ref", "final_head", "final_head_ref"]
 
@@ -34,8 +37,8 @@ def pixel_shuffle(x: torch.Tensor, p: int) -> torch.Tensor:
 def expand_ln_ref(x, w, ln_w, ln_b):
     """x (B, H, W, C); w (f*C, C); ln_w, ln_b (f*C/4).  Mirrors
     composed_expand2 (fused_expand.py:83).  Returns (B, 2H, 2W, f*C/4)."""
-    e = pixel_shuffle(x @ w.t(), 2)
-    return F.layer_norm(e, (e.shape[-1],), ln_w, ln_b, 1e-5)
+    e = pixel_shuffle(x.float() @ w.float().t(), 2)
+    return F.layer_norm(e, (e.shape[-1],), ln_w, ln_b, 1e-5).to(x.dtype)
 
 
 def final_head_ref(x, w1, ln_w, ln_b, seg_w, seg_b):
@@ -43,9 +46,9 @@ def final_head_ref(x, w1, ln_w, ln_b, seg_w, seg_b):
     composed_final_head (fused_expand.py:197).  Returns (B, h, w, 16), slot
     s = 4 * p1 + p2."""
     B, h, w, C = x.shape
-    e = (x @ w1.t()).reshape(B, h, w, 16, C)
+    e = (x.float() @ w1.float().t()).reshape(B, h, w, 16, C)
     y = F.layer_norm(e, (C,), ln_w, ln_b, 1e-5)
-    return y @ seg_w + seg_b.sum()
+    return (y @ seg_w + seg_b.sum()).to(x.dtype)
 
 
 def expand_ln(x, w, ln_w, ln_b):
@@ -54,12 +57,14 @@ def expand_ln(x, w, ln_w, ln_b):
         return expand_ln_ref(x, w, ln_w, ln_b)
     B, H, W, C = x.shape
     co = w.shape[0] // 4
-    check_f32(x=x, w=w, ln_w=ln_w, ln_b=ln_b)
-    if C % 4 or tuple(w.shape) != (4 * co, C) or ln_w.numel() != co or ln_b.numel() != co:
-        raise ValueError(f"expand_ln: C={C} must be a multiple of 4, w (4*co, C), ln (co)")
-    out = torch.empty(B, 2 * H, 2 * W, co, device=x.device, dtype=torch.float32)
+    check_args(x=(x, F32_BF16), w=(w, (x.dtype,)), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
+    vec = 16 // x.element_size()  # one 16-byte load
+    if C % vec or tuple(w.shape) != (4 * co, C) or ln_w.numel() != co or ln_b.numel() != co:
+        raise ValueError(f"expand_ln: C={C} must be a multiple of {vec}, w (4*co, C), ln (co)")
+    out = torch.empty(B, 2 * H, 2 * W, co, device=x.device, dtype=x.dtype)
     _native.launch("expand_ln_launch", x.data_ptr(), w.data_ptr(), ln_w.data_ptr(),
-                   ln_b.data_ptr(), out.data_ptr(), B, H, W, C, co, _native.stream_handle(x))
+                   ln_b.data_ptr(), out.data_ptr(), B, H, W, C, co,
+                   int(x.dtype == torch.bfloat16), _native.stream_handle(x))
     expand_ln.launches += 1
     return out
 
@@ -72,14 +77,16 @@ def final_head(x, w1, ln_w, ln_b, seg_w, seg_b):
     if not on_card(x):
         return final_head_ref(x, w1, ln_w, ln_b, seg_w, seg_b)
     B, h, w, C = x.shape
-    check_f32(x=x, w1=w1, ln_w=ln_w, ln_b=ln_b, seg_w=seg_w, seg_b=seg_b)
-    if (C % 4 or tuple(w1.shape) != (16 * C, C) or ln_w.numel() != C or ln_b.numel() != C
+    check_args(x=(x, F32_BF16), w1=(w1, (x.dtype,)), ln_w=(ln_w, F32), ln_b=(ln_b, F32),
+               seg_w=(seg_w, F32), seg_b=(seg_b, F32))
+    vec = 16 // x.element_size()  # one 16-byte load
+    if (C % vec or tuple(w1.shape) != (16 * C, C) or ln_w.numel() != C or ln_b.numel() != C
             or seg_w.numel() != C or seg_b.numel() != 1):
-        raise ValueError(f"final_head: C={C} must be a multiple of 4, w1 (16C, C)")
-    out = torch.empty(B, h, w, 16, device=x.device, dtype=torch.float32)
+        raise ValueError(f"final_head: C={C} must be a multiple of {vec}, w1 (16C, C)")
+    out = torch.empty(B, h, w, 16, device=x.device, dtype=x.dtype)
     _native.launch("final_head_launch", x.data_ptr(), w1.data_ptr(), ln_w.data_ptr(),
                    ln_b.data_ptr(), seg_w.data_ptr(), seg_b.data_ptr(), out.data_ptr(),
-                   B * h * w, C, _native.stream_handle(x))
+                   B * h * w, C, int(x.dtype == torch.bfloat16), _native.stream_handle(x))
     final_head.launches += 1
     return out
 

@@ -1,8 +1,11 @@
-"""Inference-speed harness (test_TSOD.py:71-108 semantics), timed on the card.
+"""Inference-speed harness (test_TSOD.py:71-108 semantics), timed on the card,
+and the device time of a forward by kernel.
 
 Port of ``tramba_tpu/utils/profiling.py:134`` ``measure_inference_speed``.
 Time comes from CUDA events around the timed iterations; a call whose inputs
 are not on a CUDA device raises, since its number would not be the card's.
+``device_time_by_kernel`` sums the device time of each kernel name that
+``torch.profiler`` records over a few calls.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from typing import Callable, Sequence
 
 import torch
 
-__all__ = ["measure_inference_speed"]
+__all__ = ["measure_inference_speed", "device_time_by_kernel"]
 
 
 @torch.no_grad()
@@ -40,3 +43,27 @@ def measure_inference_speed(fn: Callable, args: Sequence[torch.Tensor], max_iter
     fps = batch * (max_iter - num_warmup) / (start.elapsed_time(mark) / 1e3)
     print(f"Overall fps: {fps:.1f} img / s, times per image: {1000 / fps:.2f} ms / img")
     return fps
+
+
+@torch.no_grad()
+def device_time_by_kernel(fn: Callable, iters: int = 3, warmup: int = 2) -> dict:
+    """{kernel name: (device microseconds, launches)} summed over ``iters``
+    calls of ``fn()`` after ``warmup`` calls, from ``torch.profiler``'s CUDA
+    events.  Empty when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_time_by_kernel profiles the CUDA device; none is available")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return out
