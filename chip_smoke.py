@@ -4,18 +4,21 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. device    a CUDA card is present; prints its name and power limit
-  2. build     nvcc builds kernels K1-K7 from tramba_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K8 from tramba_tpu_torch/csrc
   3. kernels   each kernel vs its plain PyTorch version on the card, at the
                shapes of the 384px Tramba-V-TSOD forward: K1-K4 in fp32
                (rtol 1e-3, atol 1e-4), then in bf16 K1-K4 and K5-K7, and K2
                as _lgp_pallas (one-slot identity table); bf16 outputs at
-               rtol 1.6e-2, atol 1e-2; errors and times
+               rtol 1.6e-2, atol 1e-2; then the training kernels at every
+               SS2D shape: K1's and K2's train variants (fp32 tolerance) and
+               K8 (max abs error <= 1e-4 x the largest magnitude of each
+               output); errors and times
   4. model     full-width Tramba-V-TSOD at 384px, seeded weights, batch 2 on
                the card, in fp32 (TF32 off) and in bf16: head shapes, finite
-               values, launches per forward (fp32: every K1-K4, no K5-K7;
-               bf16: K1 33, K2 33, K3 9, K4 1, K5 33, K6 24, K7 6); the same
-               weights and image on the CPU (plain versions) agree with mean
-               abs difference <= 1e-3 (fp32) per head, and in bf16 <= 2e-2 or,
+               values, launches per forward (fp32 and bf16: K1 33, K2 33, K3
+               9, K4 1; bf16 also K5 33, K6 24, K7 6); the same weights and
+               image on the CPU (plain versions) agree with mean abs
+               difference <= 1e-3 (fp32) per head, and in bf16 <= 2e-2 or,
                where bf16's own noise is larger, <= 1.25 x the CPU's bf16-vs-
                fp32 difference on that head
   5. dump      ``python -m tramba_tpu_torch.dump --measure_fps`` on synthetic
@@ -24,6 +27,19 @@ Phases, each of which must pass (any failure exits non-zero):
                with ``--dtype bfloat16``
   6. timing    ms per forward: fp32 at batch 1 and 8, bf16 at 1, 8 and 16
   7. profile   device time of the bf16 forward by kernel group (torch.profiler)
+  8. train     fp32 training at full width, batch 4: one train step launches
+               exactly K1 33, K2 33, K8 33, K3 9, K4 1 and no K5-K7, and
+               leaves every parameter a finite gradient; the loss falls over
+               10 steps on one batch; ms per step, peak memory and the device
+               time by kernel group; a reduced-depth step (dims 128, depths
+               (1, 1, 2, 1), 96 px) against the CPU's plain step (loss rtol
+               1e-4, per-parameter gradient relative norm <= 1e-3)
+  9. run       ``tramba_tpu_torch.run`` (the training CLI) on a synthetic
+               TSOD10K-layout dataset (8 train, 4 test images): 2 epochs with
+               the in-loop eval, record and best-MAE weights, exact launch
+               counts; a weights-only ``--resume <best-MAE file>`` to epoch 5,
+               which writes the rolling resume dict (every 5 epochs); then
+               ``python -m tramba_tpu_torch.run --resume last`` to epoch 6
 
 The last lines are the kernels' JSON summary, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -56,9 +72,19 @@ HEAD_MEAN_ABS_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # card vs CPU, 
 BF16_NOISE_FACTOR = 1.25
 # launches of one bf16 forward: 21 encoder + 6 decoder + 6 guide SS2Ds,
 # 21 + 3 plain FFNs, 6 DWMS FFNs, 6 + 3 expands, 1 head
-BF16_LAUNCHES = {"ss2d_scan": 33, "ss2d_merge": 33, "expand_ln": 9, "final_head": 1,
-                 "prologue": 33, "ln_mlp": 24, "ln_dwms_mlp": 6}
-BF16_ONLY = ("prologue", "ln_mlp", "ln_dwms_mlp")
+BF16_LAUNCHES = {"ss2d_scan": 33, "ss2d_merge": 33, "ss2d_scan_bwd": 0, "expand_ln": 9,
+                 "final_head": 1, "prologue": 33, "ln_mlp": 24, "ln_dwms_mlp": 6}
+# launches of one fp32 forward without autograd (the eval forward) and of one
+# fp32 train step (forward with the train variants, backward with K8)
+FP32_LAUNCHES = {"ss2d_scan": 33, "ss2d_merge": 33, "ss2d_scan_bwd": 0, "expand_ln": 9,
+                 "final_head": 1, "prologue": 0, "ln_mlp": 0, "ln_dwms_mlp": 0}
+TRAIN_STEP_LAUNCHES = dict(FP32_LAUNCHES, ss2d_scan_bwd=33)
+# K8 vs its plain version: sums over whole sequences and batches in another
+# order, so each output's max abs error is held to this share of its largest
+# magnitude
+BWD_REL_TOL = 1e-4
+# reduced-depth train step, card vs CPU
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-4, 1e-3
 NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 
@@ -90,60 +116,123 @@ def wrappers():
     from tramba_tpu_torch.ops import fused_prologue as tp
     from tramba_tpu_torch.ops import fused_ss2d as tf
 
-    return (tf.ss2d_scan, tf.ss2d_merge, te.expand_ln, te.final_head, tp.prologue, tm.ln_mlp,
-            tm.ln_dwms_mlp)
+    return (tf.ss2d_scan, tf.ss2d_merge, tf.ss2d_scan_bwd, te.expand_ln, te.final_head,
+            tp.prologue, tm.ln_mlp, tm.ln_dwms_mlp)
+
+
+def reset_counts():
+    for w in wrappers():
+        w.launches = 0
+
+
+def read_counts():
+    torch.cuda.synchronize()
+    return {w.__name__: w.launches for w in wrappers()}
 
 
 class Checks:
-    """Phase 3 results: {(kernel, dtype): [(shape label, max_abs_err, ms, plain_ms)]}."""
+    """Phase 3 results: {(kernel, tag): [(shape label, max_abs_err, ms, plain_ms)]};
+    the tag is the dtype's name, or "fp32 train" for the training kernels."""
 
     def __init__(self):
         self.rows = {}
 
-    def compare(self, name, dt, label, kernel, plain, reps, plain_warmup=1):
+    def compare(self, name, dt, label, kernel, plain, reps, plain_warmup=1, tag=None,
+                rel_tol=None):
+        """``kernel`` and ``plain`` return a tensor or a tuple of tensors.  With
+        ``rel_tol`` each output's max abs error must be <= rel_tol x its
+        largest magnitude; else assert_close at the dtype's tolerance."""
+        tag = tag or NAMES[dt]
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        tol = KERNEL_TOL_BF16 if got.dtype == torch.bfloat16 else KERNEL_TOL
-        got, want = got.float(), want.float()
-        err = (got - want).abs().max().item()
-        torch.testing.assert_close(got, want, **tol,
-                                   msg=lambda m: f"{name} {NAMES[dt]} {label}: {m}")
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = rel = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            tol = KERNEL_TOL_BF16 if g.dtype == torch.bfloat16 else KERNEL_TOL
+            g, w = g.float(), w.float()
+            e = (g - w).abs().max().item()
+            err = max(err, e)
+            if rel_tol is None:
+                rel = max(rel, ((g - w).abs() / w.abs().clamp_min(1e-3)).max().item())
+                torch.testing.assert_close(g, w, **tol,
+                                           msg=lambda m: f"{name} {tag} {label} output {i}: {m}")
+            else:
+                scale = w.abs().max().item()
+                rel = max(rel, e / max(scale, 1e-30))
+                if not e <= rel_tol * scale:
+                    raise AssertionError(f"{name} {tag} {label} output {i}: max abs error {e} "
+                                         f"> {rel_tol} x {scale}")
         ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, 1, warmup=plain_warmup)
-        self.rows.setdefault((name, dt), []).append((label, err, ms, plain_ms))
-        print(f"{name:11s} {NAMES[dt]} {label:34s} max_abs_err {err:.3e} max_rel_err "
-              f"{((got - want).abs() / want.abs().clamp_min(1e-3)).max().item():.3e} "
+        self.rows.setdefault((name, tag), []).append((label, err, ms, plain_ms))
+        what = "err/max|plain|" if rel_tol is not None else "max_rel_err"
+        print(f"{name:13s} {tag:10s} {label:34s} max_abs_err {err:.3e} {what} {rel:.3e} "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
+
+
+# (order, map size, d_model, window/rate): every SS2D shape of the main path --
+# encoder stages (raster), decoder blocks (line), guides (window and dilation)
+SS2D_SHAPES = (("raster", 96, 128, 0), ("raster", 48, 256, 0), ("raster", 24, 512, 0),
+               ("raster", 12, 1024, 0), ("line", 96, 128, 0), ("line", 48, 256, 0),
+               ("line", 24, 512, 0), ("window", 96, 128, 16), ("window", 48, 256, 12),
+               ("window", 24, 512, 8), ("dilation", 96, 128, 4), ("dilation", 48, 256, 4),
+               ("dilation", 24, 512, 4))
+
+
+def ss2d_case(dev, gen, dt, kind, H, d_model, param, B):
+    """A seeded SS2D of one main-path shape and an input for its core."""
+    from tramba_tpu_torch.nn.init import init_weights
+    from tramba_tpu_torch.nn.ssm import SS2D
+    from tramba_tpu_torch.ops.scan_orders import order_tables
+
+    m = init_weights(SS2D(d_model, k_group=8 if kind == "line" else 4, scan_kind=kind,
+                          scan_param=param), gen).to(dev)
+    K, D = m.k_group, m.d_inner
+    x = torch.nn.functional.silu(torch.randn(B, H * H, D, generator=gen)).to(dev, dt)
+    core = (m.x_proj_weight.data, m.dt_projs_weight.data, m.dt_projs_bias.data,
+            m.A_logs.data.view(K, D, 1), m.Ds.data.view(K, D))
+    idx, inv = order_tables(kind, H, H, param, dev)
+    return m, x, core, idx, inv, f"{kind}{param or ''} {H}px B{B} K{K} D{D}"
+
+
+def check_train_kernels(checks, dev, gen):
+    """K1's and K2's train variants and K8 at every SS2D shape, fp32, B=2.
+    K8 gets the carries and projections of the plain train forward and a
+    cotangent of the pre-LN sum at the scale of the output's."""
+    from tramba_tpu_torch.ops import fused_ss2d as tf
+
+    B, tag, chunk = 2, "fp32 train", tf.scan_chunk()
+    for kind, H, d_model, param in SS2D_SHAPES:
+        m, x, core, idx, inv, label = ss2d_case(dev, gen, torch.float32, kind, H, d_model,
+                                                param, B)
+        checks.compare("ss2d_scan", None, label,
+                       lambda: tf.ss2d_scan(x, idx, *core, emit=True),
+                       lambda: tf.ss2d_scan_train_ref(x, idx, *core, chunk), reps=5,
+                       plain_warmup=0, tag=tag)
+        ys, carries, dbc = tf.ss2d_scan_train_ref(x, idx, *core, chunk)
+        tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data)
+        checks.compare("ss2d_merge", None, label,
+                       lambda: tf.ss2d_merge(ys, inv, *tail, emit_ysum=True),
+                       lambda: tf.ss2d_merge_train_ref(ys, inv, *tail), reps=5, tag=tag)
+        g_y = torch.randn(x.shape, generator=gen).to(dev)
+        args = (x, idx, inv, g_y, carries, dbc, *core)
+        checks.compare("ss2d_scan_bwd", None, label, lambda: tf.ss2d_scan_bwd(*args),
+                       lambda: tf.ss2d_scan_bwd_ref(*args, chunk), reps=3, plain_warmup=0,
+                       tag=tag, rel_tol=BWD_REL_TOL)
+        del ys, carries, dbc, g_y, args
 
 
 def check_ss2d_expand(checks, dev, gen, dt):
     """K1-K4 at every shape of the main path, in dtype ``dt``."""
     from tramba_tpu_torch.nn.init import init_weights
     from tramba_tpu_torch.nn.layers import FinalPatchExpandX4, _Expand
-    from tramba_tpu_torch.nn.ssm import SS2D
     from tramba_tpu_torch.ops import fused_expand as te
     from tramba_tpu_torch.ops import fused_ss2d as tf
-    from tramba_tpu_torch.ops.scan_orders import order_tables
 
     B = 2
-    # (order, map size, d_model, window/rate): every SS2D shape of the main
-    # path -- encoder stages (raster), decoder blocks (line), guides (window
-    # and dilation)
-    for kind, H, d_model, param in (("raster", 96, 128, 0), ("raster", 48, 256, 0),
-                                    ("raster", 24, 512, 0), ("raster", 12, 1024, 0),
-                                    ("line", 96, 128, 0), ("line", 48, 256, 0),
-                                    ("line", 24, 512, 0), ("window", 96, 128, 16),
-                                    ("window", 48, 256, 12), ("window", 24, 512, 8),
-                                    ("dilation", 96, 128, 4), ("dilation", 48, 256, 4),
-                                    ("dilation", 24, 512, 4)):
-        m = init_weights(SS2D(d_model, k_group=8 if kind == "line" else 4, scan_kind=kind,
-                              scan_param=param), gen).to(dev)
-        K, D = m.k_group, m.d_inner
-        x = torch.nn.functional.silu(torch.randn(B, H * H, D, generator=gen)).to(dev, dt)
-        core = (m.x_proj_weight.data, m.dt_projs_weight.data, m.dt_projs_bias.data,
-                m.A_logs.data.view(K, D, 1), m.Ds.data.view(K, D))
-        idx, inv = order_tables(kind, H, H, param, dev)
-        label = f"{kind}{param or ''} {H}px B{B} K{K} D{D}"
+    for kind, H, d_model, param in SS2D_SHAPES:
+        m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
         checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
                        lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5, plain_warmup=0)
         ys = tf.ss2d_scan(x, idx, *core)
@@ -225,17 +314,14 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None):
     ``cpu_fp32_heads``: the CPU fp32 heads, which set bf16's noise floor."""
     from tramba_tpu_torch.models.registry import build
 
-    fns = wrappers()
     model = build("Tramba-V-TSOD", 384, device=dev, seed=0, dtype=dtype)
     n_params = sum(p.numel() for p in model.parameters())
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("parameters must stay fp32")
-    for w in fns:
-        w.launches = 0
+    reset_counts()
     with torch.no_grad():
         outs = model(x.to(dev))
-        torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in fns}
+    launches = read_counts()
     print(f"model Tramba-V-TSOD 384px {NAMES[dtype]}, {n_params} fp32 parameters; "
           f"launches {launches}", flush=True)
     shapes = [tuple(o.shape) for o in outs]
@@ -246,15 +332,9 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None):
         raise AssertionError(f"head dtypes {[o.dtype for o in outs]}, expected {dtype}")
     if not all(torch.isfinite(o).all().item() for o in outs):
         raise AssertionError("non-finite logits")
-    if dtype == torch.bfloat16:
-        if launches != BF16_LAUNCHES:
-            raise AssertionError(f"bf16 launches {launches}, expected {BF16_LAUNCHES}")
-    else:
-        missing = [k for k, n in launches.items() if n == 0 and k not in BF16_ONLY]
-        extra = [k for k in BF16_ONLY if launches[k]]
-        if missing or extra:
-            raise AssertionError(f"fp32 forward: kernels not launched {missing}, "
-                                 f"bf16-only kernels launched {extra}")
+    want = BF16_LAUNCHES if dtype == torch.bfloat16 else FP32_LAUNCHES
+    if launches != want:
+        raise AssertionError(f"{NAMES[dtype]} launches {launches}, expected {want}")
 
     t0 = time.perf_counter()
     cpu_model = build("Tramba-V-TSOD", 384, device="cpu", seed=0, dtype=dtype)
@@ -304,8 +384,13 @@ def run_dump_entry_point(tmp, *flags):
     print(f"dump {' '.join(flags)} wrote {len(sizes)} maps at their original sizes", flush=True)
 
 
-# kernel-name fragments -> group of the phase 7 breakdown, first match wins
-GROUPS = (("ss2d_scan_kernel", "K1 ss2d_scan, scan launch"),
+# kernel-name fragments -> group of the phase 7 / 8 breakdowns, first match wins
+GROUPS = (("bwd_scan_kernel", "K8 ss2d_scan_bwd, (a) adjoint scan"),
+          ("bwd_dbc_kernel", "K8 ss2d_scan_bwd, (b) projection adjoint"),
+          ("bwd_dx_kernel", "K8 ss2d_scan_bwd, (c) dx gather"),
+          ("bwd_wgrad_kernel", "K8 ss2d_scan_bwd, (d) weight partials"),
+          ("sum_parts_kernel", "K8 ss2d_scan_bwd, (e) partial sums"),
+          ("ss2d_scan_kernel", "K1 ss2d_scan, scan launch"),
           ("ss2d_proj_kernel", "K1 ss2d_scan, projection launch"),
           ("ss2d_merge_kernel", "K2 ss2d_merge"),
           ("expand_groups_kernel<", "K3 expand_ln / K4 final_head"),
@@ -315,15 +400,18 @@ GROUPS = (("ss2d_scan_kernel", "K1 ss2d_scan, scan launch"),
           ("ln_rows_kernel", "LayerNorm launch of K5-K7"),
           ("finish_split_kernel", "split sums of K6/K7"),
           ("layer_norm", "LayerNorm (torch)"),
+          ("dgrad", "conv backward (cuDNN)"), ("wgrad", "conv backward (cuDNN)"),
           ("conv", "conv (cuDNN)"), ("cudnn", "conv (cuDNN)"), ("fprop", "conv (cuDNN)"),
-          ("gemm", "GEMM (cuBLAS)"), ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
+          ("gemm", "GEMM (cuBLAS)"), ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"),
+          ("multi_tensor_apply", "Adam (torch._foreach)"),
+          ("reduce_kernel", "reductions (torch)"), ("upsample", "bilinear resize (torch)"))
 
 
-def profile_breakdown(fn, wall_ms, label):
+def profile_breakdown(fn, wall_ms, label, grad=False, per="fwd"):
     from tramba_tpu_torch.utils.profiling import device_time_by_kernel
 
     iters = 3
-    times = device_time_by_kernel(fn, iters=iters)
+    times = device_time_by_kernel(fn, iters=iters, grad=grad)
     if not times:
         print(f"profile {label}: the profiler recorded no device activity", flush=True)
         return
@@ -334,11 +422,162 @@ def profile_breakdown(fn, wall_ms, label):
         gus, gn = groups.get(g, (0.0, 0))
         groups[g] = (gus + us, gn + n)
     busy = sum(us for us, _ in groups.values()) / iters / 1e3
-    print(f"profile {label}: device busy {busy:.3f} ms per forward of {wall_ms:.3f} ms wall "
+    print(f"profile {label}: device busy {busy:.3f} ms per {per} of {wall_ms:.3f} ms wall "
           f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})", flush=True)
     for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {g:34s} {us / iters / 1e3:9.3f} ms/fwd {100 * us / iters / 1e3 / busy:6.2f}% "
-              f"{n // iters:5d} launches/fwd", flush=True)
+        print(f"  {g:52s} {us / iters / 1e3:9.3f} ms/{per} "
+              f"{100 * us / iters / 1e3 / busy:6.2f}% {n // iters:5d} launches/{per}", flush=True)
+
+
+def train_batch(B, size, seed):
+    """A seeded batch: normal images and masks of smooth random blobs."""
+    g = torch.Generator().manual_seed(seed)
+    images = torch.randn(B, size, size, 3, generator=g)
+    noise = torch.randn(B, 1, size, size, generator=g)
+    blobs = torch.nn.functional.avg_pool2d(noise, 31, stride=1, padding=15)
+    return images, (blobs > 0).float().permute(0, 2, 3, 1)
+
+
+def run_training(dev, card):
+    """Phase 8: train steps of the full-width fp32 model at batch 4."""
+    from tramba_tpu_torch.models.registry import build
+    from tramba_tpu_torch.nn.layers import set_drop_path_generator
+    from tramba_tpu_torch.train.optim import make_optimizer
+    from tramba_tpu_torch.train.step import train_step
+
+    model = build("Tramba-V-TSOD", 384, device=dev, seed=0)
+    set_drop_path_generator(model, torch.Generator(device=dev).manual_seed(1026))
+    opt = make_optimizer(model.named_parameters(), 1e-4, [60], [0.2], 1, mu_dtype=torch.bfloat16)
+    images, gts = (t.to(dev) for t in train_batch(4, 384, seed=2))
+
+    def step():
+        return train_step(model, opt, images, gts)
+
+    reset_counts()
+    step()
+    launches = read_counts()
+    print(f"one fp32 train step B4: launches {launches}", flush=True)
+    if launches != TRAIN_STEP_LAUNCHES:
+        raise AssertionError(f"train step launches {launches}, expected {TRAIN_STEP_LAUNCHES}")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all().item()]
+    if bad:
+        raise AssertionError(f"{len(bad)} parameters without a finite gradient, e.g. {bad[:5]}")
+    print(f"every one of {sum(1 for _ in model.parameters())} parameters has a finite gradient",
+          flush=True)
+
+    losses = [step().item() for _ in range(10)]
+    print("loss over 10 steps on one batch: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    if not (all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"the loss did not fall over 10 steps: {losses}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"Tramba-V-TSOD 384px fp32 train step B4: {ms:.2f} ms/step, {4000 / ms:.1f} img/s, "
+          f"peak memory {peak:.2f} GiB [{card}]", flush=True)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    profile_breakdown(step, wall, "fp32 train B4", grad=True, per="step")
+    return ms, peak
+
+
+def compare_reduced_step(dev):
+    """Phase 8: one loss and backward of a reduced-depth model (eval mode, so
+    no stochastic depth) on the card and on the CPU."""
+    from tramba_tpu_torch.models.registry import build
+    from tramba_tpu_torch.train.loss import deep_supervision_loss
+
+    cut = dict(dims=128, enc_depths=(1, 1, 2, 1), dec_depths=(1, 1, 1, 1))
+    images, gts = train_batch(2, 96, seed=3)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        model = build("Tramba-V-TSOD", 96, device=d, seed=0, **cut)
+        loss = deep_supervision_loss(model(images.to(d)), gts.to(d))
+        loss.backward()
+        res[d.type] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()})
+        print(f"reduced step on {d.type}: loss {loss.item():.6f} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+    worst = max(((gc[n] - g).norm().item() / max(g.norm().item(), 1e-30), n)
+                for n, g in gp.items())
+    print(f"reduced step card vs CPU: loss rel diff {abs(lc - lp) / abs(lp):.3e}; worst "
+          f"per-parameter gradient rel norm {worst[0]:.3e} ({worst[1]}) over {len(gp)} "
+          f"parameters", flush=True)
+    if abs(lc - lp) > TRAIN_LOSS_RTOL * abs(lp) or not worst[0] <= TRAIN_GRAD_REL:
+        raise AssertionError(f"reduced step: loss {lc} vs {lp}, worst grad {worst}")
+
+
+def write_tsod(root, splits, seed):
+    """A TSOD10K-layout folder {root}/{split}/{image,mask} of seeded images."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n in splits.items():
+        for sub in ("image", "mask"):
+            os.makedirs(os.path.join(root, split, sub))
+        for i in range(n):
+            w, h = int(rng.integers(300, 640)), int(rng.integers(200, 480))
+            mask = np.zeros((h, w), np.uint8)
+            y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
+            mask[y0:y0 + h // 3, x0:x0 + w // 3] = 255
+            img = np.clip(np.stack([mask] * 3, -1) * 0.5 + rng.integers(0, 128, (h, w, 3)), 0, 255)
+            Image.fromarray(img.astype(np.uint8), "RGB").save(
+                os.path.join(root, split, "image", f"{split}_{i}.jpg"))
+            Image.fromarray(mask, "L").save(os.path.join(root, split, "mask", f"{split}_{i}.png"))
+
+
+def run_train_entry_point(tmp):
+    """Phase 9: the training CLI at full width, fp32, batch 4, 2 epochs on 8
+    train images with the in-loop eval of 4 test images from epoch 2, in this
+    process (for the launch counts); a weights-only resume from the best-MAE
+    file to epoch 5, which writes the rolling resume dict; then ``--resume
+    last`` to epoch 6 as ``python -m tramba_tpu_torch.run``.  Returns the
+    launch counts of the first run."""
+    from tramba_tpu_torch import run
+
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "results")
+    write_tsod(data, {"Train": 8, "Test": 4}, seed=4)
+    flags = ["--method", "Tramba-V-TSOD", "--data_root", data, "--evaluation_root", data,
+             "--batch_size", "4", "--save_model", out, "--tf_log_path", "",
+             "--pretrained_path", "", "--see", "2"]
+    reset_counts()
+    t0 = time.perf_counter()
+    run.main(flags + ["--train_epochs", "2"])
+    launches = read_counts()
+    print(f"run: 2 epochs in {time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
+    # 2 epochs of 2 steps, one eval batch of 4 images
+    want = {k: 4 * n + FP32_LAUNCHES[k] for k, n in TRAIN_STEP_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"run launches {launches}, expected {want}")
+    save_dir = os.path.join(out, "Tramba-V-TSOD")
+    best = [f for f in os.listdir(save_dir) if "_MAE_" in f]
+    record = os.path.join(out, "Record_Tramba-V-TSOD.txt")
+    if len(best) != 1 or "Epoch:2||train_loss" not in open(record).read():
+        raise AssertionError(f"run wrote {os.listdir(save_dir)}; record {os.path.exists(record)}")
+    print(f"run wrote {best[0]} and the record", flush=True)
+    model, opt = run.main(flags + ["--train_epochs", "5", "--resume",
+                                   os.path.join(save_dir, best[0])])
+    if opt.count != {"encoder": 6, "rest": 6} \
+            or not os.path.exists(os.path.join(save_dir, "Tramba-V-TSOD_resume.pth")):
+        raise AssertionError(f"weights-only resume: {opt.count} steps; {os.listdir(save_dir)}")
+    del model, opt
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, "-m", "tramba_tpu_torch.run", *flags,
+                          "--train_epochs", "6", "--resume", "last"], capture_output=True,
+                         text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0 or "starting from epoch 6" not in res.stdout \
+            or "Epoch [006/006] loss" not in res.stdout:
+        raise AssertionError(f"--resume last failed ({res.returncode}):\n{res.stdout[-2000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    print("python -m tramba_tpu_torch.run --resume last: " + next(
+        ln for ln in res.stdout.splitlines() if ln.startswith("Epoch [006/006]")), flush=True)
+    return launches
 
 
 def main() -> int:
@@ -364,12 +603,13 @@ def main() -> int:
     check_ss2d_expand(checks, dev, gen, torch.float32)
     check_ss2d_expand(checks, dev, gen, torch.bfloat16)
     check_bf16_only(checks, dev, gen)
+    check_train_kernels(checks, dev, gen)
 
     phase("4 model")
     x = torch.randn(2, 384, 384, 3, generator=torch.Generator().manual_seed(1))
     launches, models, heads, cpu_heads = {}, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        launches[dtype], models[dtype], heads[dtype], cpu_heads[dtype] = run_model(
+        launches[NAMES[dtype]], models[dtype], heads[dtype], cpu_heads[dtype] = run_model(
             dev, dtype, x, cpu_heads.get(torch.float32))
     for i, (b, f) in enumerate(zip(heads[torch.bfloat16], heads[torch.float32])):
         d = (b.float() - f).abs().mean().item()
@@ -405,6 +645,17 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 3 * 1e3
         profile_breakdown(lambda: models[torch.bfloat16](xb), wall, f"bf16 B{B}")
+    models.clear()
+    torch.cuda.empty_cache()
+
+    phase("8 train")
+    run_training(dev, card)
+    compare_reduced_step(dev)
+    torch.cuda.empty_cache()
+
+    phase("9 training entry point")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["fp32 train"] = run_train_entry_point(tmp)
 
     ss2d, expand = "tramba_tpu_torch/csrc/ss2d.cu", "tramba_tpu_torch/csrc/expand.cu"
     sources = {"ss2d_scan": (ss2d, "tramba_tpu/ops/fused_ss2d.py:1505"),
@@ -415,21 +666,26 @@ def main() -> int:
                             "tramba_tpu/ops/fused_prologue.py:94"),
                "ln_mlp": ("tramba_tpu_torch/csrc/mlp.cu", "tramba_tpu/ops/fused_mlp.py:130"),
                "ln_dwms_mlp": ("tramba_tpu_torch/csrc/mlp.cu", "tramba_tpu/ops/fused_mlp.py:360")}
-    # in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13)
-    bf16_replaces = {"ss2d_scan": "tramba_tpu/ops/fused_ss2d_small.py:233",
-                     "ss2d_merge": "tramba_tpu/ops/fused_ss2d_small.py:233"}
+    # in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13); in
+    # training K1 is #1's emit-carries variant, K2 #10's emit_ysum, K8 stands
+    # for #4 (_dirs_bwd_call) and #5 (_seq_bwd_pallas, fused_ss2d.py:747)
+    replaced = {("ss2d_scan", "bf16"): "tramba_tpu/ops/fused_ss2d_small.py:233",
+                ("ss2d_merge", "bf16"): "tramba_tpu/ops/fused_ss2d_small.py:233",
+                ("ss2d_scan", "fp32 train"): "tramba_tpu/ops/fused_ss2d.py:101",
+                ("ss2d_merge", "fp32 train"): "tramba_tpu/ops/fused_ss2d.py:1561",
+                ("ss2d_scan_bwd", "fp32 train"): "tramba_tpu/ops/fused_ss2d.py:638"}
+    sources["ss2d_scan_bwd"] = ("tramba_tpu_torch/csrc/ss2d_bwd.cu", None)
     # the shape whose time the summary reports: the largest map of each kernel
-    shown = {"ss2d_scan": "line 96px", "ss2d_merge": "line 96px", "expand_ln": "f2 48px",
-             "final_head": "96px", "prologue": "enc/dec LN 96px", "ln_mlp": "96px",
-             "ln_dwms_mlp": "96px"}
+    shown = {"ss2d_scan": "line 96px", "ss2d_merge": "line 96px", "ss2d_scan_bwd": "line 96px",
+             "expand_ln": "f2 48px", "final_head": "96px", "prologue": "enc/dec LN 96px",
+             "ln_mlp": "96px", "ln_dwms_mlp": "96px"}
     summary = []
-    for (name, dt), rows in checks.rows.items():
+    for (name, tag), rows in checks.rows.items():
         label, _, ms, plain_ms = next(r for r in rows if r[0].startswith(shown[name]))
-        replaces = bf16_replaces.get(name, sources[name][1]) if dt == torch.bfloat16 \
-            else sources[name][1]
-        summary.append({"name": name, "dtype": NAMES[dt], "route": "cuda",
-                        "source": sources[name][0], "replaces": replaces,
-                        "launches": launches[dt][name],
+        summary.append({"name": name, "dtype": tag, "route": "cuda",
+                        "source": sources[name][0],
+                        "replaces": replaced.get((name, tag), sources[name][1]),
+                        "launches": launches[tag][name],
                         "max_abs_err": max(r[1] for r in rows), "ms": ms, "plain_ms": plain_ms,
                         "shape": label})
     print(json.dumps({"kernels": summary}))

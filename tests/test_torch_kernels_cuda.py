@@ -231,3 +231,131 @@ def test_ln_dwms_mlp_matches_plain(dev, B, H, W, d, hid):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and tm.ln_dwms_mlp.launches == n + 1
     torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
+
+
+# ---- training: K1 / K2 train variants, K8, autograd through the kernels -----
+
+# K8 sums over whole sequences and batches in another order than the plain
+# version: max abs error <= 1e-4 x the largest magnitude of each output
+BWD_REL = 1e-4
+
+
+def _bwd_close(got, want, name):
+    err = (got.cpu() - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert err <= BWD_REL * scale, f"{name}: max abs error {err} > {BWD_REL} x {scale}"
+
+
+def _core_inputs(gen, kind, K, H, param, D, R, B=2, dm=40):
+    """Projections at the scale of the model's init, 1.6 / sqrt(D) and
+    1 / sqrt(R) (0.2 at D = 64), so that dt stays O(1) at D = 2048."""
+    x = _rand(gen, B, H * H, D)
+    p = _ss2d_params(gen, K, D, R, dm)
+    p["wx"] = _rand(gen, K, R + 2, D, scale=1.6 * D ** -0.5)
+    p["wdt"] = _rand(gen, K, D, R, scale=R ** -0.5)
+    core = [p[k] for k in ("wx", "wdt", "bias", "A_logs", "Ds")]
+    idx, inv = order_tables(kind, H, H, param, "cpu")
+    return x, p, core, idx, inv
+
+
+# (order, map, window/rate, D, R): L = 144 and L < 64, a line order (pixels in
+# several slots of one direction), R = 64 at D = 2048 (the 12 px encoder)
+TRAIN_SHAPES = [("raster", 4, 12, 0, 64, 5), ("raster", 4, 7, 0, 32, 3),
+                ("raster", 4, 3, 0, 2048, 64), ("line", 8, 10, 0, 64, 3),
+                ("window", 4, 12, 4, 96, 2), ("dilation", 4, 8, 4, 32, 1),
+                ("line", 8, 12, 0, 256, 16)]
+
+
+@pytest.mark.parametrize("kind,K,H,param,D,R", TRAIN_SHAPES)
+def test_train_variants_match_plain(dev, kind, K, H, param, D, R):
+    """K1 with carries and dbc, K2 with the pre-LN sum."""
+    gen = torch.Generator().manual_seed(D + H)
+    x, p, core, idx, inv = _core_inputs(gen, kind, K, H, param, D, R)
+    want = tf.ss2d_scan_train_ref(x, idx, *core, tf.scan_chunk())
+    idx_d, inv_d = order_tables(kind, H, H, param, dev)
+    n = tf.ss2d_scan.launches
+    got = tf.ss2d_scan(x.to(dev), idx_d, *[c.to(dev) for c in core], emit=True)
+    tail = (p["ln_w"], p["ln_b"], p["w_out"])
+    want_m = tf.ss2d_merge_train_ref(want[0], inv, *tail)
+    got_m = tf.ss2d_merge(want[0].to(dev), inv_d, *(t.to(dev) for t in tail), emit_ysum=True)
+    torch.cuda.synchronize()
+    assert tf.ss2d_scan.launches == n + 1
+    for g, w in zip(got + got_m, want + want_m):
+        torch.testing.assert_close(g.cpu(), w, **TOL)
+
+
+@pytest.mark.parametrize("kind,K,H,param,D,R", TRAIN_SHAPES)
+def test_scan_bwd_matches_plain(dev, kind, K, H, param, D, R):
+    """K8 vs ss2d_scan_bwd_ref on the same carries, dbc and cotangent."""
+    gen = torch.Generator().manual_seed(D + H + 1)
+    x, p, core, idx, inv = _core_inputs(gen, kind, K, H, param, D, R)
+    chunk = tf.scan_chunk()
+    _, carries, dbc = tf.ss2d_scan_train_ref(x, idx, *core, chunk)
+    g_y = _rand(gen, *x.shape)
+    want = tf.ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, *core, chunk)
+    idx_d, inv_d = order_tables(kind, H, H, param, dev)
+    n = tf.ss2d_scan_bwd.launches
+    got = tf.ss2d_scan_bwd(*(t.to(dev) for t in (x,)), idx_d, inv_d,
+                           *(t.to(dev) for t in (g_y, carries, dbc, *core)))
+    torch.cuda.synchronize()
+    assert tf.ss2d_scan_bwd.launches == n + 1
+    for name, g, w in zip(("dx", "dwx", "dwdt", "dbias", "dA_logs", "dDs"), got, want):
+        _bwd_close(g, w, name)
+
+
+def test_ss2d_core_autograd_on_card(dev):
+    """SS2DCore (K1, K2 forward; K8 backward) vs CPU autograd through the plain
+    versions: every input's gradient."""
+    gen = torch.Generator().manual_seed(7)
+    K, H, D, R = 8, 10, 64, 4
+    x, p, core, idx, inv = _core_inputs(gen, "line", K, H, 0, D, R)
+    cpu = [x, *core, p["ln_w"], p["ln_b"], p["w_out"]]
+    card = [t.to(dev).requires_grad_(True) for t in cpu]
+    cpu = [t.clone().requires_grad_(True) for t in cpu]
+    g = _rand(gen, 2, H * H, p["w_out"].shape[0])
+    out = tf.ss2d_merge_ref(tf.ss2d_scan_ref(cpu[0], idx, *cpu[1:6]), inv, *cpu[6:])
+    want = torch.autograd.grad(out, cpu, g)
+    counts = (tf.ss2d_scan.launches, tf.ss2d_merge.launches, tf.ss2d_scan_bwd.launches)
+    got_out = tf.ss2d_full(*card, "line", H, H)
+    got = torch.autograd.grad(got_out, card, g.to(dev))
+    torch.cuda.synchronize()
+    assert (tf.ss2d_scan.launches, tf.ss2d_merge.launches,
+            tf.ss2d_scan_bwd.launches) == tuple(c + 1 for c in counts)
+    torch.testing.assert_close(got_out.detach().cpu(), out.detach(), **TOL)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _bwd_close(a, b, f"input {i}")
+
+
+def test_expand_and_head_carry_gradients(dev):
+    """K3 / K4 under autograd: the output has a grad_fn and the gradients of
+    every input match the plain versions' on the CPU."""
+    gen = torch.Generator().manual_seed(11)
+    for fn, ref, args in (
+            (te.expand_ln, te.expand_ln_ref,
+             [_rand(gen, 2, 5, 7, 24), _rand(gen, 48, 24, scale=0.2),
+              _rand(gen, 12, scale=0.1, shift=1.0), _rand(gen, 12, scale=0.1)]),
+            (te.final_head, te.final_head_ref,
+             [_rand(gen, 2, 5, 3, 36), _rand(gen, 16 * 36, 36, scale=0.2),
+              _rand(gen, 36, scale=0.1, shift=1.0), _rand(gen, 36, scale=0.1),
+              _rand(gen, 36, scale=0.2), _rand(gen, 1)])):
+        cpu = [a.clone().requires_grad_(True) for a in args]
+        card = [a.to(dev).requires_grad_(True) for a in args]
+        out = ref(*cpu)
+        got = fn(*card)
+        assert got.grad_fn is not None
+        g = _rand(gen, *out.shape)
+        want = torch.autograd.grad(out, cpu, g)
+        have = torch.autograd.grad(got, card, g.to(dev))
+        for a, b in zip(have, want):
+            torch.testing.assert_close(a.cpu(), b, **TOL)
+
+
+def test_bf16_kernels_refuse_autograd(dev):
+    """K5-K7 have no backward yet: under autograd they raise instead of
+    returning an output detached from their inputs."""
+    gen = torch.Generator().manual_seed(13)
+    x = _rand(gen, 1, 4, 4, 16).to(dev, torch.bfloat16).requires_grad_(True)
+    w_in = _bf(_rand(gen, 32, 16, scale=0.25), dev)
+    k = _bf(_rand(gen, 32, 1, 3, 3, scale=0.3), dev)
+    with pytest.raises(RuntimeError, match="bf16 training"):
+        tp.prologue(x, None, None, w_in, k)

@@ -20,7 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "encoder_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -99,11 +99,9 @@ def _indexed(tree: Mapping, pattern: str):
     return sorted(out, key=lambda t: t[:-1])
 
 
-def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax Tramba-V variables ({"params": {...}} or the params tree itself),
-    leaves as numpy arrays -> reference state dict of fp32 CPU tensors."""
-    p = variables.get("params", variables)
-    enc, dec = p["vssm_encoder"], p["decoder"]
+def encoder_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
+    """flax VSSM encoder tree (what ``convert_vmamba_encoder_pretrained``
+    returns) -> the port's ``vssm_encoder.*`` state-dict entries."""
     sd: Dict[str, torch.Tensor] = {}
     for idx, name in ((0, "patch_embed_conv1"), (5, "patch_embed_conv2")):
         _conv(sd, f"vssm_encoder.patch_embed.{idx}", enc[name])
@@ -114,6 +112,15 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     for s, conv in _indexed(enc, r"downsample_(\d+)_conv"):
         _conv(sd, f"vssm_encoder.downsample.{s}.1", conv)
         _ln(sd, f"vssm_encoder.downsample.{s}.3", enc[f"downsample_{s}_norm"])
+    return sd
+
+
+def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax Tramba-V variables ({"params": {...}} or the params tree itself),
+    leaves as numpy arrays -> reference state dict of fp32 CPU tensors."""
+    p = variables.get("params", variables)
+    dec = p["decoder"]
+    sd = encoder_from_jax(p["vssm_encoder"])
     for s, e in _indexed(dec, r"expand_(\d+)"):
         _expand(sd, f"decoder.expand_layers.{s}", e)
     for s, g in _indexed(dec, r"guide_(\d+)"):

@@ -156,7 +156,20 @@ __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
 }
 
+__device__ __forceinline__ float softplus(float v) {
+  // log(1 + e^v) = max(v, 0) + log1p(e^-|v|), as jax.nn.softplus computes it
+  return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
+}
+
 constexpr long kRowBudget = 64 * 1024;  // shared-memory bytes for a block's row tile
+
+// Steps per staged chunk of the SS2D scans and the carries' stride: K1
+// (ss2d.cu) writes the state entering each chunk, K8 (ss2d_bwd.cu) recomputes
+// a chunk's states from it.  The library exports it as ss2d_scan_chunk(), and
+// the Python wrappers size the carries from that.  A warp stages a chunk with
+// two pixel indices per lane, so a chunk is two warps' width of steps.
+constexpr int kScanChunk = 64;
+static_assert(kScanChunk == 64, "the staging in ss2d.cu / ss2d_bwd.cu holds 2 steps per lane");
 
 #define TRAMBA_DISPATCH_P(P, ...)        \
   switch (P) {                           \

@@ -1,5 +1,5 @@
-// K1 ss2d_scan and K2 ss2d_merge: the SS2D core of the inference path, fp32
-// and bf16.
+// K1 ss2d_scan and K2 ss2d_merge: the SS2D core of the forward, fp32 and
+// bf16, each with a train variant (fp32) that emits what the backward needs.
 //
 // K1 replaces the scan halves of the TPU kernels in tramba_tpu/ops/fused_ss2d.py:
 // _fused_pallas (:101), _line_pair_pallas (:873), _pair_phase1 (:1505),
@@ -13,6 +13,11 @@
 // _freq_merge_pallas (:1732) and the XLA _ln_gelu_proj (:478): gather the
 // direction outputs back to pixels through the multi-slot inverse table,
 // LayerNorm, exact GELU, out projection.
+//
+// Train variants: K1 also writes the chunk-entry carries of _fused_pallas
+// (:101, emit_carries=True) and the pair kernels' carries (#8) as training
+// uses them; K2 also writes the pre-LN sum (#10 emit_ysum=True).  Training
+// never needs ys once K2 has read it.
 //
 // What bounds them on an H100: K1's scan is a chain of L dependent steps per
 // channel, so it is latency-bound and has only B*K*D/32 blocks of one warp;
@@ -32,7 +37,7 @@
 
 namespace {
 
-constexpr int kScanT = 64;  // scan steps per staged chunk (2 per lane)
+constexpr int kScanT = kScanChunk;  // scan steps per staged chunk (2 per lane)
 
 // dbc[m, n] = sum_d x[m, d] * wx[n, d]: the per-pixel (dt, B, C) projections
 // of all K directions at once (m = b*L + l, n = k*(R+2) + c).
@@ -51,11 +56,6 @@ __global__ void ss2d_proj_kernel(const T* __restrict__ x, const float* __restric
     for (int p = 0; p < P; ++p)
       if (m0 + p < M) dbc[(m0 + p) * N + j] = acc[p];
   }
-}
-
-__device__ __forceinline__ float softplus(float v) {
-  // log(1 + e^v) = max(v, 0) + log1p(e^-|v|), as jax.nn.softplus computes it
-  return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
 }
 
 // Asynchronous copies of chunk [t0, t0 + n) of direction k into one stage
@@ -109,12 +109,17 @@ __device__ __forceinline__ void stage_chunk(T* u_s, float* dbc_s, const T* x_b,
 // wdt in registers (R <= RMAX), and the step loop is unrolled so that the
 // work that does not depend on h (dt, softplus, exp) of several steps
 // overlaps: only the one FMA on h is a chain from step to step.
-template <int RMAX, typename T>
+// Train variant (kCarries, a separate instantiation so that inference
+// compiles without it): also writes the fp32 state h entering each chunk,
+// carries[b, k, t0 / T, d] (h = 0 entering the first), from which the
+// backward (K8, ss2d_bwd.cu) recomputes a chunk's states.
+template <int RMAX, typename T, bool kCarries>
 __global__ void ss2d_scan_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                                  const float* __restrict__ dbc, const float* __restrict__ wdt,
                                  const float* __restrict__ dt_bias,
                                  const float* __restrict__ A_logs, const float* __restrict__ Ds,
-                                 float* __restrict__ ys, int L, int D, int K, int R) {
+                                 float* __restrict__ ys, float* __restrict__ carries, int L,
+                                 int D, int K, int R) {
   extern __shared__ float4 smem4[];
   const int C = R + 2;
   T* u_s = reinterpret_cast<T*>(smem4);                          // [2][T][32]
@@ -134,6 +139,8 @@ __global__ void ss2d_scan_kernel(const T* __restrict__ x, const int* __restrict_
   const T* x_b = x + (long)b * L * D;
   const float* dbc_b = dbc + (long)b * L * K * C;
   float* y_bk = ys + ((long)b * K + k) * L * D;
+  const int n_chunks = (L + kScanT - 1) / kScanT;
+  float* carry_bk = kCarries ? carries + ((long)b * K + k) * n_chunks * D : nullptr;
   auto pix_at = [&](int t) { return t < L ? idx_k[t] : 0; };
   stage_chunk(u_s, dbc_s, x_b, dbc_b, pix_at(lane), pix_at(32 + lane), min(kScanT, L), D, d0,
               K, k, C);
@@ -152,6 +159,7 @@ __global__ void ss2d_scan_kernel(const T* __restrict__ x, const int* __restrict_
       __pipeline_wait_prior(0);
     }
     __syncwarp();
+    if (kCarries) carry_bk[(long)(t0 / kScanT) * D + d] = h;
     const T* us = u_s + buf * kScanT * 32;
     const float* ds = dbc_s + buf * kScanT * C;
 #pragma unroll 4
@@ -173,19 +181,20 @@ __global__ void ss2d_scan_kernel(const T* __restrict__ x, const int* __restrict_
 template <int RMAX, typename T>
 cudaError_t launch_scan(const T* x, const int* idx, const float* dbc, const float* wdt,
                         const float* dt_bias, const float* A_logs, const float* Ds, float* ys,
-                        int B, int L, int D, int K, int R, cudaStream_t s) {
+                        float* carries, int B, int L, int D, int K, int R, cudaStream_t s) {
   const size_t smem = (size_t)2 * kScanT * (32 * sizeof(T) + (R + 2) * 4);
-  cudaError_t e = allow_smem(ss2d_scan_kernel<RMAX, T>, smem);
+  auto kern = carries ? ss2d_scan_kernel<RMAX, T, true> : ss2d_scan_kernel<RMAX, T, false>;
+  cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  ss2d_scan_kernel<RMAX, T><<<dim3(D / 32, K, B), 32, smem, s>>>(x, idx, dbc, wdt, dt_bias,
-                                                                   A_logs, Ds, ys, L, D, K, R);
+  kern<<<dim3(D / 32, K, B), 32, smem, s>>>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, L,
+                                            D, K, R);
   return cudaGetLastError();
 }
 
 template <typename T>
 int scan_launch(const T* x, const int* idx, const float* wx, const float* wdt,
                 const float* dt_bias, const float* A_logs, const float* Ds, float* dbc,
-                float* ys, int B, int L, int D, int K, int R, cudaStream_t s) {
+                float* ys, float* carries, int B, int L, int D, int K, int R, cudaStream_t s) {
   const long M = (long)B * L;
   const int C = R + 2, N = K * C;
   const int P = rows_per_block(M, D, kRowBudget);
@@ -199,10 +208,10 @@ int scan_launch(const T* x, const int* idx, const float* wx, const float* wdt,
   });
   TRAMBA_CHECK_LAUNCH();
   cudaError_t e;
-  if (R <= 8) e = launch_scan<8>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, B, L, D, K, R, s);
-  else if (R <= 16) e = launch_scan<16>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, B, L, D, K, R, s);
-  else if (R <= 32) e = launch_scan<32>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, B, L, D, K, R, s);
-  else if (R <= 64) e = launch_scan<64>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, B, L, D, K, R, s);
+  if (R <= 8) e = launch_scan<8>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, B, L, D, K, R, s);
+  else if (R <= 16) e = launch_scan<16>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, B, L, D, K, R, s);
+  else if (R <= 32) e = launch_scan<32>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, B, L, D, K, R, s);
+  else if (R <= 64) e = launch_scan<64>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, B, L, D, K, R, s);
   else e = cudaErrorInvalidValue;
   return (int)e;
 }
@@ -210,11 +219,15 @@ int scan_launch(const T* x, const int* idx, const float* wx, const float* wdt,
 // Per pixel l of batch b: y = sum over k, m of ys[b, k, inv[k, m, l]] (slot
 // value L means none), then LayerNorm (eps 1e-5), exact GELU, rounding to TW,
 // and out[b, l, :] = y @ w_out^T with w_out (dm, D) of TW; out is TW.
-template <int P, typename TW>
+// Train variant (kYsum, #10's emit_ysum; a separate instantiation, as K1's):
+// also writes the pre-LN sum y (B, L, D) fp32, over which the backward
+// differentiates the LayerNorm, GELU and out projection.
+template <int P, typename TW, bool kYsum>
 __global__ void ss2d_merge_kernel(const float* __restrict__ ys, const int* __restrict__ inv,
                                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                                   const TW* __restrict__ w_out, TW* __restrict__ out,
-                                  int K, int Mslots, int L, int D, int dm) {
+                                  float* __restrict__ y_sum, int K, int Mslots, int L, int D,
+                                  int dm) {
   extern __shared__ float4 smem4[];
   float* rows = reinterpret_cast<float*>(smem4);  // [P][D]
   const int b = blockIdx.y;
@@ -238,6 +251,10 @@ __global__ void ss2d_merge_kernel(const float* __restrict__ ys, const int* __res
       }
     }
     __syncwarp();
+    if (kYsum) {
+      float* dst = y_sum + ((long)b * L + l) * D;
+      for (int i = lane; i < D; i += 32) dst[i] = row[i];
+    }
     float mean, rstd;
     warp_row_stats(row, D, 1e-5f, &mean, &rstd);
     for (int i = lane; i < D; i += 32)
@@ -256,16 +273,16 @@ __global__ void ss2d_merge_kernel(const float* __restrict__ ys, const int* __res
 
 template <typename TW>
 int merge_launch(const float* ys, const int* inv, const float* ln_w, const float* ln_b,
-                 const TW* w_out, TW* out, int B, int K, int Mslots, int L, int D, int dm,
-                 cudaStream_t s) {
+                 const TW* w_out, TW* out, float* y_sum, int B, int K, int Mslots, int L, int D,
+                 int dm, cudaStream_t s) {
   const int P = rows_per_block((long)B * L, D, kRowBudget);
   const size_t smem = (size_t)P * D * 4;
   const dim3 grid((L + P - 1) / P, B);
   TRAMBA_DISPATCH_P(P, {
-    cudaError_t e = allow_smem(ss2d_merge_kernel<kP, TW>, smem);
+    auto kern = y_sum ? ss2d_merge_kernel<kP, TW, true> : ss2d_merge_kernel<kP, TW, false>;
+    cudaError_t e = allow_smem(kern, smem);
     if (e != cudaSuccess) return (int)e;
-    ss2d_merge_kernel<kP, TW><<<grid, 256, smem, s>>>(ys, inv, ln_w, ln_b, w_out, out, K, Mslots,
-                                                       L, D, dm);
+    kern<<<grid, 256, smem, s>>>(ys, inv, ln_w, ln_b, w_out, out, y_sum, K, Mslots, L, D, dm);
   });
   TRAMBA_CHECK_LAUNCH();
   return 0;
@@ -277,33 +294,40 @@ extern "C" {
 
 const char* tramba_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// Steps per chunk of K1 and K8 (kScanChunk): the carries' stride.
+int ss2d_scan_chunk() { return kScanChunk; }
+
 // K1.  x (B, L, D) fp32 (bf16 = 0) or bf16 (bf16 = 1); idx (K, L) int32;
 // wx (K, R+2, D); wdt (K, D, R); dt_bias (K, D); A_logs (K, D); Ds (K, D);
-// scratch dbc (B, L, K, R+2); ys (B, K, L, D); all fp32 but x.
+// dbc (B, L, K, R+2) (the projections, kept by training); ys (B, K, L, D);
+// carries (B, K, ceil(L / ss2d_scan_chunk()), D) or null (inference); all
+// fp32 but x.
 // D % 32 == 0, R <= 64.
 int ss2d_scan_launch(const void* x, const int* idx, const float* wx, const float* wdt,
                      const float* dt_bias, const float* A_logs, const float* Ds, float* dbc,
-                     float* ys, int B, int L, int D, int K, int R, int bf16_x, void* stream) {
+                     float* ys, float* carries, int B, int L, int D, int K, int R, int bf16_x,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_x)
     return scan_launch(static_cast<const bf16*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, ys,
-                       B, L, D, K, R, s);
-  return scan_launch(static_cast<const float*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, ys, B,
-                     L, D, K, R, s);
+                       carries, B, L, D, K, R, s);
+  return scan_launch(static_cast<const float*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, ys,
+                     carries, B, L, D, K, R, s);
 }
 
 // K2.  ys (B, K, L, D) fp32; inv (K, Mslots, L) int32; ln_w, ln_b (D) fp32;
 // w_out (dm, D) and out (B, L, dm) both fp32 (bf16 = 0) or both bf16
-// (bf16 = 1).  D % 4 == 0 (fp32) or D % 8 == 0 (bf16).
+// (bf16 = 1); y_sum (B, L, D) fp32 or null (inference).  D % 4 == 0 (fp32)
+// or D % 8 == 0 (bf16).
 int ss2d_merge_launch(const float* ys, const int* inv, const float* ln_w, const float* ln_b,
-                      const void* w_out, void* out, int B, int K, int Mslots, int L, int D,
-                      int dm, int bf16_out, void* stream) {
+                      const void* w_out, void* out, float* y_sum, int B, int K, int Mslots, int L,
+                      int D, int dm, int bf16_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_out)
     return merge_launch(ys, inv, ln_w, ln_b, static_cast<const bf16*>(w_out),
-                        static_cast<bf16*>(out), B, K, Mslots, L, D, dm, s);
+                        static_cast<bf16*>(out), y_sum, B, K, Mslots, L, D, dm, s);
   return merge_launch(ys, inv, ln_w, ln_b, static_cast<const float*>(w_out),
-                      static_cast<float*>(out), B, K, Mslots, L, D, dm, s);
+                      static_cast<float*>(out), y_sum, B, K, Mslots, L, D, dm, s);
 }
 
 }  // extern "C"

@@ -17,20 +17,10 @@ import os
 
 import torch
 
-from tramba_tpu.compat.torch_weights import _IGNORABLE, _ignorable
 from tramba_tpu_torch.eval.dump import dump_saliency_maps
 from tramba_tpu_torch.models.registry import build
+from tramba_tpu_torch.train.checkpoint import load_checkpoint
 from tramba_tpu_torch.utils.profiling import measure_inference_speed
-
-
-def load_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a reference state dict with ``strict=True``, dropping only the
-    weightless buffers the converter also ignores (DCT bases, masks)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in sd and isinstance(sd["state_dict"], dict):
-        sd = sd["state_dict"]
-    sd = {k: v for k, v in sd.items() if not _ignorable(k, _IGNORABLE)}
-    model.load_state_dict(sd, strict=True)
 
 
 def main(argv=None) -> None:

@@ -1,4 +1,4 @@
-"""Tramba-V: VSSM encoder + DFVSS-guided decoder, channels-last, eval only.
+"""Tramba-V: VSSM encoder + DFVSS-guided decoder, channels-last.
 
 Port of ``tramba_tpu/models/tramba.py:78-200`` (reference ``Trambav6.py``).
 Each decoder stage upsamples the deep feature (PatchExpand), gates the skip
@@ -9,13 +9,15 @@ MultiScaleDecoderBlocks; deep supervision emits 4 logit maps at 1/16, 1/8,
 modules run in it and the heads come back in it; parameters stay fp32.
 Module names follow the reference state dict (``decoder.expand_layers.{s}``,
 ``guide_layers``, ``concat_back_dim``, ``stage_layers.{s}.blocks.{d}``,
-``seg_layers``).
+``seg_layers``).  Stochastic depth: encoder 0 -> 0.6, decoder blocks
+0.2 -> 0 (``tramba.py:100-134``), guides 0; active in ``train()`` mode only.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -44,11 +46,18 @@ class TrambaDecoder(nn.Module):
     """``features_per_stage``: encoder widths, shallow -> deep."""
 
     def __init__(self, features_per_stage: Sequence[int], depths: Sequence[int],
-                 img_size: int = 384, dtype: torch.dtype = torch.float32):
+                 img_size: int = 384, dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.2):
         super().__init__()
         chans = list(features_per_stage)
         n = len(chans)
         base_res = img_size // 2 ** n
+        # rates by running block index, 0 past the end (tramba.py:100, :134)
+        dpr = np.linspace(drop_path_rate, 0, (n - 1) * 2)
+
+        def rate(i):
+            return float(dpr[i]) if i < len(dpr) else 0.0
+
         self.expand_layers = nn.ModuleList(
             [PatchExpand(chans[-(s + 1)]) for s in range(n - 1)] + [FinalPatchExpandX4(chans[0])])
         self.guide_layers = nn.ModuleList(
@@ -57,8 +66,9 @@ class TrambaDecoder(nn.Module):
         self.concat_back_dim = nn.ModuleList(
             nn.Linear(2 * chans[-(s + 2)], chans[-(s + 2)]) for s in range(n - 1))
         self.stage_layers = nn.ModuleList(
-            _Stage([MultiScaleDecoderBlock(chans[-(s + 2)], dtype=dtype)
-                    for _ in range(depths[s])])
+            _Stage([MultiScaleDecoderBlock(chans[-(s + 2)], dtype=dtype,
+                                           drop_path=rate(sum(depths[:s]) + d))
+                    for d in range(depths[s])])
             for s in range(n - 1))
         self.seg_layers = nn.ModuleList(
             [nn.Conv2d(chans[-(s + 2)], 1, 1) for s in range(n - 1)] + [nn.Conv2d(chans[0], 1, 1)])
@@ -87,12 +97,13 @@ class TrambaV(nn.Module):
     def __init__(self, img_size: int = 384, dims: int = 128,
                  enc_depths: Sequence[int] = (2, 2, 15, 2),
                  dec_depths: Sequence[int] = (2, 2, 2, 2),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, enc_drop_path: float = 0.6,
+                 dec_drop_path: float = 0.2):
         super().__init__()
         self.dtype = check_dtype(dtype)
-        self.vssm_encoder = VSSMEncoder(enc_depths, dims, dtype)
+        self.vssm_encoder = VSSMEncoder(enc_depths, dims, dtype, enc_drop_path)
         self.decoder = TrambaDecoder([dims * 2 ** i for i in range(len(enc_depths))],
-                                     dec_depths, img_size, dtype)
+                                     dec_depths, img_size, dtype, dec_drop_path)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the

@@ -3,7 +3,8 @@
 Port of ``tramba_tpu/models/vssm_encoder.py`` (reference
 ``Models/vmamba.py:399-518``): a stem of two stride-2 3x3 convs (padding 1)
 with LayerNorms and a GELU between, stages of VSSBlocks, and a stride-2 conv
-+ LN downsample between stages.  Module names follow the reference state
++ LN downsample between stages.  Stochastic depth rises linearly from 0
+to ``drop_path_rate`` over the blocks (``vssm_encoder.py:35``).  Module names follow the reference state
 dict (``patch_embed.{0,2,5,7}``, ``layers.{s}.blocks.{d}``,
 ``downsample.{s}.{1,3}``).  The stem and downsample convs and LayerNorms run
 in the input's dtype (cuDNN and torch ops, outside the kernels, as JAX runs
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -37,9 +39,10 @@ class _Stage(nn.Module):
 
 class VSSMEncoder(nn.Module):
     def __init__(self, depths: Sequence[int] = (2, 2, 15, 2), dims: int = 128,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.6):
         super().__init__()
         widths = [dims * 2 ** i for i in range(len(depths))]
+        dpr = np.linspace(0, drop_path_rate, sum(depths))
         self.patch_embed = nn.ModuleDict({
             "0": nn.Conv2d(3, widths[0] // 2, 3, stride=2, padding=1),
             "2": LayerNorm(widths[0] // 2),
@@ -47,8 +50,9 @@ class VSSMEncoder(nn.Module):
             "7": LayerNorm(widths[0]),
         })
         self.layers = nn.ModuleList(
-            _Stage([VSSBlock(w, dtype=dtype) for _ in range(d)])
-            for w, d in zip(widths, depths))
+            _Stage([VSSBlock(w, dtype=dtype, drop_path=float(dpr[sum(depths[:s]) + i]))
+                    for i in range(d)])
+            for s, (w, d) in enumerate(zip(widths, depths)))
         self.downsample = nn.ModuleList(
             nn.ModuleDict({"1": nn.Conv2d(w, 2 * w, 3, stride=2, padding=1),
                            "3": LayerNorm(2 * w)})

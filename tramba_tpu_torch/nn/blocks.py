@@ -5,7 +5,9 @@ MLP; vmamba.py:327-396) and ``MultiScaleDecoderBlock`` (decoder, Helix SS2D
 with K=8 line scans + the multi-scale depthwise FFN; vmamba.py:632-704).
 Each block hands its pre-norms to the branches: ``norm`` / ``norm1`` to the
 SS2D, ``norm2`` to the FFN, which in bf16 fuse them into kernels K5 and
-K6 / K7 (state-dict names unchanged).
+K6 / K7 (state-dict names unchanged).  Both residual branches pass a
+``DropPath`` of the block's rate (``tramba_tpu/nn/blocks.py:157-160``,
+``:192-195``), active in ``train()`` mode only.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from tramba_tpu_torch.nn.layers import DWMSMlp, LayerNorm, Mlp
+from tramba_tpu_torch.nn.layers import DropPath, DWMSMlp, LayerNorm, Mlp
 from tramba_tpu_torch.nn.ssm import SS2D
 
 __all__ = ["ffn_branch", "VSSBlock", "MultiScaleDecoderBlock"]
@@ -33,32 +35,34 @@ def ffn_branch(dim: int, mlp_ratio: float = 4.0, kind: str = "plain",
 
 
 class VSSBlock(nn.Module):
-    """x + SS2D(LN(x)); x + Mlp(LN(x))."""
+    """x + DropPath(SS2D(LN(x))); x + DropPath(Mlp(LN(x)))."""
 
     def __init__(self, hidden_dim: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0):
         super().__init__()
         self.norm = LayerNorm(hidden_dim)
         self.op = SS2D(hidden_dim, scan_kind="raster", k_group=4, dtype=dtype)
         self.norm2 = LayerNorm(hidden_dim)
         self.mlp = ffn_branch(hidden_dim, mlp_ratio, "plain", dtype)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x):
-        x = x + self.op(x, ln=(self.norm.weight, self.norm.bias))
-        return x + self.mlp(x, self.norm2)
+        x = x + self.drop_path(self.op(x, ln=(self.norm.weight, self.norm.bias)))
+        return x + self.drop_path(self.mlp(x, self.norm2))
 
 
 class MultiScaleDecoderBlock(nn.Module):
-    """x + HelixSS2D(LN(x)); x + DWMSMlp(LN(x))."""
+    """x + DropPath(HelixSS2D(LN(x))); x + DropPath(DWMSMlp(LN(x)))."""
 
     def __init__(self, hidden_dim: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(hidden_dim)
         self.op = SS2D(hidden_dim, scan_kind="line", k_group=8, dtype=dtype)
         self.norm2 = LayerNorm(hidden_dim)
         self.mlp = ffn_branch(hidden_dim, mlp_ratio, "dwms", dtype)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x):
-        x = x + self.op(x, ln=(self.norm1.weight, self.norm1.bias))
-        return x + self.mlp(x, self.norm2)
+        x = x + self.drop_path(self.op(x, ln=(self.norm1.weight, self.norm1.bias)))
+        return x + self.drop_path(self.mlp(x, self.norm2))

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 
 from tramba_tpu_torch.nn.blocks import ffn_branch
-from tramba_tpu_torch.nn.layers import FreqExpand2D, LayerNorm
+from tramba_tpu_torch.nn.layers import DropPath, FreqExpand2D, LayerNorm
 from tramba_tpu_torch.nn.ssm import SS2D
 from tramba_tpu_torch.ops.dct import dct2d_quadrants
 
@@ -48,16 +48,19 @@ class FreqSS2D(nn.Module):
 
 
 class FreqBlock(nn.Module):
-    """x + FreqSS2D(LN(x)); x + Mlp(LN(x)) (freq_mamba.py:60-82)."""
+    """x + DropPath(FreqSS2D(LN(x))); x + DropPath(Mlp(LN(x)))
+    (freq_mamba.py:60-82; ``tramba_tpu/nn/freq.py:112-116``).  The decoder
+    builds its guides with rate 0, as the JAX package does."""
 
     def __init__(self, dim: int, window: int, dilation: int = 4, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = FreqSS2D(dim, window, dilation, dtype)
         self.norm2 = LayerNorm(dim)
         self.mlp = ffn_branch(dim, mlp_ratio, "plain", dtype)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(x, self.norm2)
+        x = x + self.drop_path(self.attn(self.norm1(x)))
+        return x + self.drop_path(self.mlp(x, self.norm2))

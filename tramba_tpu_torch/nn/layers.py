@@ -2,8 +2,8 @@
 
 Port of ``tramba_tpu/nn/layers.py``.  Parameter names follow the reference
 PyTorch modules (``Models/modules.py``, ``Models/vmamba.py``), so reference
-state dicts load as they are.  Eval only: DropPath is the identity and is
-left out.
+state dicts load as they are.  ``DropPath`` (stochastic depth) is active in
+``train()`` mode only and draws from the generator the trainer gives it.
 
 Compute dtype: parameters stay fp32 whatever the model's dtype, as flax
 keeps them; a module running in bf16 casts each matmul or conv weight at its
@@ -26,6 +26,8 @@ __all__ = [
     "LayerNorm",
     "check_dtype",
     "conv_nhwc",
+    "DropPath",
+    "set_drop_path_generator",
     "Mlp",
     "DWConv",
     "DWMSMlp",
@@ -68,6 +70,37 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                  None if b is None else b.to(x.dtype), conv.stride, conv.padding, conv.dilation,
                  conv.groups)
     return y.permute(0, 2, 3, 1)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm semantics, ``tramba_tpu/nn/layers.py:49-64``):
+    in ``train()`` mode each sample keeps its branch with probability
+    ``1 - rate``, divided by that probability, or drops it to 0; the identity
+    in ``eval()`` mode.  The Bernoulli draws come from ``self.generator`` (on
+    the input's device; torch's default generator when None)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_drop_path_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Give every DropPath of ``model`` the one generator its draws come from."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
 
 
 class Mlp(nn.Module):

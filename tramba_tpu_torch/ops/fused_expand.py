@@ -7,7 +7,10 @@ slot of C channels and the 1x1 seg conv, with the 16C-wide tensor kept out
 of device memory.  Both run in ``csrc/expand.cu``.
 
 The wrappers pick by the tensors' device as in ``ops/fused_ss2d.py``, and
-count launches in ``<wrapper>.launches``.  Weights are in torch.nn.Linear
+count launches in ``<wrapper>.launches``.  Under autograd on the card the
+kernel runs inside a ``torch.autograd.Function`` whose backward recomputes
+the plain version and differentiates it, as ``_exp_bwd`` (:105) and
+``_head_bwd`` (:218) differentiate the composed versions in XLA.  Weights are in torch.nn.Linear
 layout (out_features, in_features).  ``x`` and the expand weight are both
 fp32 or both bf16 (the output takes their dtype); the LayerNorm and head
 parameters are fp32, and the LayerNorm runs in fp32 on the unrounded expand,
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
-from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, on_card
+from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, on_card
 
 __all__ = ["pixel_shuffle", "expand_ln", "expand_ln_ref", "final_head", "final_head_ref"]
 
@@ -51,10 +54,31 @@ def final_head_ref(x, w1, ln_w, ln_b, seg_w, seg_b):
     return (y @ seg_w + seg_b.sum()).to(x.dtype)
 
 
+class _KernelWithPlainVjp(torch.autograd.Function):
+    """Forward: a kernel launch; backward: the VJP of its plain version."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return launch(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _native.recompute_vjp(ctx.plain, ctx.saved_tensors, ctx.needs_input_grad[2:], g)
+        return (None, None, *grads)
+
+
 def expand_ln(x, w, ln_w, ln_b):
     """Kernel K3 on CUDA tensors, :func:`expand_ln_ref` on CPU tensors."""
     if not on_card(x):
         return expand_ln_ref(x, w, ln_w, ln_b)
+    if needs_grad(x, w, ln_w, ln_b):
+        return _KernelWithPlainVjp.apply(_expand_ln_launch, expand_ln_ref, x, w, ln_w, ln_b)
+    return _expand_ln_launch(x, w, ln_w, ln_b)
+
+
+def _expand_ln_launch(x, w, ln_w, ln_b):
     B, H, W, C = x.shape
     co = w.shape[0] // 4
     check_args(x=(x, F32_BF16), w=(w, (x.dtype,)), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
@@ -74,8 +98,15 @@ expand_ln.launches = 0
 
 def final_head(x, w1, ln_w, ln_b, seg_w, seg_b):
     """Kernel K4 on CUDA tensors, :func:`final_head_ref` on CPU tensors."""
+    args = (x, w1, ln_w, ln_b, seg_w, seg_b)
     if not on_card(x):
-        return final_head_ref(x, w1, ln_w, ln_b, seg_w, seg_b)
+        return final_head_ref(*args)
+    if needs_grad(*args):
+        return _KernelWithPlainVjp.apply(_final_head_launch, final_head_ref, *args)
+    return _final_head_launch(*args)
+
+
+def _final_head_launch(x, w1, ln_w, ln_b, seg_w, seg_b):
     B, h, w, C = x.shape
     check_args(x=(x, F32_BF16), w1=(w1, (x.dtype,)), ln_w=(ln_w, F32), ln_b=(ln_b, F32),
                seg_w=(seg_w, F32), seg_b=(seg_b, F32))

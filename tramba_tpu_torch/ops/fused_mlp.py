@@ -16,7 +16,9 @@ LN output, GELU output and the result to bf16, everything else in fp32
 (``*_ref``) do fp32 math on operands rounded to ``x``'s dtype and round at
 the same points, so for fp32 inputs they are the plain fp32 FFNs.  The
 wrappers pick by device (CPU tensors: the plain version; CUDA tensors: the
-kernel or an error) and count launches in ``<wrapper>.launches``.  Weights
+kernel or an error) and count launches in ``<wrapper>.launches``.  The
+kernels have no backward yet: on the card a call under autograd raises
+(bf16 training is its own slice).  Weights
 are in torch layout: Linear (out, in), depthwise Conv2d (C, 1, k, k).
 """
 
@@ -117,6 +119,7 @@ def ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2):
     """Kernel K6 on CUDA tensors, :func:`ln_mlp_ref` on CPU tensors."""
     if not on_card(x):
         return ln_mlp_ref(x, ln_w, ln_b, w1, b1, w2, b2)
+    _native.refuse_grad("ln_mlp", x, ln_w, ln_b, w1, b1, w2, b2)
     d = x.shape[-1]
     hid = w1.shape[0]
     check_args(x=(x, BF16), w1=(w1, BF16), b1=(b1, F32), w2=(w2, BF16), b2=(b2, F32))
@@ -142,6 +145,7 @@ def ln_dwms_mlp(x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2):
     """Kernel K7 on CUDA tensors, :func:`ln_dwms_mlp_ref` on CPU tensors."""
     if not on_card(x):
         return ln_dwms_mlp_ref(x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2)
+    _native.refuse_grad("ln_dwms_mlp", x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2)
     B, H, W, d = x.shape
     hid = w1.shape[0]
     check_args(x=(x, BF16), w1=(w1, BF16), b1=(b1, F32), k3=(k3, BF16), c3=(c3, F32),

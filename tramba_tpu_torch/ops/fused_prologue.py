@@ -12,7 +12,9 @@ in-projection (bf16 weight) accumulates in fp32 and stays fp32, the 3x3 taps
 are rounded to bf16 and applied in fp32, and the SiLU output is rounded to
 bf16.  The conv pads the in-projection, so a pixel outside the image adds 0.
 The plain version rounds at the same points, in ``x``'s dtype.  The wrapper
-picks by device and counts launches in ``prologue.launches``.  Weights are
+picks by device and counts launches in ``prologue.launches``; on the card a
+call under autograd raises (no backward yet: bf16 training is its own
+slice).  Weights are
 in torch layout: in_proj (D, dm), conv (D, 1, 3, 3).
 """
 
@@ -43,6 +45,7 @@ def prologue(x, ln_w, ln_b, w_in, conv_k):
     """Kernel K5 on CUDA tensors, :func:`prologue_ref` on CPU tensors."""
     if not on_card(x):
         return prologue_ref(x, ln_w, ln_b, w_in, conv_k)
+    _native.refuse_grad("prologue", x, ln_w, ln_b, w_in, conv_k)
     B, H, W, dm = x.shape
     D = w_in.shape[0]
     check_args(x=(x, BF16), w_in=(w_in, BF16), conv_k=(conv_k, BF16))

@@ -1,29 +1,37 @@
-"""SS2D core: kernel K1 ``ss2d_scan`` and kernel K2 ``ss2d_merge``.
+"""SS2D core: kernels K1 ``ss2d_scan``, K2 ``ss2d_merge`` and K8 ``ss2d_scan_bwd``.
 
-Port of the inference half of ``tramba_tpu/ops/fused_ss2d.py``.  There the
-TPU runs each scan order through its own family of Pallas kernels (paired
-directions, two-phase chunk carries, one-hot line gathers, a merge fold per
-order).  Here every order is one gather table and one inverse table
-(``ops/scan_orders.py``), so two CUDA kernels (``csrc/ss2d.cu``) serve all of
-them:
+Port of ``tramba_tpu/ops/fused_ss2d.py``.  There the TPU runs each scan order
+through its own family of Pallas kernels (paired directions, two-phase chunk
+carries, one-hot line gathers, a merge fold per order, one backward call per
+direction).  Here every order is one gather table and one inverse table
+(``ops/scan_orders.py``), so three CUDA kernels serve all of them:
 
-* K1 ``ss2d_scan``: ys[b, k, t] = selective scan of x[b, idx[k, t]] with the
-  per-direction Δ/B/C projections; fp32 state, d_state 1.
-* K2 ``ss2d_merge``: sum of each pixel's direction outputs through the
-  inverse table, LayerNorm, exact GELU, out projection.
+* K1 ``ss2d_scan`` (``csrc/ss2d.cu``): ys[b, k, t] = selective scan of
+  x[b, idx[k, t]] with the per-direction Δ/B/C projections; fp32 state,
+  d_state 1.  Train variant: also the fp32 state entering each chunk of
+  :func:`scan_chunk` steps and the projections ``dbc``.
+* K2 ``ss2d_merge`` (``csrc/ss2d.cu``): sum of each pixel's direction
+  outputs through the inverse table, LayerNorm, exact GELU, out projection.
+  Train variant: also the pre-LN sum ``y_sum``.
+* K8 ``ss2d_scan_bwd`` (``csrc/ss2d_bwd.cu``): the adjoint of K1 for every
+  order, from the carries, ``dbc`` and the cotangent of ``y_sum``.
 
-Both run in fp32 or bf16, with the rounding points of ``_small_pallas``
+K1 and K2 run in fp32 or bf16, with the rounding points of ``_small_pallas``
 (``fused_ss2d_small.py:150-228``): K1 takes a bf16 or fp32 ``x`` and always
 projects, scans and writes ``ys`` in fp32 against the fp32 ``x_proj_weight``;
 K2 takes fp32 ``ys`` and computes in the dtype of ``w_out``: with a bf16
 ``w_out`` the GELU output is rounded to bf16 before the out projection
-(fp32 accumulation) and the result is bf16.
+(fp32 accumulation) and the result is bf16.  Training (the variants and K8)
+is fp32.
 
 Beside each kernel is its plain PyTorch version (``*_ref``).  The wrappers
 pick by the tensors' device: CPU tensors take the plain version, CUDA tensors
 launch the kernel (a build or launch error raises).  Each wrapper counts its
 launches in ``<wrapper>.launches``.  Weights are in torch.nn.Linear layout
-(out_features, in_features).
+(out_features, in_features).  Under autograd on the card, :func:`ss2d_full`
+runs :class:`SS2DCore` (K1 → K2 forward, K8 backward), as ``fused_ss2d_full``
+/ ``fused_ss2d_freq`` run their custom VJPs; on CPU tensors autograd goes
+through the plain versions.
 """
 
 from __future__ import annotations
@@ -32,12 +40,21 @@ import torch
 import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
-from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, on_card
+from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, on_card
 from tramba_tpu_torch.ops.scan_orders import order_tables
 from tramba_tpu_torch.ops.selective_scan import linear_scan
 
-__all__ = ["ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref", "ss2d_merge", "ss2d_merge_ref",
-           "ss2d_full"]
+__all__ = ["ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref", "ss2d_scan_train_ref", "ss2d_merge",
+           "ss2d_merge_ref", "ss2d_merge_train_ref", "ss2d_scan_bwd", "ss2d_scan_bwd_ref",
+           "SS2DCore", "ss2d_full", "SCAN_CHUNK", "scan_chunk"]
+
+SCAN_CHUNK = 64  # the plain versions' default carry stride; the kernels' is scan_chunk()
+
+
+def scan_chunk() -> int:
+    """Steps per chunk of K1 and K8, the carries' stride, as the built
+    library defines it (``kScanChunk`` in ``csrc/common.cuh``)."""
+    return _native.library().ss2d_scan_chunk()
 
 
 def _check_table(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -48,8 +65,8 @@ def _check_table(name: str, t: torch.Tensor, shape: tuple) -> None:
 
 
 # ---------------------------------------------------------------------------
-# plain versions (mirror composed_ss2d_core, fused_ss2d.py:38-57, and
-# _ln_gelu_proj, :478)
+# plain versions (mirror composed_ss2d_core, fused_ss2d.py:38-57,
+# _ln_gelu_proj, :478, and _bwd_chunk_math, :520-583)
 # ---------------------------------------------------------------------------
 
 
@@ -73,10 +90,45 @@ def ss2d_scan_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds):
     return ss2d_core_ref(x[:, idx.long()], x_proj_w, dt_w, dt_b, A_logs, Ds)
 
 
-def ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out):
-    """ys (B, K, L, D) fp32; inv (K, M, L) int, slot value L = none; ln_w, ln_b
-    (D) fp32; w_out (dm, D) fp32 or bf16.  Returns (B, L, dm) in w_out's
-    dtype; with a bf16 w_out the GELU output is rounded to bf16 first."""
+def _in_scan_order(x, idx, dbc):
+    """xs (B, K, L, D) and dbcs (B, K, L, R+2): x and each direction's own
+    projections at position t of direction k (pixel idx[k, t])."""
+    il = idx.long()
+    dbcs = torch.stack([dbc[:, il[k], k] for k in range(il.shape[0])], dim=1)
+    return x.float()[:, il], dbcs
+
+
+def _decay_terms(dbcs, dt_w, dt_b, A_logs):
+    """(v, delta, a, A): dt before the softplus, softplus(v), exp(delta A) and
+    A = -exp(A_logs), each (B, K, L, D) but A (K, 1, D)."""
+    R = dt_w.shape[-1]
+    K, D = dt_b.shape
+    v = torch.einsum("bklr,kdr->bkld", dbcs[..., :R], dt_w.float()) + dt_b.float()[:, None, :]
+    delta = F.softplus(v)
+    A = -torch.exp(A_logs.float()).reshape(K, 1, D)
+    return v, delta, torch.exp(delta * A), A
+
+
+def ss2d_scan_train_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, chunk=SCAN_CHUNK):
+    """K1's train variant: (ys (B, K, L, D), carries (B, K, ceil(L / chunk),
+    D), dbc (B, L, K, R+2)).  carries[:, :, c] is the state entering step
+    chunk * c (0 for c = 0); dbc are the per-pixel projections of every
+    direction."""
+    K, L = idx.shape
+    dbc = torch.einsum("bld,kcd->blkc", x.float(), x_proj_w.float())
+    xs, dbcs = _in_scan_order(x, idx, dbc)
+    R = dt_w.shape[-1]
+    _, delta, a, _ = _decay_terms(dbcs, dt_w, dt_b, A_logs)
+    h = linear_scan(a, delta * xs * dbcs[..., R:R + 1])
+    starts = torch.arange(0, L, chunk, device=x.device)
+    carries = torch.cat([torch.zeros_like(h[:, :, :1]), h[:, :, starts[1:] - 1]], dim=2)
+    ys = h * dbcs[..., R + 1:R + 2] + xs * Ds.float().reshape(K, 1, -1)
+    return ys, carries, dbc
+
+
+def _merge_sum(ys, inv):
+    """Each pixel's sum over directions k and slots m of ys[:, k, inv[k, m]]
+    (slot value L = none): (B, K, L, D) -> (B, L, D)."""
     B, K, L, D = ys.shape
     pad = torch.cat([ys, ys.new_zeros(B, K, 1, D)], dim=2)
     inv = inv.long()
@@ -84,9 +136,72 @@ def ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out):
     for k in range(K):
         for m in range(inv.shape[1]):
             y = y + pad[:, k, inv[k, m]]
-    y = F.gelu(F.layer_norm(y, (D,), ln_w, ln_b, 1e-5))
+    return y
+
+
+def _ln_gelu_proj(y, ln_w, ln_b, w_out):
+    """LayerNorm (eps 1e-5) -> exact GELU -> out projection; with a bf16
+    w_out the GELU output is rounded to bf16 first.  Returns w_out's dtype."""
+    y = F.gelu(F.layer_norm(y, (y.shape[-1],), ln_w, ln_b, 1e-5))
     cd = w_out.dtype
     return (y.to(cd).float() @ w_out.float().t()).to(cd)
+
+
+def ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out):
+    """ys (B, K, L, D) fp32; inv (K, M, L) int, slot value L = none; ln_w, ln_b
+    (D) fp32; w_out (dm, D) fp32 or bf16.  Returns (B, L, dm) in w_out's
+    dtype; with a bf16 w_out the GELU output is rounded to bf16 first."""
+    return _ln_gelu_proj(_merge_sum(ys, inv), ln_w, ln_b, w_out)
+
+
+def ss2d_merge_train_ref(ys, inv, ln_w, ln_b, w_out):
+    """K2's train variant: (out, y_sum), y_sum (B, L, D) the pre-LN sum."""
+    y = _merge_sum(ys, inv)
+    return _ln_gelu_proj(y, ln_w, ln_b, w_out), y
+
+
+def ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, Ds,
+                      chunk=SCAN_CHUNK):
+    """The explicit adjoint of K1 followed by K2's merge sum, fp32.
+
+    ``g_y`` (B, L, D) is the cotangent of the pre-LN sum; ``carries`` and
+    ``dbc`` are what :func:`ss2d_scan_train_ref` returns for ``chunk``.  The
+    states of each chunk are recomputed from its carry, then the adjoint
+    ``lam_t = g_t C_t + a_{t+1} lam_{t+1}`` runs backwards.  Returns (dx
+    (B, L, D), dwx (K, R+2, D), dwdt (K, D, R), dbias (K, D), dA_logs (K, D)
+    = dA · A, dDs (K, D))."""
+    K, L = idx.shape
+    R = dt_w.shape[-1]
+    xs, dbcs = _in_scan_order(x, idx, dbc.float())
+    g = g_y.float()[:, idx.long()]  # the merge's adjoint: a gather
+    Bc, Cc = dbcs[..., R:R + 1], dbcs[..., R + 1:R + 2]
+    v, delta, a, A = _decay_terms(dbcs, dt_w, dt_b, A_logs)
+    b_in = delta * Bc * xs
+    h_prev, h = [], None
+    for t in range(L):
+        h = carries[:, :, t // chunk].float() if t % chunk == 0 else h
+        h_prev.append(h)
+        h = a[:, :, t] * h + b_in[:, :, t]
+    h_prev = torch.stack(h_prev, dim=2)
+    hs = a * h_prev + b_in
+    lam, a_next, lams = torch.zeros_like(h), torch.zeros_like(h), [None] * L
+    for t in range(L - 1, -1, -1):
+        lam = g[:, :, t] * Cc[:, :, t] + a_next * lam
+        a_next = a[:, :, t]
+        lams[t] = lam
+    lam = torch.stack(lams, dim=2)
+    daA = lam * h_prev * a
+    ddt = (daA * A + lam * xs * Bc) * torch.sigmoid(v)
+    d_dbc = torch.cat([torch.einsum("bkld,kdr->bklr", ddt, dt_w.float()),
+                       (lam * delta * xs).sum(-1, keepdim=True),
+                       (g * hs).sum(-1, keepdim=True)], dim=-1)
+    du = lam * delta * Bc + g * Ds.float().reshape(K, 1, -1)
+    du = du + torch.einsum("bklc,kcd->bkld", d_dbc, x_proj_w.float())
+    dx = _merge_sum(du, inv)
+    dwx = torch.einsum("bklc,bkld->kcd", d_dbc, xs)
+    dwdt = torch.einsum("bkld,bklr->kdr", ddt, dbcs[..., :R])
+    dA = (daA * delta).sum((0, 2))
+    return (dx, dwx, dwdt, ddt.sum((0, 2)), dA * A[:, 0], (g * xs).sum((0, 2)))
 
 
 # ---------------------------------------------------------------------------
@@ -94,15 +209,19 @@ def ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out):
 # ---------------------------------------------------------------------------
 
 
-def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds):
-    """Kernel K1 on CUDA tensors, :func:`ss2d_scan_ref` on CPU tensors."""
+def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, *, emit=False):
+    """Kernel K1 on CUDA tensors, :func:`ss2d_scan_ref` on CPU tensors.
+    ``emit=True`` (training, fp32): returns (ys, carries, dbc) as
+    :func:`ss2d_scan_train_ref` does."""
     if not on_card(x):
+        if emit:
+            return ss2d_scan_train_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds)
         return ss2d_scan_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds)
     B, L, D = x.shape
     K, C, _ = x_proj_w.shape
     R = C - 2
-    check_args(x=(x, F32_BF16), x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32), dt_b=(dt_b, F32),
-               A_logs=(A_logs, F32), Ds=(Ds, F32))
+    check_args(x=(x, F32 if emit else F32_BF16), x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32),
+               dt_b=(dt_b, F32), A_logs=(A_logs, F32), Ds=(Ds, F32))
     _check_table("idx", idx, (K, L))
     if D % 32 or R > 64:
         raise ValueError(f"ss2d_scan: D={D} must be a multiple of 32 and R={R} at most 64")
@@ -111,44 +230,137 @@ def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds):
         raise ValueError("ss2d_scan: parameter shapes do not match x and x_proj_w")
     dbc = torch.empty(B, L, K, C, device=x.device, dtype=torch.float32)
     ys = torch.empty(B, K, L, D, device=x.device, dtype=torch.float32)
+    carries = (torch.empty(B, K, -(-L // scan_chunk()), D, device=x.device,
+                           dtype=torch.float32) if emit else None)
     _native.launch("ss2d_scan_launch", x.data_ptr(), idx.data_ptr(), x_proj_w.data_ptr(),
                    dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
-                   dbc.data_ptr(), ys.data_ptr(), B, L, D, K, R, int(x.dtype == torch.bfloat16),
-                   _native.stream_handle(x))
+                   dbc.data_ptr(), ys.data_ptr(), carries.data_ptr() if emit else None,
+                   B, L, D, K, R, int(x.dtype == torch.bfloat16), _native.stream_handle(x))
     ss2d_scan.launches += 1
-    return ys
+    return (ys, carries, dbc) if emit else ys
 
 
 ss2d_scan.launches = 0
 
 
-def ss2d_merge(ys, inv, ln_w, ln_b, w_out):
-    """Kernel K2 on CUDA tensors, :func:`ss2d_merge_ref` on CPU tensors."""
+def ss2d_merge(ys, inv, ln_w, ln_b, w_out, *, emit_ysum=False):
+    """Kernel K2 on CUDA tensors, :func:`ss2d_merge_ref` on CPU tensors.
+    ``emit_ysum=True`` (training, fp32): returns (out, y_sum) as
+    :func:`ss2d_merge_train_ref` does."""
     if not on_card(ys):
+        if emit_ysum:
+            return ss2d_merge_train_ref(ys, inv, ln_w, ln_b, w_out)
         return ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out)
     B, K, L, D = ys.shape
     dm = w_out.shape[0]
-    check_args(ys=(ys, F32), ln_w=(ln_w, F32), ln_b=(ln_b, F32), w_out=(w_out, F32_BF16))
+    check_args(ys=(ys, F32), ln_w=(ln_w, F32), ln_b=(ln_b, F32),
+               w_out=(w_out, F32 if emit_ysum else F32_BF16))
     _check_table("inv", inv, (K, inv.shape[1], L))
     vec = 16 // w_out.element_size()  # one 16-byte load of w_out
     if D % vec or tuple(w_out.shape) != (dm, D) or ln_w.numel() != D or ln_b.numel() != D:
         raise ValueError(f"ss2d_merge: D must be a multiple of {vec} and w_out (dm, D)")
     out = torch.empty(B, L, dm, device=ys.device, dtype=w_out.dtype)
+    y_sum = torch.empty(B, L, D, device=ys.device, dtype=torch.float32) if emit_ysum else None
     _native.launch("ss2d_merge_launch", ys.data_ptr(), inv.data_ptr(), ln_w.data_ptr(),
-                   ln_b.data_ptr(), w_out.data_ptr(), out.data_ptr(), B, K, inv.shape[1], L,
-                   D, dm, int(w_out.dtype == torch.bfloat16), _native.stream_handle(ys))
+                   ln_b.data_ptr(), w_out.data_ptr(), out.data_ptr(),
+                   y_sum.data_ptr() if emit_ysum else None, B, K, inv.shape[1], L, D, dm,
+                   int(w_out.dtype == torch.bfloat16), _native.stream_handle(ys))
     ss2d_merge.launches += 1
-    return out
+    return (out, y_sum) if emit_ysum else out
 
 
 ss2d_merge.launches = 0
+
+
+def ss2d_scan_bwd(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, Ds):
+    """Kernel K8 on CUDA tensors, :func:`ss2d_scan_bwd_ref` on CPU tensors."""
+    if not on_card(x):
+        return ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs,
+                                 Ds)
+    B, L, D = x.shape
+    K, C, _ = x_proj_w.shape
+    R = C - 2
+    check_args(x=(x, F32), g_y=(g_y, F32), carries=(carries, F32), dbc=(dbc, F32),
+               x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32), dt_b=(dt_b, F32),
+               A_logs=(A_logs, F32), Ds=(Ds, F32))
+    _check_table("idx", idx, (K, L))
+    _check_table("inv", inv, (K, inv.shape[1], L))
+    if D % 32 or R > 64:
+        raise ValueError(f"ss2d_scan_bwd: D={D} must be a multiple of 32 and R={R} at most 64")
+    if (tuple(g_y.shape) != (B, L, D) or tuple(dbc.shape) != (B, L, K, C)
+            or tuple(carries.shape) != (B, K, -(-L // scan_chunk()), D)
+            or tuple(dt_w.shape) != (K, D, R) or dt_b.numel() != K * D
+            or A_logs.numel() != K * D or Ds.numel() != K * D):
+        raise ValueError("ss2d_scan_bwd: shapes do not match x, idx and x_proj_w")
+    lib = _native.library()
+    chunks = -(-B * L // lib.ss2d_scan_bwd_rows())
+
+    def f32(*shape):
+        return torch.empty(*shape, device=x.device, dtype=torch.float32)
+
+    dx, dwx, dwdt, sums = f32(B, L, D), f32(K, C, D), f32(K, D, R), f32(3, B, K, D)
+    scratch = (f32(B, K, L, D), f32(B, K, L, D), f32(B, K, L, D // 32), f32(B, K, L, D // 32),
+               f32(B, K, L, C), f32(chunks, K, C, D), f32(chunks, K, D, R))
+    _native.launch("ss2d_scan_bwd_launch", x.data_ptr(), idx.data_ptr(), inv.data_ptr(),
+                   g_y.data_ptr(), carries.data_ptr(), dbc.data_ptr(), x_proj_w.data_ptr(),
+                   dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
+                   dx.data_ptr(), dwx.data_ptr(), dwdt.data_ptr(), sums.data_ptr(),
+                   *(t.data_ptr() for t in scratch), B, L, D, K, R, inv.shape[1],
+                   _native.stream_handle(x))
+    ss2d_scan_bwd.launches += 1
+    # per-image sums of the (K, D) partials, as _full_bwd sums them in XLA (:1081)
+    dbias, dA, dDs = sums.sum(1)
+    return dx, dwx, dwdt, dbias, dA * -torch.exp(A_logs.reshape(K, D)), dDs
+
+
+ss2d_scan_bwd.launches = 0
+
+
+class SS2DCore(torch.autograd.Function):
+    """Scan -> merge -> LN -> GELU -> out projection of one SS2D with its
+    backward, fp32 (``fused_ss2d_full`` / ``fused_ss2d_freq`` and their
+    custom VJPs, ``fused_ss2d.py:1030-1126``, ``:1799-1869``).
+
+    Forward: K1's train variant (ys, carries, dbc), then K2's (out, y_sum);
+    ys is dropped, and x, dbc, the carries and y_sum are saved.  Backward:
+    the LN -> GELU -> out projection adjoint by autograd over y_sum (JAX runs
+    it as one XLA vjp, ``:1062``), then K8.  On CPU tensors every launch is
+    the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv, x_proj_w, dt_w, dt_b, A_logs, Ds, ln_w, ln_b, w_out):
+        if x.dtype != torch.float32 or w_out.dtype != torch.float32:
+            raise NotImplementedError("SS2D training runs in fp32; bf16 training is its own "
+                                      "slice (ROADMAP.md, next slices)")
+        ys, carries, dbc = ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, emit=True)
+        out, y_sum = ss2d_merge(ys, inv, ln_w, ln_b, w_out, emit_ysum=True)
+        ctx.save_for_backward(x, idx, inv, carries, dbc, y_sum, x_proj_w, dt_w, dt_b, A_logs, Ds,
+                              ln_w, ln_b, w_out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (x, idx, inv, carries, dbc, y_sum, x_proj_w, dt_w, dt_b, A_logs, Ds, ln_w, ln_b,
+         w_out) = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g_y, d_ln_w, d_ln_b, d_w_out = _native.recompute_vjp(
+            _ln_gelu_proj, (y_sum, ln_w, ln_b, w_out), (True, *need[8:]), g.contiguous())
+        dx, dwx, dwdt, dbias, dA_logs, dDs = ss2d_scan_bwd(
+            x, idx, inv, g_y.contiguous(), carries, dbc, x_proj_w, dt_w, dt_b, A_logs, Ds)
+        return (dx, None, None, dwx, dwdt, dbias.reshape(dt_b.shape),
+                dA_logs.reshape(A_logs.shape), dDs.reshape(Ds.shape), d_ln_w, d_ln_b, d_w_out)
 
 
 def ss2d_full(x_flat, x_proj_w, dt_w, dt_b, A_logs, Ds, ln_w, ln_b, w_out,
               kind: str, H: int, W: int, param: int = 0):
     """Scan -> merge -> LN -> GELU -> out projection of one SS2D:
     (B, L, D) -> (B, L, dm), over the scan order ``kind`` of an H x W map.
-    The output takes ``w_out``'s dtype."""
+    The output takes ``w_out``'s dtype.  Under autograd on the card it runs
+    :class:`SS2DCore`; on CPU tensors autograd goes through the plain
+    versions."""
     idx, inv = order_tables(kind, H, W, param, x_flat.device)
+    params = (x_proj_w, dt_w, dt_b, A_logs, Ds, ln_w, ln_b, w_out)
+    if on_card(x_flat) and needs_grad(x_flat, *params):
+        return SS2DCore.apply(x_flat, idx, inv, *params)
     ys = ss2d_scan(x_flat, idx, x_proj_w, dt_w, dt_b, A_logs, Ds)
     return ss2d_merge(ys, inv, ln_w, ln_b, w_out)

@@ -45,22 +45,24 @@ def measure_inference_speed(fn: Callable, args: Sequence[torch.Tensor], max_iter
     return fps
 
 
-@torch.no_grad()
-def device_time_by_kernel(fn: Callable, iters: int = 3, warmup: int = 2) -> dict:
+def device_time_by_kernel(fn: Callable, iters: int = 3, warmup: int = 2,
+                          grad: bool = False) -> dict:
     """{kernel name: (device microseconds, launches)} summed over ``iters``
     calls of ``fn()`` after ``warmup`` calls, from ``torch.profiler``'s CUDA
-    events.  Empty when the profiler records no device activity."""
+    events, with autograd off unless ``grad`` (a train step).  Empty when
+    the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise RuntimeError("device_time_by_kernel profiles the CUDA device; none is available")
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    with torch.set_grad_enabled(grad):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
     out = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
