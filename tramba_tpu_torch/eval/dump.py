@@ -2,8 +2,8 @@
 
 Port of ``tramba_tpu/eval/dump.py:29-61``: run the model over a test split,
 bilinear-resize the full-resolution logits back to each image's original
-size, apply the sigmoid, save uint8 PNGs.  Data loading is the JAX package's
-numpy-only pipeline (``tramba_tpu/data``), shared as it is.
+size, apply the sigmoid, save uint8 PNGs.  Data loading is the port's copy
+of the JAX package's numpy-only pipeline (``data/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import cv2
 import numpy as np
 import torch
 
-from tramba_tpu.data.pipeline import BatchLoader, SODDataset
+from tramba_tpu_torch.data.pipeline import BatchLoader, SODDataset
 
 __all__ = ["dump_saliency_maps"]
 

@@ -1,10 +1,12 @@
 """Training CLI of the port: ``python -m tramba_tpu_torch.run``.
 
-Port of ``run.py`` with its flags.  Trains on one CUDA card when there is
-one (fp32 with TF32 off in matmuls and cuDNN convolutions, the counterpart of
-``jax_default_matmul_precision=highest``), else on the CPU with the plain
-versions of the kernels.  ``--dtype bfloat16`` is not ported yet; ``--parallel``
-and ``--init_method`` are accepted and ignored (one device).
+Port of ``run.py`` with its flags.  Trains on one CUDA card and raises
+when there is none; a caller may ask for the CPU (``main(argv,
+device="cpu")``, the plain versions of the kernels).  ``--dtype float32``
+keeps TF32 off in matmuls and cuDNN convolutions, the counterpart of
+``jax_default_matmul_precision=highest``; ``--dtype bfloat16`` computes in
+bf16 with fp32 parameters (kernels K5-K7 and K9-K10, bf16 K1/K2/K8).
+``--parallel`` and ``--init_method`` are accepted and ignored (one device).
 """
 
 from __future__ import annotations
@@ -64,20 +66,17 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", default=1e-4, type=float)
     p.add_argument("--method", default=None, type=str)
     p.add_argument("--best_MAE", default=None, type=float)
-    p.add_argument("--dtype", default="float32", type=str,
-                   help="compute dtype: float32 (bfloat16 is not ported yet)")
+    p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                   help="compute dtype; parameters stay fp32")
     p.add_argument("--mu_dtype", default="bfloat16", type=str,
                    help="Adam first-moment storage dtype (float32 = reference-exact)")
     return p
 
 
-def main(argv=None):
+def main(argv=None, device="cuda"):
     args = parser().parse_args(argv)
     if args.method is None:
         raise SystemExit("--method is required (e.g. Tramba-V-TSOD)")
-    if args.dtype != "float32":
-        raise NotImplementedError(f"--dtype {args.dtype}: training is ported in fp32 only; "
-                                  "bf16 training is its own slice (ROADMAP.md, next slices)")
     if args.parallel:
         print(f"note: --parallel and --init_method {args.init_method} are ignored; "
               "the port trains on one device")
@@ -92,7 +91,7 @@ def main(argv=None):
     # fp32 at "highest", as run.py:93: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return training(args)
+    return training(args, device=device)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,7 @@ import re
 
 import torch
 
-from tramba_tpu.compat.torch_weights import _IGNORABLE, _ignorable
+from tramba_tpu_torch.compat.torch_weights import _IGNORABLE, _ignorable
 
 __all__ = ["save_params", "load_checkpoint", "save_resume", "load_resume", "best_mae_path",
            "epoch_from_filename"]

@@ -4,9 +4,8 @@ Port of ``tramba_tpu/train/loop.py`` for one device: seeding, model build,
 the pretrained-encoder graft, data loading, then ``fit`` -- per-epoch step
 decay, train steps, in-loop eval from epoch ``see`` with the full SOD metric
 suite, text and TensorBoard records, best-MAE weights and the rolling resume
-dict.  Data loading and the metrics are the JAX package's numpy-only modules
-(``tramba_tpu/data/pipeline.py``, ``tramba_tpu/eval/metrics.py``), shared as
-they are.
+dict.  Data loading and the metrics are the port's copies of the JAX
+package's numpy-only modules (``data/pipeline.py``, ``eval/metrics.py``).
 """
 
 from __future__ import annotations
@@ -20,8 +19,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tramba_tpu.data.pipeline import BatchLoader, SODDataset
-from tramba_tpu.eval.metrics import SODMetrics
+from tramba_tpu_torch.compat.torch_weights import graft_vmamba_encoder
+from tramba_tpu_torch.data.pipeline import BatchLoader, SODDataset
+from tramba_tpu_torch.eval.metrics import SODMetrics
 from tramba_tpu_torch.models.registry import build
 from tramba_tpu_torch.nn.layers import set_drop_path_generator
 from tramba_tpu_torch.train import checkpoint as ckpt
@@ -34,17 +34,14 @@ SEED = 1026  # train.py's seed: numpy, the DropPath generator, the loader's shuf
 
 
 def _graft_encoder(model: torch.nn.Module, sd) -> None:
-    """An upstream VMamba checkpoint -> the encoder's weights, through the
-    shared numpy converter and then the port's names.  Every converted entry
-    must exist in the model with the same shape."""
-    from tramba_tpu.compat.torch_weights import convert_vmamba_encoder_pretrained
-    from tramba_tpu_torch.compat.jax_weights import encoder_from_jax
-
+    """An upstream VMamba checkpoint -> the encoder's weights under the
+    port's (the reference's) names.  Every grafted entry must exist in the
+    model with the same shape."""
     for key in ("model", "state_dict"):
         if isinstance(sd, dict) and isinstance(sd.get(key), dict):
             sd = sd[key]
     depths = [len(stage.blocks) for stage in model.vssm_encoder.layers]
-    graft = encoder_from_jax(convert_vmamba_encoder_pretrained(sd, depths))
+    graft = graft_vmamba_encoder(sd, depths)
     have = model.state_dict()
     for name, value in graft.items():
         if name not in have:
@@ -173,11 +170,15 @@ def record(args, tb_writer, results: dict, epoch: int, epochs: int, loss: float,
                       "adpFm", "meanFm", "maxFm")), flush=True)
 
 
-def training(args):
-    """Entry point (train.py:283-297): seed, build, graft, load data, fit, on
-    the CUDA card when there is one, else on the CPU (plain versions).
-    Returns the model and the optimizer."""
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def training(args, device="cuda"):
+    """Entry point (train.py:283-297): seed, build, graft, load data, fit on
+    ``device``: the CUDA card (kernels), or the CPU when the caller asks for
+    it (plain versions).  ``--dtype`` sets the compute dtype; parameters
+    stay fp32.  Returns the model and the optimizer."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("tramba_tpu_torch training runs on a CUDA device; none is available "
+                           "(pass device='cpu' to train on the CPU with the plain versions)")
     np.random.seed(SEED)
     tb_writer = None
     if getattr(args, "tf_log_path", None):
@@ -188,7 +189,8 @@ def training(args):
         except Exception:
             pass
     print(f"Starting train..... Model:{args.method}", flush=True)
-    model = init_model(args, build(args.method, args.img_size, seed=0))
+    model = init_model(args, build(args.method, args.img_size, seed=0,
+                                   dtype=getattr(torch, getattr(args, "dtype", "float32"))))
     model = model.to(device)
     set_drop_path_generator(model, torch.Generator(device=device).manual_seed(SEED))
     ds = SODDataset(args.data_root, ["Train"], args.img_size, mode="train")
