@@ -4,19 +4,24 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. device    a CUDA card is present; prints its name and power limit
-  2. build     nvcc builds kernels K1-K8 from tramba_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K10 from tramba_tpu_torch/csrc
   3. kernels   each kernel vs its plain PyTorch version on the card, at the
                shapes of the 384px Tramba-V-TSOD forward: K1-K4 in fp32
                (rtol 1e-3, atol 1e-4), then in bf16 K1-K4 and K5-K7, and K2
                as _lgp_pallas (one-slot identity table); bf16 outputs at
                rtol 1.6e-2, atol 1e-2; then the training kernels at every
-               SS2D shape: K1's and K2's train variants (fp32 tolerance) and
-               K8 (max abs error <= 1e-4 x the largest magnitude of each
-               output); errors and times
+               shape of the train step: K1's and K2's train variants in fp32
+               (fp32 tolerance) and bf16, K8 in fp32 (max abs error <= 1e-4 x
+               the largest magnitude of each output) and bf16, and K9
+               ln_mlp_bwd and K10 ln_dwms_mlp_bwd (bf16 adjoints: <= 1e-2 x
+               the largest magnitude of each output); errors, times, and
+               each kernel's bound (bytes over the HBM rate or operations
+               over the peak rate of their type, whichever is larger)
   4. model     full-width Tramba-V-TSOD at 384px, seeded weights, batch 2 on
                the card, in fp32 (TF32 off) and in bf16: head shapes, finite
-               values, launches per forward (fp32 and bf16: K1 33, K2 33, K3
-               9, K4 1; bf16 also K5 33, K6 24, K7 6); the same weights and
+               values, launches per forward as the model's modules give them
+               (fp32 and bf16: K1 33, K2 33, K3 9, K4 1; bf16 also K5 33, K6
+               24, K7 6); the same weights and
                image on the CPU (plain versions) agree with mean abs
                difference <= 1e-3 (fp32) per head, and in bf16 <= 2e-2 or,
                where bf16's own noise is larger, <= 1.25 x the CPU's bf16-vs-
@@ -27,18 +32,23 @@ Phases, each of which must pass (any failure exits non-zero):
                with ``--dtype bfloat16``
   6. timing    ms per forward: fp32 at batch 1 and 8, bf16 at 1, 8 and 16
   7. profile   device time of the bf16 forward by kernel group (torch.profiler)
-  8. train     fp32 training at full width, batch 4: one train step launches
-               exactly K1 33, K2 33, K8 33, K3 9, K4 1 and no K5-K7, and
-               leaves every parameter a finite gradient; the loss falls over
-               10 steps on one batch; ms per step, peak memory and the device
-               time by kernel group; a reduced-depth step (dims 128, depths
-               (1, 1, 2, 1), 96 px) against the CPU's plain step (loss rtol
-               1e-4, per-parameter gradient relative norm <= 1e-3)
+  8. train     fp32, then bf16 training at full width, batch 4: one train
+               step launches exactly the kernels the model's modules give
+               (fp32: K1 33, K2 33, K8 33, K3 9, K4 1 and no K5-K7, K9, K10;
+               bf16 also K5 33, K6 24, K9 24, K7 6, K10 6), and leaves every
+               parameter a finite gradient; the loss falls over 10 steps on
+               one batch; ms per step, peak memory and the device time by
+               kernel group; a reduced-depth step (dims 128, depths
+               (1, 1, 2, 1), 96 px) against the CPU's plain step: fp32 loss
+               rtol 1e-4 and per-parameter gradient relative norm <= 1e-3;
+               bf16 both <= 2e-2 or 1.25 x the CPU's own bf16-vs-fp32 gap of
+               that value, whichever is larger
   9. run       ``tramba_tpu_torch.run`` (the training CLI) on a synthetic
-               TSOD10K-layout dataset (8 train, 4 test images): 2 epochs with
-               the in-loop eval, record and best-MAE weights, exact launch
-               counts; a weights-only ``--resume <best-MAE file>`` to epoch 5,
-               which writes the rolling resume dict (every 5 epochs); then
+               TSOD10K-layout dataset (8 train, 4 test images), in fp32 and
+               then ``--dtype bfloat16``: 2 epochs with the in-loop eval,
+               record and best-MAE weights, exact launch counts; a
+               weights-only ``--resume <best-MAE file>`` to epoch 5, which
+               writes the rolling resume dict (every 5 epochs); then
                ``python -m tramba_tpu_torch.run --resume last`` to epoch 6
 
 The last lines are the kernels' JSON summary, the card's
@@ -70,22 +80,22 @@ HEAD_MEAN_ABS_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # card vs CPU, 
 # So a bf16 head may also differ by up to this multiple of the CPU's
 # bf16-vs-fp32 difference on the same head.
 BF16_NOISE_FACTOR = 1.25
-# launches of one bf16 forward: 21 encoder + 6 decoder + 6 guide SS2Ds,
-# 21 + 3 plain FFNs, 6 DWMS FFNs, 6 + 3 expands, 1 head
-BF16_LAUNCHES = {"ss2d_scan": 33, "ss2d_merge": 33, "ss2d_scan_bwd": 0, "expand_ln": 9,
-                 "final_head": 1, "prologue": 33, "ln_mlp": 24, "ln_dwms_mlp": 6}
-# launches of one fp32 forward without autograd (the eval forward) and of one
-# fp32 train step (forward with the train variants, backward with K8)
-FP32_LAUNCHES = {"ss2d_scan": 33, "ss2d_merge": 33, "ss2d_scan_bwd": 0, "expand_ln": 9,
-                 "final_head": 1, "prologue": 0, "ln_mlp": 0, "ln_dwms_mlp": 0}
-TRAIN_STEP_LAUNCHES = dict(FP32_LAUNCHES, ss2d_scan_bwd=33)
 # K8 vs its plain version: sums over whole sequences and batches in another
 # order, so each output's max abs error is held to this share of its largest
 # magnitude
 BWD_REL_TOL = 1e-4
-# reduced-depth train step, card vs CPU
+# the bf16 adjoints (K8 on bf16 x and g_y, K9, K10) round dx, or dh before the
+# long sums of dW1 and dx, to bf16, so one flipped rounding moves a whole sum:
+# each output's max abs error is held to this share of its largest magnitude
+BWD_REL_TOL_BF16 = 1e-2
+# reduced-depth train step, card vs CPU: fp32; bf16 as the forward's heads
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-4, 1e-3
 NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+# one H100 SXM (NVIDIA's data sheet, dense rates): bf16 on the tensor cores,
+# fp32 outside them (TF32 is off), and the HBM rate; a kernel's bound is the
+# larger of its bytes over the HBM rate and its operations over these rates
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def phase(name):
@@ -117,7 +127,7 @@ def wrappers():
     from tramba_tpu_torch.ops import fused_ss2d as tf
 
     return (tf.ss2d_scan, tf.ss2d_merge, tf.ss2d_scan_bwd, te.expand_ln, te.final_head,
-            tp.prologue, tm.ln_mlp, tm.ln_dwms_mlp)
+            tp.prologue, tm.ln_mlp, tm.ln_dwms_mlp, tm.ln_mlp_bwd, tm.ln_dwms_mlp_bwd)
 
 
 def reset_counts():
@@ -130,18 +140,67 @@ def read_counts():
     return {w.__name__: w.launches for w in wrappers()}
 
 
+def expected_launches(model, train: bool) -> dict:
+    """Kernel launches of one forward (``train=False``) or one train step of
+    ``model``, from its modules: each SS2D runs K1 and K2, and in bf16 K5; each
+    bf16 FFN runs K6 (Mlp) or K7 (DWMSMlp); each expand K3, the head K4; a
+    train step adds the backwards K8 per SS2D and K9 / K10 per bf16 FFN."""
+    from tramba_tpu_torch.nn.layers import DWMSMlp, FinalPatchExpandX4, Mlp, _Expand
+    from tramba_tpu_torch.nn.ssm import SS2D
+
+    n = dict.fromkeys((w.__name__ for w in wrappers()), 0)
+    for m in model.modules():
+        bf16 = getattr(m, "dtype", None) == torch.bfloat16
+        if isinstance(m, SS2D):
+            n["ss2d_scan"] += 1
+            n["ss2d_merge"] += 1
+            n["prologue"] += bf16
+            n["ss2d_scan_bwd"] += train
+        elif isinstance(m, (Mlp, DWMSMlp)) and bf16:
+            name = "ln_mlp" if isinstance(m, Mlp) else "ln_dwms_mlp"
+            n[name] += 1
+            n[name + "_bwd"] += train
+        elif isinstance(m, _Expand):
+            n["expand_ln"] += 1
+        elif isinstance(m, FinalPatchExpandX4):
+            n["final_head"] += 1
+    return n
+
+
+def ops(dt, products, simt=0):
+    """Operations of one call by type: ``products`` in dtype ``dt``'s type (the
+    tensor-core products of bf16 operands, fp32 ones outside them), ``simt`` in
+    fp32 outside the tensor cores."""
+    out = {"fp32": simt}
+    out[NAMES[dt]] = out.get(NAMES[dt], 0) + products
+    return out
+
+
+def bound(tensors, flops):
+    """(bound_ms, bound_by): the least time one H100 could take for a call
+    that reads each input once and writes each output once (``tensors``) and
+    does ``flops`` (operations by type, as :func:`ops` gives them)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in flops.items())
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 class Checks:
-    """Phase 3 results: {(kernel, tag): [(shape label, max_abs_err, ms, plain_ms)]};
-    the tag is the dtype's name, or "fp32 train" for the training kernels."""
+    """Phase 3 results: {(kernel, tag): [(shape label, max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)]}; the tag is the dtype's name, or "fp32 train" /
+    "bf16 train" for the training kernels."""
 
     def __init__(self):
         self.rows = {}
 
-    def compare(self, name, dt, label, kernel, plain, reps, plain_warmup=1, tag=None,
-                rel_tol=None):
+    def compare(self, name, dt, label, kernel, plain, reps, inputs, flops, plain_warmup=1,
+                tag=None, rel_tol=None):
         """``kernel`` and ``plain`` return a tensor or a tuple of tensors.  With
         ``rel_tol`` each output's max abs error must be <= rel_tol x its
-        largest magnitude; else assert_close at the dtype's tolerance."""
+        largest magnitude; else assert_close at the dtype's tolerance.
+        ``inputs`` (the kernel's tensors) and ``flops`` (:func:`ops`) give the
+        call's bound."""
         tag = tag or NAMES[dt]
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -163,12 +222,16 @@ class Checks:
                 if not e <= rel_tol * scale:
                     raise AssertionError(f"{name} {tag} {label} output {i}: max abs error {e} "
                                          f"> {rel_tol} x {scale}")
+        bound_ms, bound_by = bound((*inputs, *got), flops)
+        del got, want
         ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, 1, warmup=plain_warmup)
-        self.rows.setdefault((name, tag), []).append((label, err, ms, plain_ms))
+        self.rows.setdefault((name, tag), []).append((label, err, ms, plain_ms, bound_ms,
+                                                      bound_by))
         what = "err/max|plain|" if rel_tol is not None else "max_rel_err"
-        print(f"{name:13s} {tag:10s} {label:34s} max_abs_err {err:.3e} {what} {rel:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
+        print(f"{name:15s} {tag:10s} {label:34s} max_abs_err {err:.3e} {what} {rel:.3e} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
 
 
 # (order, map size, d_model, window/rate): every SS2D shape of the main path --
@@ -196,31 +259,100 @@ def ss2d_case(dev, gen, dt, kind, H, d_model, param, B):
     return m, x, core, idx, inv, f"{kind}{param or ''} {H}px B{B} K{K} D{D}"
 
 
-def check_train_kernels(checks, dev, gen):
-    """K1's and K2's train variants and K8 at every SS2D shape, fp32, B=2.
-    K8 gets the carries and projections of the plain train forward and a
-    cotangent of the pre-LN sum at the scale of the output's."""
+def scan_ops(x, core):
+    """K1: the projections (C = R + 2 outputs of D, then dt of R) and about
+    12 fp32 operations per step of the recurrence, per (b, k, l, d)."""
+    B, L, D = x.shape
+    K, C, _ = core[0].shape
+    return ops(torch.float32, 2 * B * K * L * D * (2 * C - 2), 12 * B * K * L * D)
+
+
+def merge_ops(ys, w_out):
+    """K2: the out projection in w_out's type; the K-way sum, LN and GELU."""
+    B, K, L, D = ys.shape
+    return ops(w_out.dtype, 2 * B * L * D * w_out.shape[0], (K + 10) * B * L * D)
+
+
+def scan_bwd_ops(x, core):
+    """K8: K1's projections recomputed, their two adjoints and the weight
+    products (three times K1's), and about 30 fp32 operations per step."""
+    B, L, D = x.shape
+    K, C, _ = core[0].shape
+    return ops(torch.float32, 6 * B * K * L * D * (2 * C - 2), 30 * B * K * L * D)
+
+
+def check_train_kernels(checks, dev, gen, dt):
+    """K1's and K2's train variants and K8 at every SS2D shape, B=2, in the
+    compute dtype ``dt`` (bf16: #13's emit_train; K1 takes bf16 x, K2 a bf16
+    w_out and writes a bf16 y_sum, K8 reads bf16 x and g_y).  K8 gets the
+    carries and projections of the plain train forward and a cotangent of the
+    pre-LN sum at the scale of the output's."""
     from tramba_tpu_torch.ops import fused_ss2d as tf
 
-    B, tag, chunk = 2, "fp32 train", tf.scan_chunk()
+    B, tag, chunk = 2, f"{NAMES[dt]} train", tf.scan_chunk()
+    rel_tol = BWD_REL_TOL if dt == torch.float32 else BWD_REL_TOL_BF16
     for kind, H, d_model, param in SS2D_SHAPES:
-        m, x, core, idx, inv, label = ss2d_case(dev, gen, torch.float32, kind, H, d_model,
-                                                param, B)
+        m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
         checks.compare("ss2d_scan", None, label,
                        lambda: tf.ss2d_scan(x, idx, *core, emit=True),
                        lambda: tf.ss2d_scan_train_ref(x, idx, *core, chunk), reps=5,
-                       plain_warmup=0, tag=tag)
+                       inputs=(x, idx, *core), flops=scan_ops(x, core), plain_warmup=0, tag=tag)
         ys, carries, dbc = tf.ss2d_scan_train_ref(x, idx, *core, chunk)
-        tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data)
+        tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data.to(dt))
         checks.compare("ss2d_merge", None, label,
                        lambda: tf.ss2d_merge(ys, inv, *tail, emit_ysum=True),
-                       lambda: tf.ss2d_merge_train_ref(ys, inv, *tail), reps=5, tag=tag)
-        g_y = torch.randn(x.shape, generator=gen).to(dev)
+                       lambda: tf.ss2d_merge_train_ref(ys, inv, *tail), reps=5,
+                       inputs=(ys, inv, *tail), flops=merge_ops(ys, tail[2]), tag=tag)
+        g_y = torch.randn(x.shape, generator=gen).to(dev, dt)
         args = (x, idx, inv, g_y, carries, dbc, *core)
         checks.compare("ss2d_scan_bwd", None, label, lambda: tf.ss2d_scan_bwd(*args),
-                       lambda: tf.ss2d_scan_bwd_ref(*args, chunk), reps=3, plain_warmup=0,
-                       tag=tag, rel_tol=BWD_REL_TOL)
+                       lambda: tf.ss2d_scan_bwd_ref(*args, chunk), reps=3, inputs=args,
+                       flops=scan_bwd_ops(x, core), plain_warmup=0, tag=tag, rel_tol=rel_tol)
         del ys, carries, dbc, g_y, args
+
+
+def ffn_case(gen, dev, d, dwms):
+    """Seeded LN and FFN parameters of width d (hidden 4d) as the modules hold
+    them (fp32): [ln_w, ln_b, w1, b1, (k3, c3, k5, c5, k7, c7,) w2, b2]."""
+    from tramba_tpu_torch.nn.init import init_weights
+    from tramba_tpu_torch.nn.layers import DWMSMlp, Mlp
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+
+    hid = 4 * d
+    m = init_weights((DWMSMlp if dwms else Mlp)(d, hid), gen).to(dev)
+    convs = [t for c in (m.dwc3, m.dwc5, m.dwc7)
+             for t in (c.dw_conv.weight.data, rnd(hid, scale=0.1))] if dwms else []
+    return [rnd(d, scale=0.1, shift=1.0), rnd(d, scale=0.1), m.fc1.weight.data,
+            rnd(hid, scale=0.1), *convs, m.fc2.weight.data, rnd(d, scale=0.1)]
+
+
+def check_mlp_bwd(checks, dev, gen):
+    """K9 at every LN-MLP shape of the bf16 train step (the encoder stages;
+    the guides' FFNs share the 24/48/96 px widths) and K10 at every DWMS
+    shape, B=2, against their plain adjoints, with a cotangent g of the
+    output's scale."""
+    from tramba_tpu_torch.ops import fused_mlp as tm
+
+    bf, B, tag = torch.bfloat16, 2, "bf16 train"
+    for H, d, dwms in ((96, 128, False), (48, 256, False), (24, 512, False), (12, 1024, False),
+                       (96, 128, True), (48, 256, True), (24, 512, True)):
+        params = ffn_case(gen, dev, d, dwms)[:-1]  # b2 has no part in the adjoint
+        x = torch.randn(B, H, H, d, generator=gen).to(dev, bf)
+        g = torch.randn(B, H, H, d, generator=gen).to(dev, bf)
+        M, hid = B * H * H, 4 * d
+        if dwms:
+            name, fn, ref = "ln_dwms_mlp_bwd", tm.ln_dwms_mlp_bwd, tm.ln_dwms_mlp_bwd_ref
+            flops = ops(bf, 10 * M * d * hid, 3 * 2 * 83 * M * hid + 20 * M * hid)
+        else:
+            name, fn, ref = "ln_mlp_bwd", tm.ln_mlp_bwd, tm.ln_mlp_bwd_ref
+            flops = ops(bf, 10 * M * d * hid, 20 * M * hid)
+        # the kernel reads the weights in bf16: count them so
+        inputs = (x, g, *(p.to(bf) if p.dim() > 1 else p for p in params))
+        checks.compare(name, None, f"{H}px B{B} d{d} hid{hid}", lambda: fn(x, g, *params),
+                       lambda: ref(x, g, *params), reps=5, inputs=inputs, flops=flops, tag=tag,
+                       rel_tol=BWD_REL_TOL_BF16)
 
 
 def check_ss2d_expand(checks, dev, gen, dt):
@@ -234,26 +366,32 @@ def check_ss2d_expand(checks, dev, gen, dt):
     for kind, H, d_model, param in SS2D_SHAPES:
         m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
         checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
-                       lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5, plain_warmup=0)
+                       lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5, inputs=(x, idx, *core),
+                       flops=scan_ops(x, core), plain_warmup=0)
         ys = tf.ss2d_scan(x, idx, *core)
         tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data.to(dt))
         checks.compare("ss2d_merge", dt, label, lambda: tf.ss2d_merge(ys, inv, *tail),
-                       lambda: tf.ss2d_merge_ref(ys, inv, *tail), reps=5)
+                       lambda: tf.ss2d_merge_ref(ys, inv, *tail), reps=5,
+                       inputs=(ys, inv, *tail), flops=merge_ops(ys, tail[2]))
     # (map size, C, factor): PatchExpand (f=2) and FreqExpand2D (f=4) inputs
     for H, C, f in ((12, 1024, 2), (24, 512, 2), (48, 256, 2),
                     (12, 512, 4), (24, 256, 4), (48, 128, 4)):
         m = init_weights(_Expand(C, f), gen).to(dev)
         x = torch.randn(B, H, H, C, generator=gen).to(dev, dt)
         args = (x, m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data)
+        out_c = args[1].shape[0]  # Dense C -> f C (pixel shuffle), LN over C / f
         checks.compare("expand_ln", dt, f"f{f} {H}px B{B} C{C}", lambda: te.expand_ln(*args),
-                       lambda: te.expand_ln_ref(*args), reps=10)
+                       lambda: te.expand_ln_ref(*args), reps=10, inputs=args,
+                       flops=ops(dt, 2 * B * H * H * C * out_c, 8 * B * H * H * out_c))
     m = init_weights(FinalPatchExpandX4(128), gen).to(dev)
     seg_w = (torch.randn(128, generator=gen) * 0.1).to(dev)
     seg_b = torch.randn(1, generator=gen).to(dev)
     x = torch.randn(B, 96, 96, 128, generator=gen).to(dev, dt)
     args = (x, m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data, seg_w, seg_b)
+    M = B * 96 * 96
     checks.compare("final_head", dt, f"96px B{B} C128", lambda: te.final_head(*args),
-                   lambda: te.final_head_ref(*args), reps=10)
+                   lambda: te.final_head_ref(*args), reps=10, inputs=args,
+                   flops=ops(dt, 2 * M * 128 * 16 * 128, 10 * M * 16 * 128))
 
 
 def check_bf16_only(checks, dev, gen):
@@ -281,22 +419,28 @@ def check_bf16_only(checks, dev, gen):
         norm = ln(dm) if with_ln else (None, None)
         args = (x, *norm, m.in_proj.weight.data.to(bf), m.conv2d.weight.data.to(bf))
         label = f"{'enc/dec LN' if with_ln else 'guide'} {H}px B{B} dm{dm} D{2 * dm}"
+        M, D = B * H * H, 2 * dm
         checks.compare("prologue", bf, label, lambda: tp.prologue(*args),
-                       lambda: tp.prologue_ref(*args), reps=10)
+                       lambda: tp.prologue_ref(*args), reps=10, inputs=args,
+                       flops=ops(bf, 2 * M * dm * D, 2 * 9 * M * D + 10 * M * D))
     for H, d in ((96, 128), (48, 256), (24, 512), (12, 1024)):
         m = init_weights(Mlp(d, 4 * d), gen).to(dev)
         args = (rnd(B, H * H, d).to(bf), *ln(d), m.fc1.weight.data.to(bf), rnd(4 * d, scale=0.1),
                 m.fc2.weight.data.to(bf), rnd(d, scale=0.1))
+        M = B * H * H
         checks.compare("ln_mlp", bf, f"{H}px B{B} d{d} hid{4 * d}", lambda: tm.ln_mlp(*args),
-                       lambda: tm.ln_mlp_ref(*args), reps=10)
+                       lambda: tm.ln_mlp_ref(*args), reps=10, inputs=args,
+                       flops=ops(bf, 4 * M * d * 4 * d, 10 * M * 4 * d))
     for H, d in ((96, 128), (48, 256), (24, 512)):
         m = init_weights(DWMSMlp(d, 4 * d), gen).to(dev)
         convs = [t for c in (m.dwc3, m.dwc5, m.dwc7)
                  for t in (c.dw_conv.weight.data.to(bf), rnd(4 * d, scale=0.1))]
         args = (rnd(B, H, H, d).to(bf), *ln(d), m.fc1.weight.data.to(bf), rnd(4 * d, scale=0.1),
                 *convs, m.fc2.weight.data.to(bf), rnd(d, scale=0.1))
+        M = B * H * H
         checks.compare("ln_dwms_mlp", bf, f"{H}px B{B} d{d} hid{4 * d}",
-                       lambda: tm.ln_dwms_mlp(*args), lambda: tm.ln_dwms_mlp_ref(*args), reps=10)
+                       lambda: tm.ln_dwms_mlp(*args), lambda: tm.ln_dwms_mlp_ref(*args), reps=10,
+                       inputs=args, flops=ops(bf, 4 * M * d * 4 * d, (2 * 83 + 10) * M * 4 * d))
     # K2 as _lgp_pallas (Queue 2 #14): K=1, one-slot identity inverse table
     for dt in (torch.float32, bf):
         L, D, dm = 24 * 24, 1024, 512
@@ -305,7 +449,8 @@ def check_bf16_only(checks, dev, gen):
         tail = (*ln(D), (rnd(dm, D, scale=D ** -0.5)).to(dt))
         checks.compare("ss2d_merge", dt, f"lgp 24px B{B} K1 D{D}",
                        lambda: tf.ss2d_merge(ys, inv, *tail),
-                       lambda: tf.ss2d_merge_ref(ys, inv, *tail), reps=5)
+                       lambda: tf.ss2d_merge_ref(ys, inv, *tail), reps=5,
+                       inputs=(ys, inv, *tail), flops=merge_ops(ys, tail[2]))
 
 
 def run_model(dev, dtype, x, cpu_fp32_heads=None):
@@ -332,7 +477,7 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None):
         raise AssertionError(f"head dtypes {[o.dtype for o in outs]}, expected {dtype}")
     if not all(torch.isfinite(o).all().item() for o in outs):
         raise AssertionError("non-finite logits")
-    want = BF16_LAUNCHES if dtype == torch.bfloat16 else FP32_LAUNCHES
+    want = expected_launches(model, train=False)
     if launches != want:
         raise AssertionError(f"{NAMES[dtype]} launches {launches}, expected {want}")
 
@@ -385,7 +530,13 @@ def run_dump_entry_point(tmp, *flags):
 
 
 # kernel-name fragments -> group of the phase 7 / 8 breakdowns, first match wins
-GROUPS = (("bwd_scan_kernel", "K8 ss2d_scan_bwd, (a) adjoint scan"),
+GROUPS = (("mlp_bwd_act_kernel", "K9 ln_mlp_bwd, GELU adjoint"),
+          ("mlp_bwd_dwms", "K10 ln_dwms_mlp_bwd, depthwise stencils"),
+          ("mlp_bwd_fc_kernel", "K9/K10 (a) LN, fc1 and g w2 products"),
+          ("mlp_bwd_ln_kernel", "K9/K10 (c) dh w1 product and LN adjoint"),
+          ("mlp_bwd_wgrad_kernel", "K9/K10 (d) dW1, dW2 products"),
+          ("mlp_bwd_sum", "K9/K10 (e) partial sums"),
+          ("bwd_scan_kernel", "K8 ss2d_scan_bwd, (a) adjoint scan"),
           ("bwd_dbc_kernel", "K8 ss2d_scan_bwd, (b) projection adjoint"),
           ("bwd_dx_kernel", "K8 ss2d_scan_bwd, (c) dx gather"),
           ("bwd_wgrad_kernel", "K8 ss2d_scan_bwd, (d) weight partials"),
@@ -438,14 +589,16 @@ def train_batch(B, size, seed):
     return images, (blobs > 0).float().permute(0, 2, 3, 1)
 
 
-def run_training(dev, card):
-    """Phase 8: train steps of the full-width fp32 model at batch 4."""
+def run_training(dev, card, dtype):
+    """Phase 8: train steps of the full-width model at batch 4 in the compute
+    dtype ``dtype`` (parameters fp32)."""
     from tramba_tpu_torch.models.registry import build
     from tramba_tpu_torch.nn.layers import set_drop_path_generator
     from tramba_tpu_torch.train.optim import make_optimizer
     from tramba_tpu_torch.train.step import train_step
 
-    model = build("Tramba-V-TSOD", 384, device=dev, seed=0)
+    name = NAMES[dtype]
+    model = build("Tramba-V-TSOD", 384, device=dev, seed=0, dtype=dtype)
     set_drop_path_generator(model, torch.Generator(device=dev).manual_seed(1026))
     opt = make_optimizer(model.named_parameters(), 1e-4, [60], [0.2], 1, mu_dtype=torch.bfloat16)
     images, gts = (t.to(dev) for t in train_batch(4, 384, seed=2))
@@ -456,9 +609,10 @@ def run_training(dev, card):
     reset_counts()
     step()
     launches = read_counts()
-    print(f"one fp32 train step B4: launches {launches}", flush=True)
-    if launches != TRAIN_STEP_LAUNCHES:
-        raise AssertionError(f"train step launches {launches}, expected {TRAIN_STEP_LAUNCHES}")
+    want = expected_launches(model, train=True)
+    print(f"one {name} train step B4: launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"{name} train step launches {launches}, expected {want}")
     bad = [n for n, p in model.named_parameters()
            if p.grad is None or not torch.isfinite(p.grad).all().item()]
     if bad:
@@ -475,42 +629,61 @@ def run_training(dev, card):
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(step, reps=5, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"Tramba-V-TSOD 384px fp32 train step B4: {ms:.2f} ms/step, {4000 / ms:.1f} img/s, "
-          f"peak memory {peak:.2f} GiB [{card}]", flush=True)
+    print(f"Tramba-V-TSOD 384px {name} train step B4: {ms:.2f} ms/step, {4000 / ms:.1f} "
+          f"img/s, peak memory {peak:.2f} GiB [{card}]", flush=True)
     t0 = time.perf_counter()
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3 * 1e3
-    profile_breakdown(step, wall, "fp32 train B4", grad=True, per="step")
+    profile_breakdown(step, wall, f"{name} train B4", grad=True, per="step")
     return ms, peak
 
 
-def compare_reduced_step(dev):
+def _rel(a, b):
+    return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+
+def compare_reduced_step(dev, dtype):
     """Phase 8: one loss and backward of a reduced-depth model (eval mode, so
-    no stochastic depth) on the card and on the CPU."""
+    no stochastic depth) on the card and on the CPU, in ``dtype``.  fp32: loss
+    rtol 1e-4, every gradient within 1e-3 relative norm.  bf16: the loss and
+    each gradient within 2e-2 relative (norm), or 1.25 x the CPU's own
+    bf16-vs-fp32 gap of that value where it is larger (the heads' bf16 gate)."""
     from tramba_tpu_torch.models.registry import build
     from tramba_tpu_torch.train.loss import deep_supervision_loss
 
     cut = dict(dims=128, enc_depths=(1, 1, 2, 1), dec_depths=(1, 1, 1, 1))
     images, gts = train_batch(2, 96, seed=3)
-    res = {}
-    for d in (dev, torch.device("cpu")):
+    runs = [(dev, dtype), (torch.device("cpu"), dtype)]
+    if dtype == torch.bfloat16:
+        runs.append((torch.device("cpu"), torch.float32))
+    res = []
+    for d, dt in runs:
         t0 = time.perf_counter()
-        model = build("Tramba-V-TSOD", 96, device=d, seed=0, **cut)
+        model = build("Tramba-V-TSOD", 96, device=d, seed=0, dtype=dt, **cut)
         loss = deep_supervision_loss(model(images.to(d)), gts.to(d))
         loss.backward()
-        res[d.type] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()})
-        print(f"reduced step on {d.type}: loss {loss.item():.6f} "
+        res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
+        print(f"reduced step on {d.type} {NAMES[dt]}: loss {loss.item():.6f} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
-    worst = max(((gc[n] - g).norm().item() / max(g.norm().item(), 1e-30), n)
-                for n, g in gp.items())
-    print(f"reduced step card vs CPU: loss rel diff {abs(lc - lp) / abs(lp):.3e}; worst "
-          f"per-parameter gradient rel norm {worst[0]:.3e} ({worst[1]}) over {len(gp)} "
-          f"parameters", flush=True)
-    if abs(lc - lp) > TRAIN_LOSS_RTOL * abs(lp) or not worst[0] <= TRAIN_GRAD_REL:
-        raise AssertionError(f"reduced step: loss {lc} vs {lp}, worst grad {worst}")
+    (lc, gc), (lp, gp) = res[:2]
+    if dtype == torch.float32:
+        loss_tol = TRAIN_LOSS_RTOL
+        tols = dict.fromkeys(gp, TRAIN_GRAD_REL)
+    else:
+        lf, gf = res[2]
+        loss_tol = max(2e-2, BF16_NOISE_FACTOR * abs(lp - lf) / abs(lf))
+        tols = {n: max(2e-2, BF16_NOISE_FACTOR * _rel(g, gf[n])) for n, g in gp.items()}
+    worst = max((_rel(gc[n], g) / tols[n], _rel(gc[n], g), tols[n], n) for n, g in gp.items())
+    bad = [n for n, g in gp.items() if not _rel(gc[n], g) <= tols[n]]
+    print(f"reduced {NAMES[dtype]} step card vs CPU: loss rel diff {abs(lc - lp) / abs(lp):.3e} "
+          f"(limit {loss_tol:.3e}); worst per-parameter gradient rel norm {worst[1]:.3e} "
+          f"against its limit {worst[2]:.3e} ({worst[3]}); {len(gp) - len(bad)} of {len(gp)} "
+          f"parameters within their limits", flush=True)
+    if abs(lc - lp) > loss_tol * abs(lp) or bad:
+        raise AssertionError(f"reduced {NAMES[dtype]} step: loss {lc} vs {lp}, worst grad "
+                             f"{worst}, {len(bad)} gradients beyond their limits")
 
 
 def write_tsod(root, splits, seed):
@@ -532,27 +705,30 @@ def write_tsod(root, splits, seed):
             Image.fromarray(mask, "L").save(os.path.join(root, split, "mask", f"{split}_{i}.png"))
 
 
-def run_train_entry_point(tmp):
-    """Phase 9: the training CLI at full width, fp32, batch 4, 2 epochs on 8
-    train images with the in-loop eval of 4 test images from epoch 2, in this
-    process (for the launch counts); a weights-only resume from the best-MAE
-    file to epoch 5, which writes the rolling resume dict; then ``--resume
-    last`` to epoch 6 as ``python -m tramba_tpu_torch.run``.  Returns the
-    launch counts of the first run."""
+def run_train_entry_point(tmp, dtype):
+    """Phase 9: the training CLI at full width, batch 4, ``--dtype`` of
+    ``dtype``, 2 epochs on 8 train images with the in-loop eval of 4 test
+    images from epoch 2, in this process (for the launch counts); a
+    weights-only resume from the best-MAE file to epoch 5, which writes the
+    rolling resume dict; then ``--resume last`` to epoch 6 as ``python -m
+    tramba_tpu_torch.run``.  Returns the launch counts of the first run."""
     from tramba_tpu_torch import run
 
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "results")
     write_tsod(data, {"Train": 8, "Test": 4}, seed=4)
     flags = ["--method", "Tramba-V-TSOD", "--data_root", data, "--evaluation_root", data,
              "--batch_size", "4", "--save_model", out, "--tf_log_path", "",
-             "--pretrained_path", "", "--see", "2"]
+             "--pretrained_path", "", "--see", "2", "--dtype", str(dtype).replace("torch.", "")]
     reset_counts()
     t0 = time.perf_counter()
-    run.main(flags + ["--train_epochs", "2"])
+    model, _ = run.main(flags + ["--train_epochs", "2"])
     launches = read_counts()
-    print(f"run: 2 epochs in {time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
+    print(f"run {NAMES[dtype]}: 2 epochs in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
     # 2 epochs of 2 steps, one eval batch of 4 images
-    want = {k: 4 * n + FP32_LAUNCHES[k] for k, n in TRAIN_STEP_LAUNCHES.items()}
+    step, fwd = expected_launches(model, train=True), expected_launches(model, train=False)
+    want = {k: 4 * n + fwd[k] for k, n in step.items()}
+    del model
     if launches != want:
         raise AssertionError(f"run launches {launches}, expected {want}")
     save_dir = os.path.join(out, "Tramba-V-TSOD")
@@ -603,7 +779,10 @@ def main() -> int:
     check_ss2d_expand(checks, dev, gen, torch.float32)
     check_ss2d_expand(checks, dev, gen, torch.bfloat16)
     check_bf16_only(checks, dev, gen)
-    check_train_kernels(checks, dev, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_train_kernels(checks, dev, gen, dtype)
+    check_mlp_bwd(checks, dev, gen)
+    torch.cuda.empty_cache()
 
     phase("4 model")
     x = torch.randn(2, 384, 384, 3, generator=torch.Generator().manual_seed(1))
@@ -649,44 +828,57 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("8 train")
-    run_training(dev, card)
-    compare_reduced_step(dev)
-    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        run_training(dev, card, dtype)
+        compare_reduced_step(dev, dtype)
+        torch.cuda.empty_cache()
 
     phase("9 training entry point")
-    with tempfile.TemporaryDirectory() as tmp:
-        launches["fp32 train"] = run_train_entry_point(tmp)
+    for dtype in (torch.float32, torch.bfloat16):
+        with tempfile.TemporaryDirectory() as tmp:
+            launches[f"{NAMES[dtype]} train"] = run_train_entry_point(tmp, dtype)
+        torch.cuda.empty_cache()
 
     ss2d, expand = "tramba_tpu_torch/csrc/ss2d.cu", "tramba_tpu_torch/csrc/expand.cu"
+    mlp, mlp_bwd = "tramba_tpu_torch/csrc/mlp.cu", "tramba_tpu_torch/csrc/mlp_bwd.cu"
     sources = {"ss2d_scan": (ss2d, "tramba_tpu/ops/fused_ss2d.py:1505"),
                "ss2d_merge": (ss2d, "tramba_tpu/ops/fused_ss2d.py:1561"),
                "expand_ln": (expand, "tramba_tpu/ops/fused_expand.py:59"),
                "final_head": (expand, "tramba_tpu/ops/fused_expand.py:165"),
                "prologue": ("tramba_tpu_torch/csrc/prologue.cu",
                             "tramba_tpu/ops/fused_prologue.py:94"),
-               "ln_mlp": ("tramba_tpu_torch/csrc/mlp.cu", "tramba_tpu/ops/fused_mlp.py:130"),
-               "ln_dwms_mlp": ("tramba_tpu_torch/csrc/mlp.cu", "tramba_tpu/ops/fused_mlp.py:360")}
-    # in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13); in
-    # training K1 is #1's emit-carries variant, K2 #10's emit_ysum, K8 stands
-    # for #4 (_dirs_bwd_call) and #5 (_seq_bwd_pallas, fused_ss2d.py:747)
+               "ln_mlp": (mlp, "tramba_tpu/ops/fused_mlp.py:130"),
+               "ln_dwms_mlp": (mlp, "tramba_tpu/ops/fused_mlp.py:360"),
+               "ss2d_scan_bwd": ("tramba_tpu_torch/csrc/ss2d_bwd.cu",
+                                 "tramba_tpu/ops/fused_ss2d.py:638"),
+               "ln_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:233"),
+               "ln_dwms_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:674")}
+    # in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13), and
+    # their bf16 train variants for its emit_train; in fp32 training K1 is #1's
+    # emit-carries variant, K2 #10's emit_ysum; K8 stands for #4
+    # (_dirs_bwd_call) and #5 (_seq_bwd_pallas, fused_ss2d.py:747)
     replaced = {("ss2d_scan", "bf16"): "tramba_tpu/ops/fused_ss2d_small.py:233",
                 ("ss2d_merge", "bf16"): "tramba_tpu/ops/fused_ss2d_small.py:233",
                 ("ss2d_scan", "fp32 train"): "tramba_tpu/ops/fused_ss2d.py:101",
                 ("ss2d_merge", "fp32 train"): "tramba_tpu/ops/fused_ss2d.py:1561",
-                ("ss2d_scan_bwd", "fp32 train"): "tramba_tpu/ops/fused_ss2d.py:638"}
-    sources["ss2d_scan_bwd"] = ("tramba_tpu_torch/csrc/ss2d_bwd.cu", None)
+                ("ss2d_scan", "bf16 train"): "tramba_tpu/ops/fused_ss2d_small.py:233",
+                ("ss2d_merge", "bf16 train"): "tramba_tpu/ops/fused_ss2d_small.py:233"}
     # the shape whose time the summary reports: the largest map of each kernel
     shown = {"ss2d_scan": "line 96px", "ss2d_merge": "line 96px", "ss2d_scan_bwd": "line 96px",
              "expand_ln": "f2 48px", "final_head": "96px", "prologue": "enc/dec LN 96px",
-             "ln_mlp": "96px", "ln_dwms_mlp": "96px"}
+             "ln_mlp": "96px", "ln_dwms_mlp": "96px", "ln_mlp_bwd": "96px",
+             "ln_dwms_mlp_bwd": "96px"}
     summary = []
     for (name, tag), rows in checks.rows.items():
-        label, _, ms, plain_ms = next(r for r in rows if r[0].startswith(shown[name]))
+        label, _, ms, plain_ms, bound_ms, bound_by = next(r for r in rows
+                                                          if r[0].startswith(shown[name]))
+        # no single PyTorch call computes any of these fused functions
         summary.append({"name": name, "dtype": tag, "route": "cuda",
                         "source": sources[name][0],
                         "replaces": replaced.get((name, tag), sources[name][1]),
                         "launches": launches[tag][name],
                         "max_abs_err": max(r[1] for r in rows), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                         "shape": label})
     print(json.dumps({"kernels": summary}))
     print(card)

@@ -1,4 +1,4 @@
-"""Kernels K1-K7 vs their plain versions on the card, at small ragged shapes.
+"""Kernels K1-K10 vs their plain versions on the card, at small ragged shapes.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda``, needs a
 CUDA device and skips without one.  Run on the card with
@@ -7,7 +7,10 @@ CUDA device and skips without one.  Run on the card with
 use).  Tolerance for fp32 outputs rtol 1e-4, atol 1e-4: the kernels sum in
 another order than the plain versions and use CUDA's expf/log1pf/erff.  For
 bf16 outputs rtol 1.6e-2 (torch's bf16 default) and atol 1e-2: the same
-rounding points, but another summation order may flip a rounding.
+rounding points, but another summation order may flip a rounding.  The bf16
+adjoints (K9, K10, bf16 K8, and the bf16 train step's autograd) round dh or
+g_y to bf16 before long sums, so a flipped rounding moves a whole sum: each
+output's max abs error is held to 1e-2 x its largest magnitude.
 """
 
 import pytest
@@ -350,12 +353,125 @@ def test_expand_and_head_carry_gradients(dev):
             torch.testing.assert_close(a.cpu(), b, **TOL)
 
 
-def test_bf16_kernels_refuse_autograd(dev):
-    """K5-K7 have no backward yet: under autograd they raise instead of
-    returning an output detached from their inputs."""
-    gen = torch.Generator().manual_seed(13)
-    x = _rand(gen, 1, 4, 4, 16).to(dev, torch.bfloat16).requires_grad_(True)
-    w_in = _bf(_rand(gen, 32, 16, scale=0.25), dev)
-    k = _bf(_rand(gen, 32, 1, 3, 3, scale=0.3), dev)
-    with pytest.raises(RuntimeError, match="bf16 training"):
-        tp.prologue(x, None, None, w_in, k)
+# ---- bf16 training: K9, K10, bf16 K1 / K2 / K8, autograd through K5-K7 ------
+
+BF16_BWD_REL = 1e-2
+
+
+def _bf16_bwd_close(got, want, name):
+    got, want = got.detach().cpu().float(), want.detach().float()
+    assert got.shape == want.shape, name
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert err <= BF16_BWD_REL * scale, f"{name}: max abs error {err} > {BF16_BWD_REL} x {scale}"
+
+
+def _dwms_args(gen, d, hid):
+    ln = [_rand(gen, d, scale=0.1, shift=1.0), _rand(gen, d, scale=0.1)]
+    w1, b1, w2, b2 = (t.cpu() for t in _mlp_params(gen, d, hid, "cpu"))
+    convs = []
+    for n in (3, 5, 7):
+        convs += [_rand(gen, hid, 1, n, n, scale=0.2), _rand(gen, hid, scale=0.1)]
+    return ln, [w1.float(), b1], convs, [w2.float(), b2]
+
+
+@pytest.mark.parametrize("B,L,d,hid", [(2, 37, 48, 80), (1, 40, 1024, 4096), (3, 700, 128, 512)])
+def test_ln_mlp_bwd_matches_plain(dev, B, L, d, hid):
+    """K9 vs ln_mlp_bwd_ref: ragged row blocks, the 12 px encoder MLP."""
+    gen = torch.Generator().manual_seed(d + 1)
+    x, g = _rand(gen, B, L, d).to(torch.bfloat16), _rand(gen, B, L, d).to(torch.bfloat16)
+    ln, (w1, b1), _, (w2, _) = _dwms_args(gen, d, hid)
+    args = (*ln, w1, b1, w2)
+    want = tm.ln_mlp_bwd_ref(x, g, *args)
+    n = tm.ln_mlp_bwd.launches
+    got = tm.ln_mlp_bwd(x.to(dev), g.to(dev), *(t.to(dev) for t in args))
+    torch.cuda.synchronize()
+    assert tm.ln_mlp_bwd.launches == n + 1 and got[0].dtype == torch.bfloat16
+    for name, a, b in zip(("dx", "d_ln_w", "d_ln_b", "dw1", "db1", "dw2", "db2"), got, want):
+        _bf16_bwd_close(a, b, name)
+
+
+@pytest.mark.parametrize("B,H,W,d,hid", [(2, 11, 13, 48, 80), (1, 9, 9, 512, 2048),
+                                         (1, 16, 16, 128, 512)])
+def test_ln_dwms_mlp_bwd_matches_plain(dev, B, H, W, d, hid):
+    """K10 vs ln_dwms_mlp_bwd_ref, including the 3 tap gradients."""
+    gen = torch.Generator().manual_seed(d + H + 1)
+    x, g = _rand(gen, B, H, W, d).to(torch.bfloat16), _rand(gen, B, H, W, d).to(torch.bfloat16)
+    ln, fc1, convs, (w2, _) = _dwms_args(gen, d, hid)
+    args = (*ln, *fc1, *convs, w2)
+    want = tm.ln_dwms_mlp_bwd_ref(x, g, *args)
+    n = tm.ln_dwms_mlp_bwd.launches
+    got = tm.ln_dwms_mlp_bwd(x.to(dev), g.to(dev), *(t.to(dev) for t in args))
+    torch.cuda.synchronize()
+    assert tm.ln_dwms_mlp_bwd.launches == n + 1 and got[0].dtype == torch.bfloat16
+    names = ("dx", "d_ln_w", "d_ln_b", "dw1", "db1", "dk3", "dc3", "dk5", "dc5", "dk7", "dc7",
+             "dw2", "db2")
+    for name, a, b in zip(names, got, want):
+        _bf16_bwd_close(a, b, name)
+
+
+@pytest.mark.parametrize("kind,K,H,param,D,R", TRAIN_SHAPES)
+def test_bf16_train_variants_and_scan_bwd_match_plain(dev, kind, K, H, param, D, R):
+    """#13's emit_train in bf16: K1 on a bf16 x with carries and dbc, K2 with
+    a bf16 w_out and a bf16 pre-LN sum, K8 on bf16 x and g_y."""
+    gen = torch.Generator().manual_seed(D + H + 2)
+    x, p, core, idx, inv = _core_inputs(gen, kind, K, H, param, D, R)
+    x = x.to(torch.bfloat16)
+    chunk = tf.scan_chunk()
+    want = tf.ss2d_scan_train_ref(x, idx, *core, chunk)
+    idx_d, inv_d = order_tables(kind, H, H, param, dev)
+    got = tf.ss2d_scan(x.to(dev), idx_d, *[c.to(dev) for c in core], emit=True)
+    tail = (p["ln_w"], p["ln_b"], p["w_out"].to(torch.bfloat16))
+    want_m = tf.ss2d_merge_train_ref(want[0], inv, *tail)
+    got_m = tf.ss2d_merge(want[0].to(dev), inv_d, *(t.to(dev) for t in tail), emit_ysum=True)
+    g_y = _rand(gen, *x.shape).to(torch.bfloat16)
+    want_b = tf.ss2d_scan_bwd_ref(x, idx, inv, g_y, *want[1:], *core, chunk)
+    n = tf.ss2d_scan_bwd.launches
+    got_b = tf.ss2d_scan_bwd(x.to(dev), idx_d, inv_d, g_y.to(dev),
+                             *(t.to(dev) for t in (*want[1:], *core)))
+    torch.cuda.synchronize()
+    assert tf.ss2d_scan_bwd.launches == n + 1
+    assert got_m[1].dtype == got_b[0].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, **TOL)
+    for g, w in zip(got_m, want_m):
+        torch.testing.assert_close(g.cpu().float(), w.float(), **TOL_BF16)
+    for name, g, w in zip(("dx", "dwx", "dwdt", "dbias", "dA_logs", "dDs"), got_b, want_b):
+        _bf16_bwd_close(g, w, name)
+
+
+def test_bf16_kernels_carry_gradients(dev):
+    """K5 (Prologue), K6/K9 (LnMlp), K7/K10 (LnDwmsMlp) and bf16 SS2DCore
+    under autograd on the card: the outputs keep a grad_fn, each backward
+    kernel launches once, and every input's gradient matches the plain
+    adjoint on the CPU (K5's backward is the plain version's VJP)."""
+    gen = torch.Generator().manual_seed(17)
+    bf = torch.bfloat16
+    x = _rand(gen, 2, 9, 11, 48).to(bf)
+    ln, fc1, convs, fc2 = _dwms_args(gen, 48, 80)
+    g = _rand(gen, 2, 9, 11, 48).to(bf)
+    cases = [
+        (tm.ln_mlp, tm.ln_mlp_bwd, [x, *ln, *fc1, *fc2],
+         lambda a: tm.ln_mlp_bwd_ref(a[0], g, *a[1:6])),
+        (tm.ln_dwms_mlp, tm.ln_dwms_mlp_bwd, [x, *ln, *fc1, *convs, *fc2],
+         lambda a: tm.ln_dwms_mlp_bwd_ref(a[0], g, *a[1:12]))]
+    for fn, bwd, args, plain_bwd in cases:
+        card = [a.to(dev).requires_grad_(True) for a in args]
+        n = bwd.launches
+        out = fn(*card)
+        assert out.grad_fn is not None and out.dtype == bf
+        got = torch.autograd.grad(out, card, g.to(dev))
+        assert bwd.launches == n + 1
+        want = plain_bwd(args)
+        for i, (a, b) in enumerate(zip(got, want)):
+            _bf16_bwd_close(a, b, f"{fn.__name__} input {i}")
+        _bf16_bwd_close(got[-1], g.float().sum((0, 1, 2)), f"{fn.__name__} db2")
+    w_in, k = _rand(gen, 96, 48, scale=0.15), _rand(gen, 96, 1, 3, 3, scale=0.3)
+    cpu = [a.clone().requires_grad_(True) for a in (x, *ln, w_in, k)]
+    card = [a.to(dev).requires_grad_(True) for a in (x, *ln, w_in, k)]
+    out = tp.prologue(*card)
+    gu = _rand(gen, *out.shape).to(bf)
+    got = torch.autograd.grad(out, card, gu.to(dev))
+    want = torch.autograd.grad(tp.prologue_ref(*cpu), cpu, gu)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _bf16_bwd_close(a, b, f"prologue input {i}")

@@ -38,6 +38,18 @@ from tramba_tpu_torch.train import optim as toptim
 from tramba_tpu_torch.train.loop import init_model
 from tramba_tpu_torch.train.step import eval_step, train_step
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The models here are tiny, so their ops are small: on one thread they
+    run as fast, and they do not stall when pytest's worker processes put more
+    torch threads on the machine than it has cores (OpenMP barriers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TINY = dict(dims=16, enc_depths=(1, 1, 1, 1), dec_depths=(1, 1, 1, 1))
 IMG = 64
 

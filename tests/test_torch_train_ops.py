@@ -204,9 +204,21 @@ def test_linear_scan_grads_match_float64_oracle(L):
 
 
 def test_bf16_training_raises():
+    """bf16 training is ported, so SS2DCore no longer refuses it (its bf16
+    adjoint is held to JAX in test_torch_bf16_train_ops.py); what still
+    raises is a compute dtype the port does not run: float16, at the model
+    and at the training CLI."""
+    from tramba_tpu_torch import run
+    from tramba_tpu_torch.models.registry import build
+
     p = _inputs("raster", 4, 3, seed=4)
     idx, inv = order_tables("raster", 3, 3, 0, "cpu")
     x = _t(p["x"]).to(torch.bfloat16).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        tf.SS2DCore.apply(x, idx, inv, *_core(p), _t(p["scale"]), _t(p["lb"]),
-                          _t(p["w_out"].T.copy()))
+    out = tf.SS2DCore.apply(x, idx, inv, *_core(p), _t(p["scale"]), _t(p["lb"]),
+                            _t(p["w_out"].T.copy()))
+    (dx,) = torch.autograd.grad(out.float().sum(), x)
+    assert out.dtype == dx.dtype == torch.bfloat16 and torch.isfinite(dx.float()).all()
+    with pytest.raises(ValueError, match="not supported"):
+        build("Tramba-V-TSOD", 64, dtype=torch.float16, dims=16)
+    with pytest.raises(SystemExit):
+        run.main(["--method", "Tramba-V-TSOD", "--dtype", "float16"], device="cpu")

@@ -1,5 +1,5 @@
 // K1 ss2d_scan and K2 ss2d_merge: the SS2D core of the forward, fp32 and
-// bf16, each with a train variant (fp32) that emits what the backward needs.
+// bf16, each with a train variant that emits what the backward needs.
 //
 // K1 replaces the scan halves of the TPU kernels in tramba_tpu/ops/fused_ss2d.py:
 // _fused_pallas (:101), _line_pair_pallas (:873), _pair_phase1 (:1505),
@@ -16,8 +16,11 @@
 //
 // Train variants: K1 also writes the chunk-entry carries of _fused_pallas
 // (:101, emit_carries=True) and the pair kernels' carries (#8) as training
-// uses them; K2 also writes the pre-LN sum (#10 emit_ysum=True).  Training
-// never needs ys once K2 has read it.
+// uses them; K2 also writes the pre-LN sum (#10 emit_ysum=True), in the
+// compute dtype as the TPU routes save it (fused_ss2d_small.py:269, #13's
+// emit_train; fused_ss2d.py:464).  Training never needs ys once K2 has read
+// it.  In bf16 the train variants are K1<bf16, carries> and K2<bf16, y_sum>,
+// instantiations of their own beside the inference ones.
 //
 // What bounds them on an H100: K1's scan is a chain of L dependent steps per
 // channel, so it is latency-bound and has only B*K*D/32 blocks of one warp;
@@ -220,13 +223,14 @@ int scan_launch(const T* x, const int* idx, const float* wx, const float* wdt,
 // value L means none), then LayerNorm (eps 1e-5), exact GELU, rounding to TW,
 // and out[b, l, :] = y @ w_out^T with w_out (dm, D) of TW; out is TW.
 // Train variant (kYsum, #10's emit_ysum; a separate instantiation, as K1's):
-// also writes the pre-LN sum y (B, L, D) fp32, over which the backward
+// also writes the pre-LN sum y (B, L, D) in TW (rounded to bf16 in bf16; the
+// LayerNorm still reads the fp32 sum), over which the backward
 // differentiates the LayerNorm, GELU and out projection.
 template <int P, typename TW, bool kYsum>
 __global__ void ss2d_merge_kernel(const float* __restrict__ ys, const int* __restrict__ inv,
                                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                                   const TW* __restrict__ w_out, TW* __restrict__ out,
-                                  float* __restrict__ y_sum, int K, int Mslots, int L, int D,
+                                  TW* __restrict__ y_sum, int K, int Mslots, int L, int D,
                                   int dm) {
   extern __shared__ float4 smem4[];
   float* rows = reinterpret_cast<float*>(smem4);  // [P][D]
@@ -252,8 +256,8 @@ __global__ void ss2d_merge_kernel(const float* __restrict__ ys, const int* __res
     }
     __syncwarp();
     if (kYsum) {
-      float* dst = y_sum + ((long)b * L + l) * D;
-      for (int i = lane; i < D; i += 32) dst[i] = row[i];
+      TW* dst = y_sum + ((long)b * L + l) * D;
+      for (int i = lane; i < D; i += 32) dst[i] = from_f32<TW>(row[i]);
     }
     float mean, rstd;
     warp_row_stats(row, D, 1e-5f, &mean, &rstd);
@@ -273,7 +277,7 @@ __global__ void ss2d_merge_kernel(const float* __restrict__ ys, const int* __res
 
 template <typename TW>
 int merge_launch(const float* ys, const int* inv, const float* ln_w, const float* ln_b,
-                 const TW* w_out, TW* out, float* y_sum, int B, int K, int Mslots, int L, int D,
+                 const TW* w_out, TW* out, TW* y_sum, int B, int K, int Mslots, int L, int D,
                  int dm, cudaStream_t s) {
   const int P = rows_per_block((long)B * L, D, kRowBudget);
   const size_t smem = (size_t)P * D * 4;
@@ -316,18 +320,20 @@ int ss2d_scan_launch(const void* x, const int* idx, const float* wx, const float
 }
 
 // K2.  ys (B, K, L, D) fp32; inv (K, Mslots, L) int32; ln_w, ln_b (D) fp32;
-// w_out (dm, D) and out (B, L, dm) both fp32 (bf16 = 0) or both bf16
-// (bf16 = 1); y_sum (B, L, D) fp32 or null (inference).  D % 4 == 0 (fp32)
-// or D % 8 == 0 (bf16).
+// w_out (dm, D), out (B, L, dm) and y_sum (B, L, D) all fp32 (bf16 = 0) or
+// all bf16 (bf16 = 1); y_sum null for inference.  D % 4 == 0 (fp32) or
+// D % 8 == 0 (bf16).
 int ss2d_merge_launch(const float* ys, const int* inv, const float* ln_w, const float* ln_b,
-                      const void* w_out, void* out, float* y_sum, int B, int K, int Mslots, int L,
+                      const void* w_out, void* out, void* y_sum, int B, int K, int Mslots, int L,
                       int D, int dm, int bf16_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_out)
     return merge_launch(ys, inv, ln_w, ln_b, static_cast<const bf16*>(w_out),
-                        static_cast<bf16*>(out), y_sum, B, K, Mslots, L, D, dm, s);
+                        static_cast<bf16*>(out), static_cast<bf16*>(y_sum), B, K, Mslots, L, D,
+                        dm, s);
   return merge_launch(ys, inv, ln_w, ln_b, static_cast<const float*>(w_out),
-                      static_cast<float*>(out), y_sum, B, K, Mslots, L, D, dm, s);
+                      static_cast<float*>(out), static_cast<float*>(y_sum), B, K, Mslots, L, D,
+                      dm, s);
 }
 
 }  // extern "C"

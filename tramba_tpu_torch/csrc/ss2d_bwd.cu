@@ -1,4 +1,4 @@
-// K8 ss2d_scan_bwd: the adjoint of K1 for every scan order, fp32.
+// K8 ss2d_scan_bwd: the adjoint of K1 for every scan order, fp32 or bf16.
 //
 // Replaces the backward Pallas kernels of tramba_tpu/ops/fused_ss2d.py:
 // _dirs_bwd_call (:638, via _rows_bwd_pallas :689 and _cols_bwd_pallas :698,
@@ -38,6 +38,13 @@
 //      one slice of 128 channels;
 //  (e) the partials summed in a fixed order (one launch per weight).
 //
+// bf16 (the backward of #13's emit_train route, fused_ss2d_small.py:393-469,
+// and of _full_bwd / _freq_bwd in bf16): x (K5's post-SiLU u) and g_y (the
+// LN adjoint's cotangent, in y_sum's dtype) are bf16, staged two channels a
+// lane as K1 stages a bf16 x, and dx is written in bf16; everything else is
+// fp32 as in the fp32 variant.  The bf16 launches are instantiations of
+// their own (T = bf16) beside the fp32 ones.
+//
 // What bounds it on an H100: (a) is the same chain of L dependent steps per
 // channel as K1 and is latency-bound on few blocks; (b)-(d) are small SIMT
 // reductions and products.  Plain SIMT, no tensor cores: correct first.
@@ -75,10 +82,35 @@ __device__ __forceinline__ void stage_bwd(float* u_s, float* g_s, float* dbc_s, 
   __pipeline_commit();
 }
 
+// The same for bf16 u and g: a pair of channels per lane, two steps per
+// copy (lanes 0-15 and 16-31), as K1's bf16 stage_u.
+__device__ __forceinline__ void stage_bwd(bf16* u_s, bf16* g_s, float* dbc_s, const bf16* x_b,
+                                          const bf16* g_b, const float* dbc_b, int pix0,
+                                          int pix1, int n, int D, int d0, int K, int k, int C) {
+  const int lane = threadIdx.x, half = lane >> 4, c2 = 2 * (lane & 15);
+#pragma unroll 4
+  for (int t2 = 0; t2 < kT; t2 += 2) {
+    const int t = t2 + half;  // t2 even: t and t2 lie on one side of 32
+    const int pix = __shfl_sync(0xffffffffu, t2 < 32 ? pix0 : pix1, t & 31);
+    if (t < n) {
+      const long off = (long)pix * D + d0 + c2;
+      __pipeline_memcpy_async(u_s + t * 32 + c2, x_b + off, 4);
+      __pipeline_memcpy_async(g_s + t * 32 + c2, g_b + off, 4);
+    }
+  }
+  for (int i = lane; i < kT * C; i += 32) {
+    const int t = i / C, c = i - t * C;
+    const int p0 = __shfl_sync(0xffffffffu, pix0, t & 31);
+    const int p1 = __shfl_sync(0xffffffffu, pix1, t & 31);
+    if (t < n) __pipeline_memcpy_async(dbc_s + i, dbc_b + ((long)(t < 32 ? p0 : p1) * K + k) * C + c, 4);
+  }
+  __pipeline_commit();
+}
+
 // (a) One warp per (32 channels, direction k, batch b).
-template <int RMAX>
-__global__ void bwd_scan_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                                const float* __restrict__ gy, const float* __restrict__ dbc,
+template <int RMAX, typename T>
+__global__ void bwd_scan_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+                                const T* __restrict__ gy, const float* __restrict__ dbc,
                                 const float* __restrict__ carries, const float* __restrict__ wdt,
                                 const float* __restrict__ dt_bias,
                                 const float* __restrict__ A_logs, const float* __restrict__ Ds,
@@ -87,9 +119,9 @@ __global__ void bwd_scan_kernel(const float* __restrict__ x, const int* __restri
                                 float* __restrict__ sums, int B, int L, int D, int K, int R) {
   extern __shared__ float4 smem4[];
   const int C = R + 2;
-  float* u_s = reinterpret_cast<float*>(smem4);  // [2][T][32]
-  float* g_s = u_s + 2 * kT * 32;                // [2][T][32]
-  float* h_s = g_s + 2 * kT * 32;                // [T][32] recomputed h_t
+  T* u_s = reinterpret_cast<T*>(smem4);                  // [2][T][32]
+  T* g_s = u_s + 2 * kT * 32;                            // [2][T][32]
+  float* h_s = reinterpret_cast<float*>(g_s + 2 * kT * 32);  // [T][32] recomputed h_t
   float* v_s = h_s + kT * 32;                    // [T][32] dt before the softplus
   float* dbc_s = v_s + kT * 32;                  // [2][T][C]
   const int lane = threadIdx.x;
@@ -105,8 +137,8 @@ __global__ void bwd_scan_kernel(const float* __restrict__ x, const int* __restri
   const float A = -expf(A_logs[k * D + d]);
   const float Dd = Ds[k * D + d];
   const int* idx_k = idx + (long)k * L;
-  const float* x_b = x + (long)b * L * D;
-  const float* g_b = gy + (long)b * L * D;
+  const T* x_b = x + (long)b * L * D;
+  const T* g_b = gy + (long)b * L * D;
   const float* dbc_b = dbc + (long)b * L * K * C;
   const long bk = (long)b * K + k;
   const int n_chunks = (L + kT - 1) / kT;
@@ -133,8 +165,8 @@ __global__ void bwd_scan_kernel(const float* __restrict__ x, const int* __restri
       __pipeline_wait_prior(0);
     }
     __syncwarp();
-    const float* us = u_s + buf * kT * 32;
-    const float* gs = g_s + buf * kT * 32;
+    const T* us = u_s + buf * kT * 32;
+    const T* gs = g_s + buf * kT * 32;
     const float* ds = dbc_s + buf * kT * C;
     // recompute the chunk's states from the carry K1 emitted
     const float h_in = carry_bk[(long)c * D + d];
@@ -146,7 +178,7 @@ __global__ void bwd_scan_kernel(const float* __restrict__ x, const int* __restri
       for (int r = 0; r < RMAX; ++r)
         if (r < R) v = fmaf(db[r], w[r], v);
       const float delta = softplus(v);
-      h = fmaf(expf(delta * A), h, delta * db[R] * us[t * 32 + lane]);
+      h = fmaf(expf(delta * A), h, delta * db[R] * to_f32(us[t * 32 + lane]));
       h_s[t * 32 + lane] = h;
       v_s[t * 32 + lane] = v;
     }
@@ -157,8 +189,8 @@ __global__ void bwd_scan_kernel(const float* __restrict__ x, const int* __restri
       const float delta = softplus(v);
       const float a = expf(delta * A);
       const float sig = 1.f / (1.f + expf(-v));
-      const float u = us[t * 32 + lane];
-      const float g = gs[t * 32 + lane];
+      const float u = to_f32(us[t * 32 + lane]);
+      const float g = to_f32(gs[t * 32 + lane]);
       const float h_prev = t > 0 ? h_s[(t - 1) * 32 + lane] : h_in;
       lam = fmaf(a_next, lam, g * db[R + 1]);
       a_next = a;
@@ -232,10 +264,11 @@ __global__ void bwd_dbc_kernel(const float* __restrict__ ddt, const float* __res
 
 // (c) dx[b, l, :] = sum over k and slots m of
 //   dxs[b, k, t, :] + sum_c d_dbc[b, k, t, c] * wx[k, c, :],  t = inv[k, m, l]
-// (slot value L = none); one warp per pixel.
+// (slot value L = none); one warp per pixel; dx in T.
+template <typename T>
 __global__ void bwd_dx_kernel(const float* __restrict__ dxs, const float* __restrict__ d_dbc,
                               const int* __restrict__ inv, const float* __restrict__ wx,
-                              float* __restrict__ dx, long pixels, int K, int Mslots, int L,
+                              T* __restrict__ dx, long pixels, int K, int Mslots, int L,
                               int D, int C) {
   const int lane = threadIdx.x & 31;
   const long pixel = (long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -256,7 +289,7 @@ __global__ void bwd_dx_kernel(const float* __restrict__ dxs, const float* __rest
         for (int c = 0; c < C; ++c) acc = fmaf(dd[c], wk[(long)c * D], acc);
       }
     }
-    dx[pixel * D + d] = acc;
+    dx[pixel * D + d] = from_f32<T>(acc);
   }
 }
 
@@ -267,8 +300,8 @@ constexpr int kWThreads = 128;  // channels per weight-gradient block
 // direction k, for channels d of this block:
 //   pwx[chunk, k, c, d]  = sum_q d_dbc[b, k, t, c] * x[b, idx[k, t], d]
 //   pwdt[chunk, k, d, r] = sum_q ddt[b, k, t, d] * dbc[b, idx[k, t], k, r]
-template <int RMAX>
-__global__ void bwd_wgrad_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+template <int RMAX, typename T>
+__global__ void bwd_wgrad_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                                  const float* __restrict__ dbc, const float* __restrict__ ddt,
                                  const float* __restrict__ d_dbc, float* __restrict__ pwx,
                                  float* __restrict__ pwdt, int B, int L, int D, int K, int R) {
@@ -308,7 +341,7 @@ __global__ void bwd_wgrad_kernel(const float* __restrict__ x, const int* __restr
   for (int j = 0; j < n; ++j) {
     const long q = q0 + j;
     const long b = q / L;
-    const float u = x[(long)sp[j] * D + d];
+    const float u = to_f32(x[(long)sp[j] * D + d]);
     const float g = ddt[((b * K + k) * L + (q - b * L)) * D + d];
 #pragma unroll
     for (int c = 0; c < RMAX + 2; ++c)
@@ -337,18 +370,18 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, int n, long M,
   out[i] = s;
 }
 
-template <int RMAX>
-int bwd_launch(const float* x, const int* idx, const int* inv, const float* gy,
+template <int RMAX, typename T>
+int bwd_launch(const T* x, const int* idx, const int* inv, const T* gy,
                const float* carries, const float* dbc, const float* wx, const float* wdt,
-               const float* dt_bias, const float* A_logs, const float* Ds, float* dx, float* dwx,
+               const float* dt_bias, const float* A_logs, const float* Ds, T* dx, float* dwx,
                float* dwdt, float* sums, float* dxs, float* ddt, float* dBp, float* dCp,
                float* d_dbc, float* pwx, float* pwdt, int B, int L, int D, int K, int R,
                int Mslots, cudaStream_t s) {
   const int C = R + 2;
-  const size_t smem = (size_t)(6 * kT * 32 + 2 * kT * C) * 4;
-  cudaError_t e = allow_smem(bwd_scan_kernel<RMAX>, smem);
+  const size_t smem = (size_t)4 * kT * 32 * sizeof(T) + (size_t)(2 * kT * 32 + 2 * kT * C) * 4;
+  cudaError_t e = allow_smem(bwd_scan_kernel<RMAX, T>, smem);
   if (e != cudaSuccess) return (int)e;
-  bwd_scan_kernel<RMAX><<<dim3(D / 32, K, B), 32, smem, s>>>(
+  bwd_scan_kernel<RMAX, T><<<dim3(D / 32, K, B), 32, smem, s>>>(
       x, idx, gy, dbc, carries, wdt, dt_bias, A_logs, Ds, dxs, ddt, dBp, dCp, sums, B, L, D, K, R);
   TRAMBA_CHECK_LAUNCH();
   const long rows = (long)B * K * L;
@@ -356,11 +389,11 @@ int bwd_launch(const float* x, const int* idx, const int* inv, const float* gy,
                                                                  L, D, K, R);
   TRAMBA_CHECK_LAUNCH();
   const long pixels = (long)B * L;
-  bwd_dx_kernel<<<(unsigned)((pixels + 7) / 8), 256, 0, s>>>(dxs, d_dbc, inv, wx, dx, pixels, K,
-                                                             Mslots, L, D, C);
+  bwd_dx_kernel<T><<<(unsigned)((pixels + 7) / 8), 256, 0, s>>>(dxs, d_dbc, inv, wx, dx, pixels,
+                                                                K, Mslots, L, D, C);
   TRAMBA_CHECK_LAUNCH();
   const int chunks = (int)((pixels + kWRows - 1) / kWRows);
-  bwd_wgrad_kernel<RMAX><<<dim3(chunks, K, (D + kWThreads - 1) / kWThreads), kWThreads, 0, s>>>(
+  bwd_wgrad_kernel<RMAX, T><<<dim3(chunks, K, (D + kWThreads - 1) / kWThreads), kWThreads, 0, s>>>(
       x, idx, dbc, ddt, d_dbc, pwx, pwdt, B, L, D, K, R);
   TRAMBA_CHECK_LAUNCH();
   const long mx = (long)K * C * D, mt = (long)K * D * R;
@@ -379,31 +412,40 @@ extern "C" {
 // ceil(B * L / rows) partials.
 int ss2d_scan_bwd_rows() { return kWRows; }
 
-// K8.  All fp32.  Inputs: x (B, L, D); idx (K, L) and inv (K, Mslots, L)
-// int32; gy (B, L, D) the cotangent of K2's pre-LN sum; carries
+// K8.  x (B, L, D), gy (B, L, D) the cotangent of K2's pre-LN sum, and the
+// output dx (B, L, D) all fp32 (bf16 = 0) or all bf16 (bf16 = 1); the rest
+// fp32.  Inputs: idx (K, L) and inv (K, Mslots, L) int32; carries
 // (B, K, ceil(L / ss2d_scan_chunk()), D) and dbc (B, L, K, R+2) from K1's
 // train variant;
 // wx (K, R+2, D); wdt (K, D, R); dt_bias, A_logs, Ds (K, D).
-// Outputs: dx (B, L, D); dwx (K, R+2, D); dwdt (K, D, R); sums (3, B, K, D),
+// Outputs: dx; dwx (K, R+2, D); dwdt (K, D, R); sums (3, B, K, D),
 // the per-image sums of dbias, dA and dDs.
 // Scratch: dxs, ddt (B, K, L, D); dBp, dCp (B, K, L, D/32); d_dbc
 // (B, K, L, R+2); pwx (chunks, K, R+2, D); pwdt (chunks, K, D, R) with
 // chunks = ceil(B * L / ss2d_scan_bwd_rows()).  D % 32 == 0, R <= 64.
-int ss2d_scan_bwd_launch(const float* x, const int* idx, const int* inv, const float* gy,
+int ss2d_scan_bwd_launch(const void* x, const int* idx, const int* inv, const void* gy,
                          const float* carries, const float* dbc, const float* wx,
                          const float* wdt, const float* dt_bias, const float* A_logs,
-                         const float* Ds, float* dx, float* dwx, float* dwdt, float* sums,
+                         const float* Ds, void* dx, float* dwx, float* dwdt, float* sums,
                          float* dxs, float* ddt, float* dBp, float* dCp, float* d_dbc, float* pwx,
-                         float* pwdt, int B, int L, int D, int K, int R, int Mslots,
+                         float* pwdt, int B, int L, int D, int K, int R, int Mslots, int bf16_x,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TRAMBA_BWD(RM)                                                                      \
-  bwd_launch<RM>(x, idx, inv, gy, carries, dbc, wx, wdt, dt_bias, A_logs, Ds, dx, dwx, dwdt, \
-                 sums, dxs, ddt, dBp, dCp, d_dbc, pwx, pwdt, B, L, D, K, R, Mslots, s)
-  if (R <= 8) return TRAMBA_BWD(8);
-  if (R <= 16) return TRAMBA_BWD(16);
-  if (R <= 32) return TRAMBA_BWD(32);
-  if (R <= 64) return TRAMBA_BWD(64);
+#define TRAMBA_BWD(RM, T)                                                                   \
+  bwd_launch<RM, T>(static_cast<const T*>(x), idx, inv, static_cast<const T*>(gy), carries,  \
+                    dbc, wx, wdt, dt_bias, A_logs, Ds, static_cast<T*>(dx), dwx, dwdt, sums, \
+                    dxs, ddt, dBp, dCp, d_dbc, pwx, pwdt, B, L, D, K, R, Mslots, s)
+#define TRAMBA_BWD_R(T)                     \
+  if (R <= 8) return TRAMBA_BWD(8, T);      \
+  if (R <= 16) return TRAMBA_BWD(16, T);    \
+  if (R <= 32) return TRAMBA_BWD(32, T);    \
+  if (R <= 64) return TRAMBA_BWD(64, T);
+  if (bf16_x) {
+    TRAMBA_BWD_R(bf16)
+  } else {
+    TRAMBA_BWD_R(float)
+  }
+#undef TRAMBA_BWD_R
 #undef TRAMBA_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -7,9 +7,11 @@ state dicts load as they are.  ``DropPath`` (stochastic depth) is active in
 
 Compute dtype: parameters stay fp32 whatever the model's dtype, as flax
 keeps them; a module running in bf16 casts each matmul or conv weight at its
-use (flax's ``w.astype(dtype)``), and LayerNorm computes in fp32 and returns
-the input's dtype.  The FFNs take a ``dtype`` and in bf16 run kernels K6
-(``Mlp``) and K7 (``DWMSMlp``) with the block's pre-norm fused in.
+use (flax's ``w.astype(dtype)``; the kernels' wrappers cast the fp32
+parameters they are handed), and LayerNorm computes in fp32 and returns the
+input's dtype.  The FFNs take a ``dtype`` and in bf16 run kernels K6
+(``Mlp``) and K7 (``DWMSMlp``) with the block's pre-norm fused in, and
+under autograd their backwards K9 and K10.
 """
 
 from __future__ import annotations
@@ -115,9 +117,8 @@ class Mlp(nn.Module):
 
     def forward(self, x, norm: nn.LayerNorm):
         if self.dtype == torch.bfloat16:
-            cd = self.dtype
-            return fused_mlp.ln_mlp(x, norm.weight, norm.bias, self.fc1.weight.to(cd),
-                                    self.fc1.bias, self.fc2.weight.to(cd), self.fc2.bias)
+            return fused_mlp.ln_mlp(x, norm.weight, norm.bias, self.fc1.weight, self.fc1.bias,
+                                    self.fc2.weight, self.fc2.bias)
         return self.fc2(F.gelu(self.fc1(norm(x))))
 
 
@@ -148,12 +149,10 @@ class DWMSMlp(nn.Module):
 
     def forward(self, x, norm: nn.LayerNorm):
         if self.dtype == torch.bfloat16:
-            cd = self.dtype
             convs = [t for m in (self.dwc3, self.dwc5, self.dwc7)
-                     for t in (m.dw_conv.weight.to(cd), m.dw_conv.bias)]
-            return fused_mlp.ln_dwms_mlp(x, norm.weight, norm.bias, self.fc1.weight.to(cd),
-                                         self.fc1.bias, *convs, self.fc2.weight.to(cd),
-                                         self.fc2.bias)
+                     for t in (m.dw_conv.weight, m.dw_conv.bias)]
+            return fused_mlp.ln_dwms_mlp(x, norm.weight, norm.bias, self.fc1.weight,
+                                         self.fc1.bias, *convs, self.fc2.weight, self.fc2.bias)
         h = self.fc1(norm(x))
         h = h + self.dwc3(h) + self.dwc5(h) + self.dwc7(h)
         return self.fc2(F.gelu(h))

@@ -9,10 +9,13 @@ and out projection are kernel K2 (``ops/fused_ss2d.py``).  In front of them:
   torch, as JAX runs them outside Pallas in fp32;
 * bf16: kernel K5 ``prologue`` (``ops/fused_prologue.py``) runs them, as
   ``_prologue_pallas`` and the front of ``_small_pallas`` do on a TPU, and
-  K1 reads its bf16 output; K2 returns bf16.
+  K1 reads its bf16 output; K2 returns bf16.  Under autograd the same
+  kernels run with their backwards (K5's recomputed VJP, K8).
 
 Parameters stay fp32 and keep the reference's stacked (K, ...) layout and
-names (``Models/vmamba.py:87-112``).
+names (``Models/vmamba.py:87-112``); the kernels' wrappers take them as they
+are and cast to the compute dtype, so the gradients of the casts' inputs
+are fp32 where the TPU custom VJPs keep them fp32 (w_out).
 """
 
 from __future__ import annotations
@@ -73,12 +76,9 @@ class SS2D(nn.Module):
         """x (B, H, W, d_model).  ``ln``: the block's pre-norm (weight, bias),
         applied first when given."""
         B, H, W, _ = x.shape
-        w_out = self.out_proj.weight
         if self.dtype == torch.bfloat16:
             ln_w, ln_b = ln if ln is not None else (None, None)
-            x = fused_prologue.prologue(x, ln_w, ln_b, self.in_proj.weight.to(self.dtype),
-                                        self.conv2d.weight.to(self.dtype))
-            w_out = w_out.to(self.dtype)
+            x = fused_prologue.prologue(x, ln_w, ln_b, self.in_proj.weight, self.conv2d.weight)
         else:
             if ln is not None:
                 x = F.layer_norm(x, (self.d_model,), ln[0], ln[1], 1e-5)
@@ -87,5 +87,5 @@ class SS2D(nn.Module):
         y = ss2d_full(x.reshape(B, H * W, D).contiguous(), self.x_proj_weight,
                       self.dt_projs_weight, self.dt_projs_bias, self.A_logs.view(K, D, 1),
                       self.Ds.view(K, D), self.out_norm.weight, self.out_norm.bias,
-                      w_out, self.scan_kind, H, W, self.scan_param)
+                      self.out_proj.weight, self.scan_kind, H, W, self.scan_param)
         return y.reshape(B, H, W, self.d_model)

@@ -21,24 +21,25 @@ import tempfile
 
 import torch
 
-__all__ = ["on_card", "check_args", "needs_grad", "refuse_grad", "recompute_vjp", "F32", "BF16",
-           "F32_BF16", "library", "build", "launch", "stream_handle"]
+__all__ = ["on_card", "check_args", "needs_grad", "recompute_vjp", "F32", "BF16", "F32_BF16",
+           "library", "build", "launch", "stream_handle"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ss2d.cu", "ss2d_bwd.cu", "expand.cu", "prologue.cu", "mlp.cu")
+SOURCES = ("ss2d.cu", "ss2d_bwd.cu", "expand.cu", "prologue.cu", "mlp.cu", "mlp_bwd.cu")
 HEADERS = ("common.cuh",)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _IP = ctypes.POINTER(ctypes.c_int)
+_LP = ctypes.POINTER(ctypes.c_long)
 # C signature of each launcher: pointers, ints, then the stream
 _SIGNATURES = {
     "ss2d_scan_launch": [_P] * 10 + [_I] * 6 + [_P],
     "ss2d_merge_launch": [_P] * 7 + [_I] * 7 + [_P],
     "ss2d_scan_chunk": [],
     "ss2d_scan_bwd_rows": [],
-    "ss2d_scan_bwd_launch": [_P] * 22 + [_I] * 6 + [_P],
+    "ss2d_scan_bwd_launch": [_P] * 22 + [_I] * 7 + [_P],
     "expand_ln_launch": [_P] * 5 + [_I] * 6 + [_P],
     "final_head_launch": [_P] * 7 + [_L, _I, _I, _P],
     "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _P],
@@ -47,6 +48,9 @@ _SIGNATURES = {
     "ln_mlp_launch": [_P] * 7 + [_L, _I, _I, _I, _P],
     "ln_dwms_mlp_splits": [_I] * 5 + [_IP],
     "ln_dwms_mlp_launch": [_P] * 13 + [_I] * 6 + [_P],
+    "mlp_bwd_scratch": [_I] * 6 + [_LP],
+    "ln_mlp_bwd_launch": [_P] * 15 + [_I] * 3 + [_P],
+    "ln_dwms_mlp_bwd_launch": [_P] * 27 + [_I] * 5 + [_P],
 }
 
 # dtypes a kernel argument may take (see check_args)
@@ -82,21 +86,14 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """A kernel without a backward on the card raises under autograd instead
-    of returning an output that silently detaches its inputs."""
-    if needs_grad(*tensors):
-        raise RuntimeError(f"{name}: no backward on the card yet; bf16 training is its own "
-                           "slice (ROADMAP.md, next slices)")
-
-
 def recompute_vjp(fn, inputs, needs, grad_out):
     """The VJP of ``fn(*inputs)`` for ``grad_out``, by recomputing ``fn`` with
     autograd on detached inputs: the backward of a kernel whose TPU original
     differentiates its composed (XLA) version.  ``needs``: which inputs want
-    a gradient (``ctx.needs_input_grad``); the others get None."""
+    a gradient (``ctx.needs_input_grad``); the others get None, as do
+    inputs that are None."""
     with torch.enable_grad():
-        xs = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        xs = [None if t is None else t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
         out = fn(*xs)
         wrt = [t for t, n in zip(xs, needs) if n]
         grads = iter(torch.autograd.grad(out, wrt, grad_out) if wrt else ())

@@ -12,10 +12,13 @@ in-projection (bf16 weight) accumulates in fp32 and stays fp32, the 3x3 taps
 are rounded to bf16 and applied in fp32, and the SiLU output is rounded to
 bf16.  The conv pads the in-projection, so a pixel outside the image adds 0.
 The plain version rounds at the same points, in ``x``'s dtype.  The wrapper
-picks by device and counts launches in ``prologue.launches``; on the card a
-call under autograd raises (no backward yet: bf16 training is its own
-slice).  Weights are
-in torch layout: in_proj (D, dm), conv (D, 1, 3, 3).
+picks by device and counts launches in ``prologue.launches``.  Under autograd
+on the card it runs :class:`Prologue`: K5 forward, and as backward the VJP
+of the plain version by recomputation, as JAX differentiates
+``composed_prologue`` in XLA (``fused_prologue.py:154-156``, ``:172-176``,
+``fused_ss2d_small.py:440-456``).  Weights are in torch layout: in_proj
+(D, dm), conv (D, 1, 3, 3), cast to x's dtype at the call (the modules hand
+over the fp32 parameters).
 """
 
 from __future__ import annotations
@@ -24,10 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
-from tramba_tpu_torch.ops._native import BF16, check_args, on_card
+from tramba_tpu_torch.ops._native import BF16, check_args, needs_grad, on_card
 from tramba_tpu_torch.ops.fused_mlp import _linear, _ln_rounded, layer_norm_bf16
 
-__all__ = ["prologue", "prologue_ref"]
+__all__ = ["prologue", "prologue_ref", "Prologue"]
 
 
 def prologue_ref(x, ln_w, ln_b, w_in, conv_k):
@@ -42,10 +45,18 @@ def prologue_ref(x, ln_w, ln_b, w_in, conv_k):
 
 
 def prologue(x, ln_w, ln_b, w_in, conv_k):
-    """Kernel K5 on CUDA tensors, :func:`prologue_ref` on CPU tensors."""
+    """Kernel K5 on CUDA tensors (under autograd :class:`Prologue`),
+    :func:`prologue_ref` on CPU tensors."""
+    args = (x, ln_w, ln_b, w_in, conv_k)
     if not on_card(x):
-        return prologue_ref(x, ln_w, ln_b, w_in, conv_k)
-    _native.refuse_grad("prologue", x, ln_w, ln_b, w_in, conv_k)
+        return prologue_ref(*args)
+    if needs_grad(*args):
+        return Prologue.apply(*args)
+    return _prologue_launch(*args)
+
+
+def _prologue_launch(x, ln_w, ln_b, w_in, conv_k):
+    w_in, conv_k = w_in.to(x.dtype), conv_k.to(x.dtype)
     B, H, W, dm = x.shape
     D = w_in.shape[0]
     check_args(x=(x, BF16), w_in=(w_in, BF16), conv_k=(conv_k, BF16))
@@ -63,3 +74,16 @@ def prologue(x, ln_w, ln_b, w_in, conv_k):
 
 
 prologue.launches = 0
+
+
+class Prologue(torch.autograd.Function):
+    """K5 forward; backward: the VJP of :func:`prologue_ref` by recomputation."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_in, conv_k):
+        ctx.save_for_backward(x, ln_w, ln_b, w_in, conv_k)
+        return _prologue_launch(x, ln_w, ln_b, w_in, conv_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _native.recompute_vjp(prologue_ref, ctx.saved_tensors, ctx.needs_input_grad, g)

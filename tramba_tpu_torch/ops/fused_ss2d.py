@@ -12,7 +12,8 @@ direction).  Here every order is one gather table and one inverse table
   :func:`scan_chunk` steps and the projections ``dbc``.
 * K2 ``ss2d_merge`` (``csrc/ss2d.cu``): sum of each pixel's direction
   outputs through the inverse table, LayerNorm, exact GELU, out projection.
-  Train variant: also the pre-LN sum ``y_sum``.
+  Train variant: also the pre-LN sum ``y_sum``, in the compute dtype (the
+  TPU routes save it so: ``fused_ss2d_small.py:269``, ``fused_ss2d.py:464``).
 * K8 ``ss2d_scan_bwd`` (``csrc/ss2d_bwd.cu``): the adjoint of K1 for every
   order, from the carries, ``dbc`` and the cotangent of ``y_sum``.
 
@@ -21,17 +22,20 @@ K1 and K2 run in fp32 or bf16, with the rounding points of ``_small_pallas``
 projects, scans and writes ``ys`` in fp32 against the fp32 ``x_proj_weight``;
 K2 takes fp32 ``ys`` and computes in the dtype of ``w_out``: with a bf16
 ``w_out`` the GELU output is rounded to bf16 before the out projection
-(fp32 accumulation) and the result is bf16.  Training (the variants and K8)
-is fp32.
+(fp32 accumulation) and the result is bf16.  Training runs in both dtypes:
+in bf16, K1's train variant takes K5's bf16 output (#13's ``emit_train``),
+K2's writes a bf16 ``y_sum`` and K8 reads bf16 ``x`` and ``g_y`` and writes a
+bf16 ``dx``.
 
 Beside each kernel is its plain PyTorch version (``*_ref``).  The wrappers
 pick by the tensors' device: CPU tensors take the plain version, CUDA tensors
 launch the kernel (a build or launch error raises).  Each wrapper counts its
 launches in ``<wrapper>.launches``.  Weights are in torch.nn.Linear layout
-(out_features, in_features).  Under autograd on the card, :func:`ss2d_full`
-runs :class:`SS2DCore` (K1 → K2 forward, K8 backward), as ``fused_ss2d_full``
-/ ``fused_ss2d_freq`` run their custom VJPs; on CPU tensors autograd goes
-through the plain versions.
+(out_features, in_features).  Under autograd on the card (and in bf16 on the
+CPU, with plain launches), :func:`ss2d_full` runs :class:`SS2DCore` (K1 → K2
+forward, K8 backward), as ``fused_ss2d_full`` / ``fused_ss2d_freq`` /
+``fused_ss2d_small`` run their custom VJPs; fp32 CPU tensors differentiate
+the plain versions.
 """
 
 from __future__ import annotations
@@ -139,6 +143,15 @@ def _merge_sum(ys, inv):
     return y
 
 
+def _ln_gelu_proj_fp32(y, ln_w, ln_b, w_out):
+    """The function the TPU backward differentiates over the saved pre-LN sum
+    (``_ln_gelu_proj``, fused_ss2d.py:478): fp32 throughout, w_out in fp32,
+    only the output rounded to y's dtype.  The forward kernels round the
+    GELU output in bf16 instead; the adjoint is held to JAX's."""
+    a = F.gelu(F.layer_norm(y.float(), (y.shape[-1],), ln_w, ln_b, 1e-5))
+    return (a @ w_out.float().t()).to(y.dtype)
+
+
 def _ln_gelu_proj(y, ln_w, ln_b, w_out):
     """LayerNorm (eps 1e-5) -> exact GELU -> out projection; with a bf16
     w_out the GELU output is rounded to bf16 first.  Returns w_out's dtype."""
@@ -155,14 +168,16 @@ def ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out):
 
 
 def ss2d_merge_train_ref(ys, inv, ln_w, ln_b, w_out):
-    """K2's train variant: (out, y_sum), y_sum (B, L, D) the pre-LN sum."""
+    """K2's train variant: (out, y_sum), y_sum (B, L, D) the pre-LN sum in
+    w_out's dtype."""
     y = _merge_sum(ys, inv)
-    return _ln_gelu_proj(y, ln_w, ln_b, w_out), y
+    return _ln_gelu_proj(y, ln_w, ln_b, w_out), y.to(w_out.dtype)
 
 
 def ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, Ds,
                       chunk=SCAN_CHUNK):
-    """The explicit adjoint of K1 followed by K2's merge sum, fp32.
+    """The explicit adjoint of K1 followed by K2's merge sum, in fp32; dx in
+    x's dtype.
 
     ``g_y`` (B, L, D) is the cotangent of the pre-LN sum; ``carries`` and
     ``dbc`` are what :func:`ss2d_scan_train_ref` returns for ``chunk``.  The
@@ -201,7 +216,7 @@ def ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_lo
     dwx = torch.einsum("bklc,bkld->kcd", d_dbc, xs)
     dwdt = torch.einsum("bkld,bklr->kdr", ddt, dbcs[..., :R])
     dA = (daA * delta).sum((0, 2))
-    return (dx, dwx, dwdt, ddt.sum((0, 2)), dA * A[:, 0], (g * xs).sum((0, 2)))
+    return (dx.to(x.dtype), dwx, dwdt, ddt.sum((0, 2)), dA * A[:, 0], (g * xs).sum((0, 2)))
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +226,7 @@ def ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_lo
 
 def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, *, emit=False):
     """Kernel K1 on CUDA tensors, :func:`ss2d_scan_ref` on CPU tensors.
-    ``emit=True`` (training, fp32): returns (ys, carries, dbc) as
+    ``emit=True`` (training): returns (ys, carries, dbc) as
     :func:`ss2d_scan_train_ref` does."""
     if not on_card(x):
         if emit:
@@ -220,7 +235,7 @@ def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, *, emit=False):
     B, L, D = x.shape
     K, C, _ = x_proj_w.shape
     R = C - 2
-    check_args(x=(x, F32 if emit else F32_BF16), x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32),
+    check_args(x=(x, F32_BF16), x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32),
                dt_b=(dt_b, F32), A_logs=(A_logs, F32), Ds=(Ds, F32))
     _check_table("idx", idx, (K, L))
     if D % 32 or R > 64:
@@ -245,7 +260,7 @@ ss2d_scan.launches = 0
 
 def ss2d_merge(ys, inv, ln_w, ln_b, w_out, *, emit_ysum=False):
     """Kernel K2 on CUDA tensors, :func:`ss2d_merge_ref` on CPU tensors.
-    ``emit_ysum=True`` (training, fp32): returns (out, y_sum) as
+    ``emit_ysum=True`` (training): returns (out, y_sum) as
     :func:`ss2d_merge_train_ref` does."""
     if not on_card(ys):
         if emit_ysum:
@@ -254,13 +269,13 @@ def ss2d_merge(ys, inv, ln_w, ln_b, w_out, *, emit_ysum=False):
     B, K, L, D = ys.shape
     dm = w_out.shape[0]
     check_args(ys=(ys, F32), ln_w=(ln_w, F32), ln_b=(ln_b, F32),
-               w_out=(w_out, F32 if emit_ysum else F32_BF16))
+               w_out=(w_out, F32_BF16))
     _check_table("inv", inv, (K, inv.shape[1], L))
     vec = 16 // w_out.element_size()  # one 16-byte load of w_out
     if D % vec or tuple(w_out.shape) != (dm, D) or ln_w.numel() != D or ln_b.numel() != D:
         raise ValueError(f"ss2d_merge: D must be a multiple of {vec} and w_out (dm, D)")
     out = torch.empty(B, L, dm, device=ys.device, dtype=w_out.dtype)
-    y_sum = torch.empty(B, L, D, device=ys.device, dtype=torch.float32) if emit_ysum else None
+    y_sum = torch.empty(B, L, D, device=ys.device, dtype=w_out.dtype) if emit_ysum else None
     _native.launch("ss2d_merge_launch", ys.data_ptr(), inv.data_ptr(), ln_w.data_ptr(),
                    ln_b.data_ptr(), w_out.data_ptr(), out.data_ptr(),
                    y_sum.data_ptr() if emit_ysum else None, B, K, inv.shape[1], L, D, dm,
@@ -280,7 +295,7 @@ def ss2d_scan_bwd(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, 
     B, L, D = x.shape
     K, C, _ = x_proj_w.shape
     R = C - 2
-    check_args(x=(x, F32), g_y=(g_y, F32), carries=(carries, F32), dbc=(dbc, F32),
+    check_args(x=(x, F32_BF16), g_y=(g_y, (x.dtype,)), carries=(carries, F32), dbc=(dbc, F32),
                x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32), dt_b=(dt_b, F32),
                A_logs=(A_logs, F32), Ds=(Ds, F32))
     _check_table("idx", idx, (K, L))
@@ -298,7 +313,8 @@ def ss2d_scan_bwd(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, 
     def f32(*shape):
         return torch.empty(*shape, device=x.device, dtype=torch.float32)
 
-    dx, dwx, dwdt, sums = f32(B, L, D), f32(K, C, D), f32(K, D, R), f32(3, B, K, D)
+    dx = torch.empty(B, L, D, device=x.device, dtype=x.dtype)
+    dwx, dwdt, sums = f32(K, C, D), f32(K, D, R), f32(3, B, K, D)
     scratch = (f32(B, K, L, D), f32(B, K, L, D), f32(B, K, L, D // 32), f32(B, K, L, D // 32),
                f32(B, K, L, C), f32(chunks, K, C, D), f32(chunks, K, D, R))
     _native.launch("ss2d_scan_bwd_launch", x.data_ptr(), idx.data_ptr(), inv.data_ptr(),
@@ -306,7 +322,7 @@ def ss2d_scan_bwd(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, 
                    dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
                    dx.data_ptr(), dwx.data_ptr(), dwdt.data_ptr(), sums.data_ptr(),
                    *(t.data_ptr() for t in scratch), B, L, D, K, R, inv.shape[1],
-                   _native.stream_handle(x))
+                   int(x.dtype == torch.bfloat16), _native.stream_handle(x))
     ss2d_scan_bwd.launches += 1
     # per-image sums of the (K, D) partials, as _full_bwd sums them in XLA (:1081)
     dbias, dA, dDs = sums.sum(1)
@@ -318,22 +334,21 @@ ss2d_scan_bwd.launches = 0
 
 class SS2DCore(torch.autograd.Function):
     """Scan -> merge -> LN -> GELU -> out projection of one SS2D with its
-    backward, fp32 (``fused_ss2d_full`` / ``fused_ss2d_freq`` and their
-    custom VJPs, ``fused_ss2d.py:1030-1126``, ``:1799-1869``).
+    backward, in x's dtype, fp32 or bf16 (``fused_ss2d_full`` /
+    ``fused_ss2d_freq`` / ``fused_ss2d_small`` and their custom VJPs,
+    ``fused_ss2d.py:1030-1126``, ``:1799-1869``, ``fused_ss2d_small.py:343-472``).
 
-    Forward: K1's train variant (ys, carries, dbc), then K2's (out, y_sum);
-    ys is dropped, and x, dbc, the carries and y_sum are saved.  Backward:
-    the LN -> GELU -> out projection adjoint by autograd over y_sum (JAX runs
-    it as one XLA vjp, ``:1062``), then K8.  On CPU tensors every launch is
+    Forward: K1's train variant (ys, carries, dbc), then K2's (out, y_sum)
+    with w_out cast to x's dtype; ys is dropped, and x, dbc, the carries and
+    y_sum are saved.  Backward: the LN -> GELU -> out projection adjoint by
+    autograd over y_sum with the fp32 w_out (JAX runs it as one XLA vjp of
+    ``_ln_gelu_proj``, ``:1062``), then K8.  On CPU tensors every launch is
     the plain version."""
 
     @staticmethod
     def forward(ctx, x, idx, inv, x_proj_w, dt_w, dt_b, A_logs, Ds, ln_w, ln_b, w_out):
-        if x.dtype != torch.float32 or w_out.dtype != torch.float32:
-            raise NotImplementedError("SS2D training runs in fp32; bf16 training is its own "
-                                      "slice (ROADMAP.md, next slices)")
         ys, carries, dbc = ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, emit=True)
-        out, y_sum = ss2d_merge(ys, inv, ln_w, ln_b, w_out, emit_ysum=True)
+        out, y_sum = ss2d_merge(ys, inv, ln_w, ln_b, w_out.to(x.dtype), emit_ysum=True)
         ctx.save_for_backward(x, idx, inv, carries, dbc, y_sum, x_proj_w, dt_w, dt_b, A_logs, Ds,
                               ln_w, ln_b, w_out)
         return out
@@ -344,7 +359,7 @@ class SS2DCore(torch.autograd.Function):
          w_out) = ctx.saved_tensors
         need = ctx.needs_input_grad
         g_y, d_ln_w, d_ln_b, d_w_out = _native.recompute_vjp(
-            _ln_gelu_proj, (y_sum, ln_w, ln_b, w_out), (True, *need[8:]), g.contiguous())
+            _ln_gelu_proj_fp32, (y_sum, ln_w, ln_b, w_out), (True, *need[8:]), g.contiguous())
         dx, dwx, dwdt, dbias, dA_logs, dDs = ss2d_scan_bwd(
             x, idx, inv, g_y.contiguous(), carries, dbc, x_proj_w, dt_w, dt_b, A_logs, Ds)
         return (dx, None, None, dwx, dwdt, dbias.reshape(dt_b.shape),
@@ -355,12 +370,14 @@ def ss2d_full(x_flat, x_proj_w, dt_w, dt_b, A_logs, Ds, ln_w, ln_b, w_out,
               kind: str, H: int, W: int, param: int = 0):
     """Scan -> merge -> LN -> GELU -> out projection of one SS2D:
     (B, L, D) -> (B, L, dm), over the scan order ``kind`` of an H x W map.
-    The output takes ``w_out``'s dtype.  Under autograd on the card it runs
-    :class:`SS2DCore`; on CPU tensors autograd goes through the plain
+    ``w_out`` is the fp32 parameter; the output takes x's dtype.  Under
+    autograd on the card, and in bf16 on the CPU, it runs :class:`SS2DCore`
+    (plain launches on the CPU), so a bf16 gradient rounds where the TPU
+    adjoint rounds; an fp32 SS2D on the CPU differentiates the plain
     versions."""
     idx, inv = order_tables(kind, H, W, param, x_flat.device)
     params = (x_proj_w, dt_w, dt_b, A_logs, Ds, ln_w, ln_b, w_out)
-    if on_card(x_flat) and needs_grad(x_flat, *params):
+    if needs_grad(x_flat, *params) and (on_card(x_flat) or x_flat.dtype == torch.bfloat16):
         return SS2DCore.apply(x_flat, idx, inv, *params)
     ys = ss2d_scan(x_flat, idx, x_proj_w, dt_w, dt_b, A_logs, Ds)
-    return ss2d_merge(ys, inv, ln_w, ln_b, w_out)
+    return ss2d_merge(ys, inv, ln_w, ln_b, w_out.to(x_flat.dtype))

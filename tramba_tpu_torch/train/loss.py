@@ -40,12 +40,16 @@ def iou_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def resize_bilinear(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """(B, h, w, C) -> (B, H, W, C), bilinear with half-pixel centres."""
+    """(B, h, w, C) -> (B, H, W, C), bilinear with half-pixel centres, in
+    x's dtype.  A bf16 x is resized in fp32 and the result rounded to bf16,
+    as ``jax.image.resize`` computes it, so that the backward, too, adds each
+    source pixel's contributions in fp32 (CUDA's bf16 interpolate backward
+    adds them in bf16 atomics: at 24 -> 384 px about a thousand per pixel)."""
     if x.shape[1] == H and x.shape[2] == W:
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(H, W), mode="bilinear",
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(H, W), mode="bilinear",
                       align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def deep_supervision_loss(outputs: Sequence[torch.Tensor], gt: torch.Tensor,
