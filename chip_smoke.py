@@ -15,8 +15,8 @@ Phases, each of which must pass (any failure exits non-zero):
                the largest magnitude of each output) and bf16, and K9
                ln_mlp_bwd and K10 ln_dwms_mlp_bwd (bf16 adjoints: <= 1e-2 x
                the largest magnitude of each output); errors, times, and
-               each kernel's bound (bytes over the HBM rate or operations
-               over the peak rate of their type, whichever is larger)
+               each kernel's bound (bytes over the HBM rate or, per type of
+               operation, its count over that type's peak rate: the largest)
   4. model     full-width Tramba-V-TSOD at 384px, seeded weights, batch 2 on
                the card, in fp32 (TF32 off) and in bf16: head shapes, finite
                values, launches per forward as the model's modules give them
@@ -93,7 +93,7 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-4, 1e-3
 NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 # one H100 SXM (NVIDIA's data sheet, dense rates): bf16 on the tensor cores,
 # fp32 outside them (TF32 is off), and the HBM rate; a kernel's bound is the
-# larger of its bytes over the HBM rate and its operations over these rates
+# largest of its bytes over the HBM rate and each type's operations over its rate
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
@@ -179,10 +179,12 @@ def ops(dt, products, simt=0):
 def bound(tensors, flops):
     """(bound_ms, bound_by): the least time one H100 could take for a call
     that reads each input once and writes each output once (``tensors``) and
-    does ``flops`` (operations by type, as :func:`ops` gives them)."""
+    does ``flops`` (operations by type, as :func:`ops` gives them).  The
+    tensor cores and the fp32 pipes run at the same time, so the operations
+    take the longest of their types' times, not the sum."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in flops.items())
+    t_ops = max(n / PEAK_OPS_PER_S[k] for k, n in flops.items())
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 

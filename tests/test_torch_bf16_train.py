@@ -2,17 +2,18 @@
 and gradients against the JAX package, the card's autograd plumbing with the
 launches stubbed, and the training CLI in bf16.
 
-The whole-model gate: per parameter, ||port - jax|| <= tol ||jax|| with tol =
-max(2e-2, 1.25 x the larger of the two models' own bf16-vs-fp32 gaps for that
-parameter): the port and JAX round to bf16 at other places in the unfused
-parts (the expands, the head, the DCT guides, the prologue's backward) and
-sum in other orders, so their bf16 gradients carry independent bf16 noise,
-and two such gradients lie about sqrt(2) x one gap apart.  With seed-0 weights
-the port's own gap is at or below JAX's for most parameters and up to 1.5 x
-JAX's for the guides' SS2D parameters.  The loss is held to the same rule.
+The whole-model gate is set by JAX alone: per parameter, ||port - jax|| <=
+tol ||jax|| with tol = max(2e-2, 1.25 x sqrt(2) x JAX's own bf16-vs-fp32 gap
+for that parameter), and the same rule for the loss.  In fp32 the two models
+agree to 1e-4 relative norm per gradient (``tests/test_torch_train.py``),
+so their bf16 distance is rounding noise.  The port and JAX round to bf16 at
+other places in the unfused parts (the expands, the head, the DCT guides,
+the prologue's backward) and sum in other orders, so each bf16 gradient is
+its own draw of noise of about the size of JAX's gap, and two independent
+draws of that size lie about sqrt(2) x one gap apart.  The port's own
+bf16-vs-fp32 gap takes no part in the limit: a wrong bf16 gradient cannot
+widen its own gate.  The test prints every parameter's rel / limit.
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +36,7 @@ from tramba_tpu_torch.train import loss as tloss
 
 TINY = dict(dims=64, enc_depths=(1, 1, 1, 1), dec_depths=(1, 1, 1, 1))
 IMG = 64
-GATE, NOISE_FACTOR = 2e-2, 1.25
+GATE, NOISE_FACTOR = 2e-2, 1.25 * 2 ** 0.5
 
 
 @pytest.fixture(autouse=True)
@@ -79,25 +80,22 @@ def test_tiny_bf16_model_loss_and_grads_match_jax():
     fp32_loss, fp32 = value_and_grads(JTrambaV(img_size=IMG, **TINY))
     loss = tloss.deep_supervision_loss(model(torch.from_numpy(x)), torch.from_numpy(gt))
     loss.backward()
-    ref = build("Tramba-V-TSOD", IMG, seed=0, **TINY)
-    ref_loss = tloss.deep_supervision_loss(ref(torch.from_numpy(x)), torch.from_numpy(gt))
-    ref_loss.backward()
-    port_fp32 = {n: p.grad for n, p in ref.named_parameters()}
-    gap = max(abs(want_loss - fp32_loss), abs(loss.item() - ref_loss.item())) / abs(fp32_loss)
-    loss_tol = max(GATE, NOISE_FACTOR * gap)
+    loss_tol = max(GATE, NOISE_FACTOR * abs(want_loss - fp32_loss) / abs(fp32_loss))
     assert abs(loss.item() - want_loss) <= loss_tol * abs(want_loss), (loss.item(), want_loss)
     got = dict(model.named_parameters())
     assert got.keys() == want.keys()
-    worst = []
+    rows = []
     for name, w in want.items():
         g = got[name].grad
         assert g is not None and g.dtype == torch.float32, name
-        tol = max(GATE, NOISE_FACTOR * max(_rel(w, fp32[name]), _rel(g, port_fp32[name])))
+        tol = max(GATE, NOISE_FACTOR * _rel(w, fp32[name]))
         rel = _rel(g, w)
-        worst.append((rel / tol, name, rel, tol))
-    worst.sort(reverse=True)
-    assert worst[0][0] <= 1.0, f"worst gradients (rel/tol, name, rel, tol): {worst[:5]}"
-
+        rows.append((rel / tol, name, rel, tol))
+    rows.sort(reverse=True)
+    print("rel/tol  rel norm  limit  parameter")
+    for ratio, name, rel, tol in rows:
+        print(f"{ratio:.3f}  {rel:.3e}  {tol:.3e}  {name}")
+    assert rows[0][0] <= 1.0, f"worst gradients (rel/tol, name, rel, tol): {rows[:5]}"
 
 def _detached(fn):
     """A stand-in for a CUDA launch: the plain result with no grad_fn, as a
