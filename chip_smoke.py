@@ -4,12 +4,16 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. device    a CUDA card is present; prints its name and power limit
-  2. build     nvcc builds kernels K1-K10 from tramba_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K13 from tramba_tpu_torch/csrc
   3. kernels   each kernel vs its plain PyTorch version on the card, at the
-               shapes of the 384px Tramba-V-TSOD forward: K1-K4 in fp32
+               shapes of the 384px forwards: Tramba-V's K1-K4 in fp32
                (rtol 1e-3, atol 1e-4), then in bf16 K1-K4 and K5-K7, and K2
-               as _lgp_pallas (one-slot identity table); bf16 outputs at
-               rtol 1.6e-2, atol 1e-2; then the training kernels at every
+               as _lgp_pallas (one-slot identity table); Tramba-P's and
+               Tramba-S's encoder kernels K11 ln_dwmlp, K12 sra and K13
+               window_attn (shifted and unshifted) in bf16; K1-K4 (fp32,
+               bf16) and K5-K7 at Tramba-P's decoder widths 320/128/64
+               (Tramba-S's decoder has Tramba-V's); bf16 outputs at rtol
+               1.6e-2, atol 1e-2; then the training kernels at every
                shape of the train step: K1's and K2's train variants in fp32
                (fp32 tolerance) and bf16, K8 in fp32 (max abs error <= 1e-4 x
                the largest magnitude of each output) and bf16, and K9
@@ -17,22 +21,27 @@ Phases, each of which must pass (any failure exits non-zero):
                the largest magnitude of each output); errors, times, and
                each kernel's bound (bytes over the HBM rate or, per type of
                operation, its count over that type's peak rate: the largest)
-  4. model     full-width Tramba-V-TSOD at 384px, seeded weights, batch 2 on
-               the card, in fp32 (TF32 off) and in bf16: head shapes, finite
-               values, launches per forward as the model's modules give them
-               (fp32 and bf16: K1 33, K2 33, K3 9, K4 1; bf16 also K5 33, K6
-               24, K7 6); the same weights and
-               image on the CPU (plain versions) agree with mean abs
+  4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD and Tramba-S-TSOD at
+               384px, seeded weights, batch 2 on the card, each in fp32
+               (TF32 off) and in bf16: head shapes, finite values, launches
+               per forward as the model's modules give them (Tramba-V fp32
+               and bf16: K1 33, K2 33, K3 9, K4 1; bf16 also K5 33, K6 24, K7
+               6; Tramba-P and -S: K1 12, K2 12, K3 9, K4 1, bf16 also K5 12,
+               K7 6, and K6 3, K12 41, K11 38 (Tramba-P) or K6 25, K13 22
+               (Tramba-S); no K11-K13 in fp32); the same weights and image
+               on the CPU (plain versions, batch 1) agree with mean abs
                difference <= 1e-3 (fp32) per head, and in bf16 <= 2e-2 or,
                where bf16's own noise is larger, <= 1.25 x the CPU's bf16-vs-
                fp32 difference on that head
   5. dump      ``python -m tramba_tpu_torch.dump --measure_fps`` on synthetic
                TSOD10K-style images writes one map per image at its original
                size, then runs the 200-iteration FPS loop; then the same dump
-               with ``--dtype bfloat16``
-  6. timing    ms per forward: fp32 at batch 1 and 8, bf16 at 1, 8 and 16
+               with ``--dtype bfloat16``, for Tramba-V, -P and -S
+  6. timing    ms per forward: bf16 at batch 1, 8 and 16 and fp32 at 1 for
+               each model, Tramba-V's fp32 also at 8
   7. profile   device time of the bf16 forward by kernel group (torch.profiler)
-  8. train     fp32, then bf16 training at full width, batch 4: one train
+               and the device's idle share, at B1 and B16 for each model
+  8. train     fp32, then bf16 training of Tramba-V at full width, batch 4: one train
                step launches exactly the kernels the model's modules give
                (fp32: K1 33, K2 33, K8 33, K3 9, K4 1 and no K5-K7, K9, K10;
                bf16 also K5 33, K6 24, K9 24, K7 6, K10 6), and leaves every
@@ -51,6 +60,8 @@ Phases, each of which must pass (any failure exits non-zero):
                writes the rolling resume dict (every 5 epochs); then
                ``python -m tramba_tpu_torch.run --resume last`` to epoch 6
 
+Nothing is cut: every model runs at full depth and width.  The CPU
+comparisons of phase 4 run at batch 1.
 The last lines are the kernels' JSON summary, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 """
@@ -98,6 +109,14 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
+# the models of phases 4-7, and what phase 6 times: (dtype, ((batch, reps), ...))
+MODELS = ("Tramba-V-TSOD", "Tramba-P-TSOD", "Tramba-S-TSOD")
+_BF16_TIMED = (torch.bfloat16, ((1, 20), (8, 5), (16, 5)))
+TIMED = {"Tramba-V-TSOD": ((torch.float32, ((1, 20), (8, 5))), _BF16_TIMED),
+         "Tramba-P-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED),
+         "Tramba-S-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED)}
+
+
 def phase(name):
     print(f"== {name}", flush=True)
 
@@ -121,13 +140,15 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def wrappers():
+    from tramba_tpu_torch.ops import fused_attn as ta
     from tramba_tpu_torch.ops import fused_expand as te
     from tramba_tpu_torch.ops import fused_mlp as tm
     from tramba_tpu_torch.ops import fused_prologue as tp
     from tramba_tpu_torch.ops import fused_ss2d as tf
 
     return (tf.ss2d_scan, tf.ss2d_merge, tf.ss2d_scan_bwd, te.expand_ln, te.final_head,
-            tp.prologue, tm.ln_mlp, tm.ln_dwms_mlp, tm.ln_mlp_bwd, tm.ln_dwms_mlp_bwd)
+            tp.prologue, tm.ln_mlp, tm.ln_dwms_mlp, tm.ln_mlp_bwd, tm.ln_dwms_mlp_bwd,
+            tm.ln_dwmlp, ta.sra, ta.window_attn)
 
 
 def reset_counts():
@@ -144,14 +165,35 @@ def expected_launches(model, train: bool) -> dict:
     """Kernel launches of one forward (``train=False``) or one train step of
     ``model``, from its modules: each SS2D runs K1 and K2, and in bf16 K5; each
     bf16 FFN runs K6 (Mlp) or K7 (DWMSMlp); each expand K3, the head K4; a
-    train step adds the backwards K8 per SS2D and K9 / K10 per bf16 FFN."""
+    train step adds the backwards K8 per SS2D and K9 / K10 per bf16 FFN.  In
+    bf16 each Swin block runs K13 and each PVTv2 block K12 and K11 where the
+    kernels' gates hold at the block's map (from the patch embeds' strides)."""
+    from tramba_tpu_torch.models.pvt import PVTv2Encoder
+    from tramba_tpu_torch.models.swin import SwinBlock
     from tramba_tpu_torch.nn.layers import DWMSMlp, FinalPatchExpandX4, Mlp, _Expand
     from tramba_tpu_torch.nn.ssm import SS2D
+    from tramba_tpu_torch.ops import fused_attn as ta
+    from tramba_tpu_torch.ops import fused_mlp as tm
 
     n = dict.fromkeys((w.__name__ for w in wrappers()), 0)
     for m in model.modules():
         bf16 = getattr(m, "dtype", None) == torch.bfloat16
-        if isinstance(m, SS2D):
+        if isinstance(m, SwinBlock):
+            C, r = m.norm1.normalized_shape[0], m.resolution
+            n["window_attn"] += ta.window_attn_fusable(r, r, C, m.attn.num_heads, m.window,
+                                                       model.dtype)
+        elif isinstance(m, PVTv2Encoder):
+            res = model.img_size
+            for s in range(1, m.n_stages + 1):
+                conv = getattr(m, f"patch_embed{s}").proj
+                res = (res + 2 * conv.padding[0] - conv.kernel_size[0]) // conv.stride[0] + 1
+                for blk in getattr(m, f"block{s}"):
+                    C, sr = blk.norm1.normalized_shape[0], blk.attn.sr_ratio
+                    lk = (res // sr) ** 2
+                    n["sra"] += ta.sra_fusable(res * res, C, blk.attn.num_heads, lk, model.dtype)
+                    n["ln_dwmlp"] += tm.dwmlp_fusable(res, res, C, blk.mlp.fc1.out_features,
+                                                      model.dtype)
+        elif isinstance(m, SS2D):
             n["ss2d_scan"] += 1
             n["ss2d_merge"] += 1
             n["prologue"] += bf16
@@ -243,6 +285,18 @@ SS2D_SHAPES = (("raster", 96, 128, 0), ("raster", 48, 256, 0), ("raster", 24, 51
                ("line", 24, 512, 0), ("window", 96, 128, 16), ("window", 48, 256, 12),
                ("window", 24, 512, 8), ("dilation", 96, 128, 4), ("dilation", 48, 256, 4),
                ("dilation", 24, 512, 4))
+
+
+# Tramba-P's decoder: the same SS2Ds at its widths 320 / 128 / 64 (d_inner
+# 640 / 256 / 128, dt_rank 20 / 8 / 4); Tramba-S's decoder has Tramba-V's
+SS2D_SHAPES_P = (("line", 24, 320, 0), ("line", 48, 128, 0), ("line", 96, 64, 0),
+                 ("window", 24, 320, 8), ("window", 48, 128, 12), ("window", 96, 64, 16),
+                 ("dilation", 24, 320, 4), ("dilation", 48, 128, 4), ("dilation", 96, 64, 4))
+# (map size, C, factor): PatchExpand (f=2) and FreqExpand2D (f=4) inputs
+EXPAND_SHAPES = ((12, 1024, 2), (24, 512, 2), (48, 256, 2), (12, 512, 4), (24, 256, 4),
+                 (48, 128, 4))
+EXPAND_SHAPES_P = ((12, 512, 2), (24, 320, 2), (48, 128, 2), (12, 320, 4), (24, 128, 4),
+                   (48, 64, 4))
 
 
 def ss2d_case(dev, gen, dt, kind, H, d_model, param, B):
@@ -357,15 +411,17 @@ def check_mlp_bwd(checks, dev, gen):
                        rel_tol=BWD_REL_TOL_BF16)
 
 
-def check_ss2d_expand(checks, dev, gen, dt):
-    """K1-K4 at every shape of the main path, in dtype ``dt``."""
+def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shapes=EXPAND_SHAPES,
+                      head_c=128):
+    """K1-K4 at every shape of the main path (by default Tramba-V's), in
+    dtype ``dt``."""
     from tramba_tpu_torch.nn.init import init_weights
     from tramba_tpu_torch.nn.layers import FinalPatchExpandX4, _Expand
     from tramba_tpu_torch.ops import fused_expand as te
     from tramba_tpu_torch.ops import fused_ss2d as tf
 
     B = 2
-    for kind, H, d_model, param in SS2D_SHAPES:
+    for kind, H, d_model, param in ss2d_shapes:
         m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
         checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
                        lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5, inputs=(x, idx, *core),
@@ -375,9 +431,7 @@ def check_ss2d_expand(checks, dev, gen, dt):
         checks.compare("ss2d_merge", dt, label, lambda: tf.ss2d_merge(ys, inv, *tail),
                        lambda: tf.ss2d_merge_ref(ys, inv, *tail), reps=5,
                        inputs=(ys, inv, *tail), flops=merge_ops(ys, tail[2]))
-    # (map size, C, factor): PatchExpand (f=2) and FreqExpand2D (f=4) inputs
-    for H, C, f in ((12, 1024, 2), (24, 512, 2), (48, 256, 2),
-                    (12, 512, 4), (24, 256, 4), (48, 128, 4)):
+    for H, C, f in expand_shapes:
         m = init_weights(_Expand(C, f), gen).to(dev)
         x = torch.randn(B, H, H, C, generator=gen).to(dev, dt)
         args = (x, m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data)
@@ -385,19 +439,37 @@ def check_ss2d_expand(checks, dev, gen, dt):
         checks.compare("expand_ln", dt, f"f{f} {H}px B{B} C{C}", lambda: te.expand_ln(*args),
                        lambda: te.expand_ln_ref(*args), reps=10, inputs=args,
                        flops=ops(dt, 2 * B * H * H * C * out_c, 8 * B * H * H * out_c))
-    m = init_weights(FinalPatchExpandX4(128), gen).to(dev)
-    seg_w = (torch.randn(128, generator=gen) * 0.1).to(dev)
+    C = head_c
+    m = init_weights(FinalPatchExpandX4(C), gen).to(dev)
+    seg_w = (torch.randn(C, generator=gen) * 0.1).to(dev)
     seg_b = torch.randn(1, generator=gen).to(dev)
-    x = torch.randn(B, 96, 96, 128, generator=gen).to(dev, dt)
+    x = torch.randn(B, 96, 96, C, generator=gen).to(dev, dt)
     args = (x, m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data, seg_w, seg_b)
     M = B * 96 * 96
-    checks.compare("final_head", dt, f"96px B{B} C128", lambda: te.final_head(*args),
+    checks.compare("final_head", dt, f"96px B{B} C{C}", lambda: te.final_head(*args),
                    lambda: te.final_head_ref(*args), reps=10, inputs=args,
-                   flops=ops(dt, 2 * M * 128 * 16 * 128, 10 * M * 16 * 128))
+                   flops=ops(dt, 2 * M * C * 16 * C, 10 * M * 16 * C))
 
 
-def check_bf16_only(checks, dev, gen):
-    """K5-K7 at every bf16 main-path shape, and K2 as _lgp_pallas."""
+# bf16-only kernels at Tramba-V's shapes: (map, d_model, with LN) of K5,
+# (map, d) of K6 and of K7; and at Tramba-P's decoder (its SS2Ds' K5, its
+# guides' K6, its blocks' K7).  Tramba-S's are Tramba-V's (its encoder FFNs
+# are K6 at 96/128, 48/256, 24/512).
+BF16_SHAPES = dict(
+    prologue=((96, 128, True), (48, 256, True), (24, 512, True), (12, 1024, True),
+              (96, 128, False), (48, 256, False), (24, 512, False)),
+    ln_mlp=((96, 128), (48, 256), (24, 512), (12, 1024)),
+    ln_dwms_mlp=((96, 128), (48, 256), (24, 512)))
+BF16_SHAPES_P = dict(
+    prologue=((96, 64, True), (48, 128, True), (24, 320, True), (96, 64, False),
+              (48, 128, False), (24, 320, False)),
+    ln_mlp=((96, 64), (48, 128), (24, 320)),
+    ln_dwms_mlp=((96, 64), (48, 128), (24, 320)))
+
+
+def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES, lgp=True):
+    """K5-K7 at every bf16 main-path shape of ``shapes``, and (``lgp``) K2
+    as _lgp_pallas."""
     from tramba_tpu_torch.nn.init import init_weights
     from tramba_tpu_torch.nn.layers import DWMSMlp, Mlp
     from tramba_tpu_torch.nn.ssm import SS2D
@@ -414,8 +486,7 @@ def check_bf16_only(checks, dev, gen):
         return rnd(d, scale=0.1, shift=1.0), rnd(d, scale=0.1)
 
     # encoder raster and decoder line SS2Ds (with the block's LN), guides (without)
-    for H, dm, with_ln in ((96, 128, True), (48, 256, True), (24, 512, True), (12, 1024, True),
-                           (96, 128, False), (48, 256, False), (24, 512, False)):
+    for H, dm, with_ln in shapes["prologue"]:
         m = init_weights(SS2D(dm), gen).to(dev)
         x = rnd(B, H, H, dm).to(bf)
         norm = ln(dm) if with_ln else (None, None)
@@ -425,7 +496,7 @@ def check_bf16_only(checks, dev, gen):
         checks.compare("prologue", bf, label, lambda: tp.prologue(*args),
                        lambda: tp.prologue_ref(*args), reps=10, inputs=args,
                        flops=ops(bf, 2 * M * dm * D, 2 * 9 * M * D + 10 * M * D))
-    for H, d in ((96, 128), (48, 256), (24, 512), (12, 1024)):
+    for H, d in shapes["ln_mlp"]:
         m = init_weights(Mlp(d, 4 * d), gen).to(dev)
         args = (rnd(B, H * H, d).to(bf), *ln(d), m.fc1.weight.data.to(bf), rnd(4 * d, scale=0.1),
                 m.fc2.weight.data.to(bf), rnd(d, scale=0.1))
@@ -433,7 +504,7 @@ def check_bf16_only(checks, dev, gen):
         checks.compare("ln_mlp", bf, f"{H}px B{B} d{d} hid{4 * d}", lambda: tm.ln_mlp(*args),
                        lambda: tm.ln_mlp_ref(*args), reps=10, inputs=args,
                        flops=ops(bf, 4 * M * d * 4 * d, 10 * M * 4 * d))
-    for H, d in ((96, 128), (48, 256), (24, 512)):
+    for H, d in shapes["ln_dwms_mlp"]:
         m = init_weights(DWMSMlp(d, 4 * d), gen).to(dev)
         convs = [t for c in (m.dwc3, m.dwc5, m.dwc7)
                  for t in (c.dw_conv.weight.data.to(bf), rnd(4 * d, scale=0.1))]
@@ -444,7 +515,7 @@ def check_bf16_only(checks, dev, gen):
                        lambda: tm.ln_dwms_mlp(*args), lambda: tm.ln_dwms_mlp_ref(*args), reps=10,
                        inputs=args, flops=ops(bf, 4 * M * d * 4 * d, (2 * 83 + 10) * M * 4 * d))
     # K2 as _lgp_pallas (Queue 2 #14): K=1, one-slot identity inverse table
-    for dt in (torch.float32, bf):
+    for dt in (torch.float32, bf) if lgp else ():
         L, D, dm = 24 * 24, 1024, 512
         ys = rnd(B, 1, L, D).to(dt).float()
         inv = torch.arange(L, dtype=torch.int32, device=dev).reshape(1, 1, L)
@@ -455,13 +526,80 @@ def check_bf16_only(checks, dev, gen):
                        inputs=(ys, inv, *tail), flops=merge_ops(ys, tail[2]))
 
 
-def run_model(dev, dtype, x, cpu_fp32_heads=None):
-    """Phase 4 in one dtype.  Returns the launch counts of one batch-2
-    forward, the model, its outputs and the CPU run's outputs (batch 1).
-    ``cpu_fp32_heads``: the CPU fp32 heads, which set bf16's noise floor."""
+# Tramba-P's and Tramba-S's encoder kernels at every 384 px main-path shape:
+# K11 (map, d, hid) of PVT stages 1-3; K12 (map, C, heads) of PVT stages 1-4,
+# 144 reduced keys each; K13 (map, C, heads) of Swin stages 1-3, 12 x 12
+# windows, unshifted and shifted (masked)
+K11_SHAPES = ((96, 64, 512), (48, 128, 1024), (24, 320, 1280))
+K12_SHAPES = ((96, 64, 1), (48, 128, 2), (24, 320, 5), (12, 512, 8))
+K13_SHAPES = ((96, 128, 4), (48, 256, 8), (24, 512, 16))
+
+
+def check_encoder_kernels(checks, dev, gen):
+    """K11 ln_dwmlp, K12 sra and K13 window_attn against their plain
+    versions at B=2 in bf16, with seeded weights of the modules' init."""
+    from tramba_tpu_torch.models.pvt import DWConvMlp, SRAttention
+    from tramba_tpu_torch.models.swin import WindowAttention, shift_attn_mask
+    from tramba_tpu_torch.nn.init import init_weights
+    from tramba_tpu_torch.ops import fused_attn as ta
+    from tramba_tpu_torch.ops import fused_mlp as tm
+
+    bf, B = torch.bfloat16, 2
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+
+    def ln(d):
+        return rnd(d, scale=0.1, shift=1.0), rnd(d, scale=0.1)
+
+    for H, d, hid in K11_SHAPES:
+        m = init_weights(DWConvMlp(d, hid), gen).to(dev)
+        conv = m.dwconv.dwconv
+        args = (rnd(B, H, H, d).to(bf), *ln(d), m.fc1.weight.data.to(bf), rnd(hid, scale=0.1),
+                conv.weight.data.to(bf), rnd(hid, scale=0.1), m.fc2.weight.data.to(bf),
+                rnd(d, scale=0.1))
+        M = B * H * H
+        checks.compare("ln_dwmlp", bf, f"{H}px B{B} d{d} hid{hid}", lambda: tm.ln_dwmlp(*args),
+                       lambda: tm.ln_dwmlp_ref(*args), reps=10, inputs=args,
+                       flops=ops(bf, 4 * M * d * hid, (2 * 9 + 10) * M * hid))
+    for H, C, nh in K12_SHAPES:
+        m = init_weights(SRAttention(C, nh, 1), gen).to(dev)
+        Lk, M = 144, B * H * H
+        k, v = (rnd(B, nh, Lk, C // nh).to(bf) for _ in range(2))
+        args = (rnd(B, H * H, C, scale=2.0).to(bf), *ln(C), m.q.weight.data.to(bf),
+                rnd(C, scale=0.1), k, v, m.proj.weight.data.to(bf), rnd(C, scale=0.1))
+        checks.compare("sra", bf, f"{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}",
+                       lambda: ta.sra(*args, nh), lambda: ta.sra_ref(*args, nh), reps=10,
+                       inputs=args, flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C,
+                                              6 * M * nh * Lk + 10 * M * C))
+    for H, C, nh in K13_SHAPES:
+        m = init_weights(WindowAttention(C, 12, nh), gen).to(dev)
+        N, M = 144, B * H * H
+        bias = m.bias().detach().contiguous()
+        for mask in (None, torch.from_numpy(shift_attn_mask(H, H, 12, 6)).to(dev)):
+            args = (rnd(B, H, H, C, scale=2.0).to(bf), *ln(C), m.qkv.weight.data.to(bf),
+                    rnd(3 * C, scale=0.1), bias, mask, m.proj.weight.data.to(bf),
+                    rnd(C, scale=0.1))
+            label = f"{H}px B{B} C{C} nh{nh} {'shifted' if mask is not None else 'unshifted'}"
+            checks.compare("window_attn", bf, label, lambda: ta.window_attn(*args, nh),
+                           lambda: ta.window_attn_ref(*args, nh), reps=10, inputs=args,
+                           flops=ops(bf, 8 * M * C * C + 4 * M * N * C, 8 * M * nh * N))
+
+
+# the encoder kernels' launches in one bf16 forward at 384 px, counted from
+# PVTv2-b4 and Swin-B by hand: K12 in all 41 PVT blocks, K11 in the 38 of
+# stages 1-3, K13 in all 22 Swin blocks that run
+ENCODER_LAUNCHES = {"Tramba-P-TSOD": {"sra": 41, "ln_dwmlp": 38},
+                    "Tramba-S-TSOD": {"window_attn": 22}}
+
+
+def run_model(dev, dtype, x, cpu_fp32_heads=None, method="Tramba-V-TSOD"):
+    """Phase 4 for one model in one dtype.  Returns the launch counts of one
+    batch-2 forward, the model, its outputs and the CPU run's outputs (batch
+    1).  ``cpu_fp32_heads``: the CPU fp32 heads, which set bf16's noise floor."""
     from tramba_tpu_torch.models.registry import build
 
-    model = build("Tramba-V-TSOD", 384, device=dev, seed=0, dtype=dtype)
+    model = build(method, 384, device=dev, seed=0, dtype=dtype)
     n_params = sum(p.numel() for p in model.parameters())
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("parameters must stay fp32")
@@ -469,7 +607,7 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None):
     with torch.no_grad():
         outs = model(x.to(dev))
     launches = read_counts()
-    print(f"model Tramba-V-TSOD 384px {NAMES[dtype]}, {n_params} fp32 parameters; "
+    print(f"model {method} 384px {NAMES[dtype]}, {n_params} fp32 parameters; "
           f"launches {launches}", flush=True)
     shapes = [tuple(o.shape) for o in outs]
     want = [(2, 24, 24, 1), (2, 48, 48, 1), (2, 96, 96, 1), (2, 384, 384, 1)]
@@ -480,15 +618,19 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None):
     if not all(torch.isfinite(o).all().item() for o in outs):
         raise AssertionError("non-finite logits")
     want = expected_launches(model, train=False)
+    if dtype == torch.bfloat16:
+        want_new = ENCODER_LAUNCHES.get(method, {})
+        if any(want[k] != n for k, n in want_new.items()):
+            raise AssertionError(f"{method}: derived launches {want}, expected {want_new}")
     if launches != want:
-        raise AssertionError(f"{NAMES[dtype]} launches {launches}, expected {want}")
+        raise AssertionError(f"{method} {NAMES[dtype]} launches {launches}, expected {want}")
 
     t0 = time.perf_counter()
-    cpu_model = build("Tramba-V-TSOD", 384, device="cpu", seed=0, dtype=dtype)
+    cpu_model = build(method, 384, device="cpu", seed=0, dtype=dtype)
     with torch.no_grad():
         cpu_outs = cpu_model(x[:1])
-    print(f"CPU {NAMES[dtype]} forward (plain versions) {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"CPU {method} {NAMES[dtype]} forward (plain versions) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for i, (g, c) in enumerate(zip(outs, cpu_outs)):
         c = c.float()
         d = (g[:1].float().cpu() - c).abs()
@@ -497,16 +639,18 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None):
             noise = (c - cpu_fp32_heads[i]).abs().mean().item()
             tol = max(tol, BF16_NOISE_FACTOR * noise)
             floor = f"; CPU bf16 vs CPU fp32 mean abs {noise:.3e}"
-        print(f"head {i} {tuple(c.shape)} {NAMES[dtype]}: card vs CPU max abs "
+        print(f"{method} head {i} {tuple(c.shape)} {NAMES[dtype]}: card vs CPU max abs "
               f"{d.max().item():.3e} mean abs {d.mean().item():.3e} "
               f"(|logit| mean {c.abs().mean().item():.3f}{floor}; limit {tol:.3e})", flush=True)
         if not d.mean().item() <= tol:
-            raise AssertionError(f"head {i}: mean abs difference {d.mean().item()} > {tol}")
+            raise AssertionError(f"{method} head {i}: mean abs difference {d.mean().item()} "
+                                 f"> {tol}")
     return launches, model, outs, [c.float() for c in cpu_outs]
 
 
-def run_dump_entry_point(tmp, *flags):
-    """Phase 5: the port's dump CLI on synthetic images of odd sizes."""
+def run_dump_entry_point(tmp, method, *flags):
+    """Phase 5: the port's dump CLI for ``method`` on synthetic images of odd
+    sizes."""
     from PIL import Image
 
     rng = np.random.default_rng(0)
@@ -521,14 +665,15 @@ def run_dump_entry_point(tmp, *flags):
     save_root = os.path.join(tmp, "out")
     subprocess.run([sys.executable, "-m", "tramba_tpu_torch.dump", "--data_root",
                     os.path.join(tmp, "data"), "--save_root", save_root, "--batch_size", "2",
-                    *flags],
+                    "--method", method, *flags],
                    check=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
-    out_dir = os.path.join(save_root, "Tramba-V-TSOD", "TSOD")
+    out_dir = os.path.join(save_root, method, "TSOD")
     for name, size in sizes.items():
         with Image.open(os.path.join(out_dir, name + ".png")) as im:
             if im.size != size or im.mode != "L":
                 raise AssertionError(f"{name}: map {im.size} {im.mode}, expected {size} L")
-    print(f"dump {' '.join(flags)} wrote {len(sizes)} maps at their original sizes", flush=True)
+    print(f"dump --method {method} {' '.join(flags)} wrote {len(sizes)} maps at their original "
+          "sizes", flush=True)
 
 
 # kernel-name fragments -> group of the phase 7 / 8 breakdowns, first match wins
@@ -550,9 +695,12 @@ GROUPS = (("mlp_bwd_act_kernel", "K9 ln_mlp_bwd, GELU adjoint"),
           ("prologue_kernel", "K5 prologue"),
           ("ln_mlp_kernel", "K6 ln_mlp"),
           ("ln_dwms_kernel", "K7 ln_dwms_mlp"),
-          ("ln_rows_kernel", "LayerNorm launch of K5-K7"),
+          ("ln_dwmlp_kernel", "K11 ln_dwmlp"),
+          ("proj_in_kernel", "K12/K13 (1) input projection"),
+          ("attn_kernel", "K12/K13 (2) attention + out projection"),
+          ("ln_rows_kernel", "LayerNorm launch of K5-K7, K11-K13"),
           ("finish_split_kernel", "split sums of K6/K7"),
-          ("layer_norm", "LayerNorm (torch)"),
+          ("layer_norm", "LayerNorm (torch)"), ("softmax", "softmax (torch)"),
           ("dgrad", "conv backward (cuDNN)"), ("wgrad", "conv backward (cuDNN)"),
           ("conv", "conv (cuDNN)"), ("cudnn", "conv (cuDNN)"), ("fprop", "conv (cuDNN)"),
           ("gemm", "GEMM (cuBLAS)"), ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"),
@@ -781,6 +929,10 @@ def main() -> int:
     check_ss2d_expand(checks, dev, gen, torch.float32)
     check_ss2d_expand(checks, dev, gen, torch.bfloat16)
     check_bf16_only(checks, dev, gen)
+    check_encoder_kernels(checks, dev, gen)
+    for dtype in (torch.float32, torch.bfloat16):  # K1-K4 at Tramba-P's decoder
+        check_ss2d_expand(checks, dev, gen, dtype, SS2D_SHAPES_P, EXPAND_SHAPES_P, head_c=64)
+    check_bf16_only(checks, dev, gen, BF16_SHAPES_P, lgp=False)
     for dtype in (torch.float32, torch.bfloat16):
         check_train_kernels(checks, dev, gen, dtype)
     check_mlp_bwd(checks, dev, gen)
@@ -788,44 +940,53 @@ def main() -> int:
 
     phase("4 model")
     x = torch.randn(2, 384, 384, 3, generator=torch.Generator().manual_seed(1))
-    launches, models, heads, cpu_heads = {}, {}, {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
-        launches[NAMES[dtype]], models[dtype], heads[dtype], cpu_heads[dtype] = run_model(
-            dev, dtype, x, cpu_heads.get(torch.float32))
-    for i, (b, f) in enumerate(zip(heads[torch.bfloat16], heads[torch.float32])):
-        d = (b.float() - f).abs().mean().item()
-        mae = (torch.sigmoid(b.float()) - torch.sigmoid(f)).abs().mean().item()
-        print(f"head {i}: bf16 card vs fp32 card mean abs {d:.3e}, sigmoid-map MAE {mae:.3e}",
-              flush=True)
+    launches, models, heads = {}, {}, {}
+    for method in MODELS:
+        cpu_heads = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            key = (method, dtype)
+            launches[key], models[key], heads[key], cpu_heads[dtype] = run_model(
+                dev, dtype, x, cpu_heads.get(torch.float32), method)
+        pairs = zip(heads[method, torch.bfloat16], heads[method, torch.float32])
+        for i, (b, f) in enumerate(pairs):
+            d = (b.float() - f).abs().mean().item()
+            mae = (torch.sigmoid(b.float()) - torch.sigmoid(f)).abs().mean().item()
+            print(f"{method} head {i}: bf16 card vs fp32 card mean abs {d:.3e}, sigmoid-map MAE "
+                  f"{mae:.3e}", flush=True)
+    heads.clear()
 
     phase("5 dump entry point")
-    for flags in (("--measure_fps",), ("--dtype", "bfloat16")):
+    for method, flags in (("Tramba-V-TSOD", ("--measure_fps",)),
+                          ("Tramba-V-TSOD", ("--dtype", "bfloat16")),
+                          ("Tramba-P-TSOD", ("--dtype", "bfloat16")),
+                          ("Tramba-S-TSOD", ("--dtype", "bfloat16"))):
         with tempfile.TemporaryDirectory() as tmp:
-            run_dump_entry_point(tmp, *flags)
+            run_dump_entry_point(tmp, method, *flags)
 
     phase("6 timing")
-    walls = {}
     with torch.no_grad():
-        for dtype, batches in ((torch.float32, ((1, 20), (8, 5))),
-                               (torch.bfloat16, ((1, 20), (8, 5), (16, 5)))):
-            model = models[dtype]
-            for B, reps in batches:
-                xb = torch.randn(B, 384, 384, 3, device=dev)
-                ms = cuda_ms(lambda: model(xb), reps, warmup=2)
-                walls[(dtype, B)] = ms
-                print(f"Tramba-V-TSOD 384px {NAMES[dtype]} B{B}: {ms:.2f} ms/forward, "
-                      f"{1000 * B / ms:.1f} img/s [{card}]", flush=True)
+        for method in MODELS:
+            for dtype, batches in TIMED[method]:
+                model = models[method, dtype]
+                for B, reps in batches:
+                    xb = torch.randn(B, 384, 384, 3, device=dev)
+                    ms = cuda_ms(lambda: model(xb), reps, warmup=2)
+                    print(f"{method} 384px {NAMES[dtype]} B{B}: {ms:.2f} ms/forward, "
+                          f"{1000 * B / ms:.1f} img/s [{card}]", flush=True)
 
     phase("7 profile")
-    for B in (1, 16):
+    for method, B in (("Tramba-V-TSOD", 1), ("Tramba-V-TSOD", 16), ("Tramba-P-TSOD", 1),
+                      ("Tramba-P-TSOD", 16), ("Tramba-S-TSOD", 1), ("Tramba-S-TSOD", 16)):
+        model = models[method, torch.bfloat16]
         xb = torch.randn(B, 384, 384, 3, device=dev)
         t0 = time.perf_counter()
         with torch.no_grad():
             for _ in range(3):
-                models[torch.bfloat16](xb)
+                model(xb)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 3 * 1e3
-        profile_breakdown(lambda: models[torch.bfloat16](xb), wall, f"bf16 B{B}")
+        profile_breakdown(lambda: model(xb), wall, f"{method} bf16 B{B}")
+        del xb
     models.clear()
     torch.cuda.empty_cache()
 
@@ -836,13 +997,15 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phase("9 training entry point")
+    train_launches = {}
     for dtype in (torch.float32, torch.bfloat16):
         with tempfile.TemporaryDirectory() as tmp:
-            launches[f"{NAMES[dtype]} train"] = run_train_entry_point(tmp, dtype)
+            train_launches[f"{NAMES[dtype]} train"] = run_train_entry_point(tmp, dtype)
         torch.cuda.empty_cache()
 
     ss2d, expand = "tramba_tpu_torch/csrc/ss2d.cu", "tramba_tpu_torch/csrc/expand.cu"
     mlp, mlp_bwd = "tramba_tpu_torch/csrc/mlp.cu", "tramba_tpu_torch/csrc/mlp_bwd.cu"
+    attn = "tramba_tpu_torch/csrc/attn.cu"
     sources = {"ss2d_scan": (ss2d, "tramba_tpu/ops/fused_ss2d.py:1505"),
                "ss2d_merge": (ss2d, "tramba_tpu/ops/fused_ss2d.py:1561"),
                "expand_ln": (expand, "tramba_tpu/ops/fused_expand.py:59"),
@@ -854,7 +1017,10 @@ def main() -> int:
                "ss2d_scan_bwd": ("tramba_tpu_torch/csrc/ss2d_bwd.cu",
                                  "tramba_tpu/ops/fused_ss2d.py:638"),
                "ln_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:233"),
-               "ln_dwms_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:674")}
+               "ln_dwms_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:674"),
+               "ln_dwmlp": (mlp, "tramba_tpu/ops/fused_mlp.py:844"),
+               "sra": (attn, "tramba_tpu/ops/fused_attn.py:96"),
+               "window_attn": (attn, "tramba_tpu/ops/fused_attn.py:254")}
     # in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13), and
     # their bf16 train variants for its emit_train; in fp32 training K1 is #1's
     # emit-carries variant, K2 #10's emit_ysum; K8 stands for #4
@@ -869,16 +1035,25 @@ def main() -> int:
     shown = {"ss2d_scan": "line 96px", "ss2d_merge": "line 96px", "ss2d_scan_bwd": "line 96px",
              "expand_ln": "f2 48px", "final_head": "96px", "prologue": "enc/dec LN 96px",
              "ln_mlp": "96px", "ln_dwms_mlp": "96px", "ln_mlp_bwd": "96px",
-             "ln_dwms_mlp_bwd": "96px"}
+             "ln_dwms_mlp_bwd": "96px", "ln_dwmlp": "96px", "sra": "96px",
+             "window_attn": "96px"}
+    # `launches`: the forward of the model whose main path the kernel is on
+    # (K11 / K12 Tramba-P, K13 Tramba-S, the rest Tramba-V), or the training
+    # CLI's run; each model's forward besides
+    home = {"ln_dwmlp": "Tramba-P-TSOD", "sra": "Tramba-P-TSOD", "window_attn": "Tramba-S-TSOD"}
     summary = []
     for (name, tag), rows in checks.rows.items():
         label, _, ms, plain_ms, bound_ms, bound_by = next(r for r in rows
                                                           if r[0].startswith(shown[name]))
+        dt = torch.bfloat16 if tag.startswith("bf16") else torch.float32
+        by_model = {m: launches[m, dt][name] for m in MODELS}
+        train = tag.endswith("train")
+        n = train_launches[tag][name] if train else by_model[home.get(name, "Tramba-V-TSOD")]
         # no single PyTorch call computes any of these fused functions
         summary.append({"name": name, "dtype": tag, "route": "cuda",
                         "source": sources[name][0],
                         "replaces": replaced.get((name, tag), sources[name][1]),
-                        "launches": launches[tag][name],
+                        "launches": n, "launches_by_model": None if train else by_model,
                         "max_abs_err": max(r[1] for r in rows), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                         "shape": label})

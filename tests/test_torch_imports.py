@@ -14,10 +14,14 @@ from PIL import Image
 from tramba_tpu.compat.torch_weights import convert_vmamba_encoder_pretrained
 from tramba_tpu.data import pipeline as jpipeline
 from tramba_tpu.eval import metrics as jmetrics
+from tramba_tpu.models import pvt as jpvt
+from tramba_tpu.models import swin as jswin
 from tramba_tpu_torch.compat.jax_weights import encoder_from_jax
 from tramba_tpu_torch.compat.torch_weights import graft_vmamba_encoder
 from tramba_tpu_torch.data import pipeline as tpipeline
 from tramba_tpu_torch.eval import metrics as tmetrics
+from tramba_tpu_torch.models import pvt as tpvt
+from tramba_tpu_torch.models import swin as tswin
 from tramba_tpu_torch.models.registry import build
 from tramba_tpu_torch.train import loop
 
@@ -140,3 +144,19 @@ def test_training_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(loop, "build", lambda *a, **k: pytest.fail("built a model"))
     with pytest.raises(RuntimeError, match="CUDA"):
         loop.training(object())
+
+
+@pytest.mark.parametrize("w,H,shift", [(12, 96, 6), (12, 24, 6), (4, 16, 2), (7, 14, 3)])
+def test_copied_swin_tables_equal_the_jax_package(w, H, shift):
+    """The port's relative-position index and shift mask (copies of
+    models/swin.py:49-74) equal the JAX package's, element for element."""
+    np.testing.assert_array_equal(tswin.relative_position_index(w),
+                                  jswin._relative_position_index(w))
+    got, want = tswin.shift_attn_mask(H, H, w, shift), jswin._shift_attn_mask(H, H, w, shift)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_copied_encoder_configs_equal_the_jax_package():
+    assert tpvt.pvt_v2_b4_config() == jpvt.pvt_v2_b4_config()
+    assert tswin.swin_b_384_config() == jswin.swin_b_384_config()

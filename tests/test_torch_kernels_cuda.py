@@ -1,4 +1,4 @@
-"""Kernels K1-K10 vs their plain versions on the card, at small ragged shapes.
+"""Kernels K1-K13 vs their plain versions on the card, at small ragged shapes.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda``, needs a
 CUDA device and skips without one.  Run on the card with
@@ -16,6 +16,7 @@ output's max abs error is held to 1e-2 x its largest magnitude.
 import pytest
 import torch
 
+from tramba_tpu_torch.ops import fused_attn as ta
 from tramba_tpu_torch.ops import fused_expand as te
 from tramba_tpu_torch.ops import fused_mlp as tm
 from tramba_tpu_torch.ops import fused_prologue as tp
@@ -475,3 +476,102 @@ def test_bf16_kernels_carry_gradients(dev):
     want = torch.autograd.grad(tp.prologue_ref(*cpu), cpu, gu)
     for i, (a, b) in enumerate(zip(got, want)):
         _bf16_bwd_close(a, b, f"prologue input {i}")
+
+
+# ---- Tramba-P / Tramba-S: K11 ln_dwmlp, K12 sra, K13 window_attn -------------
+
+
+@pytest.mark.parametrize("B,H,W,d,hid", [(2, 11, 13, 48, 128), (1, 24, 24, 320, 1280),
+                                         (2, 16, 16, 64, 512)])
+def test_ln_dwmlp_matches_plain(dev, B, H, W, d, hid):
+    """Ragged 8x8 tiles with 1-px halos; d 320 / hid 1280 is PVT stage 3,
+    which stages its input in chunks of 64 channels."""
+    gen = torch.Generator().manual_seed(d + H + 3)
+    x = _rand(gen, B, H, W, d).to(torch.bfloat16)
+    ln = [_rand(gen, d, scale=0.1, shift=1.0), _rand(gen, d, scale=0.1)]
+    w1, b1, w2, b2 = _mlp_params(gen, d, hid, "cpu")
+    conv = [_rand(gen, hid, 1, 3, 3, scale=0.3), _rand(gen, hid, scale=0.1)]
+    args = ln + [w1, b1] + conv + [w2, b2]
+    want = tm.ln_dwmlp_ref(x, *args)
+    n = tm.ln_dwmlp.launches
+    got = tm.ln_dwmlp(x.to(dev), *(t.to(dev) for t in args))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tm.ln_dwmlp.launches == n + 1
+    torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
+
+
+def _attn_weights(gen, C, nqkv):
+    return [_rand(gen, C, scale=0.1, shift=1.0), _rand(gen, C, scale=0.1),
+            _rand(gen, nqkv * C, C, scale=C ** -0.5), _rand(gen, nqkv * C, scale=0.1),
+            _rand(gen, C, C, scale=C ** -0.5), _rand(gen, C, scale=0.1)]
+
+
+@pytest.mark.parametrize("B,N,C,nh,Lk", [(2, 100, 64, 1, 16), (1, 576, 320, 5, 144),
+                                         (2, 144, 512, 8, 144), (1, 1024, 128, 2, 64)])
+def test_sra_matches_plain(dev, B, N, C, nh, Lk):
+    """Ragged query chunks (N = 100); the PVT stage 3 and 4 widths."""
+    gen = torch.Generator().manual_seed(C + N)
+    x = _rand(gen, B, N, C, scale=2.0).to(torch.bfloat16)
+    ln_w, ln_b, wq, bq, wp, bp = _attn_weights(gen, C, 1)
+    k, v = (_rand(gen, B, nh, Lk, C // nh).to(torch.bfloat16) for _ in range(2))
+    args = (x, ln_w, ln_b, wq, bq, k, v, wp, bp)
+    want = ta.sra_ref(*args, nh)
+    n = ta.sra.launches
+    got = ta.sra(*(t.to(dev) for t in args), nh)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and ta.sra.launches == n + 1
+    torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
+
+
+@pytest.mark.parametrize("B,H,C,nh,w,masked", [(2, 24, 128, 4, 12, True),
+                                               (1, 24, 512, 16, 12, False), (1, 8, 64, 2, 4, True)])
+def test_window_attn_matches_plain(dev, B, H, C, nh, w, masked):
+    """Swin stage widths with their 12 x 12 windows, shifted (masked) or not."""
+    from tramba_tpu_torch.models.swin import shift_attn_mask
+
+    gen = torch.Generator().manual_seed(C + H + masked)
+    x = _rand(gen, B, H, H, C, scale=2.0).to(torch.bfloat16)
+    ln_w, ln_b, wqkv, bqkv, wp, bp = _attn_weights(gen, C, 3)
+    bias = _rand(gen, nh, w * w, w * w)
+    mask = torch.from_numpy(shift_attn_mask(H, H, w, w // 2)) if masked else None
+    args = (x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp)
+    want = ta.window_attn_ref(*args, nh)
+    n = ta.window_attn.launches
+    got = ta.window_attn(*(None if t is None else t.to(dev) for t in args), nh)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and ta.window_attn.launches == n + 1
+    torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
+
+
+def test_encoder_kernels_carry_gradients(dev):
+    """K11-K13 under autograd on the card: the outputs keep a grad_fn, and
+    every input's gradient (the plain versions' VJP, recomputed on the card)
+    matches the CPU's."""
+    from tramba_tpu_torch.models.swin import shift_attn_mask
+
+    gen = torch.Generator().manual_seed(23)
+    bf = torch.bfloat16
+    C, nh = 64, 2
+    ln_w, ln_b, wq, bq, wp, bp = _attn_weights(gen, C, 1)
+    _, _, wqkv, bqkv, _, _ = _attn_weights(gen, C, 3)
+    w1, b1, w2, b2 = (t.float() for t in _mlp_params(gen, C, 128, "cpu"))
+    cases = [
+        (lambda *a: ta.sra(*a, nh), [_rand(gen, 2, 64, C).to(bf), ln_w, ln_b, wq, bq,
+                                      _rand(gen, 2, nh, 16, C // nh).to(bf),
+                                      _rand(gen, 2, nh, 16, C // nh).to(bf), wp, bp]),
+        (lambda *a: ta.window_attn(*a[:6], torch.from_numpy(shift_attn_mask(8, 8, 4, 2)).to(
+            a[0].device), *a[6:], nh), [_rand(gen, 2, 8, 8, C).to(bf), ln_w, ln_b, wqkv, bqkv,
+                                        _rand(gen, nh, 16, 16), wp, bp]),
+        (tm.ln_dwmlp, [_rand(gen, 2, 8, 8, C).to(bf), ln_w, ln_b, w1, b1,
+                       _rand(gen, 128, 1, 3, 3, scale=0.3), _rand(gen, 128, scale=0.1), w2, b2]),
+    ]
+    for fn, args in cases:
+        cpu = [a.clone().requires_grad_(True) for a in args]
+        card = [a.to(dev).requires_grad_(True) for a in args]
+        out = fn(*card)
+        assert out.grad_fn is not None and out.dtype == bf
+        g = _rand(gen, *out.shape).to(bf)
+        got = torch.autograd.grad(out, card, g.to(dev))
+        want = torch.autograd.grad(fn(*cpu), cpu, g)
+        for i, (a, b) in enumerate(zip(got, want)):
+            _bf16_bwd_close(a, b, f"input {i}")

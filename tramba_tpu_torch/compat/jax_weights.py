@@ -1,10 +1,12 @@
-"""flax Tramba-V parameter tree -> reference PyTorch state dict.
+"""flax Tramba-V / -S / -P parameter tree -> reference PyTorch state dict.
 
 The exact inverse of ``tramba_tpu/compat/torch_weights.convert_tramba_v``
-(numpy only, importable without jax): ``convert_tramba_v(params_from_jax(p))``
-gives ``p`` back leaf for leaf.  The result loads into
-``tramba_tpu_torch.models.tramba.TrambaV`` with ``strict=True``, so both
-packages can run the same weights.
+and, for Swin-B and PVTv2-b4, of ``convert_tramba_enc`` (its
+``convert_swin_encoder`` :350 and ``convert_pvt_encoder`` :320; numpy only,
+importable without jax): ``convert_tramba_v(params_from_jax(p))`` and
+``convert_tramba_enc(params_from_jax(p), enc)`` give ``p`` back leaf for
+leaf.  The result loads into the port's ``TrambaV`` / ``TrambaEnc`` with
+``strict=True``, so both packages can run the same weights.
 
 Layout rules (inverse of torch_weights.py:7-13): Dense kernel (in, out) ->
 Linear weight (out, in); Conv kernel (kh, kw, in/g, out) -> Conv2d weight
@@ -20,7 +22,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "encoder_from_jax"]
+__all__ = ["params_from_jax", "encoder_from_jax", "pvt_encoder_from_jax",
+           "swin_encoder_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -115,12 +118,65 @@ def encoder_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def pvt_encoder_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
+    """flax PVTv2 encoder tree -> the port's ``encoder.*`` entries (inverse of
+    ``convert_pvt_encoder``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, pe in _indexed(enc, r"patch_embed(\d+)"):
+        _conv(sd, f"encoder.patch_embed{i}.proj", pe)
+        _ln(sd, f"encoder.patch_embed{i}.norm", enc[f"patch_norm{i}"])
+    for i, d, blk in _indexed(enc, r"block(\d+)_(\d+)"):
+        b = f"encoder.block{i}.{d}"
+        a, m = blk["attn"], blk["mlp"]
+        _ln(sd, f"{b}.norm1", blk["norm1"])
+        for name in ("q", "kv", "proj"):
+            _linear(sd, f"{b}.attn.{name}", a[name])
+        if "sr" in a:
+            _conv(sd, f"{b}.attn.sr", a["sr"])
+            _ln(sd, f"{b}.attn.norm", a["norm"])
+        _ln(sd, f"{b}.norm2", blk["norm2"])
+        _linear(sd, f"{b}.mlp.fc1", m["fc1"])
+        _conv(sd, f"{b}.mlp.dwconv.dwconv", m["dwconv"])
+        _linear(sd, f"{b}.mlp.fc2", m["fc2"])
+    for i, n in _indexed(enc, r"norm(\d+)"):
+        _ln(sd, f"encoder.norm{i}", n)
+    return sd
+
+
+def swin_encoder_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
+    """flax Swin encoder tree -> the port's ``encoder.*`` entries (inverse of
+    ``convert_swin_encoder`` without its stage-4 blocks)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "encoder.patch_embed.proj", enc["patch_embed_proj"])
+    _ln(sd, "encoder.patch_embed.norm", enc["patch_embed_norm"])
+    for s, d, blk in _indexed(enc, r"layer(\d+)_block(\d+)"):
+        b = f"encoder.layers.{s}.blocks.{d}"
+        a = blk["attn"]
+        _ln(sd, f"{b}.norm1", blk["norm1"])
+        _linear(sd, f"{b}.attn.qkv", a["qkv"])
+        _linear(sd, f"{b}.attn.proj", a["proj"])
+        sd[f"{b}.attn.relative_position_bias_table"] = _t(a["relative_position_bias_table"])
+        _ln(sd, f"{b}.norm2", blk["norm2"])
+        _linear(sd, f"{b}.mlp.fc1", blk["mlp_fc1"])
+        _linear(sd, f"{b}.mlp.fc2", blk["mlp_fc2"])
+    for s, ds in _indexed(enc, r"layer(\d+)_downsample"):
+        _ln(sd, f"encoder.layers.{s}.downsample.norm", ds["norm"])
+        _linear(sd, f"encoder.layers.{s}.downsample.reduction", ds["reduction"])
+    return sd
+
+
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax Tramba-V variables ({"params": {...}} or the params tree itself),
-    leaves as numpy arrays -> reference state dict of fp32 CPU tensors."""
+    """flax Tramba-V, Tramba-S or Tramba-P variables ({"params": {...}} or
+    the params tree itself), leaves as numpy arrays -> reference state dict
+    of fp32 CPU tensors."""
     p = variables.get("params", variables)
     dec = p["decoder"]
-    sd = encoder_from_jax(p["vssm_encoder"])
+    if "vssm_encoder" in p:
+        sd = encoder_from_jax(p["vssm_encoder"])
+    elif "patch_embed_proj" in p["encoder"]:
+        sd = swin_encoder_from_jax(p["encoder"])
+    else:
+        sd = pvt_encoder_from_jax(p["encoder"])
     for s, e in _indexed(dec, r"expand_(\d+)"):
         _expand(sd, f"decoder.expand_layers.{s}", e)
     for s, g in _indexed(dec, r"guide_(\d+)"):

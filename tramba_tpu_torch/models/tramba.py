@@ -1,6 +1,8 @@
-"""Tramba-V: VSSM encoder + DFVSS-guided decoder, channels-last.
+"""Tramba-V / -S / -P: an encoder + the DFVSS-guided decoder, channels-last.
 
-Port of ``tramba_tpu/models/tramba.py:78-200`` (reference ``Trambav6.py``).
+Port of ``tramba_tpu/models/tramba.py:78-253`` (reference ``Trambav6.py``,
+``Trambav6_enc.py``): Tramba-V's VSSM encoder, and ``TrambaEnc``'s Swin-B
+(Tramba-S) and PVTv2-b4 (Tramba-P) encoders with their skip assembly.
 Each decoder stage upsamples the deep feature (PatchExpand), gates the skip
 through a FreqBlock guide, reduces the concat with a split dense, and runs
 MultiScaleDecoderBlocks; deep supervision emits 4 logit maps at 1/16, 1/8,
@@ -15,19 +17,21 @@ Module names follow the reference state dict (``decoder.expand_layers.{s}``,
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tramba_tpu_torch.models.pvt import PVTv2Encoder, pvt_v2_b4_config
+from tramba_tpu_torch.models.swin import SwinEncoder, swin_b_384_config
 from tramba_tpu_torch.models.vssm_encoder import VSSMEncoder, _Stage
 from tramba_tpu_torch.nn.blocks import MultiScaleDecoderBlock
 from tramba_tpu_torch.nn.freq import FreqBlock
 from tramba_tpu_torch.nn.layers import FinalPatchExpandX4, PatchExpand, check_dtype
 
-__all__ = ["TrambaDecoder", "TrambaV", "window_for_resolution"]
+__all__ = ["TrambaDecoder", "TrambaV", "TrambaEnc", "window_for_resolution"]
 
 # high-frequency window size per resolution (csms6s.py:107-111)
 _WINDOW_BY_RES = {12: 4, 24: 8, 48: 12, 96: 16}
@@ -43,7 +47,10 @@ def window_for_resolution(res: int) -> int:
 
 
 class TrambaDecoder(nn.Module):
-    """``features_per_stage``: encoder widths, shallow -> deep."""
+    """``features_per_stage``: encoder widths, shallow -> deep.  Each stage's
+    concat-dense takes the upsampled deep map (half its width) beside the
+    guided skip: 2C -> C for Tramba-V and -S, 256 + 320 -> 320 (and 160 + 128,
+    64 + 64) for Tramba-P."""
 
     def __init__(self, features_per_stage: Sequence[int], depths: Sequence[int],
                  img_size: int = 384, dtype: torch.dtype = torch.float32,
@@ -64,7 +71,8 @@ class TrambaDecoder(nn.Module):
             FreqBlock(chans[-(s + 2)], window_for_resolution(base_res * 2 ** s), 4, dtype=dtype)
             for s in range(n - 1))
         self.concat_back_dim = nn.ModuleList(
-            nn.Linear(2 * chans[-(s + 2)], chans[-(s + 2)]) for s in range(n - 1))
+            nn.Linear(chans[-(s + 1)] // 2 + chans[-(s + 2)], chans[-(s + 2)])
+            for s in range(n - 1))
         self.stage_layers = nn.ModuleList(
             _Stage([MultiScaleDecoderBlock(chans[-(s + 2)], dtype=dtype,
                                            drop_path=rate(sum(depths[:s]) + d))
@@ -109,3 +117,46 @@ class TrambaV(nn.Module):
         """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the
         model dtype."""
         return self.decoder(self.vssm_encoder(x.to(self.dtype)))
+
+
+class TrambaEnc(nn.Module):
+    """Tramba-S (``enc_type="swin"``, Swin-B) and Tramba-P (``"pvt"``,
+    PVTv2-b4) (Trambav6_enc.py:162-230): the skips are [image, stage maps
+    shallow -> deep], Swin's the stage inputs (its stage-4 output is unused,
+    :212), PVT's its four stage outputs (:216).  ``enc_config`` overrides the
+    encoder's configuration (``swin_b_384_config`` / ``pvt_v2_b4_config``)
+    and ``dec_depths`` the decoder's, to cut the model down for tests; the
+    decoder's widths are the encoder's stage widths ([128, 256, 512, 1024]
+    and [64, 128, 320, 512] at full size, ``tramba.py:229, :234``)."""
+
+    def __init__(self, enc_type: str, img_size: int = 384, dtype: torch.dtype = torch.float32,
+                 enc_config: Optional[dict] = None, dec_depths: Sequence[int] = (2, 2, 2, 2),
+                 dec_drop_path: float = 0.2):
+        super().__init__()
+        self.dtype = check_dtype(dtype)
+        self.enc_type, self.img_size = enc_type, img_size
+        if enc_type == "swin":
+            cfg = {**swin_b_384_config(), **(enc_config or {})}
+            self.encoder = SwinEncoder(img_size, dtype=dtype, **cfg)
+            features = [cfg["embed_dim"] * 2 ** i for i in range(len(cfg["depths"]))]
+            # the stage-4 blocks of a reference checkpoint: dead compute,
+            # never built (compat/torch_weights.py:393)
+            self.checkpoint_ignore = (f"encoder.layers.{len(features) - 1}.blocks",)
+        elif enc_type == "pvt":
+            cfg = {**pvt_v2_b4_config(), **(enc_config or {})}
+            self.encoder = PVTv2Encoder(dtype=dtype, **cfg)
+            features = list(cfg["embed_dims"])
+            self.checkpoint_ignore = ()
+        else:
+            raise ValueError(f"unsupported encoder type: {enc_type!r}")
+        self.decoder = TrambaDecoder(features, dec_depths, img_size, dtype, dec_drop_path)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the
+        model dtype."""
+        x = x.to(self.dtype)
+        if self.enc_type == "swin":
+            skips = [x] + self.encoder(x)
+        else:
+            skips = [x] + self.encoder(x)[::-1]
+        return self.decoder(skips)

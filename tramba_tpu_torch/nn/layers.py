@@ -11,7 +11,10 @@ use (flax's ``w.astype(dtype)``; the kernels' wrappers cast the fp32
 parameters they are handed), and LayerNorm computes in fp32 and returns the
 input's dtype.  The FFNs take a ``dtype`` and in bf16 run kernels K6
 (``Mlp``) and K7 (``DWMSMlp``) with the block's pre-norm fused in, and
-under autograd their backwards K9 and K10.
+under autograd their backwards K9 and K10.  ``flax_dense`` and
+``flax_conv`` apply a Linear or Conv2d with the rounding points of flax's
+``nn.Dense`` / ``nn.Conv`` in a compute dtype, for the composed parts of the
+PVTv2 and Swin encoders.
 """
 
 from __future__ import annotations
@@ -26,8 +29,11 @@ from tramba_tpu_torch.ops.fused_expand import expand_ln, final_head, pixel_shuff
 __all__ = [
     "COMPUTE_DTYPES",
     "LayerNorm",
+    "LecunConv2d",
     "check_dtype",
     "conv_nhwc",
+    "flax_conv",
+    "flax_dense",
     "DropPath",
     "set_drop_path_generator",
     "Mlp",
@@ -51,11 +57,12 @@ def check_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the channel axis with torch's eps, 1e-5: fp32 parameters
-    and statistics, output in the input's dtype (flax ``LayerNorm(dtype=...)``)."""
+    """LayerNorm over the channel axis, eps 1e-5 unless given (PVTv2's block
+    norms take 1e-6): fp32 parameters and statistics, output in the input's
+    dtype (flax ``LayerNorm(dtype=...)``)."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
 
     def forward(self, x):
         if x.dtype == torch.float32:
@@ -72,6 +79,34 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                  None if b is None else b.to(x.dtype), conv.stride, conv.padding, conv.dilation,
                  conv.groups)
     return y.permute(0, 2, 3, 1)
+
+
+class LecunConv2d(nn.Conv2d):
+    """An ``nn.Conv2d`` that ``nn.init.init_weights`` draws as flax's default
+    conv init (lecun normal), where the JAX package leaves ``nn.Conv`` its
+    default: the PVTv2 and Swin encoders."""
+
+
+def flax_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``lin`` as flax's ``nn.Dense(dtype=dtype)``: x and the weight cast to
+    ``dtype``; in bf16 the product is rounded before the bias is added in
+    bf16 (a second rounding)."""
+    x = x.to(dtype)
+    if dtype == torch.float32:
+        return lin(x)
+    y = x @ lin.weight.to(dtype).t()
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def flax_conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """NHWC ``conv`` as flax's ``nn.Conv(dtype=dtype)``: in bf16 the bias is
+    added after the conv's rounding."""
+    x = x.to(dtype)
+    if dtype == torch.float32 or conv.bias is None:
+        return conv_nhwc(conv, x)
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dtype), None, conv.stride, conv.padding,
+                 conv.dilation, conv.groups)
+    return y.permute(0, 2, 3, 1) + conv.bias.to(dtype)
 
 
 class DropPath(nn.Module):

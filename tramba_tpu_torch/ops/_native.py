@@ -27,10 +27,11 @@ __all__ = ["on_card", "check_args", "needs_grad", "recompute_vjp", "F32", "BF16"
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ss2d.cu", "ss2d_bwd.cu", "expand.cu", "prologue.cu", "mlp.cu", "mlp_bwd.cu")
+SOURCES = ("ss2d.cu", "ss2d_bwd.cu", "expand.cu", "prologue.cu", "mlp.cu", "mlp_bwd.cu",
+           "attn.cu")
 HEADERS = ("common.cuh",)
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _LP = ctypes.POINTER(ctypes.c_long)
 # C signature of each launcher: pointers, ints, then the stream
@@ -42,15 +43,20 @@ _SIGNATURES = {
     "ss2d_scan_bwd_launch": [_P] * 22 + [_I] * 7 + [_P],
     "expand_ln_launch": [_P] * 5 + [_I] * 6 + [_P],
     "final_head_launch": [_P] * 7 + [_L, _I, _I, _P],
-    "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _P],
+    "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _F, _P],
     "prologue_launch": [_P] * 4 + [_I] * 5 + [_P],
     "ln_mlp_splits": [_L, _I, _I, _IP],
     "ln_mlp_launch": [_P] * 7 + [_L, _I, _I, _I, _P],
     "ln_dwms_mlp_splits": [_I] * 5 + [_IP],
     "ln_dwms_mlp_launch": [_P] * 13 + [_I] * 6 + [_P],
+    "ln_dwmlp_splits": [_I] * 5 + [_IP],
+    "ln_dwmlp_launch": [_P] * 9 + [_I] * 6 + [_P],
     "mlp_bwd_scratch": [_I] * 6 + [_LP],
     "ln_mlp_bwd_launch": [_P] * 15 + [_I] * 3 + [_P],
     "ln_dwms_mlp_bwd_launch": [_P] * 27 + [_I] * 5 + [_P],
+    "attn_proj_in_launch": [_P] * 4 + [_L, _I, _I, _I, _F, _P],
+    "sra_attn_launch": [_P] * 6 + [_I] * 5 + [_P],
+    "window_attn_launch": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 # dtypes a kernel argument may take (see check_args)

@@ -1,15 +1,22 @@
-"""Block FFNs of the bf16 path: kernels K6 ``ln_mlp`` and K7 ``ln_dwms_mlp``,
-and their adjoints K9 ``ln_mlp_bwd`` and K10 ``ln_dwms_mlp_bwd``.
+"""Block FFNs of the bf16 path: kernels K6 ``ln_mlp``, K7 ``ln_dwms_mlp`` and
+K11 ``ln_dwmlp``, and the adjoints K9 ``ln_mlp_bwd`` and K10
+``ln_dwms_mlp_bwd``.
 
-Port of ``tramba_tpu/ops/fused_mlp.py``: ``_mlp_pallas`` (:130, kernel :115)
-and ``_dwms_pallas`` (:360, kernel :312), with their custom VJPs
-``_mlp_bwd_pallas`` (:233, kernel :177) and ``_dwms_bwd_pallas`` (:674,
-kernel :541).  The forwards fuse the block's pre-norm into the FFN and keep
-the 4x-wide hidden tensor out of device memory (``csrc/mlp.cu``):
+Port of ``tramba_tpu/ops/fused_mlp.py``: ``_mlp_pallas`` (:130, kernel :115),
+``_dwms_pallas`` (:360, kernel :312) and ``_dwmlp_pallas`` (:844, kernel
+:806), with the custom VJPs ``_mlp_bwd_pallas`` (:233, kernel :177) and
+``_dwms_bwd_pallas`` (:674, kernel :541).  The forwards fuse the block's
+pre-norm into the FFN and keep the wide hidden tensor out of device memory
+(``csrc/mlp.cu``):
 
-* K6 ``ln_mlp``: LN -> fc1 -> exact GELU -> fc2 (VSSBlock and FreqBlock FFN).
+* K6 ``ln_mlp``: LN -> fc1 -> exact GELU -> fc2 (VSSBlock, FreqBlock and
+  SwinBlock FFN).
 * K7 ``ln_dwms_mlp``: LN -> fc1 -> h + dw3(h) + dw5(h) + dw7(h) -> GELU ->
   fc2 (MultiScaleDecoderBlock FFN); the depthwise convs pad h, not x.
+* K11 ``ln_dwmlp``: LN (eps 1e-6) -> fc1 -> dw3(h) -> GELU -> fc2 (PVTv2's
+  DWConvMlp; the conv replaces h, no identity term).  Its backward is the VJP
+  of the plain version (:class:`LnDwMlp`), as ``_dwmlp_bwd`` (:902)
+  differentiates the composed version.
 
 The kernels take bf16 activations, and weights cast to x's dtype at the
 call (the modules hand over the fp32 parameters, as flax does); LayerNorm
@@ -43,14 +50,14 @@ from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_card
 
 __all__ = ["layer_norm_bf16", "ln_mlp", "ln_mlp_ref", "ln_dwms_mlp", "ln_dwms_mlp_ref",
-           "ln_mlp_bwd", "ln_mlp_bwd_ref", "ln_dwms_mlp_bwd", "ln_dwms_mlp_bwd_ref", "LnMlp",
-           "LnDwmsMlp"]
+           "ln_dwmlp", "ln_dwmlp_ref", "dwmlp_fusable", "ln_mlp_bwd", "ln_mlp_bwd_ref",
+           "ln_dwms_mlp_bwd", "ln_dwms_mlp_bwd_ref", "LnMlp", "LnDwmsMlp", "LnDwMlp"]
 
 
-def _ln_rounded(x, ln_w, ln_b):
-    """LayerNorm over the last axis in fp32 (eps 1e-5), rounded to x's dtype,
-    returned as fp32."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), ln_w.float(), ln_b.float(), 1e-5)
+def _ln_rounded(x, ln_w, ln_b, eps=1e-5):
+    """LayerNorm over the last axis in fp32, rounded to x's dtype, returned as
+    fp32."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), ln_w.float(), ln_b.float(), eps)
     return y.to(x.dtype).float()
 
 
@@ -77,16 +84,17 @@ def _split_scratch(x, name: str, *shape):
     return splits, torch.empty(size, device=x.device, dtype=torch.float32)
 
 
-def layer_norm_bf16(x, ln_w, ln_b):
+def layer_norm_bf16(x, ln_w, ln_b, eps=1e-5):
     """bf16 LayerNorm of a CUDA bf16 tensor over its last axis (fp32
-    statistics): the launch that kernels K5, K6 and K7 start with."""
+    statistics): the launch that kernels K5-K7 and K11-K13 start with."""
     d = x.shape[-1]
     check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
     if ln_w.numel() != d or ln_b.numel() != d:
         raise ValueError(f"layer_norm_bf16: LN parameters must have {d} elements")
     y = torch.empty_like(x)
     _native.launch("layer_norm_bf16_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                   y.data_ptr(), x.numel() // d, d, _native.stream_handle(x))
+                   y.data_ptr(), x.numel() // d, d, ctypes.c_float(eps),
+                   _native.stream_handle(x))
     return y
 
 
@@ -119,6 +127,29 @@ def ln_dwms_mlp_ref(x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2):
         a = a + conv.permute(0, 2, 3, 1)
     g = F.gelu(a).to(cd).float()
     return (_linear(g, w2, cd) + b2.float()).to(cd)
+
+
+def ln_dwmlp_ref(x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps=1e-6):
+    """x (B, H, W, d); w1 (hid, d); b1 (hid); k3 (hid, 1, 3, 3); c3 (hid);
+    w2 (d, hid); b2 (d).  Mirrors _dwmlp_kernel (fused_mlp.py:806-840): the
+    3x3 taps rounded to x's dtype act on the unrounded fc1 output, padded
+    with zeros.  Returns (B, H, W, d) in x's dtype."""
+    cd = x.dtype
+    h = _linear(_ln_rounded(x, ln_w, ln_b, eps), w1, cd) + b1.float()
+    a = F.conv2d(h.permute(0, 3, 1, 2), k3.to(cd).float(), c3.float(), padding=1,
+                 groups=w1.shape[0])
+    g = F.gelu(a.permute(0, 2, 3, 1)).to(cd).float()
+    return (_linear(g, w2, cd) + b2.float()).to(cd)
+
+
+def dwmlp_fusable(H: int, W: int, d: int, hid: int, dtype) -> bool:
+    """Where the JAX package runs ``_dwmlp_pallas`` on a TPU (``dwmlp_fusable``,
+    fused_mlp.py:796-803, whose VMEM budgets hold at every PVTv2-b4 width):
+    bf16, W % 8 == 0 (PVT stages 1-3 at 384 px; the 12 px stage 4 runs the
+    composed FFN), d % 8 == 0, hid % 128 == 0 and an even H.  K11 takes every
+    such shape with d % 16 == 0."""
+    return (dtype == torch.bfloat16 and W % 8 == 0 and H % 2 == 0 and d % 8 == 0
+            and hid % 128 == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +317,37 @@ def _ln_dwms_mlp_launch(x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2):
 ln_dwms_mlp.launches = 0
 
 
+def ln_dwmlp(x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps=1e-6):
+    """Kernel K11 on CUDA tensors, :func:`ln_dwmlp_ref` on CPU tensors; under
+    autograd in bf16 (and on the card) :class:`LnDwMlp`."""
+    args = (x, ln_w, ln_b, w1, b1, k3, c3, w2, b2)
+    if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
+        return LnDwMlp.apply(*args, eps)
+    return _ln_dwmlp_launch(*args, eps) if on_card(x) else ln_dwmlp_ref(*args, eps)
+
+
+def _ln_dwmlp_launch(x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps):
+    cd = x.dtype
+    w1, k3, w2 = w1.to(cd), k3.to(cd), w2.to(cd)
+    check_args(x=(x, BF16), w1=(w1, BF16), b1=(b1, F32), k3=(k3, BF16), c3=(c3, F32),
+               w2=(w2, BF16), b2=(b2, F32))
+    d, hid = _mlp_shapes("ln_dwmlp", x, w1, b1, w2, b2)
+    if x.dim() != 4 or tuple(k3.shape) != (hid, 1, 3, 3) or c3.numel() != hid:
+        raise ValueError("ln_dwmlp: x (B, H, W, d), k3 (hid, 1, 3, 3), c3 (hid)")
+    B, H, W, _ = x.shape
+    y = layer_norm_bf16(x, ln_w, ln_b, eps)
+    out = torch.empty_like(x)
+    splits, part = _split_scratch(x, "ln_dwmlp_splits", B, H, W, d, hid)
+    _native.launch("ln_dwmlp_launch", y.data_ptr(), w1.data_ptr(), b1.data_ptr(), k3.data_ptr(),
+                   c3.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), part.data_ptr(),
+                   B, H, W, d, hid, splits, _native.stream_handle(x))
+    ln_dwmlp.launches += 1
+    return out
+
+
+ln_dwmlp.launches = 0
+
+
 def _bwd_scratch(x, dwms, *shape):
     n = ctypes.c_long()
     _native.launch("mlp_bwd_scratch", dwms, *shape, ctypes.byref(n))
@@ -385,3 +447,22 @@ class LnDwmsMlp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ln_dwms_mlp_bwd(*ctx.saved_tensors[:1], g, *ctx.saved_tensors[1:])
+
+
+class LnDwMlp(torch.autograd.Function):
+    """K11 forward (its plain version on CPU tensors); backward: the VJP of
+    :func:`ln_dwmlp_ref` by recomputation, as ``_dwmlp_bwd``
+    (fused_mlp.py:902-904) differentiates ``composed_ln_dwmlp``."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, k3, c3, w2, b2)
+        ctx.eps = eps
+        args = (x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps)
+        return _ln_dwmlp_launch(*args) if on_card(x) else ln_dwmlp_ref(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _native.recompute_vjp(lambda *a: ln_dwmlp_ref(*a, ctx.eps), ctx.saved_tensors,
+                                      ctx.needs_input_grad[:9], g)
+        return (*grads, None)

@@ -27,13 +27,16 @@ def save_params(path: str, model: torch.nn.Module) -> None:
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Load a reference state dict (or a resume dict's ``model``) with
-    ``strict=True``, dropping only the weightless buffers the converter also
-    ignores (DCT bases, masks)."""
+    ``strict=True``, dropping only what the JAX converter also ignores: the
+    weightless buffers (DCT bases, masks, relative-position indices) and the
+    model's ``checkpoint_ignore`` keys (Tramba-S: the stage-4 Swin blocks,
+    never run)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("model", "state_dict"):
         if key in sd and isinstance(sd[key], dict):
             sd = sd[key]
-    sd = {k: v for k, v in sd.items() if not _ignorable(k, _IGNORABLE)}
+    ignore = (*_IGNORABLE, *getattr(model, "checkpoint_ignore", ()))
+    sd = {k: v for k, v in sd.items() if not _ignorable(k, ignore)}
     model.load_state_dict(sd, strict=True)
 
 
