@@ -10,7 +10,12 @@ Phases, each of which must pass (any failure exits non-zero):
                (rtol 1e-3, atol 1e-4), then in bf16 K1-K4 and K5-K7, and K2
                as _lgp_pallas (one-slot identity table); Tramba-P's and
                Tramba-S's encoder kernels K11 ln_dwmlp, K12 sra and K13
-               window_attn (shifted and unshifted) in bf16; K1-K4 (fp32,
+               window_attn (shifted and unshifted) in bf16, with weights at
+               fan-in scale, an N(0, 1) relative-position bias and output
+               bias 0, each shape also holding its plain version with a
+               planted fault (K11 centre tap only; K12 uniform softmax;
+               K13 no bias, uniform softmax, no mask) to the same check,
+               which it must fail; K1-K4 (fp32,
                bf16) and K5-K7 at Tramba-P's decoder widths 320/128/64
                (Tramba-S's decoder has Tramba-V's); bf16 outputs at rtol
                1.6e-2, atol 1e-2; then the training kernels at every
@@ -38,7 +43,9 @@ Phases, each of which must pass (any failure exits non-zero):
                size, then runs the 200-iteration FPS loop; then the same dump
                with ``--dtype bfloat16``, for Tramba-V, -P and -S
   6. timing    ms per forward: bf16 at batch 1, 8 and 16 and fp32 at 1 for
-               each model, Tramba-V's fp32 also at 8
+               each model, Tramba-V's fp32 also at 8; then Tramba-P's and
+               -S's bf16 B1 in turns with a copy whose encoder weights are
+               cast to bf16 once (the cost of the per-call casts)
   7. profile   device time of the bf16 forward by kernel group (torch.profiler)
                and the device's idle share, at B1 and B16 for each model
   8. train     fp32, then bf16 training of Tramba-V at full width, batch 4: one train
@@ -68,6 +75,7 @@ The last lines are the kernels' JSON summary, the card's
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -176,14 +184,21 @@ def expected_launches(model, train: bool) -> dict:
     from tramba_tpu_torch.ops import fused_mlp as tm
 
     n = dict.fromkeys((w.__name__ for w in wrappers()), 0)
+    # in bf16 at 384 px the gates hold in every block that JAX's TPU routing
+    # fuses: K13 in all Swin blocks that run (22 in Swin-B), K12 in all PVT
+    # blocks (41 in PVTv2-b4) and K11 in those of stages 1-3 (38)
+    full = model.dtype == torch.bfloat16 and getattr(model, "img_size", 0) == 384
+    swin_blocks = 0
     for m in model.modules():
         bf16 = getattr(m, "dtype", None) == torch.bfloat16
         if isinstance(m, SwinBlock):
             C, r = m.norm1.normalized_shape[0], m.resolution
             n["window_attn"] += ta.window_attn_fusable(r, r, C, m.attn.num_heads, m.window,
                                                        model.dtype)
+            swin_blocks += 1
         elif isinstance(m, PVTv2Encoder):
             res = model.img_size
+            depths = [len(getattr(m, f"block{s}")) for s in range(1, m.n_stages + 1)]
             for s in range(1, m.n_stages + 1):
                 conv = getattr(m, f"patch_embed{s}").proj
                 res = (res + 2 * conv.padding[0] - conv.kernel_size[0]) // conv.stride[0] + 1
@@ -193,6 +208,8 @@ def expected_launches(model, train: bool) -> dict:
                     n["sra"] += ta.sra_fusable(res * res, C, blk.attn.num_heads, lk, model.dtype)
                     n["ln_dwmlp"] += tm.dwmlp_fusable(res, res, C, blk.mlp.fc1.out_features,
                                                       model.dtype)
+            if full and (n["sra"], n["ln_dwmlp"]) != (sum(depths), sum(depths[:3])):
+                raise AssertionError(f"PVT depths {depths}: K12 {n['sra']}, K11 {n['ln_dwmlp']}")
         elif isinstance(m, SS2D):
             n["ss2d_scan"] += 1
             n["ss2d_merge"] += 1
@@ -206,6 +223,8 @@ def expected_launches(model, train: bool) -> dict:
             n["expand_ln"] += 1
         elif isinstance(m, FinalPatchExpandX4):
             n["final_head"] += 1
+    if full and n["window_attn"] != swin_blocks:
+        raise AssertionError(f"{swin_blocks} Swin blocks, K13 {n['window_attn']}")
     return n
 
 
@@ -276,6 +295,22 @@ class Checks:
         print(f"{name:15s} {tag:10s} {label:34s} max_abs_err {err:.3e} {what} {rel:.3e} "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
+
+    @staticmethod
+    def planted(name, label, want, faults):
+        """Proof that :meth:`compare`'s bf16 check can see a wrong kernel at
+        these inputs: each of ``faults`` (fault name -> the plain version with
+        that fault planted) must fail the check against ``want``, the plain
+        version's output."""
+        for fault, fn in faults.items():
+            got, w = fn().float(), want.float()
+            bad = ~torch.isclose(got, w, **KERNEL_TOL_BF16)
+            err, share = (got - w).abs().max().item(), bad.float().mean().item()
+            print(f"{name:15s} planted {fault!r:18s} {label:34s} max_abs_err {err:.3e}, "
+                  f"{share:.3f} of outputs outside the check", flush=True)
+            if not bad.any():
+                raise AssertionError(f"{name} {label}: a kernel with the fault {fault!r} "
+                                     "would pass the check")
 
 
 # (order, map size, d_model, window/rate): every SS2D shape of the main path --
@@ -467,15 +502,13 @@ BF16_SHAPES_P = dict(
     ln_dwms_mlp=((96, 64), (48, 128), (24, 320)))
 
 
-def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES, lgp=True):
-    """K5-K7 at every bf16 main-path shape of ``shapes``, and (``lgp``) K2
-    as _lgp_pallas."""
+def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES):
+    """K5-K7 at every bf16 main-path shape of ``shapes``."""
     from tramba_tpu_torch.nn.init import init_weights
     from tramba_tpu_torch.nn.layers import DWMSMlp, Mlp
     from tramba_tpu_torch.nn.ssm import SS2D
     from tramba_tpu_torch.ops import fused_mlp as tm
     from tramba_tpu_torch.ops import fused_prologue as tp
-    from tramba_tpu_torch.ops import fused_ss2d as tf
 
     bf, B = torch.bfloat16, 2
 
@@ -514,12 +547,23 @@ def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES, lgp=True):
         checks.compare("ln_dwms_mlp", bf, f"{H}px B{B} d{d} hid{4 * d}",
                        lambda: tm.ln_dwms_mlp(*args), lambda: tm.ln_dwms_mlp_ref(*args), reps=10,
                        inputs=args, flops=ops(bf, 4 * M * d * 4 * d, (2 * 83 + 10) * M * 4 * d))
-    # K2 as _lgp_pallas (Queue 2 #14): K=1, one-slot identity inverse table
-    for dt in (torch.float32, bf) if lgp else ():
-        L, D, dm = 24 * 24, 1024, 512
+
+
+def check_lgp(checks, dev, gen):
+    """K2 as _lgp_pallas (Queue 2 #14): K=1, one-slot identity inverse table,
+    in fp32 and bf16."""
+    from tramba_tpu_torch.ops import fused_ss2d as tf
+
+    B, L, D, dm = 2, 24 * 24, 1024, 512
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+
+    for dt in (torch.float32, torch.bfloat16):
         ys = rnd(B, 1, L, D).to(dt).float()
         inv = torch.arange(L, dtype=torch.int32, device=dev).reshape(1, 1, L)
-        tail = (*ln(D), (rnd(dm, D, scale=D ** -0.5)).to(dt))
+        tail = (rnd(D, scale=0.1, shift=1.0), rnd(D, scale=0.1),
+                rnd(dm, D, scale=D ** -0.5).to(dt))
         checks.compare("ss2d_merge", dt, f"lgp 24px B{B} K1 D{D}",
                        lambda: tf.ss2d_merge(ys, inv, *tail),
                        lambda: tf.ss2d_merge_ref(ys, inv, *tail), reps=5,
@@ -537,10 +581,12 @@ K13_SHAPES = ((96, 128, 4), (48, 256, 8), (24, 512, 16))
 
 def check_encoder_kernels(checks, dev, gen):
     """K11 ln_dwmlp, K12 sra and K13 window_attn against their plain
-    versions at B=2 in bf16, with seeded weights of the modules' init."""
-    from tramba_tpu_torch.models.pvt import DWConvMlp, SRAttention
-    from tramba_tpu_torch.models.swin import WindowAttention, shift_attn_mask
-    from tramba_tpu_torch.nn.init import init_weights
+    versions at B=2 in bf16.  The weights are drawn at fan-in scale (std
+    fan_in^-1/2), the relative-position bias N(0, 1) and the output bias 0,
+    so the scores are O(1) and the output is the kernel's own work.  Each
+    shape then holds the plain version with a planted fault to the same
+    check, which it must fail (:meth:`Checks.planted`)."""
+    from tramba_tpu_torch.models.swin import shift_attn_mask
     from tramba_tpu_torch.ops import fused_attn as ta
     from tramba_tpu_torch.ops import fused_mlp as tm
 
@@ -552,45 +598,58 @@ def check_encoder_kernels(checks, dev, gen):
     def ln(d):
         return rnd(d, scale=0.1, shift=1.0), rnd(d, scale=0.1)
 
+    def dense(n_out, n_in):
+        return rnd(n_out, n_in, scale=n_in ** -0.5).to(bf)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, device=dev, dtype=dtype)
+
     for H, d, hid in K11_SHAPES:
-        m = init_weights(DWConvMlp(d, hid), gen).to(dev)
-        conv = m.dwconv.dwconv
-        args = (rnd(B, H, H, d).to(bf), *ln(d), m.fc1.weight.data.to(bf), rnd(hid, scale=0.1),
-                conv.weight.data.to(bf), rnd(hid, scale=0.1), m.fc2.weight.data.to(bf),
-                rnd(d, scale=0.1))
-        M = B * H * H
-        checks.compare("ln_dwmlp", bf, f"{H}px B{B} d{d} hid{hid}", lambda: tm.ln_dwmlp(*args),
+        x, (g, b), k3 = rnd(B, H, H, d).to(bf), ln(d), rnd(hid, 1, 3, 3, scale=1 / 3).to(bf)
+        w1, b1, c3, w2 = dense(hid, d), rnd(hid, scale=0.1), rnd(hid, scale=0.1), dense(d, hid)
+        args = (x, g, b, w1, b1, k3, c3, w2, zeros(d))
+        label, M = f"{H}px B{B} d{d} hid{hid}", B * H * H
+        checks.compare("ln_dwmlp", bf, label, lambda: tm.ln_dwmlp(*args),
                        lambda: tm.ln_dwmlp_ref(*args), reps=10, inputs=args,
                        flops=ops(bf, 4 * M * d * hid, (2 * 9 + 10) * M * hid))
+        centre = zeros(hid, 1, 3, 3, dtype=bf)
+        centre[..., 1, 1] = k3[..., 1, 1]
+        checks.planted("ln_dwmlp", label, tm.ln_dwmlp_ref(*args), {
+            "centre tap only": lambda: tm.ln_dwmlp_ref(x, g, b, w1, b1, centre, c3, w2, zeros(d))})
     for H, C, nh in K12_SHAPES:
-        m = init_weights(SRAttention(C, nh, 1), gen).to(dev)
         Lk, M = 144, B * H * H
         k, v = (rnd(B, nh, Lk, C // nh).to(bf) for _ in range(2))
-        args = (rnd(B, H * H, C, scale=2.0).to(bf), *ln(C), m.q.weight.data.to(bf),
-                rnd(C, scale=0.1), k, v, m.proj.weight.data.to(bf), rnd(C, scale=0.1))
-        checks.compare("sra", bf, f"{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}",
-                       lambda: ta.sra(*args, nh), lambda: ta.sra_ref(*args, nh), reps=10,
-                       inputs=args, flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C,
-                                              6 * M * nh * Lk + 10 * M * C))
+        x, (g, b), wq, bq, wp = rnd(B, H * H, C, scale=2.0).to(bf), ln(C), dense(C, C), \
+            rnd(C, scale=0.1), dense(C, C)
+        args = (x, g, b, wq, bq, k, v, wp, zeros(C))
+        label = f"{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}"
+        checks.compare("sra", bf, label, lambda: ta.sra(*args, nh),
+                       lambda: ta.sra_ref(*args, nh), reps=10, inputs=args,
+                       flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C, 6 * M * nh * Lk + 10 * M * C))
+        checks.planted("sra", label, ta.sra_ref(*args, nh), {  # q = 0: uniform over the keys
+            "uniform softmax": lambda: ta.sra_ref(x, g, b, zeros(C, C, dtype=bf), zeros(C), k, v,
+                                                  wp, zeros(C), nh)})
     for H, C, nh in K13_SHAPES:
-        m = init_weights(WindowAttention(C, 12, nh), gen).to(dev)
         N, M = 144, B * H * H
-        bias = m.bias().detach().contiguous()
+        bias = rnd(nh, N, N)
         for mask in (None, torch.from_numpy(shift_attn_mask(H, H, 12, 6)).to(dev)):
-            args = (rnd(B, H, H, C, scale=2.0).to(bf), *ln(C), m.qkv.weight.data.to(bf),
-                    rnd(3 * C, scale=0.1), bias, mask, m.proj.weight.data.to(bf),
-                    rnd(C, scale=0.1))
+            x, (g, b), wqkv, bqkv, wp = rnd(B, H, H, C, scale=2.0).to(bf), ln(C), \
+                dense(3 * C, C), rnd(3 * C, scale=0.1), dense(C, C)
+            args = (x, g, b, wqkv, bqkv, bias, mask, wp, zeros(C))
             label = f"{H}px B{B} C{C} nh{nh} {'shifted' if mask is not None else 'unshifted'}"
             checks.compare("window_attn", bf, label, lambda: ta.window_attn(*args, nh),
                            lambda: ta.window_attn_ref(*args, nh), reps=10, inputs=args,
                            flops=ops(bf, 8 * M * C * C + 4 * M * N * C, 8 * M * nh * N))
-
-
-# the encoder kernels' launches in one bf16 forward at 384 px, counted from
-# PVTv2-b4 and Swin-B by hand: K12 in all 41 PVT blocks, K11 in the 38 of
-# stages 1-3, K13 in all 22 Swin blocks that run
-ENCODER_LAUNCHES = {"Tramba-P-TSOD": {"sra": 41, "ln_dwmlp": 38},
-                    "Tramba-S-TSOD": {"window_attn": 22}}
+            # q = 0 and no bias: uniform over each window's unmasked keys
+            wkv, bkv = wqkv.clone(), bqkv.clone()
+            wkv[:C], bkv[:C] = 0, 0
+            faults = {"no bias": lambda: ta.window_attn_ref(*args[:5], zeros(nh, N, N),
+                                                            *args[6:], nh),
+                      "uniform softmax": lambda: ta.window_attn_ref(
+                          x, g, b, wkv, bkv, zeros(nh, N, N), mask, wp, zeros(C), nh)}
+            if mask is not None:
+                faults["no mask"] = lambda: ta.window_attn_ref(*args[:6], None, *args[7:], nh)
+            checks.planted("window_attn", label, ta.window_attn_ref(*args, nh), faults)
 
 
 def run_model(dev, dtype, x, cpu_fp32_heads=None, method="Tramba-V-TSOD"):
@@ -618,10 +677,6 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None, method="Tramba-V-TSOD"):
     if not all(torch.isfinite(o).all().item() for o in outs):
         raise AssertionError("non-finite logits")
     want = expected_launches(model, train=False)
-    if dtype == torch.bfloat16:
-        want_new = ENCODER_LAUNCHES.get(method, {})
-        if any(want[k] != n for k, n in want_new.items()):
-            raise AssertionError(f"{method}: derived launches {want}, expected {want_new}")
     if launches != want:
         raise AssertionError(f"{method} {NAMES[dtype]} launches {launches}, expected {want}")
 
@@ -646,6 +701,19 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None, method="Tramba-V-TSOD"):
             raise AssertionError(f"{method} head {i}: mean abs difference {d.mean().item()} "
                                  f"> {tol}")
     return launches, model, outs, [c.float() for c in cpu_outs]
+
+
+def encoder_weights_cast_once(model):
+    """A copy of the bf16 Tramba-P/S ``model`` whose encoder holds its Linear
+    and Conv2d weights in bf16, so that the cast at each use (``w.to(bf16)``
+    in the kernels' wrappers and in ``flax_dense`` / ``flax_conv``) does
+    nothing: the same function without the encoder's per-call weight casts
+    (phase 6)."""
+    once = copy.deepcopy(model)
+    for m in once.encoder.modules():
+        if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+            m.weight.data = m.weight.data.to(torch.bfloat16)
+    return once
 
 
 def run_dump_entry_point(tmp, method, *flags):
@@ -929,10 +997,11 @@ def main() -> int:
     check_ss2d_expand(checks, dev, gen, torch.float32)
     check_ss2d_expand(checks, dev, gen, torch.bfloat16)
     check_bf16_only(checks, dev, gen)
+    check_lgp(checks, dev, gen)
     check_encoder_kernels(checks, dev, gen)
     for dtype in (torch.float32, torch.bfloat16):  # K1-K4 at Tramba-P's decoder
         check_ss2d_expand(checks, dev, gen, dtype, SS2D_SHAPES_P, EXPAND_SHAPES_P, head_c=64)
-    check_bf16_only(checks, dev, gen, BF16_SHAPES_P, lgp=False)
+    check_bf16_only(checks, dev, gen, BF16_SHAPES_P)
     for dtype in (torch.float32, torch.bfloat16):
         check_train_kernels(checks, dev, gen, dtype)
     check_mlp_bwd(checks, dev, gen)
@@ -973,6 +1042,19 @@ def main() -> int:
                     ms = cuda_ms(lambda: model(xb), reps, warmup=2)
                     print(f"{method} 384px {NAMES[dtype]} B{B}: {ms:.2f} ms/forward, "
                           f"{1000 * B / ms:.1f} img/s [{card}]", flush=True)
+        # what the encoders' per-call weight casts cost at B1: the same
+        # forward with those weights cast once, in turns with the model
+        xb = torch.randn(1, 384, 384, 3, device=dev)
+        for method in ("Tramba-P-TSOD", "Tramba-S-TSOD"):
+            model = models[method, torch.bfloat16]
+            once = encoder_weights_cast_once(model)
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(model(xb), once(xb)))
+            ms = [cuda_ms(lambda: m(xb), 20, warmup=2) for m in (model, once, model, once)]
+            print(f"{method} 384px bf16 B1: encoder weights cast at each use {ms[0]:.2f} / "
+                  f"{ms[2]:.2f} ms, cast once {ms[1]:.2f} / {ms[3]:.2f} ms (heads differ by "
+                  f"{diff:.1e}) [{card}]", flush=True)
+            del once
 
     phase("7 profile")
     for method, B in (("Tramba-V-TSOD", 1), ("Tramba-V-TSOD", 16), ("Tramba-P-TSOD", 1),
@@ -1039,21 +1121,20 @@ def main() -> int:
              "window_attn": "96px"}
     # `launches`: the forward of the model whose main path the kernel is on
     # (K11 / K12 Tramba-P, K13 Tramba-S, the rest Tramba-V), or the training
-    # CLI's run; each model's forward besides
+    # CLI's run
     home = {"ln_dwmlp": "Tramba-P-TSOD", "sra": "Tramba-P-TSOD", "window_attn": "Tramba-S-TSOD"}
     summary = []
     for (name, tag), rows in checks.rows.items():
         label, _, ms, plain_ms, bound_ms, bound_by = next(r for r in rows
                                                           if r[0].startswith(shown[name]))
         dt = torch.bfloat16 if tag.startswith("bf16") else torch.float32
-        by_model = {m: launches[m, dt][name] for m in MODELS}
-        train = tag.endswith("train")
-        n = train_launches[tag][name] if train else by_model[home.get(name, "Tramba-V-TSOD")]
+        n = train_launches[tag][name] if tag.endswith("train") \
+            else launches[home.get(name, "Tramba-V-TSOD"), dt][name]
         # no single PyTorch call computes any of these fused functions
         summary.append({"name": name, "dtype": tag, "route": "cuda",
                         "source": sources[name][0],
                         "replaces": replaced.get((name, tag), sources[name][1]),
-                        "launches": n, "launches_by_model": None if train else by_model,
+                        "launches": n,
                         "max_abs_err": max(r[1] for r in rows), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                         "shape": label})

@@ -178,6 +178,30 @@ def test_registry_builds_the_encoder_variants(method):
 
 
 @pytest.mark.parametrize("enc", ["swin", "pvt"])
+def test_seeded_init_draws_the_encoders_own_parameters(enc):
+    """``init_weights`` leaves the encoders' own draws to their modules'
+    ``reset_own_parameters``: each ``LecunConv2d`` flax's lecun normal
+    (truncated at 2 sigma, std fan_in^-1/2; bias 0), each Swin bias table a
+    truncated normal of std 0.02 (within +-0.04).  Std within 25%."""
+    from tramba_tpu_torch.models.swin import WindowAttention
+    from tramba_tpu_torch.nn.layers import LecunConv2d
+
+    model = build(METHOD[enc], IMG, seed=0, enc_config=CUT[enc], dec_depths=DEC)
+    convs = [m for m in model.modules() if isinstance(m, LecunConv2d)]
+    tables = [m.relative_position_bias_table.detach() for m in model.modules()
+              if isinstance(m, WindowAttention)]
+    assert convs and bool(tables) == (enc == "swin")
+    for m in convs:
+        w, std = m.weight.detach(), m.weight[0].numel() ** -0.5
+        assert w.abs().max() <= 2 * std / 0.87962566103423978 * (1 + 1e-6)
+        assert 0.75 * std <= w.std() <= 1.25 * std
+        assert m.bias is None or not m.bias.any()
+    for t in tables:
+        # a truncated normal at +-2 sigma keeps 0.88 of its sigma
+        assert t.abs().max() <= 0.04 and 0.75 * 0.0176 <= t.std() <= 1.25 * 0.0176
+
+
+@pytest.mark.parametrize("enc", ["swin", "pvt"])
 def test_dump_writes_maps_of_the_encoder_variants(enc, tmp_path):
     """The dump CLI's path (eval/dump.py) for Tramba-S / -P, on the CPU at
     the cut size: one map per image at its original size."""

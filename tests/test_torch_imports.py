@@ -51,6 +51,26 @@ def test_port_and_chip_smoke_import_no_jax():
     assert int(count) > 30 and bad == "[]", res.stdout
 
 
+_LAYERS = """
+import importlib, pkgutil, sys
+import tramba_tpu_torch.nn, tramba_tpu_torch.ops
+for pkg in (tramba_tpu_torch.nn, tramba_tpu_torch.ops):
+    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(m.name)
+print(sorted(m for m in sys.modules if m.startswith("tramba_tpu_torch.models")))
+"""
+
+
+def test_layers_import_no_model():
+    """``tramba_tpu_torch.nn`` and ``.ops`` (the seeded init included) import
+    nothing of ``tramba_tpu_torch.models``: a model owns its own draws."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", _LAYERS], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
 def _write_split(root, split, n, rng):
     for sub in ("image", "mask"):
         os.makedirs(os.path.join(root, split, sub))

@@ -95,6 +95,13 @@ class WindowAttention(nn.Module):
         self.register_buffer("_index", torch.from_numpy(
             relative_position_index(window).reshape(-1).astype(np.int64)), persistent=False)
 
+    @torch.no_grad()
+    def reset_own_parameters(self, generator: torch.Generator) -> None:
+        """The bias table: truncated normal, std 0.02 (``nn.init.init_weights``
+        draws qkv and proj)."""
+        nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02, a=-0.04, b=0.04,
+                              generator=generator)
+
     def bias(self) -> torch.Tensor:
         """(nh, N, N) fp32 relative-position bias, gathered from the table."""
         N = self.window ** 2

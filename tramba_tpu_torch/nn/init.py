@@ -1,11 +1,10 @@
 """Seeded weight init, following the JAX package's initializers.
 
 Linear weights: truncated normal, std 0.02 (VSSMEncoder._init_weights,
-vmamba.py:459-471); conv weights: kaiming normal (a=1e-2, fan_in), or for
-the PVTv2 and Swin encoders' ``LecunConv2d`` flax's default lecun normal
-(normal truncated at 2 sigma, scaled to variance 1 / fan_in); Swin's
-relative-position bias tables: truncated normal, std 0.02; biases 0;
-LayerNorm 1 / 0; SS2D's own parameters by ``SS2D.reset_ssm_parameters``.
+vmamba.py:459-471); conv weights: kaiming normal (a=1e-2, fan_in); biases 0;
+LayerNorm 1 / 0.  A module that draws its own parameters otherwise (SS2D,
+the PVTv2 and Swin encoders' ``LecunConv2d``, Swin's ``WindowAttention``)
+has a ``reset_own_parameters(generator)`` method, which is called instead.
 Every draw comes from the one ``torch.Generator`` passed in, in module order.
 """
 
@@ -16,24 +15,16 @@ import math
 import torch
 import torch.nn as nn
 
-from tramba_tpu_torch.models.swin import WindowAttention
-from tramba_tpu_torch.nn.layers import LecunConv2d
-from tramba_tpu_torch.nn.ssm import SS2D
-
 __all__ = ["init_weights"]
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for m in model.modules():
-        if isinstance(m, nn.Linear):
+        if hasattr(m, "reset_own_parameters"):
+            m.reset_own_parameters(generator)
+        elif isinstance(m, nn.Linear):
             nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, LecunConv2d):
-            # flax's variance_scaling(1, fan_in, truncated_normal)
-            std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Conv2d):
@@ -45,9 +36,4 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, SS2D):
-            m.reset_ssm_parameters(generator)
-        elif isinstance(m, WindowAttention):
-            nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, a=-0.04, b=0.04,
-                                  generator=generator)
     return model

@@ -19,6 +19,8 @@ PVTv2 and Swin encoders.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -85,6 +87,15 @@ class LecunConv2d(nn.Conv2d):
     """An ``nn.Conv2d`` that ``nn.init.init_weights`` draws as flax's default
     conv init (lecun normal), where the JAX package leaves ``nn.Conv`` its
     default: the PVTv2 and Swin encoders."""
+
+    @torch.no_grad()
+    def reset_own_parameters(self, generator: torch.Generator) -> None:
+        """flax's variance_scaling(1, fan_in, truncated_normal): normal
+        truncated at 2 sigma, scaled to variance 1 / fan_in; bias 0."""
+        std = math.sqrt(1.0 / self.weight[0].numel()) / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 def flax_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -56,7 +56,7 @@ class SS2D(nn.Module):
         self.out_proj = nn.Linear(D, d_model, bias=False)
 
     @torch.no_grad()
-    def reset_ssm_parameters(self, generator: torch.Generator,
+    def reset_own_parameters(self, generator: torch.Generator,
                              dt_min: float = 0.001, dt_max: float = 0.1,
                              dt_floor: float = 1e-4) -> None:
         """The reference's SS2D init (mamba_init.py:19-48): U(+-1/sqrt(fan_in))
