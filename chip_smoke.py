@@ -4,7 +4,7 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. device    a CUDA card is present; prints its name and power limit
-  2. build     nvcc builds kernels K1-K13 from tramba_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K14 from tramba_tpu_torch/csrc
   3. kernels   each kernel vs its plain PyTorch version on the card, at the
                shapes of the 384px forwards: Tramba-V's K1-K4 in fp32
                (rtol 1e-3, atol 1e-4), then in bf16 K1-K4 and K5-K7, and K2
@@ -23,7 +23,12 @@ Phases, each of which must pass (any failure exits non-zero):
                (fp32 tolerance) and bf16, K8 in fp32 (max abs error <= 1e-4 x
                the largest magnitude of each output) and bf16, and K9
                ln_mlp_bwd and K10 ln_dwms_mlp_bwd (bf16 adjoints: <= 1e-2 x
-               the largest magnitude of each output); errors, times, and
+               the largest magnitude of each output); K14 linear_scan in fp32,
+               forward and reversed, at the shapes the parallel layer
+               launches (the tensor-parallel core at 96/48/24/12 px, the
+               decoder's K = 8 line core, an SS2D of d_state 16), each with
+               L > 256 also holding the plain version with the carry dropped
+               between 256-row chunks, which must fail; errors, times, and
                each kernel's bound (bytes over the HBM rate or, per type of
                operation, its count over that type's peak rate: the largest)
   4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD and Tramba-S-TSOD at
@@ -66,6 +71,18 @@ Phases, each of which must pass (any failure exits non-zero):
                weights-only ``--resume <best-MAE file>`` to epoch 5, which
                writes the rolling resume dict (every 5 epochs); then
                ``python -m tramba_tpu_torch.run --resume last`` to epoch 6
+ 10. parallel  an NCCL world of one process: the full-width Tramba-V-TSOD
+               forward at batch 2 on each parallel SS2D backend
+               (tensor_parallel, seq_parallel, hybrid_tp_sp), fp32 and bf16,
+               with exact launches (K14 once per SS2D), heads against the
+               default route's of phase 4 (fp32 mean abs <= 1e-3, bf16
+               max(2e-2, 1.25 x sqrt(2) x the CPU's bf16-vs-fp32 gap): two
+               bf16 routes), ms in turns with the default route; one fp32
+               train step at batch 2 in each of the dry run's four grids
+               (dp, dp x tp, dp x sp, dp x tp x sp) with exact launches (K14
+               33 forward + 33 reversed on the parallel backends), ms per
+               step, peak memory and a profile; then
+               ``python -m tramba_tpu_torch.dryrun --n 1``
 
 Nothing is cut: every model runs at full depth and width.  The CPU
 comparisons of phase 4 run at batch 1.
@@ -153,10 +170,11 @@ def wrappers():
     from tramba_tpu_torch.ops import fused_mlp as tm
     from tramba_tpu_torch.ops import fused_prologue as tp
     from tramba_tpu_torch.ops import fused_ss2d as tf
+    from tramba_tpu_torch.ops import selective_scan as ts
 
     return (tf.ss2d_scan, tf.ss2d_merge, tf.ss2d_scan_bwd, te.expand_ln, te.final_head,
             tp.prologue, tm.ln_mlp, tm.ln_dwms_mlp, tm.ln_mlp_bwd, tm.ln_dwms_mlp_bwd,
-            tm.ln_dwmlp, ta.sra, ta.window_attn)
+            tm.ln_dwmlp, ta.sra, ta.window_attn, ts.linear_scan)
 
 
 def reset_counts():
@@ -171,7 +189,9 @@ def read_counts():
 
 def expected_launches(model, train: bool) -> dict:
     """Kernel launches of one forward (``train=False``) or one train step of
-    ``model``, from its modules: each SS2D runs K1 and K2, and in bf16 K5; each
+    ``model``, from its modules: each SS2D of the default route runs K1 and
+    K2, and in bf16 K5; each SS2D of a parallel backend (or of d_state > 1)
+    runs K14 once forward and once reversed in the backward; each
     bf16 FFN runs K6 (Mlp) or K7 (DWMSMlp); each expand K3, the head K4; a
     train step adds the backwards K8 per SS2D and K9 / K10 per bf16 FFN.  In
     bf16 each Swin block runs K13 and each PVTv2 block K12 and K11 where the
@@ -210,6 +230,8 @@ def expected_launches(model, train: bool) -> dict:
                                                       model.dtype)
             if full and (n["sra"], n["ln_dwmlp"]) != (sum(depths), sum(depths[:3])):
                 raise AssertionError(f"PVT depths {depths}: K12 {n['sra']}, K11 {n['ln_dwmlp']}")
+        elif isinstance(m, SS2D) and (m.backend is not None or m.d_state > 1):
+            n["linear_scan"] += 1 + train
         elif isinstance(m, SS2D):
             n["ss2d_scan"] += 1
             n["ss2d_merge"] += 1
@@ -297,14 +319,14 @@ class Checks:
               f"({bound_by})", flush=True)
 
     @staticmethod
-    def planted(name, label, want, faults):
-        """Proof that :meth:`compare`'s bf16 check can see a wrong kernel at
-        these inputs: each of ``faults`` (fault name -> the plain version with
-        that fault planted) must fail the check against ``want``, the plain
-        version's output."""
+    def planted(name, label, want, faults, tol=KERNEL_TOL_BF16):
+        """Proof that :meth:`compare`'s check (``tol``: bf16's unless given)
+        can see a wrong kernel at these inputs: each of ``faults`` (fault name
+        -> the plain version with that fault planted) must fail the check
+        against ``want``, the plain version's output."""
         for fault, fn in faults.items():
             got, w = fn().float(), want.float()
-            bad = ~torch.isclose(got, w, **KERNEL_TOL_BF16)
+            bad = ~torch.isclose(got, w, **tol)
             err, share = (got - w).abs().max().item(), bad.float().mean().item()
             print(f"{name:15s} planted {fault!r:18s} {label:34s} max_abs_err {err:.3e}, "
                   f"{share:.3f} of outputs outside the check", flush=True)
@@ -652,6 +674,50 @@ def check_encoder_kernels(checks, dev, gen):
             checks.planted("window_attn", label, ta.window_attn_ref(*args, nh), faults)
 
 
+# K14 at the shapes the parallel layer launches, (label, R = B x K, L, C) at
+# B=4: the tensor-parallel core of Tramba-V's raster SS2Ds at its 96 / 48 /
+# 24 / 12 px maps (C = d_inner; at world size 1 a rank holds all of it), the
+# decoder's K = 8 line core at 96 px, and an SS2D of d_state 16 at 24 px
+# (d_inner 1024, N folded into C); each forward and reversed (the backward)
+LINEAR_SCAN_SHAPES = (("tp raster 96px", 16, 9216, 256), ("tp raster 48px", 16, 2304, 512),
+                      ("tp raster 24px", 16, 576, 1024), ("tp raster 12px", 16, 144, 2048),
+                      ("tp line 96px K8", 32, 9216, 256), ("d_state 16 24px", 16, 576, 16384))
+
+
+def scan_inputs(gen, R, L, C, dev):
+    """a = exp(-delta), delta log-uniform on [1e-3, 1e-1] as SS2D's dt init
+    draws it, and b = delta x N(0, 1): a carry lasts tens to thousands of
+    rows, so one dropped at a chunk boundary shows."""
+    delta = torch.exp(torch.empty(R, L, C).uniform_(np.log(1e-3), np.log(1e-1), generator=gen))
+    b = delta * torch.randn(R, L, C, generator=gen)
+    return torch.exp(-delta).to(dev), b.to(dev)
+
+
+def check_linear_scan(checks, dev, gen):
+    """K14 against linear_scan_ref at every shape, fp32, forward and
+    reversed; where L > 256 the plain version with the carry dropped between
+    256-row chunks (the chunking of JAX's ``_linear_scan_pallas``) must fail
+    the same check."""
+    from tramba_tpu_torch.ops import selective_scan as ts
+
+    def no_carry(a, b, rev):
+        return torch.cat([ts.linear_scan_ref(a[:, t:t + 256], b[:, t:t + 256], rev)
+                          for t in range(0, a.shape[1], 256)], dim=1)
+
+    for label, R, L, C in LINEAR_SCAN_SHAPES:
+        a, b = scan_inputs(gen, R, L, C, dev)
+        for rev in (False, True):
+            tag = f"{label} B4 {'rev' if rev else 'fwd'} ({R}, {L}, {C})"
+            checks.compare("linear_scan", torch.float32, tag,
+                           lambda: ts.linear_scan(a, b, rev), lambda: ts.linear_scan_ref(a, b, rev),
+                           reps=5, inputs=(a, b), flops=ops(torch.float32, 0, 2 * a.numel()),
+                           plain_warmup=0)
+            if L > 256:
+                checks.planted("linear_scan", tag, ts.linear_scan_ref(a, b, rev),
+                               {"no chunk carry": lambda: no_carry(a, b, rev)}, tol=KERNEL_TOL)
+        del a, b
+
+
 def run_model(dev, dtype, x, cpu_fp32_heads=None, method="Tramba-V-TSOD"):
     """Phase 4 for one model in one dtype.  Returns the launch counts of one
     batch-2 forward, the model, its outputs and the CPU run's outputs (batch
@@ -745,7 +811,8 @@ def run_dump_entry_point(tmp, method, *flags):
 
 
 # kernel-name fragments -> group of the phase 7 / 8 breakdowns, first match wins
-GROUPS = (("mlp_bwd_act_kernel", "K9 ln_mlp_bwd, GELU adjoint"),
+GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
+          ("mlp_bwd_act_kernel", "K9 ln_mlp_bwd, GELU adjoint"),
           ("mlp_bwd_dwms", "K10 ln_dwms_mlp_bwd, depthwise stencils"),
           ("mlp_bwd_fc_kernel", "K9/K10 (a) LN, fc1 and g w2 products"),
           ("mlp_bwd_ln_kernel", "K9/K10 (c) dh w1 product and LN adjoint"),
@@ -974,6 +1041,109 @@ def run_train_entry_point(tmp, dtype):
     return launches
 
 
+BACKENDS = ("tensor_parallel", "seq_parallel", "hybrid_tp_sp")
+
+
+def run_parallel(dev, card, x, default_heads, noise):
+    """Phase 10: the parallel layer on an NCCL world of one process.  The
+    full-width 384 px Tramba-V forward on each parallel backend, fp32 and
+    bf16, at batch 2, with exact launches, its heads against the default
+    route's (``default_heads``, phase 4; fp32 mean abs <= 1e-3 per head;
+    bf16 max(2e-2, 1.25 x sqrt(2) x ``noise``, the CPU's bf16-vs-fp32 gap of
+    the head: the composed bf16 route and the kernels round at other points,
+    two independent draws of bf16's noise, as ROADMAP Queue 3 #7 gates the
+    port's bf16 gradients against JAX's) and its ms per forward in turns
+    with the default route; then one train step
+    of each of the four dry-run phases at full width, batch 2, fp32, with
+    exact launches (K14 once forward and once reversed per SS2D), ms per step,
+    peak memory and profiles; then ``python -m tramba_tpu_torch.dryrun --n 1``.
+    Returns the launches of the tensor-parallel train step."""
+    import torch.distributed as dist
+
+    from tramba_tpu_torch import dryrun
+    from tramba_tpu_torch.models.registry import build
+    from tramba_tpu_torch.parallel.mesh import make_grid
+    from tramba_tpu_torch.parallel.seq_scan import use_sequence_group
+    from tramba_tpu_torch.parallel.tp import use_tensor_group
+
+    x = x.to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            grid = make_grid(1, 1)
+            with torch.no_grad(), use_tensor_group(grid.model), use_sequence_group(grid.seq):
+                for dtype in (torch.float32, torch.bfloat16):
+                    default = build("Tramba-V-TSOD", 384, device=dev, seed=0, dtype=dtype)
+                    for backend in BACKENDS:  # the same parameters on every backend
+                        model = build("Tramba-V-TSOD", 384, device=dev, seed=None, dtype=dtype,
+                                      ssm_backend=backend)
+                        model.load_state_dict(default.state_dict())
+                        reset_counts()
+                        outs = model(x)
+                        launches = read_counts()
+                        want = expected_launches(model, train=False)
+                        if launches != want:
+                            raise AssertionError(f"{backend} {NAMES[dtype]} forward launches "
+                                                 f"{launches}, expected {want}")
+                        for i, (o, d) in enumerate(zip(outs, default_heads[dtype])):
+                            diff = (o.float() - d.float()).abs().mean().item()
+                            tol = HEAD_MEAN_ABS_TOL[dtype]
+                            if dtype == torch.bfloat16:  # two bf16 routes, two draws of noise
+                                tol = max(tol, BF16_NOISE_FACTOR * 2 ** 0.5 * noise[i])
+                            print(f"{backend} {NAMES[dtype]} head {i}: vs the default route mean "
+                                  f"abs {diff:.3e} (limit {tol:.3e})", flush=True)
+                            if not (torch.isfinite(o).all().item() and diff <= tol):
+                                raise AssertionError(f"{backend} {NAMES[dtype]} head {i}: {diff}")
+                        del outs
+                        ms = [cuda_ms(lambda: m(x), 2) for m in (default, model, model, default)]
+                        print(f"Tramba-V-TSOD 384px {NAMES[dtype]} B2 forward: {backend} "
+                              f"{ms[1]:.2f} / {ms[2]:.2f} ms, default route {ms[0]:.2f} / "
+                              f"{ms[3]:.2f} ms; K14 {launches['linear_scan']} launches "
+                              f"[{card}]", flush=True)
+                        if dtype == torch.float32:
+                            profile_breakdown(lambda: model(x), ms[1],
+                                              f"{backend} fp32 B2 forward")
+                        del model
+                    del default
+                    torch.cuda.empty_cache()
+
+            step_launches = {}
+
+            def on_step(name, model, step):
+                reset_counts()
+                step()
+                launches = read_counts()
+                want = expected_launches(model, train=True)
+                if launches != want:
+                    raise AssertionError(f"{name} step launches {launches}, expected {want}")
+                step_launches[name] = launches
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(step, reps=2)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                print(f"dry-run phase {name}: full-width Tramba-V 384px fp32 train step B2 "
+                      f"{ms:.2f} ms/step, peak memory {peak:.2f} GiB; K14 "
+                      f"{launches['linear_scan']} launches [{card}]", flush=True)
+                profile_breakdown(step, ms, f"{name} fp32 train B2", grad=True, per="step")
+
+            t0 = time.perf_counter()
+            res = dryrun.run_phases(dev, img_size=384, batch=2, min_l=4096, model_kw={},
+                                    on_step=on_step)
+            print(f"dry-run phases at full width: {res} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+    out = subprocess.run([sys.executable, "-m", "tramba_tpu_torch.dryrun", "--n", "1"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("dryrun(")]
+    print("\n".join(lines), flush=True)
+    if out.returncode != 0 or len(lines) != 4:
+        raise AssertionError(f"python -m tramba_tpu_torch.dryrun --n 1 failed "
+                             f"({out.returncode}):\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    return step_launches["dp x tp"]
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1005,6 +1175,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         check_train_kernels(checks, dev, gen, dtype)
     check_mlp_bwd(checks, dev, gen)
+    check_linear_scan(checks, dev, gen)
     torch.cuda.empty_cache()
 
     phase("4 model")
@@ -1016,6 +1187,11 @@ def main() -> int:
             key = (method, dtype)
             launches[key], models[key], heads[key], cpu_heads[dtype] = run_model(
                 dev, dtype, x, cpu_heads.get(torch.float32), method)
+        if method == "Tramba-V-TSOD":  # phase 10's reference heads and bf16 noise floor
+            v_heads = {dt: [h.clone() for h in heads[method, dt]]
+                       for dt in (torch.float32, torch.bfloat16)}
+            v_noise = [(b - f).abs().mean().item()
+                       for b, f in zip(cpu_heads[torch.bfloat16], cpu_heads[torch.float32])]
         pairs = zip(heads[method, torch.bfloat16], heads[method, torch.float32])
         for i, (b, f) in enumerate(pairs):
             d = (b.float() - f).abs().mean().item()
@@ -1085,6 +1261,10 @@ def main() -> int:
             train_launches[f"{NAMES[dtype]} train"] = run_train_entry_point(tmp, dtype)
         torch.cuda.empty_cache()
 
+    phase("10 parallel")
+    parallel_launches = run_parallel(dev, card, x, v_heads, v_noise)
+    torch.cuda.empty_cache()
+
     ss2d, expand = "tramba_tpu_torch/csrc/ss2d.cu", "tramba_tpu_torch/csrc/expand.cu"
     mlp, mlp_bwd = "tramba_tpu_torch/csrc/mlp.cu", "tramba_tpu_torch/csrc/mlp_bwd.cu"
     attn = "tramba_tpu_torch/csrc/attn.cu"
@@ -1102,7 +1282,9 @@ def main() -> int:
                "ln_dwms_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:674"),
                "ln_dwmlp": (mlp, "tramba_tpu/ops/fused_mlp.py:844"),
                "sra": (attn, "tramba_tpu/ops/fused_attn.py:96"),
-               "window_attn": (attn, "tramba_tpu/ops/fused_attn.py:254")}
+               "window_attn": (attn, "tramba_tpu/ops/fused_attn.py:254"),
+               "linear_scan": ("tramba_tpu_torch/csrc/scan.cu",
+                               "tramba_tpu/ops/selective_scan.py:642")}
     # in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13), and
     # their bf16 train variants for its emit_train; in fp32 training K1 is #1's
     # emit-carries variant, K2 #10's emit_ysum; K8 stands for #4
@@ -1118,18 +1300,23 @@ def main() -> int:
              "expand_ln": "f2 48px", "final_head": "96px", "prologue": "enc/dec LN 96px",
              "ln_mlp": "96px", "ln_dwms_mlp": "96px", "ln_mlp_bwd": "96px",
              "ln_dwms_mlp_bwd": "96px", "ln_dwmlp": "96px", "sra": "96px",
-             "window_attn": "96px"}
+             "window_attn": "96px", "linear_scan": "tp raster 96px B4 fwd"}
     # `launches`: the forward of the model whose main path the kernel is on
     # (K11 / K12 Tramba-P, K13 Tramba-S, the rest Tramba-V), or the training
-    # CLI's run
+    # CLI's run; K14: phase 10's tensor-parallel train step (forward and
+    # reversed launches), its forward and reversed rows under one entry
     home = {"ln_dwmlp": "Tramba-P-TSOD", "sra": "Tramba-P-TSOD", "window_attn": "Tramba-S-TSOD"}
     summary = []
     for (name, tag), rows in checks.rows.items():
         label, _, ms, plain_ms, bound_ms, bound_by = next(r for r in rows
                                                           if r[0].startswith(shown[name]))
         dt = torch.bfloat16 if tag.startswith("bf16") else torch.float32
-        n = train_launches[tag][name] if tag.endswith("train") \
-            else launches[home.get(name, "Tramba-V-TSOD"), dt][name]
+        if name == "linear_scan":
+            n = parallel_launches[name]
+        elif tag.endswith("train"):
+            n = train_launches[tag][name]
+        else:
+            n = launches[home.get(name, "Tramba-V-TSOD"), dt][name]
         # no single PyTorch call computes any of these fused functions
         summary.append({"name": name, "dtype": tag, "route": "cuda",
                         "source": sources[name][0],

@@ -196,3 +196,92 @@ def test_bf16_wrappers_record_their_functions():
     d = _dwmlp_torch(_dwmlp_inputs(), torch.bfloat16)
     d[3].requires_grad_(True)
     assert type(tm.ln_dwmlp(*d).grad_fn).__name__ == "LnDwMlpBackward"
+
+
+# ---- ROADMAP Queue 3 #12: every shape the gates admit reaches K12 / K13 ----
+
+
+def test_gate_admitted_shapes_pass_the_kernel_shape_checks():
+    """Walk the shapes ``sra_fusable`` / ``window_attn_fusable`` admit (C,
+    head width and keys multiples of 8) through the wrappers' operand
+    preparation, which launches nothing: none raises, and each hands the
+    kernels multiples of 16."""
+    bf = torch.bfloat16
+    seen = 0
+    for C in range(8, 161, 8):
+        for nh in (1, 2, 3, 4, 5, 8):
+            hd = C // nh if C % nh == 0 else 0
+            for Lk in range(8, 81, 8):
+                if not ta.sra_fusable(16, C, nh, Lk, bf):
+                    continue
+                y = torch.zeros(1, 16, C)
+                k = torch.zeros(1, nh, Lk, hd)
+                (y2, wq, bq, k2, v2, wp, bp), Cq, Lk16 = ta._sra_operands(
+                    y, torch.zeros(C, C), torch.zeros(C), k, k.clone(), torch.zeros(C, C),
+                    torch.zeros(C), nh)
+                assert Cq % 16 == 0 and Cq >= C and Lk16 % 16 == 0 and Lk16 >= Lk
+                assert y2.shape[-1] % 16 == 0 and k2.shape[-1] % 16 == 0 and tuple(wp.shape) == (
+                    Cq, Cq)
+                seen += 1
+            for w in (4, 8, 12):
+                if not ta.window_attn_fusable(2 * w, 2 * w, C, nh, w, bf):
+                    continue
+                N = w * w
+                (y2, wqkv, bqkv, wp, bp), Cq = ta._window_operands(
+                    torch.zeros(1, 2 * w, 2 * w, C), torch.zeros(3 * C, C), torch.zeros(3 * C),
+                    torch.zeros(nh, N, N), torch.zeros(4, N, N), torch.zeros(C, C),
+                    torch.zeros(C), nh)
+                assert Cq % 16 == 0 and tuple(wqkv.shape) == (3 * Cq, y2.shape[-1])
+                seen += 1
+    assert seen > 300
+
+
+def _heads_fp32(q, k, v, nh, add=None):
+    """fp32 attention over (G, n, nh * hd16) q and (G, m, nh * hd16) k, v."""
+    G, n, _ = q.shape
+    q, k, v = (t.reshape(G, t.shape[1], nh, -1).transpose(1, 2) for t in (q, k, v))
+    s = q @ k.transpose(-1, -2)
+    if add is not None:
+        s = s + add
+    return (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(G, n, -1)
+
+
+def test_padded_operands_compute_the_plain_function():
+    """At C = 40, head width 8 and 24 keys, the padded operands, run through
+    the kernels' arithmetic in fp32 (keys from 24 on masked), give the plain
+    versions' outputs: the zero heads and masked keys change nothing."""
+    rng = np.random.default_rng(12)
+    C, nh, Lk, N = 40, 5, 24, 48
+    f = np.float32
+    x = _t(rng.normal(size=(2, N, C)).astype(f))
+    ln_w, ln_b = _t(rng.normal(size=C).astype(f) * 0.1 + 1), _t(rng.normal(size=C).astype(f) * 0.1)
+    wq, wp = (_t(rng.normal(size=(C, C)).astype(f) * C ** -0.5) for _ in range(2))
+    bq, bp = (_t(rng.normal(size=C).astype(f) * 0.1) for _ in range(2))
+    k, v = (_t(rng.normal(size=(2, nh, Lk, C // nh)).astype(f)) for _ in range(2))
+    want = ta.sra_ref(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh)
+    y = torch.nn.functional.layer_norm(x, (C,), ln_w, ln_b, 1e-6)
+    (y2, wq2, bq2, k2, v2, wp2, bp2), Cq, Lk16 = ta._sra_operands(y, wq, bq, k, v, wp, bp, nh)
+    assert (Cq, Lk16) == (80, 32)
+    q = (y2 @ wq2.t() + bq2) * (C // nh) ** -0.5
+    mask = torch.zeros(Lk16)
+    mask[Lk:] = float("-inf")
+    merge = (lambda t: t.transpose(1, 2).reshape(2, Lk16, Cq))
+    o = _heads_fp32(q, merge(k2), merge(v2), nh, mask)
+    torch.testing.assert_close((o @ wp2.t() + bp2)[..., :C], want, rtol=1e-5, atol=1e-5)
+
+    w, H = 4, 8
+    xw = _t(rng.normal(size=(2, H, H, C)).astype(f))
+    wqkv, bqkv = _t(rng.normal(size=(3 * C, C)).astype(f) * C ** -0.5), _t(
+        rng.normal(size=3 * C).astype(f) * 0.1)
+    bias = _t(rng.normal(size=(nh, w * w, w * w)).astype(f))
+    want = ta.window_attn_ref(xw, ln_w, ln_b, wqkv, bqkv, bias, None, wp, bp, nh)
+    yw = torch.nn.functional.layer_norm(xw, (C,), ln_w, ln_b, 1e-5)
+    (y2, wqkv2, bqkv2, wp2, bp2), Cq = ta._window_operands(yw, wqkv, bqkv, bias, None, wp, bp,
+                                                           nh)
+    qkv = y2 @ wqkv2.t() + bqkv2
+    win = qkv.reshape(2, 2, w, 2, w, 3 * Cq).permute(0, 1, 3, 2, 4, 5).reshape(-1, w * w, 3 * Cq)
+    q, kk, vv = win.split(Cq, -1)
+    o = _heads_fp32(q * (C // nh) ** -0.5, kk, vv, nh, bias)
+    out = (o @ wp2.t() + bp2)[..., :C]
+    out = out.reshape(2, 2, 2, w, w, C).permute(0, 1, 3, 2, 4, 5).reshape(2, H, H, C)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)

@@ -24,6 +24,16 @@ from test_torch_encoders import CUT, HEADS, IMG, JTramba, _image, _jax_params, _
 HEAD_MEAN_ABS_TOL_BF16 = 2e-2
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread per test: under pytest-xdist, model-size torch ops
+    stall on OpenMP barriers when the workers' threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def tpu_routing(monkeypatch):
     """The JAX encoders take their TPU routing (fused kernels in interpret mode)."""

@@ -29,6 +29,16 @@ HEAD_MEAN_ABS_TOL = 2e-2
 SITES = {"prologue": 13, "ln_mlp": 7, "ln_dwms_mlp": 3}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread per test: under pytest-xdist, model-size torch ops
+    stall on OpenMP barriers when the workers' threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny_bf16():
     return build("Tramba-V-TSOD", IMG, seed=0, dtype=torch.bfloat16, **TINY)

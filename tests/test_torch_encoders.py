@@ -43,6 +43,16 @@ CUT = {
 METHOD = {"swin": "Tramba-S-TSOD", "pvt": "Tramba-P-TSOD"}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread per test: under pytest-xdist, model-size torch ops
+    stall on OpenMP barriers when the workers' threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class JTramba(fnn.Module):
     """TrambaEnc's assembly (tramba_tpu/models/tramba.py:219-253) at a cut
     configuration."""
@@ -126,8 +136,15 @@ def test_weights_round_trip_and_strict_load(enc):
 def test_full_width_state_dict_round_trips_through_convert_tramba_enc(enc):
     """At full width (no forward): the port's state dict carries exactly the
     reference keys that convert_tramba_enc reads (its strict leftover check
-    passes), and params_from_jax inverts it leaf for leaf."""
-    sd = build(METHOD[enc], 384, seed=0).state_dict()
+    passes), and params_from_jax inverts it leaf for leaf.  The model is
+    built without the seeded draws (``seed=None``) and each parameter filled
+    with distinct values by position, which any transposed or swapped leaf
+    would change."""
+    model = build(METHOD[enc], 384, seed=None)
+    with torch.no_grad():
+        for i, p in enumerate(model.parameters()):
+            p.copy_(torch.arange(p.numel(), dtype=torch.float32).view_as(p) * 1e-6 + i)
+    sd = model.state_dict()
     p = convert_tramba_enc(state_dict_to_numpy(sd), enc)
     back = params_from_jax(p)
     assert back.keys() == sd.keys()

@@ -36,25 +36,34 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "tramba_tpu" or m.startswith("tramba_tpu."))
+print(",".join(names))
 print(len(names), bad)
 """
 
+# the parallel layer's modules, which the walk must reach
+PARALLEL = {"tramba_tpu_torch.parallel.mesh", "tramba_tpu_torch.parallel.distributed",
+            "tramba_tpu_torch.parallel.tp", "tramba_tpu_torch.parallel.seq_scan",
+            "tramba_tpu_torch.dryrun"}
+
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of tramba_tpu_torch, and chip_smoke, imported in a fresh
-    interpreter: no jax and no tramba_tpu module is loaded."""
+    """Every module of tramba_tpu_torch (the parallel layer and the dry run
+    included), and chip_smoke, imported in a fresh interpreter: no jax and no
+    tramba_tpu module is loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    count, bad = res.stdout.strip().splitlines()[-1].split(" ", 1)
+    *_, names, last = res.stdout.strip().splitlines()
+    count, bad = last.split(" ", 1)
     assert int(count) > 30 and bad == "[]", res.stdout
+    assert PARALLEL <= set(names.split(",")), names
 
 
 _LAYERS = """
 import importlib, pkgutil, sys
-import tramba_tpu_torch.nn, tramba_tpu_torch.ops
-for pkg in (tramba_tpu_torch.nn, tramba_tpu_torch.ops):
+import tramba_tpu_torch.nn, tramba_tpu_torch.ops, tramba_tpu_torch.parallel
+for pkg in (tramba_tpu_torch.nn, tramba_tpu_torch.ops, tramba_tpu_torch.parallel):
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(m.name)
 print(sorted(m for m in sys.modules if m.startswith("tramba_tpu_torch.models")))
@@ -62,8 +71,9 @@ print(sorted(m for m in sys.modules if m.startswith("tramba_tpu_torch.models")))
 
 
 def test_layers_import_no_model():
-    """``tramba_tpu_torch.nn`` and ``.ops`` (the seeded init included) import
-    nothing of ``tramba_tpu_torch.models``: a model owns its own draws."""
+    """``tramba_tpu_torch.nn``, ``.ops`` (the seeded init included) and
+    ``.parallel`` import nothing of ``tramba_tpu_torch.models``: a model owns
+    its own draws, and the parallel layer works on SS2D's parameters."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", _LAYERS], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -1,4 +1,4 @@
-"""Kernels K1-K13 vs their plain versions on the card, at small ragged shapes.
+"""Kernels K1-K14 vs their plain versions on the card, at small ragged shapes.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda``, needs a
 CUDA device and skips without one.  Run on the card with
@@ -21,6 +21,7 @@ from tramba_tpu_torch.ops import fused_expand as te
 from tramba_tpu_torch.ops import fused_mlp as tm
 from tramba_tpu_torch.ops import fused_prologue as tp
 from tramba_tpu_torch.ops import fused_ss2d as tf
+from tramba_tpu_torch.ops import selective_scan as ts
 from tramba_tpu_torch.ops.scan_orders import order_tables
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -507,9 +508,12 @@ def _attn_weights(gen, C, nqkv):
 
 
 @pytest.mark.parametrize("B,N,C,nh,Lk", [(2, 100, 64, 1, 16), (1, 576, 320, 5, 144),
-                                         (2, 144, 512, 8, 144), (1, 1024, 128, 2, 64)])
+                                         (2, 144, 512, 8, 144), (1, 1024, 128, 2, 64),
+                                         (2, 96, 40, 5, 24)])
 def test_sra_matches_plain(dev, B, N, C, nh, Lk):
-    """Ragged query chunks (N = 100); the PVT stage 3 and 4 widths."""
+    """Ragged query chunks (N = 100); the PVT stage 3 and 4 widths; C = 40,
+    head width 8 and 24 keys, which the gate admits and the wrapper pads to
+    16 (heads with zeros, keys masked)."""
     gen = torch.Generator().manual_seed(C + N)
     x = _rand(gen, B, N, C, scale=2.0).to(torch.bfloat16)
     ln_w, ln_b, wq, bq, wp, bp = _attn_weights(gen, C, 1)
@@ -524,9 +528,11 @@ def test_sra_matches_plain(dev, B, N, C, nh, Lk):
 
 
 @pytest.mark.parametrize("B,H,C,nh,w,masked", [(2, 24, 128, 4, 12, True),
-                                               (1, 24, 512, 16, 12, False), (1, 8, 64, 2, 4, True)])
+                                               (1, 24, 512, 16, 12, False), (1, 8, 64, 2, 4, True),
+                                               (2, 8, 40, 5, 4, True)])
 def test_window_attn_matches_plain(dev, B, H, C, nh, w, masked):
-    """Swin stage widths with their 12 x 12 windows, shifted (masked) or not."""
+    """Swin stage widths with their 12 x 12 windows, shifted (masked) or not;
+    C = 40 with head width 8, padded to 16 in the wrapper."""
     from tramba_tpu_torch.models.swin import shift_attn_mask
 
     gen = torch.Generator().manual_seed(C + H + masked)
@@ -575,3 +581,45 @@ def test_encoder_kernels_carry_gradients(dev):
         want = torch.autograd.grad(fn(*cpu), cpu, g)
         for i, (a, b) in enumerate(zip(got, want)):
             _bf16_bwd_close(a, b, f"input {i}")
+
+
+# ---- K14 linear_scan ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("R,L,C,reverse", [(3, 300, 130, False), (3, 300, 130, True),
+                                           (2, 9, 1, False), (5, 1000, 33, True),
+                                           (1, 2, 4096, False), (4, 513, 256, True)])
+def test_linear_scan_matches_plain(dev, R, L, C, reverse):
+    """Any L and C: no multiple of 16, 128 or 256 asked for; a decay near 1
+    so a carry lost anywhere shows.  fp32 at TOL (the kernel's fmaf against
+    the plain version's multiply-add)."""
+    gen = torch.Generator().manual_seed(R * L + C)
+    a = torch.exp(-torch.rand(R, L, C, generator=gen) * 0.02)
+    b = _rand(gen, R, L, C)
+    want = ts.linear_scan_ref(a, b, reverse)
+    n = ts.linear_scan.launches
+    got = ts.linear_scan(a.to(dev), b.to(dev), reverse)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and ts.linear_scan.launches == n + 1
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_linear_scan_gradient_is_k14_reversed(dev):
+    """Under autograd on the card the backward is K14 reversed (one launch
+    each way), its gradients those of the plain loop's autograd; a bf16 b
+    is scanned in fp32 and gets a bf16 gradient."""
+    gen = torch.Generator().manual_seed(5)
+    a = torch.exp(-torch.rand(2, 3, 200, 40, generator=gen) * 0.05)
+    b = _rand(gen, 2, 3, 200, 40).to(torch.bfloat16)
+    g = _rand(gen, 2, 3, 200, 40)
+    cpu = [a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+    card = [t.to(dev).requires_grad_(True) for t in (a, b)]
+    n = ts.linear_scan.launches
+    h = ts.linear_scan(*card)
+    got = torch.autograd.grad(h, card, g.to(dev))
+    torch.cuda.synchronize()
+    assert ts.linear_scan.launches == n + 2 and h.dtype == torch.float32
+    want = torch.autograd.grad(ts.linear_scan(*cpu), cpu, g)
+    assert got[1].dtype == torch.bfloat16
+    torch.testing.assert_close(got[0].cpu(), want[0], **TOL)
+    torch.testing.assert_close(got[1].cpu().float(), want[1].float(), **TOL_BF16)

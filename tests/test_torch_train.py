@@ -403,6 +403,14 @@ def test_run_cli_trains_evaluates_saves_and_resumes(tmp_path, monkeypatch, capsy
                                                                           "rest": 12}
 
 
+@pytest.mark.parametrize("method", ["Tramba-S-TSOD", "Tramba-P-SOD"])
+def test_run_cli_names_the_missing_encoder_graft(method):
+    """``--pretrained_path auto`` for a method whose encoder graft is not
+    ported stops with the ROADMAP item that ports it, not a KeyError."""
+    with pytest.raises(SystemExit, match="Queue 1 item 10a"):
+        run.main(["--method", method], device="cpu")
+
+
 def _detached(fn):
     """A stand-in for a CUDA launch: the plain result with no grad_fn, as a
     kernel that writes its output through ctypes returns it."""

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "encoder_from_jax", "pvt_encoder_from_jax",
-           "swin_encoder_from_jax"]
+           "swin_encoder_from_jax", "ss2d_from_jax", "ss2d_to_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -48,8 +48,12 @@ def _ln(sd, prefix, p):
 
 
 def _ss2d(sd, prefix, p):
+    """Any SS2D configuration: A_logs (K, D, N) of any d_state, the optional
+    in_proj and conv2d biases, no conv2d for d_conv 1, and JAX's
+    ``out_proj_bias`` as ``out_proj.bias`` (the reference's name)."""
     _linear(sd, f"{prefix}.in_proj", p["in_proj"])
-    _conv(sd, f"{prefix}.conv2d", p["conv2d"])
+    if "conv2d" in p:
+        _conv(sd, f"{prefix}.conv2d", p["conv2d"])
     for name in ("x_proj_weight", "dt_projs_weight", "dt_projs_bias"):
         sd[f"{prefix}.{name}"] = _t(p[name])
     K, D, N = np.shape(p["A_logs"])
@@ -57,6 +61,39 @@ def _ss2d(sd, prefix, p):
     sd[f"{prefix}.Ds"] = _t(np.reshape(p["Ds"], (K * D,)))
     _ln(sd, f"{prefix}.out_norm", p["out_norm"])
     _linear(sd, f"{prefix}.out_proj", p["out_proj"])
+    if "out_proj_bias" in p:
+        sd[f"{prefix}.out_proj.bias"] = _t(p["out_proj_bias"])
+
+
+def ss2d_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax SS2D variables -> the port's SS2D state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _ss2d(sd, "m", variables.get("params", variables))
+    return {k[2:]: v for k, v in sd.items()}
+
+
+def ss2d_to_jax(sd: Mapping[str, torch.Tensor], k_group: int) -> dict:
+    """The port's SS2D state dict -> flax SS2D params: the inverse of
+    :func:`ss2d_from_jax` (JAX's ``convert_tramba_v`` covers the SS2Ds of
+    the models, which have neither biases nor d_state > 1)."""
+    n = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    KD, N = n["A_logs"].shape
+    p = {"in_proj": {"kernel": n["in_proj.weight"].T},
+         "x_proj_weight": n["x_proj_weight"], "dt_projs_weight": n["dt_projs_weight"],
+         "dt_projs_bias": n["dt_projs_bias"],
+         "A_logs": n["A_logs"].reshape(k_group, KD // k_group, N),
+         "Ds": n["Ds"].reshape(k_group, KD // k_group),
+         "out_norm": {"scale": n["out_norm.weight"], "bias": n["out_norm.bias"]},
+         "out_proj": {"kernel": n["out_proj.weight"].T}}
+    if "in_proj.bias" in n:
+        p["in_proj"]["bias"] = n["in_proj.bias"]
+    if "conv2d.weight" in n:
+        p["conv2d"] = {"kernel": n["conv2d.weight"].transpose(2, 3, 1, 0)}
+        if "conv2d.bias" in n:
+            p["conv2d"]["bias"] = n["conv2d.bias"]
+    if "out_proj.bias" in n:
+        p["out_proj_bias"] = n["out_proj.bias"]
+    return p
 
 
 def _mlp(sd, prefix, p):

@@ -131,6 +131,7 @@ struct AttnArgs {
   const float* bp;    // (C)
   bf16* out;          // K12: (B*N, C); K13: (B*H*W, C)
   int C, nh, hd, Nq, Lk, QM;
+  int Lkv;                // keys that take part: those from Lkv on are padding (-inf)
   int H, W, w, nWh, nWw;  // K13 geometry
 };
 
@@ -236,8 +237,9 @@ __global__ void attn_kernel(AttnArgs a) {
         if (kWindow) {
           s = s + a.bias[((long)h * Nq + t) * Lk + j];
           if (a.mask) s = s + a.mask[((long)widx * Nq + t) * Lk + j];
-          srow[j] = s;
         }
+        if (j >= a.Lkv) s = -INFINITY;
+        srow[j] = s;
         mx = fmaxf(mx, s);
       }
       mx = warp_max(mx);
@@ -324,10 +326,12 @@ int attn_proj_in_launch(const bf16* y, const bf16* w, const float* b, bf16* out,
 }
 
 // K12 (2).  q (B, N, C) bf16 from (1); k, v (B, nh, Lk, hd) bf16; wp (C, C)
-// bf16; bp (C) fp32; out (B, N, C) bf16.  C, hd, Lk multiples of 16.
+// bf16; bp (C) fp32; out (B, N, C) bf16.  C, hd, Lk multiples of 16; the keys
+// from Lk_valid on are padding and take no part (-inf scores).
 int sra_attn_launch(const bf16* q, const bf16* k, const bf16* v, const bf16* wp,
                     const float* bp, bf16* out, int B, int N, int C, int nh, int Lk,
-                    void* stream) {
+                    int Lk_valid, void* stream) {
+  if (Lk_valid < 1 || Lk_valid > Lk) return (int)cudaErrorInvalidValue;
   AttnArgs a{};
   a.q = q;
   a.k = k;
@@ -340,6 +344,7 @@ int sra_attn_launch(const bf16* q, const bf16* k, const bf16* v, const bf16* wp,
   a.hd = nh > 0 ? C / nh : 0;
   a.Nq = N;
   a.Lk = Lk;
+  a.Lkv = Lk_valid;
   return launch_attn<false>(a, B, static_cast<cudaStream_t>(stream));
 }
 
@@ -362,7 +367,7 @@ int window_attn_launch(const bf16* qkv, const float* bias, const float* mask, co
   a.C = C;
   a.nh = nh;
   a.hd = nh > 0 ? C / nh : 0;
-  a.Nq = a.Lk = w * w;
+  a.Nq = a.Lk = a.Lkv = w * w;
   a.H = H;
   a.W = W;
   a.w = w;

@@ -7,6 +7,10 @@ Reference semantics: ``data/dataloader.py`` (RGB_Dataset: {root}/{set}/image +
 original shape).  The torch DataLoader worker-process model is replaced with
 a thread pool + prefetch queue feeding the device — decode/augment is
 PIL/numpy (GIL released), so threads saturate the host while the card runs.
+One difference from the JAX package's copy: a sharded loader
+(``shard_count`` > 1, data parallelism) keys each sample's augmentation draws
+by its position in the global batch, not in its shard, so N processes load
+the very batches one process would.
 """
 
 from __future__ import annotations
@@ -141,10 +145,14 @@ class BatchLoader:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        # this shard's first position in each global batch: the augmentation
+        # draws are keyed by the global position, as one process draws them
+        offset = self.shard_rank * (self.batch_size // self.shard_count)
+
         def load_batch(bi, batch):
             samples = []
             for j, i in enumerate(batch):
-                rng = np.random.default_rng((self.seed, epoch, bi, j))
+                rng = np.random.default_rng((self.seed, epoch, bi, offset + j))
                 samples.append(self.ds.get(int(i), rng))
             out = {
                 "image": np.stack([s["image"] for s in samples]),

@@ -30,14 +30,17 @@ _NOT_PORTED = {
 
 
 def build(method: str, img_size: int = 384, *, device="cpu", seed: Optional[int] = 0,
-          dtype: torch.dtype = torch.float32, **overrides) -> nn.Module:
+          dtype: torch.dtype = torch.float32, ssm_backend: Optional[str] = None,
+          **overrides) -> nn.Module:
     """Build ``method`` in eval mode on ``device``, computing in ``dtype``
     (``torch.float32``, or ``torch.bfloat16``: JAX ``build(...,
     dtype=jnp.bfloat16)``, the forward ``bench.py`` times).  Parameters are
     fp32 in both, so one state dict serves both.  The weights are drawn on
     the CPU from ``torch.Generator().manual_seed(seed)`` and then moved, so a
     seed gives the same weights on every device; ``seed=None`` leaves torch's
-    default init (for a checkpoint to overwrite).  ``overrides`` cut the
+    default init (for a checkpoint to overwrite).  ``ssm_backend`` goes to
+    every SS2D (JAX ``build(..., ssm_backend=...)``; ``nn/ssm.BACKENDS``);
+    the parameters do not depend on it.  ``overrides`` cut the
     model down for tests: Tramba-V's dims, enc_depths, dec_depths; Tramba-S's
     and -P's enc_config (a dict over ``swin_b_384_config`` /
     ``pvt_v2_b4_config``) and dec_depths."""
@@ -46,9 +49,10 @@ def build(method: str, img_size: int = 384, *, device="cpu", seed: Optional[int]
     if method not in METHODS:
         raise ValueError(f"unknown method: {method!r}; known: {METHODS + tuple(_NOT_PORTED)}")
     if method.startswith("Tramba-V-"):
-        model = TrambaV(img_size=img_size, dtype=dtype, **overrides)
+        model = TrambaV(img_size=img_size, dtype=dtype, ssm_backend=ssm_backend, **overrides)
     else:
-        model = TrambaEnc(_ENC_BY_LETTER[method.split("-")[1]], img_size, dtype, **overrides)
+        model = TrambaEnc(_ENC_BY_LETTER[method.split("-")[1]], img_size, dtype,
+                          ssm_backend=ssm_backend, **overrides)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -13,6 +13,8 @@ Module names follow the reference state dict (``decoder.expand_layers.{s}``,
 ``guide_layers``, ``concat_back_dim``, ``stage_layers.{s}.blocks.{d}``,
 ``seg_layers``).  Stochastic depth: encoder 0 -> 0.6, decoder blocks
 0.2 -> 0 (``tramba.py:100-134``), guides 0; active in ``train()`` mode only.
+``ssm_backend`` goes to every SS2D (``tramba.py:92-250``): None (the default
+kernels) or a backend of ``nn/ssm.BACKENDS``; the parameters are the same.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ class TrambaDecoder(nn.Module):
 
     def __init__(self, features_per_stage: Sequence[int], depths: Sequence[int],
                  img_size: int = 384, dtype: torch.dtype = torch.float32,
-                 drop_path_rate: float = 0.2):
+                 drop_path_rate: float = 0.2, ssm_backend: Optional[str] = None):
         super().__init__()
         chans = list(features_per_stage)
         n = len(chans)
@@ -68,14 +70,16 @@ class TrambaDecoder(nn.Module):
         self.expand_layers = nn.ModuleList(
             [PatchExpand(chans[-(s + 1)]) for s in range(n - 1)] + [FinalPatchExpandX4(chans[0])])
         self.guide_layers = nn.ModuleList(
-            FreqBlock(chans[-(s + 2)], window_for_resolution(base_res * 2 ** s), 4, dtype=dtype)
+            FreqBlock(chans[-(s + 2)], window_for_resolution(base_res * 2 ** s), 4, dtype=dtype,
+                      ssm_backend=ssm_backend)
             for s in range(n - 1))
         self.concat_back_dim = nn.ModuleList(
             nn.Linear(chans[-(s + 1)] // 2 + chans[-(s + 2)], chans[-(s + 2)])
             for s in range(n - 1))
         self.stage_layers = nn.ModuleList(
             _Stage([MultiScaleDecoderBlock(chans[-(s + 2)], dtype=dtype,
-                                           drop_path=rate(sum(depths[:s]) + d))
+                                           drop_path=rate(sum(depths[:s]) + d),
+                                           ssm_backend=ssm_backend)
                     for d in range(depths[s])])
             for s in range(n - 1))
         self.seg_layers = nn.ModuleList(
@@ -106,12 +110,12 @@ class TrambaV(nn.Module):
                  enc_depths: Sequence[int] = (2, 2, 15, 2),
                  dec_depths: Sequence[int] = (2, 2, 2, 2),
                  dtype: torch.dtype = torch.float32, enc_drop_path: float = 0.6,
-                 dec_drop_path: float = 0.2):
+                 dec_drop_path: float = 0.2, ssm_backend: Optional[str] = None):
         super().__init__()
         self.dtype = check_dtype(dtype)
-        self.vssm_encoder = VSSMEncoder(enc_depths, dims, dtype, enc_drop_path)
+        self.vssm_encoder = VSSMEncoder(enc_depths, dims, dtype, enc_drop_path, ssm_backend)
         self.decoder = TrambaDecoder([dims * 2 ** i for i in range(len(enc_depths))],
-                                     dec_depths, img_size, dtype, dec_drop_path)
+                                     dec_depths, img_size, dtype, dec_drop_path, ssm_backend)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the
@@ -131,7 +135,7 @@ class TrambaEnc(nn.Module):
 
     def __init__(self, enc_type: str, img_size: int = 384, dtype: torch.dtype = torch.float32,
                  enc_config: Optional[dict] = None, dec_depths: Sequence[int] = (2, 2, 2, 2),
-                 dec_drop_path: float = 0.2):
+                 dec_drop_path: float = 0.2, ssm_backend: Optional[str] = None):
         super().__init__()
         self.dtype = check_dtype(dtype)
         self.enc_type, self.img_size = enc_type, img_size
@@ -149,7 +153,8 @@ class TrambaEnc(nn.Module):
             self.checkpoint_ignore = ()
         else:
             raise ValueError(f"unsupported encoder type: {enc_type!r}")
-        self.decoder = TrambaDecoder(features, dec_depths, img_size, dtype, dec_drop_path)
+        self.decoder = TrambaDecoder(features, dec_depths, img_size, dtype, dec_drop_path,
+                                     ssm_backend)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the

@@ -13,7 +13,7 @@ them outside Pallas); the blocks take the model dtype.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,7 +39,8 @@ class _Stage(nn.Module):
 
 class VSSMEncoder(nn.Module):
     def __init__(self, depths: Sequence[int] = (2, 2, 15, 2), dims: int = 128,
-                 dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.6):
+                 dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.6,
+                 ssm_backend: Optional[str] = None):
         super().__init__()
         widths = [dims * 2 ** i for i in range(len(depths))]
         dpr = np.linspace(0, drop_path_rate, sum(depths))
@@ -50,7 +51,8 @@ class VSSMEncoder(nn.Module):
             "7": LayerNorm(widths[0]),
         })
         self.layers = nn.ModuleList(
-            _Stage([VSSBlock(w, dtype=dtype, drop_path=float(dpr[sum(depths[:s]) + i]))
+            _Stage([VSSBlock(w, dtype=dtype, drop_path=float(dpr[sum(depths[:s]) + i]),
+                             ssm_backend=ssm_backend)
                     for i in range(d)])
             for s, (w, d) in enumerate(zip(widths, depths)))
         self.downsample = nn.ModuleList(

@@ -7,10 +7,13 @@ Each block hands its pre-norms to the branches: ``norm`` / ``norm1`` to the
 SS2D, ``norm2`` to the FFN, which in bf16 fuse them into kernels K5 and
 K6 / K7 (state-dict names unchanged).  Both residual branches pass a
 ``DropPath`` of the block's rate (``tramba_tpu/nn/blocks.py:157-160``,
-``:192-195``), active in ``train()`` mode only.
+``:192-195``), active in ``train()`` mode only.  ``ssm_backend`` and
+``ssm_d_state`` go to the block's SS2D (``tramba_tpu/nn/blocks.py:133-191``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -38,10 +41,12 @@ class VSSBlock(nn.Module):
     """x + DropPath(SS2D(LN(x))); x + DropPath(Mlp(LN(x)))."""
 
     def __init__(self, hidden_dim: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0,
+                 ssm_backend: Optional[str] = None, ssm_d_state: int = 1):
         super().__init__()
         self.norm = LayerNorm(hidden_dim)
-        self.op = SS2D(hidden_dim, scan_kind="raster", k_group=4, dtype=dtype)
+        self.op = SS2D(hidden_dim, scan_kind="raster", k_group=4, dtype=dtype,
+                       d_state=ssm_d_state, backend=ssm_backend)
         self.norm2 = LayerNorm(hidden_dim)
         self.mlp = ffn_branch(hidden_dim, mlp_ratio, "plain", dtype)
         self.drop_path = DropPath(drop_path)
@@ -55,10 +60,12 @@ class MultiScaleDecoderBlock(nn.Module):
     """x + DropPath(HelixSS2D(LN(x))); x + DropPath(DWMSMlp(LN(x)))."""
 
     def __init__(self, hidden_dim: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0,
+                 ssm_backend: Optional[str] = None, ssm_d_state: int = 1):
         super().__init__()
         self.norm1 = LayerNorm(hidden_dim)
-        self.op = SS2D(hidden_dim, scan_kind="line", k_group=8, dtype=dtype)
+        self.op = SS2D(hidden_dim, scan_kind="line", k_group=8, dtype=dtype,
+                       d_state=ssm_d_state, backend=ssm_backend)
         self.norm2 = LayerNorm(hidden_dim)
         self.mlp = ffn_branch(hidden_dim, mlp_ratio, "dwms", dtype)
         self.drop_path = DropPath(drop_path)

@@ -10,6 +10,8 @@ LayerNorm, and the FFN kernel K6.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
@@ -26,14 +28,15 @@ class FreqSS2D(nn.Module):
     ``dilation``: low-band dilation rate."""
 
     def __init__(self, dim: int, window: int, dilation: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, ssm_backend: Optional[str] = None):
         super().__init__()
         self.dim = dim
         self.h_expand = FreqExpand2D(dim)
         self.l_expand = FreqExpand2D(dim)
-        self.h_ssm = SS2D(dim, k_group=4, scan_kind="window", scan_param=window, dtype=dtype)
+        self.h_ssm = SS2D(dim, k_group=4, scan_kind="window", scan_param=window, dtype=dtype,
+                          backend=ssm_backend)
         self.l_ssm = SS2D(dim, k_group=4, scan_kind="dilation", scan_param=dilation,
-                          dtype=dtype)
+                          dtype=dtype, backend=ssm_backend)
         self.concat_back_dim = nn.Linear(2 * dim, dim, bias=False)
 
     def forward(self, x):
@@ -50,13 +53,15 @@ class FreqSS2D(nn.Module):
 class FreqBlock(nn.Module):
     """x + DropPath(FreqSS2D(LN(x))); x + DropPath(Mlp(LN(x)))
     (freq_mamba.py:60-82; ``tramba_tpu/nn/freq.py:112-116``).  The decoder
-    builds its guides with rate 0, as the JAX package does."""
+    builds its guides with rate 0, as the JAX package does.  ``ssm_backend``
+    goes to both SS2Ds (``tramba_tpu/nn/freq.py:49-108``)."""
 
     def __init__(self, dim: int, window: int, dilation: int = 4, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0,
+                 ssm_backend: Optional[str] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = FreqSS2D(dim, window, dilation, dtype)
+        self.attn = FreqSS2D(dim, window, dilation, dtype, ssm_backend)
         self.norm2 = LayerNorm(dim)
         self.mlp = ffn_branch(dim, mlp_ratio, "plain", dtype)
         self.drop_path = DropPath(drop_path)

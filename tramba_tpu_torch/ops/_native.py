@@ -28,7 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ss2d.cu", "ss2d_bwd.cu", "expand.cu", "prologue.cu", "mlp.cu", "mlp_bwd.cu",
-           "attn.cu")
+           "attn.cu", "scan.cu")
 HEADERS = ("common.cuh",)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
@@ -55,8 +55,9 @@ _SIGNATURES = {
     "ln_mlp_bwd_launch": [_P] * 15 + [_I] * 3 + [_P],
     "ln_dwms_mlp_bwd_launch": [_P] * 27 + [_I] * 5 + [_P],
     "attn_proj_in_launch": [_P] * 4 + [_L, _I, _I, _I, _F, _P],
-    "sra_attn_launch": [_P] * 6 + [_I] * 5 + [_P],
+    "sra_attn_launch": [_P] * 6 + [_I] * 6 + [_P],
     "window_attn_launch": [_P] * 6 + [_I] * 6 + [_P],
+    "linear_scan_launch": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 # dtypes a kernel argument may take (see check_args)

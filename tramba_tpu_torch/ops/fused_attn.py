@@ -39,14 +39,14 @@ from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_c
 from tramba_tpu_torch.ops.fused_mlp import _linear, _ln_rounded, layer_norm_bf16
 
 __all__ = ["sra", "sra_ref", "sra_fusable", "window_attn", "window_attn_ref",
-           "window_attn_fusable", "Sra", "WindowAttn"]
+           "window_attn_fusable", "attn_plan", "Sra", "WindowAttn"]
 
 
 def sra_fusable(N: int, C: int, nh: int, Lk: int, dtype) -> bool:
     """Where the JAX package runs ``_sra_pallas`` on a TPU (``sra_fusable``,
     fused_attn.py:34-45, whose VMEM budgets hold at every PVTv2-b4 width):
-    bf16, N, Lk and the head width multiples of 8.  K12 takes every such shape
-    with C, hd and Lk multiples of 16 (each 384 px stage)."""
+    bf16, N, Lk and the head width multiples of 8.  K12 takes every such
+    shape, padded where needed (:func:`attn_plan`)."""
     return (dtype == torch.bfloat16 and N % 8 == 0 and C % nh == 0 and (C // nh) % 8 == 0
             and Lk % 8 == 0)
 
@@ -55,8 +55,8 @@ def window_attn_fusable(H: int, W: int, C: int, nh: int, w: int, dtype) -> bool:
     """Where the JAX package runs ``_wattn_pallas`` on a TPU
     (``window_attn_fusable``, fused_attn.py:187-201, whose VMEM budgets hold
     at every Swin-B width): bf16, whole windows, head width and window size
-    multiples of 8.  K13 takes every such shape with C, hd and w*w multiples
-    of 16 (each 384 px stage)."""
+    multiples of 8 (so w*w is a multiple of 16).  K13 takes every such shape,
+    its heads padded where needed (:func:`attn_plan`)."""
     return (dtype == torch.bfloat16 and C % nh == 0 and (C // nh) % 8 == 0
             and (w * w) % 8 == 0 and H % w == 0 and W % w == 0)
 
@@ -145,11 +145,92 @@ def _proj_in(y, w, b, nscale, scale):
     return out
 
 
-def _attn_shapes(name, C, nh, hd, n, wp, bp):
-    if C % 16 or hd % 16 or n % 16 or nh * hd != C or tuple(wp.shape) != (C, C) \
-            or bp.numel() != C:
-        raise ValueError(f"{name}: C={C}, head width {hd} and {n} keys must be multiples of "
-                         "16, nh * hd == C, wp (C, C), bp (C)")
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def attn_plan(C: int, nh: int, n: int) -> tuple:
+    """How K12 / K13 take a shape that their gates admit: (hd16, Cq, n16).
+    The kernels work in multiples of 16, so the wrappers zero-pad each head's
+    width hd = C / nh to hd16 (q k^T and p v are unchanged by zero columns),
+    run the heads and the output projection at Cq = nh * hd16 and keep the
+    first C output channels, and pad K12's n keys to n16 with keys the kernel
+    masks out (-inf scores).  Raises where no padding makes the shape one the
+    kernels take."""
+    if nh < 1 or C % nh or n < 1:
+        raise ValueError(f"attention: C={C} over {nh} heads with {n} keys")
+    hd16 = _up16(C // nh)
+    return hd16, nh * hd16, _up16(n)
+
+
+def _pad_heads(w: torch.Tensor, nh: int, hd16: int, groups: int = 1) -> torch.Tensor:
+    """Rows of ``w`` (groups * C, ...) as ``groups`` blocks of nh heads of hd
+    rows, each head zero-padded to hd16 rows: (groups * nh * hd16, ...)."""
+    rows = w.reshape(groups, nh, -1, *w.shape[1:])
+    pad = [0, 0] * (w.dim() - 1) + [0, hd16 - rows.shape[2]]
+    return torch.nn.functional.pad(rows, pad).reshape(groups * nh * hd16, *w.shape[1:])
+
+
+def _pad_proj_in(y, w, b, nh, hd16, groups):
+    """Launch (1)'s operands for a padded plan: y (M, C) -> (M, C16) zero
+    columns; w (groups C, C) -> (groups Cq, C16), b -> (groups Cq)."""
+    C = y.shape[-1]
+    pad = _up16(C) - C
+    y = torch.nn.functional.pad(y, (0, pad)).contiguous()
+    w = torch.nn.functional.pad(_pad_heads(w, nh, hd16, groups), (0, pad))
+    return y, w.contiguous(), _pad_heads(b, nh, hd16, groups).contiguous()
+
+
+def _pad_out_proj(wp, bp, nh, hd16):
+    """wp (C, C) -> (Cq, Cq): its input columns per head padded to hd16, its
+    output rows padded with zeros to Cq; bp (C) -> (Cq)."""
+    Cq = nh * hd16
+    wp = _pad_heads(wp.t(), nh, hd16).t()
+    wp = torch.nn.functional.pad(wp, (0, 0, 0, Cq - wp.shape[0])).contiguous()
+    return wp, torch.nn.functional.pad(bp, (0, Cq - bp.numel())).contiguous()
+
+
+def _sra_operands(y, wq, bq, k, v, wp, bp, nh):
+    """K12's operands as the kernels take them (:func:`attn_plan`), from the
+    LayerNorm's output y (B, N, C): (y, wq, bq, k, v, wp, bp) padded where
+    needed, Cq and the padded key count; raises on shapes K12 cannot take.
+    Launches nothing."""
+    B, N, C = y.shape
+    Lk = k.shape[2]
+    hd16, Cq, Lk16 = attn_plan(C, nh, Lk)
+    hd = C // nh
+    if (tuple(k.shape) != (B, nh, Lk, hd) or v.shape != k.shape or tuple(wq.shape) != (C, C)
+            or bq.numel() != C or tuple(wp.shape) != (C, C) or bp.numel() != C):
+        raise ValueError("sra: x (B, N, C), k and v (B, nh, Lk, C / nh), wq and wp (C, C), "
+                         "bq and bp (C)")
+    if (Cq, Lk16) != (C, Lk):  # zero-padded heads, masked keys
+        y, wq, bq = _pad_proj_in(y, wq, bq, nh, hd16, 1)
+        k, v = (torch.nn.functional.pad(t, (0, hd16 - hd, 0, Lk16 - Lk)).contiguous()
+                for t in (k, v))
+        wp, bp = _pad_out_proj(wp, bp, nh, hd16)
+    return (y, wq, bq, k, v, wp, bp), Cq, Lk16
+
+
+def _window_operands(y, wqkv, bqkv, bias, mask, wp, bp, nh):
+    """K13's operands as the kernels take them, from the LayerNorm's output y
+    (B, H, W, C): (y, wqkv, bqkv, wp, bp) with zero-padded heads where
+    needed, and Cq; raises on shapes K13 cannot take.  Launches nothing."""
+    B, H, W, C = y.shape
+    N = bias.shape[-1]
+    w = int(round(N ** 0.5))
+    hd16, Cq, N16 = attn_plan(C, nh, N)
+    nW = (H // w) * (W // w)
+    if (w * w != N or N16 != N or H % w or W % w or tuple(bias.shape) != (nh, N, N)
+            or tuple(wqkv.shape) != (3 * C, C) or bqkv.numel() != 3 * C
+            or tuple(wp.shape) != (C, C) or bp.numel() != C
+            or (mask is not None and tuple(mask.shape) != (nW, N, N))):
+        raise ValueError("window_attn: x (B, H, W, C) in whole w x w windows of a multiple of "
+                         "16 tokens, bias (nh, N, N), mask (nW, N, N), wqkv (3C, C), bqkv (3C), "
+                         "wp (C, C), bp (C)")
+    if Cq != C:  # zero-padded heads
+        y, wqkv, bqkv = _pad_proj_in(y, wqkv, bqkv, nh, hd16, 3)
+        wp, bp = _pad_out_proj(wp, bp, nh, hd16)
+    return (y, wqkv, bqkv, wp, bp), Cq
 
 
 def _sra_launch(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps):
@@ -158,18 +239,16 @@ def _sra_launch(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps):
     check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32), wq=(wq, BF16), bq=(bq, F32),
                k=(k, BF16), v=(v, BF16), wp=(wp, BF16), bp=(bp, F32))
     B, N, C = x.shape
-    hd = C // nh
     Lk = k.shape[2]
-    _attn_shapes("sra", C, nh, hd, Lk, wp, bp)
-    if tuple(k.shape) != (B, nh, Lk, hd) or v.shape != k.shape or tuple(wq.shape) != (C, C) \
-            or bq.numel() != C:
-        raise ValueError("sra: x (B, N, C), k and v (B, nh, Lk, C / nh), wq (C, C), bq (C)")
-    q = _proj_in(layer_norm_bf16(x, ln_w, ln_b, eps), wq, bq, C, _scale(hd))
-    out = torch.empty_like(x)
+    (y, wq, bq, k, v, wp, bp), Cq, Lk16 = _sra_operands(
+        layer_norm_bf16(x, ln_w, ln_b, eps), wq, bq, k, v, wp, bp, nh)
+    q = _proj_in(y, wq, bq, Cq, _scale(C // nh))
+    out = torch.empty(B, N, Cq, device=x.device, dtype=x.dtype)
     _native.launch("sra_attn_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(), wp.data_ptr(),
-                   bp.data_ptr(), out.data_ptr(), B, N, C, nh, Lk, _native.stream_handle(x))
+                   bp.data_ptr(), out.data_ptr(), B, N, Cq, nh, Lk16, Lk,
+                   _native.stream_handle(x))
     sra.launches += 1
-    return out
+    return out if Cq == C else out[..., :C].contiguous()
 
 
 sra.launches = 0
@@ -192,23 +271,16 @@ def _window_attn_launch(x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp, nh, eps):
                bqkv=(bqkv, F32), bias=(bias, F32), wp=(wp, BF16), bp=(bp, F32),
                **({} if mask is None else {"mask": (mask, F32)}))
     B, H, W, C = x.shape
-    hd = C // nh
-    N = bias.shape[-1]
-    w = int(round(N ** 0.5))
-    _attn_shapes("window_attn", C, nh, hd, N, wp, bp)
-    nW = (H // w) * (W // w)
-    if (w * w != N or H % w or W % w or tuple(bias.shape) != (nh, N, N)
-            or tuple(wqkv.shape) != (3 * C, C) or bqkv.numel() != 3 * C
-            or (mask is not None and tuple(mask.shape) != (nW, N, N))):
-        raise ValueError("window_attn: x (B, H, W, C) in whole w x w windows, bias (nh, N, N), "
-                         "mask (nW, N, N), wqkv (3C, C), bqkv (3C)")
-    qkv = _proj_in(layer_norm_bf16(x, ln_w, ln_b, eps), wqkv, bqkv, C, _scale(hd))
-    out = torch.empty_like(x)
+    (y, wqkv, bqkv, wp, bp), Cq = _window_operands(
+        layer_norm_bf16(x, ln_w, ln_b, eps), wqkv, bqkv, bias, mask, wp, bp, nh)
+    qkv = _proj_in(y, wqkv, bqkv, Cq, _scale(C // nh))
+    out = torch.empty(B, H, W, Cq, device=x.device, dtype=x.dtype)
     _native.launch("window_attn_launch", qkv.data_ptr(), bias.data_ptr(),
                    None if mask is None else mask.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-                   out.data_ptr(), B, H, W, C, nh, w, _native.stream_handle(x))
+                   out.data_ptr(), B, H, W, Cq, nh, int(round(bias.shape[-1] ** 0.5)),
+                   _native.stream_handle(x))
     window_attn.launches += 1
-    return out
+    return out if Cq == C else out[..., :C].contiguous()
 
 
 window_attn.launches = 0

@@ -45,12 +45,13 @@ import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, on_card
-from tramba_tpu_torch.ops.scan_orders import order_tables
-from tramba_tpu_torch.ops.selective_scan import linear_scan
+from tramba_tpu_torch.ops.scan_orders import merge_sum, order_tables
+from tramba_tpu_torch.ops.selective_scan import linear_scan, linear_scan_ref
 
-__all__ = ["ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref", "ss2d_scan_train_ref", "ss2d_merge",
-           "ss2d_merge_ref", "ss2d_merge_train_ref", "ss2d_scan_bwd", "ss2d_scan_bwd_ref",
-           "SS2DCore", "ss2d_full", "SCAN_CHUNK", "scan_chunk"]
+__all__ = ["composed_ss2d_core", "ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref",
+           "ss2d_scan_train_ref", "ss2d_merge", "ss2d_merge_ref", "ss2d_merge_train_ref",
+           "ss2d_scan_bwd", "ss2d_scan_bwd_ref", "SS2DCore", "ss2d_full", "SCAN_CHUNK",
+           "scan_chunk"]
 
 SCAN_CHUNK = 64  # the plain versions' default carry stride; the kernels' is scan_chunk()
 
@@ -74,19 +75,29 @@ def _check_table(name: str, t: torch.Tensor, shape: tuple) -> None:
 # ---------------------------------------------------------------------------
 
 
-def ss2d_core_ref(xs, x_proj_w, dt_w, dt_b, A_logs, Ds):
-    """xs (B, K, L, D); x_proj_w (K, R+2, D); dt_w (K, D, R); dt_b (K, D);
-    A_logs (K, D, 1); Ds (K, D).  Returns ys (B, K, L, D), fp32."""
+def composed_ss2d_core(xs, x_proj_w, dt_w, dt_b, A_logs, Ds, scan=linear_scan):
+    """The composed SS2D core of d_state 1 (``composed_ss2d_core``,
+    fused_ss2d.py:38-57): fp32 projections -> softplus -> exp -> ``scan`` ->
+    y = h C + D u.  xs (B, K, L, D); x_proj_w (K, R+2, D); dt_w (K, D, R);
+    dt_b (K, D); A_logs (K, D, 1); Ds (K, D).  Returns ys (B, K, L, D) in
+    xs's dtype.  ``scan`` is :func:`linear_scan` (kernel K14 on the card)
+    unless the caller swaps in another: the sequence-parallel scan, or the
+    plain loop in :func:`ss2d_core_ref`."""
     R = x_proj_w.shape[1] - 2
-    xs = xs.float()
-    dbc = torch.einsum("bkld,kcd->bklc", xs, x_proj_w.float())
+    xf = xs.float()
+    dbc = torch.einsum("bkld,kcd->bklc", xf, x_proj_w.float())
     dts, Bc, Cc = torch.split(dbc, [R, 1, 1], dim=-1)
     dts = torch.einsum("bklr,kdr->bkld", dts, dt_w.float())
     delta = F.softplus(dts + dt_b.float()[None, :, None, :])
     A = -torch.exp(A_logs.float())[..., 0]
-    a = torch.exp(delta * A[None, :, None, :])
-    h = linear_scan(a, delta * xs * Bc)
-    return h * Cc + xs * Ds.float()[None, :, None, :]
+    h = scan(torch.exp(delta * A[None, :, None, :]), delta * xf * Bc)
+    return (h * Cc + xf * Ds.float()[None, :, None, :]).to(xs.dtype)
+
+
+def ss2d_core_ref(xs, x_proj_w, dt_w, dt_b, A_logs, Ds):
+    """:func:`composed_ss2d_core` in fp32 with the plain scan: K1's plain
+    core.  Returns ys (B, K, L, D), fp32."""
+    return composed_ss2d_core(xs.float(), x_proj_w, dt_w, dt_b, A_logs, Ds, scan=linear_scan_ref)
 
 
 def ss2d_scan_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds):
@@ -123,24 +134,11 @@ def ss2d_scan_train_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, chunk=SCAN_CHU
     xs, dbcs = _in_scan_order(x, idx, dbc)
     R = dt_w.shape[-1]
     _, delta, a, _ = _decay_terms(dbcs, dt_w, dt_b, A_logs)
-    h = linear_scan(a, delta * xs * dbcs[..., R:R + 1])
+    h = linear_scan_ref(a, delta * xs * dbcs[..., R:R + 1])
     starts = torch.arange(0, L, chunk, device=x.device)
     carries = torch.cat([torch.zeros_like(h[:, :, :1]), h[:, :, starts[1:] - 1]], dim=2)
     ys = h * dbcs[..., R + 1:R + 2] + xs * Ds.float().reshape(K, 1, -1)
     return ys, carries, dbc
-
-
-def _merge_sum(ys, inv):
-    """Each pixel's sum over directions k and slots m of ys[:, k, inv[k, m]]
-    (slot value L = none): (B, K, L, D) -> (B, L, D)."""
-    B, K, L, D = ys.shape
-    pad = torch.cat([ys, ys.new_zeros(B, K, 1, D)], dim=2)
-    inv = inv.long()
-    y = ys.new_zeros(B, L, D)
-    for k in range(K):
-        for m in range(inv.shape[1]):
-            y = y + pad[:, k, inv[k, m]]
-    return y
 
 
 def _ln_gelu_proj_fp32(y, ln_w, ln_b, w_out):
@@ -164,13 +162,13 @@ def ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out):
     """ys (B, K, L, D) fp32; inv (K, M, L) int, slot value L = none; ln_w, ln_b
     (D) fp32; w_out (dm, D) fp32 or bf16.  Returns (B, L, dm) in w_out's
     dtype; with a bf16 w_out the GELU output is rounded to bf16 first."""
-    return _ln_gelu_proj(_merge_sum(ys, inv), ln_w, ln_b, w_out)
+    return _ln_gelu_proj(merge_sum(ys, inv), ln_w, ln_b, w_out)
 
 
 def ss2d_merge_train_ref(ys, inv, ln_w, ln_b, w_out):
     """K2's train variant: (out, y_sum), y_sum (B, L, D) the pre-LN sum in
     w_out's dtype."""
-    y = _merge_sum(ys, inv)
+    y = merge_sum(ys, inv)
     return _ln_gelu_proj(y, ln_w, ln_b, w_out), y.to(w_out.dtype)
 
 
@@ -212,7 +210,7 @@ def ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_lo
                        (g * hs).sum(-1, keepdim=True)], dim=-1)
     du = lam * delta * Bc + g * Ds.float().reshape(K, 1, -1)
     du = du + torch.einsum("bklc,kcd->bkld", d_dbc, x_proj_w.float())
-    dx = _merge_sum(du, inv)
+    dx = merge_sum(du, inv)
     dwx = torch.einsum("bklc,bkld->kcd", d_dbc, xs)
     dwdt = torch.einsum("bkld,bklr->kdr", ddt, dbcs[..., :R])
     dA = (daA * delta).sum((0, 2))

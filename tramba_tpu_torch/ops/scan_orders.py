@@ -23,6 +23,9 @@ __all__ = [
     "ScanOrder",
     "get_order",
     "order_tables",
+    "cross_scan",
+    "cross_merge",
+    "merge_sum",
     "raster_tables",
     "line_tables",
     "dilation_tables",
@@ -179,3 +182,36 @@ def _tables_on(kind: str, H: int, W: int, param: int, device: str):
 def order_tables(kind: str, H: int, W: int, param: int, device) -> tuple:
     """(idx, inv) of an order as int32 tensors on ``device`` (cached)."""
     return _tables_on(kind, H, W, param, str(torch.device(device)))
+
+
+def merge_sum(ys: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """Each pixel's sum over directions k and slots m of ys[:, k, inv[k, m]]
+    (slot value L = none), in ys's dtype: (B, K, L, D) -> (B, L, D)."""
+    B, K, L, D = ys.shape
+    pad = torch.cat([ys, ys.new_zeros(B, K, 1, D)], dim=2)
+    inv = inv.long()
+    y = ys.new_zeros(B, L, D)
+    for k in range(K):
+        for m in range(inv.shape[1]):
+            y = y + pad[:, k, inv[k, m]]
+    return y
+
+
+def cross_scan(x: torch.Tensor, kind: str, H: int, W: int, param: int = 0) -> torch.Tensor:
+    """(B, L, D) -> (B, K, L, D): the K directional sequences of an H x W map
+    (``cross_scan``, ``tramba_tpu/ops/scan_orders.py:629``), one gather
+    whose backward is one scatter-add."""
+    idx, _ = order_tables(kind, H, W, param, x.device)
+    B, L, D = x.shape
+    return x.index_select(1, idx.reshape(-1).long()).reshape(B, *idx.shape, D)
+
+
+def cross_merge(ys: torch.Tensor, kind: str, H: int, W: int, param: int = 0) -> torch.Tensor:
+    """(B, K, L, D) -> (B, L, D): the K directional sequences summed back to
+    their pixels (``cross_merge``, :634), the transpose of :func:`cross_scan`:
+    one scatter-add in fp32 through the gather table (its backward is one
+    gather), rounded once to ys's dtype."""
+    idx, _ = order_tables(kind, H, W, param, ys.device)
+    B, K, L, D = ys.shape
+    y = ys.new_zeros((B, L, D), dtype=torch.float32)
+    return y.index_add(1, idx.reshape(-1).long(), ys.float().reshape(B, K * L, D)).to(ys.dtype)

@@ -6,7 +6,15 @@ device="cpu")``, the plain versions of the kernels).  ``--dtype float32``
 keeps TF32 off in matmuls and cuDNN convolutions, the counterpart of
 ``jax_default_matmul_precision=highest``; ``--dtype bfloat16`` computes in
 bf16 with fp32 parameters (kernels K5-K7 and K9-K10, bf16 K1/K2/K8).
-``--parallel`` and ``--init_method`` are accepted and ignored (one device).
+
+Data parallelism, one process per card, engages by itself when a launcher
+starts more than one process (``parallel/distributed.py``)::
+
+    torchrun --nproc_per_node=N -m tramba_tpu_torch.run --parallel --method ...
+
+or, as the JAX package's ``run.py``, ``TRAMBA_NUM_PROCESSES`` /
+``TRAMBA_PROCESS_ID`` with ``--init_method tcp://host:port``.  ``--parallel``
+asks for it: alone in one process it only says how to launch more.
 """
 
 from __future__ import annotations
@@ -15,10 +23,13 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
+from tramba_tpu_torch.parallel.distributed import initialize_from_args
 from tramba_tpu_torch.train.loop import training
 
-# per-method pretrained encoder checkpoints (run.py:11-19): only Tramba-V is ported
+# per-method pretrained encoder checkpoints (run.py:11-19): only Tramba-V's
+# graft is ported
 _PRETRAINED = {"V": "vssm_base_0229_ckpt_epoch_237.pth"}
 
 
@@ -28,7 +39,12 @@ def resolve_pretrained(args) -> None:
     (an explicit --pretrained_path that fails to load is fatal instead)."""
     if args.pretrained_path != "auto":
         return
-    path = os.path.join(args.pretrained_model, _PRETRAINED[args.method.split("-")[1]])
+    variant = args.method.split("-")[1]
+    if variant not in _PRETRAINED:
+        raise SystemExit(f"--pretrained_path auto: the encoder graft of {args.method} is not "
+                         "ported yet (ROADMAP.md Queue 1 item 10a); pass --pretrained_path '' "
+                         "to train from a random encoder")
+    path = os.path.join(args.pretrained_model, _PRETRAINED[variant])
     if os.path.exists(path):
         args.pretrained_path = path
     else:
@@ -42,9 +58,11 @@ def resolve_pretrained(args) -> None:
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--init_method", default="tcp://127.0.0.1:33115", type=str,
-                   help="accepted for compatibility; ignored (one device)")
+                   help="rendezvous of the processes under TRAMBA_NUM_PROCESSES / "
+                        "TRAMBA_PROCESS_ID (torchrun sets its own)")
     p.add_argument("--parallel", action="store_true",
-                   help="accepted for compatibility; ignored (one device)")
+                   help="data parallelism over the processes a launcher started; it engages "
+                        "by itself when there are more than one")
     p.add_argument("--data_root", default="./TSOD10K/", type=str, help="data path")
     p.add_argument("--train_dataset", default="", type=str)
     p.add_argument("--evaluation_root", default="./TSOD10K/", type=str)
@@ -77,10 +95,14 @@ def main(argv=None, device="cuda"):
     args = parser().parse_args(argv)
     if args.method is None:
         raise SystemExit("--method is required (e.g. Tramba-V-TSOD)")
-    if args.parallel:
-        print(f"note: --parallel and --init_method {args.init_method} are ignored; "
-              "the port trains on one device")
     resolve_pretrained(args)
+    started = not dist.is_initialized() and initialize_from_args(args.init_method, device)
+    if dist.is_initialized():
+        print(f"data parallel: process {dist.get_rank()} of {dist.get_world_size()} "
+              f"({dist.get_backend()})", flush=True)
+    elif args.parallel:
+        print("note: --parallel in a single process trains on one device; start one process "
+              "per card with torchrun --nproc_per_node=N -m tramba_tpu_torch.run ...", flush=True)
 
     print("\nArguments:")
     print("=" * 40)
@@ -91,7 +113,11 @@ def main(argv=None, device="cuda"):
     # fp32 at "highest", as run.py:93: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return training(args, device=device)
+    try:
+        return training(args, device=device)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,11 +1,22 @@
 """Training orchestration: ``training(args)`` and its parts.
 
-Port of ``tramba_tpu/train/loop.py`` for one device: seeding, model build,
-the pretrained-encoder graft, data loading, then ``fit`` -- per-epoch step
-decay, train steps, in-loop eval from epoch ``see`` with the full SOD metric
-suite, text and TensorBoard records, best-MAE weights and the rolling resume
-dict.  Data loading and the metrics are the port's copies of the JAX
-package's numpy-only modules (``data/pipeline.py``, ``eval/metrics.py``).
+Port of ``tramba_tpu/train/loop.py``: seeding, model build, the
+pretrained-encoder graft, data loading, then ``fit`` -- per-epoch step decay,
+train steps, in-loop eval from epoch ``see`` with the full SOD metric suite,
+text and TensorBoard records, best-MAE weights and the rolling resume dict.
+Data loading and the metrics are the port's copies of the JAX package's
+numpy-only modules (``data/pipeline.py``, ``eval/metrics.py``).
+
+Data parallelism (``:148-160``, ``:243-269``, ``:322``) engages by itself
+when ``torch.distributed`` holds more than one process (``run.py`` sets it up,
+``parallel/distributed.py``): the model is wrapped in DDP over the data
+group, ``--batch_size`` stays the global batch and each process loads its
+slice of it (the loader drops a ragged last batch, so every slice is full
+and DDP's mean of the per-process mean losses is the global mean), and rank
+0 alone evaluates and writes the record, TensorBoard, best-MAE and resume
+files, from the unwrapped module.  JAX runs one process over all of a host's
+chips and falls back to one device where the batch does not divide; torch
+runs one process per card and raises there instead.
 """
 
 from __future__ import annotations
@@ -15,15 +26,18 @@ import json
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tramba_tpu_torch.compat.torch_weights import graft_vmamba_encoder
 from tramba_tpu_torch.data.pipeline import BatchLoader, SODDataset
 from tramba_tpu_torch.eval.metrics import SODMetrics
 from tramba_tpu_torch.models.registry import build
 from tramba_tpu_torch.nn.layers import set_drop_path_generator
+from tramba_tpu_torch.parallel.mesh import Axis, make_grid
 from tramba_tpu_torch.train import checkpoint as ckpt
 from tramba_tpu_torch.train.optim import fast_forward_schedule, make_optimizer, step_decay_schedule
 from tramba_tpu_torch.train.step import eval_step, train_step
@@ -90,8 +104,15 @@ def evaluate_in_loop(model: torch.nn.Module, data_root: str, img_size: int, devi
     return metrics.results()
 
 
-def fit(args, model: torch.nn.Module, train_loader, device, tb_writer=None):
-    """Train ``args.train_epochs`` epochs; returns the optimizer."""
+def _is_lead() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def fit(args, model: torch.nn.Module, train_loader, device, tb_writer=None,
+        data: Optional[Axis] = None):
+    """Train ``args.train_epochs`` epochs; returns the optimizer.  ``data``:
+    the data axis of the process grid; above one process the steps run
+    through DDP over its group, the rest on ``model`` itself."""
     steps_per_epoch = max(1, len(train_loader))
     decay_epochs = list(map(int, str(args.decay_epochs).split("-")))
     decay_factors = list(map(float, str(args.decay_factors).split("-")))
@@ -99,6 +120,7 @@ def fit(args, model: torch.nn.Module, train_loader, device, tb_writer=None):
                          steps_per_epoch,
                          mu_dtype=getattr(torch, getattr(args, "mu_dtype", "bfloat16")))
     lr_sched = step_decay_schedule(args.lr, decay_epochs, decay_factors, steps_per_epoch)
+    lead = _is_lead()
 
     save_dir = os.path.join(args.save_model, args.method)
     os.makedirs(save_dir, exist_ok=True)
@@ -115,6 +137,12 @@ def fit(args, model: torch.nn.Module, train_loader, device, tb_writer=None):
             fast_forward_schedule(opt, start_epoch * steps_per_epoch)
         print(f"Resumed; starting from epoch {start_epoch + 1}")
 
+    stepped = model
+    if data is not None and data.size > 1:
+        stepped = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None,
+            process_group=data.group)
+
     best_mae = args.best_MAE
     for epoch in range(start_epoch, args.train_epochs):
         t0 = time.time()
@@ -123,21 +151,27 @@ def fit(args, model: torch.nn.Module, train_loader, device, tb_writer=None):
         for batch in train_loader:
             images = torch.from_numpy(batch["image"]).to(device, non_blocking=True)
             gts = torch.from_numpy(batch["gt"]).to(device, non_blocking=True)
-            total += train_step(model, opt, images, gts)
+            total += train_step(stepped, opt, images, gts)
             n_steps += 1
+        if stepped is not model:  # the global mean of the processes' mean losses
+            dist.all_reduce(total, group=data.group)
+            total /= data.size
         loss = total.item() / max(1, n_steps)  # one host fetch per epoch
         lr = float(lr_sched(epoch * steps_per_epoch))  # the LR this epoch trained at
-        print(f"Epoch [{epoch + 1:03d}/{args.train_epochs:03d}] loss {loss:.4f} "
-              f"lr {lr:.2e} ({time.time() - t0:.1f}s)", flush=True)
+        if lead:
+            print(f"Epoch [{epoch + 1:03d}/{args.train_epochs:03d}] loss {loss:.4f} "
+                  f"lr {lr:.2e} ({time.time() - t0:.1f}s)", flush=True)
 
-        if epoch + 1 >= args.see:
+        if epoch + 1 >= args.see and lead:
             results = evaluate_in_loop(model, args.evaluation_root, args.img_size, device)
             record(args, tb_writer, results, epoch, args.train_epochs, loss, lr)
             if best_mae is None or results["MAE"] < best_mae:
                 best_mae = results["MAE"]
                 ckpt.save_params(ckpt.best_mae_path(save_dir, args.method, best_mae, epoch), model)
-        if (epoch + 1) % 5 == 0:  # the rolling resume dict (tramba_tpu/train/loop.py:259)
+        if (epoch + 1) % 5 == 0 and lead:  # the rolling resume dict (tramba_tpu/train/loop.py:259)
             ckpt.save_resume(resume_path, model, opt, epoch)
+        if stepped is not model:  # the others wait for rank 0's eval and files
+            dist.barrier()
     return opt
 
 
@@ -174,14 +208,22 @@ def training(args, device="cuda"):
     """Entry point (train.py:283-297): seed, build, graft, load data, fit on
     ``device``: the CUDA card (kernels), or the CPU when the caller asks for
     it (plain versions).  ``--dtype`` sets the compute dtype; parameters
-    stay fp32.  Returns the model and the optimizer."""
+    stay fp32.  With more than one process in ``torch.distributed``, data
+    parallel over all of them (one card each).  Returns the model (never the
+    DDP wrapper) and the optimizer."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("tramba_tpu_torch training runs on a CUDA device; none is available "
                            "(pass device='cpu' to train on the CPU with the plain versions)")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    data = make_grid().data
+    if args.batch_size % data.size:
+        raise ValueError(f"--batch_size {args.batch_size} is the global batch and must divide "
+                         f"over the {data.size} data-parallel processes")
     np.random.seed(SEED)
     tb_writer = None
-    if getattr(args, "tf_log_path", None):
+    if getattr(args, "tf_log_path", None) and _is_lead():
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -192,12 +234,12 @@ def training(args, device="cuda"):
     model = init_model(args, build(args.method, args.img_size, seed=0,
                                    dtype=getattr(torch, getattr(args, "dtype", "float32"))))
     model = model.to(device)
-    set_drop_path_generator(model, torch.Generator(device=device).manual_seed(SEED))
+    set_drop_path_generator(model, torch.Generator(device=device).manual_seed(SEED + data.rank))
     ds = SODDataset(args.data_root, ["Train"], args.img_size, mode="train")
     loader = BatchLoader(ds, batch_size=args.batch_size, shuffle=True, seed=SEED, num_threads=8,
-                         drop_last=False)
+                         drop_last=False, shard_rank=data.rank, shard_count=data.size)
     try:
-        return model, fit(args, model, loader, device, tb_writer)
+        return model, fit(args, model, loader, device, tb_writer, data)
     finally:
         if tb_writer is not None:
             tb_writer.close()
