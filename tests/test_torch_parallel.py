@@ -18,6 +18,8 @@ JAX references run here, on the 8-device virtual CPU mesh of
 * the training CLI over two processes against one: 1e-5 on every weight.
 """
 
+import concurrent.futures
+import copy
 import functools
 import os
 
@@ -35,10 +37,12 @@ from tramba_tpu.nn.ssm import SS2D as JSS2D
 from tramba_tpu.parallel.tp import use_tensor_mesh
 from tramba_tpu.train import loss as jloss
 from tramba_tpu_torch import run
-from tramba_tpu_torch.compat.jax_weights import params_from_jax, ss2d_from_jax
+from tramba_tpu_torch.compat.jax_weights import params_from_jax, ss2d_from_jax, ss2d_to_jax
 from tramba_tpu_torch import dryrun
 from tramba_tpu_torch.dryrun import PHASES, phase_grids
 from tramba_tpu_torch.models.registry import build
+from tramba_tpu_torch.nn.init import init_weights
+from tramba_tpu_torch.nn.ssm import SS2D
 from tramba_tpu_torch.ops.selective_scan import linear_scan_ref
 from tramba_tpu_torch.parallel.distributed import spawn
 from tramba_tpu_torch.train import loop
@@ -76,73 +80,120 @@ def _scan_inputs(world):
     return [_t(a)] + [_t(rng.normal(size=shape).astype(np.float32)) for _ in range(2)]
 
 
-@pytest.fixture(scope="module")
-def tp_cases():
-    """JAX's SS2D of each order, its weights, input, pre-norm and a cotangent;
-    and JAX's tensor-parallel output and VJP on a mesh of 4, which both world
-    sizes are held to (a mesh of 2 differs from it by the order of the
-    psums' sums only)."""
+def _ss2d_state(kw, rng):
+    """An SS2D's weights: its own parameters as the seeded init draws them
+    (A, D, dt), the projections, conv and out-norm from ``rng`` at fan-in
+    scale, so that every parameter's gradient is exercised."""
+    m = init_weights(SS2D(**kw), torch.Generator().manual_seed(int(rng.integers(1 << 30))))
+    sd = m.state_dict()
+    for name in ("in_proj.weight", "conv2d.weight", "out_proj.weight"):
+        w = sd[name]
+        bound = w[0].numel() ** -0.5
+        sd[name] = _t(rng.uniform(-bound, bound, w.shape).astype(np.float32))
+    sd["out_norm.weight"] = _t((rng.normal(size=sd["out_norm.weight"].shape) * 0.1 + 1)
+                               .astype(np.float32))
+    sd["out_norm.bias"] = _t((rng.normal(size=sd["out_norm.bias"].shape) * 0.1)
+                             .astype(np.float32))
+    return sd
+
+
+def _tp_inputs():
+    """Each order's SS2D keywords, weights, input, pre-norm and cotangent."""
     rng = np.random.default_rng(5)
-    mesh = Mesh(np.asarray(jax.devices()[:4]), ("model",))
-    port, want = [], []
+    out = []
     for kind, param, K in TP_KINDS:
         x = rng.normal(size=(2, 8, 8, 16)).astype(np.float32)
         ln = [(rng.normal(size=(16,)) * 0.1 + 1).astype(np.float32),
               (rng.normal(size=(16,)) * 0.1).astype(np.float32)]
         g = rng.normal(size=(2, 8, 8, 16)).astype(np.float32)
         kw = dict(d_model=16, scan_kind=kind, scan_param=param, k_group=K)
-        jln = tuple(jnp.asarray(v) for v in ln)
-        variables = jax.jit(lambda k, a: JSS2D(backend="assoc", **kw).init(k, a, ln=jln))(
-            jax.random.key(0), jnp.asarray(x))
+        out.append((kw, _ss2d_state(kw, rng), _t(x), tuple(_t(v) for v in ln), _t(g)))
+    return out
+
+
+def _tp_want(inputs):
+    """JAX's tensor-parallel SS2D output and VJP on a mesh of 4 for each case,
+    which both world sizes are held to (a mesh of 2 differs from it by the
+    order of the psums' sums only)."""
+    mesh = Mesh(np.asarray(jax.devices()[:4]), ("model",))
+    want = []
+    for kw, sd, x, ln, g in inputs:
+        jln = tuple(jnp.asarray(v.numpy()) for v in ln)
         tp = JSS2D(backend="tensor_parallel", **kw)
+
+        def fwd_bwd(v, a, ct):
+            y, vjp = jax.vjp(lambda v, a: tp.apply(v, a, ln=jln), v, a)
+            return (y,) + vjp(ct)
+
         with use_tensor_mesh(mesh, "model"):
-            y, vjp = jax.vjp(jax.jit(lambda v, a: tp.apply(v, a, ln=jln)), variables,
-                             jnp.asarray(x))
-            dv, dx = vjp(jnp.asarray(g))
-        sd = ss2d_from_jax(jax.tree.map(np.asarray, variables))
-        port.append((kw, sd, _t(x), tuple(_t(v) for v in ln), _t(g)))
+            y, dv, dx = jax.jit(fwd_bwd)({"params": ss2d_to_jax(sd, kw["k_group"])},
+                                         jnp.asarray(x.numpy()), jnp.asarray(g.numpy()))
         want.append((np.asarray(y), np.asarray(dx), ss2d_from_jax(jax.tree.map(np.asarray, dv))))
-    return port, want
+    return want
 
 
-@pytest.fixture(scope="module")
-def tiny():
-    """The tiny Tramba-V's seed-0 weights, a batch of 4 and JAX's heads, loss
-    and gradients (composed route, deterministic) on the whole batch.  The
-    masks are 30% foreground: at 50% the head biases' gradients (sums of
+def _tiny_inputs():
+    """The tiny Tramba-V's seed-0 weights and a batch of 4.  The masks are
+    30% foreground: at 50% the head biases' gradients (sums of
     sigmoid(logit) - mask over every pixel) cancel to ~1e-4 of their terms,
     and fp32 summation noise alone then reaches 1e-4 of their norm."""
-    model = build("Tramba-V-TSOD", cases.IMG, seed=0, **cases.TINY)
-    sd = model.state_dict()
-    params = convert_tramba_v(state_dict_to_numpy(sd), enc_depths=cases.TINY["enc_depths"],
-                              dec_depths=cases.TINY["dec_depths"])
+    sd = build("Tramba-V-TSOD", cases.IMG, seed=0, **cases.TINY).state_dict()
     rng = np.random.default_rng(0)
     x = rng.normal(size=(4, cases.IMG, cases.IMG, 3)).astype(np.float32)
     gt = (rng.random((4, cases.IMG, cases.IMG, 1)) > 0.7).astype(np.float32)
+    return dict(sd=sd, x=_t(x), gt=_t(gt))
+
+
+def _tiny_want(tiny):
+    """JAX's heads, loss and gradients (composed route, deterministic) of the
+    tiny Tramba-V on the whole batch."""
+    params = convert_tramba_v(state_dict_to_numpy(tiny["sd"]),
+                              enc_depths=cases.TINY["enc_depths"],
+                              dec_depths=cases.TINY["dec_depths"])
+    x, gt = jnp.asarray(tiny["x"].numpy()), jnp.asarray(tiny["gt"].numpy())
     jmodel = JTrambaV(img_size=cases.IMG, ssm_backend="assoc", **cases.TINY)
 
     def loss_fn(p):
-        heads = jmodel.apply(p, jnp.asarray(x), deterministic=True)
-        return jloss.deep_supervision_loss(heads, jnp.asarray(gt)), heads
+        heads = jmodel.apply(p, x, deterministic=True)
+        return jloss.deep_supervision_loss(heads, gt), heads
 
     (loss, heads), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    return dict(sd=sd, x=_t(x), gt=_t(gt), loss=float(loss),
-                heads=[np.asarray(h) for h in heads],
+    return dict(loss=float(loss), heads=[np.asarray(h) for h in heads],
                 grads=params_from_jax(jax.tree.map(np.asarray, grads)))
 
 
 @pytest.fixture(scope="module")
-def worlds(tiny, tp_cases):
+def runs():
     """A gloo world of 2 processes (the scan and the tensor-parallel SS2Ds)
     and one of 4 (those, and the tiny model in each dry-run grid), each
-    started once."""
-    tp_port, tp_want = tp_cases
-    out = {}
-    for n, cfgs in ((2, []), (4, _model_cfgs(4))):
-        got = spawn(cases.run_all, n, "cpu", _scan_inputs(n), tp_port, cfgs,
-                    (tiny["sd"], tiny["x"], tiny["gt"]))
-        out[n] = dict(n=n, got=got, tp_want=tp_want)
-    return out
+    started once, in a thread while this process computes JAX's references
+    for them."""
+    tp_inputs, tiny = _tp_inputs(), _tiny_inputs()
+    # sending a tensor to a process moves its storage into shared memory, in
+    # place: the worlds get copies, so JAX here never reads a storage that
+    # the thread is moving
+    sent_tp, sent_tiny = copy.deepcopy((tp_inputs, (tiny["sd"], tiny["x"], tiny["gt"])))
+
+    def both_worlds():
+        return {n: spawn(cases.run_all, n, "cpu", _scan_inputs(n), sent_tp, cfgs, sent_tiny)
+                for n, cfgs in ((2, []), (4, _model_cfgs(4)))}
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        got = pool.submit(both_worlds)
+        tp_want = _tp_want(tp_inputs)
+        tiny.update(_tiny_want(tiny))
+        got = got.result()
+    return dict(worlds={n: dict(n=n, got=g, tp_want=tp_want) for n, g in got.items()}, tiny=tiny)
+
+
+@pytest.fixture(scope="module")
+def worlds(runs):
+    return runs["worlds"]
+
+
+@pytest.fixture(scope="module")
+def tiny(runs):
+    return runs["tiny"]
 
 
 @pytest.fixture(params=[2, 4])
@@ -242,8 +293,8 @@ def test_run_cli_data_parallel_matches_one_process(tmp_path, monkeypatch):
         build, enc_drop_path=0.0, dec_drop_path=0.0, **cases.TINY))
     one, _ = run.main(flags + ["--save_model", str(tmp_path / "one")], device="cpu")
     out = str(tmp_path / "dp.pt")
-    torch.multiprocessing.spawn(
-        cases.run_cli, nprocs=2, join=True,
+    torch.multiprocessing.start_processes(
+        cases.run_cli, nprocs=2, join=True, start_method="forkserver",
         args=(2, f"file://{tmp_path}/rendezvous", flags + ["--save_model", str(tmp_path / "dp")],
               out))
     dp = torch.load(out)

@@ -21,7 +21,7 @@ import torch
 
 from tramba_tpu.ops import fused_ss2d as jf
 from tramba_tpu_torch.ops import fused_ss2d as tf
-from tramba_tpu_torch.ops.scan_orders import merge_sum, order_tables
+from tramba_tpu_torch.ops.scan_orders import order_tables
 from tramba_tpu_torch.ops.selective_scan import linear_scan
 
 TOL_AUTOGRAD = dict(rtol=1e-4, atol=1e-5)
@@ -108,7 +108,7 @@ def test_scan_bwd_ref_matches_autograd(kind, K, H, param):
     p = _inputs(kind, K, H, seed=H + K)
     idx, inv = order_tables(kind, H, H, param, "cpu")
     leaves = [_t(p["x"]).requires_grad_(True)] + [c.requires_grad_(True) for c in _core(p)]
-    y_sum = merge_sum(tf.ss2d_scan_ref(leaves[0], idx, *leaves[1:]), inv)
+    y_sum = tf._merge_sum(tf.ss2d_scan_ref(leaves[0], idx, *leaves[1:]), inv)
     want = torch.autograd.grad(y_sum, leaves, _t(p["g_y"]))
     with torch.no_grad():
         _, carries, dbc = tf.ss2d_scan_train_ref(leaves[0], idx, *leaves[1:])

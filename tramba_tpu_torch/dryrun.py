@@ -51,10 +51,10 @@ def phase_grids(world: int) -> List[tuple]:
     return [(1, 1), (two, 1), (1, two), (two, 2 if world % 4 == 0 else 1)]
 
 
-def run_phases(device, img_size: int = 64, batch: Optional[int] = None,
-               dtype: torch.dtype = torch.float32, min_l: int = 256, model_kw=None,
-               on_step=None) -> List[dict]:
-    """The four phases in this process, one rank of the ambient world.
+def run_phases(device, img_size: int = 64, batch: Optional[int] = None, min_l: int = 256,
+               model_kw=None, on_step=None) -> List[dict]:
+    """The four phases in this process, one rank of the ambient world, in
+    fp32.
     ``batch``: the global batch (default one image per process); ``model_kw``
     cuts Tramba-V (default :data:`TINY`); ``min_l``: the hybrid phase's
     least sequence-parallel L.  ``on_step(name, model, step)`` runs after
@@ -72,8 +72,8 @@ def run_phases(device, img_size: int = 64, batch: Optional[int] = None,
     out = []
     for (name, backend), (n_model, n_seq) in zip(PHASES, phase_grids(world)):
         grid = make_grid(n_model, n_seq)
-        model = build("Tramba-V-TSOD", img_size, device=device, seed=None, dtype=dtype,
-                      ssm_backend=backend, **model_kw)
+        model = build("Tramba-V-TSOD", img_size, device=device, seed=None, ssm_backend=backend,
+                      **model_kw)
         model.load_state_dict(state)
         broadcast_parameters(model)  # one replica across the whole grid, not only the data group
         opt = make_optimizer(model.named_parameters(), 1e-4, [60], [0.2], 10)

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, on_card
-from tramba_tpu_torch.ops.scan_orders import merge_sum, order_tables
+from tramba_tpu_torch.ops.scan_orders import order_tables
 from tramba_tpu_torch.ops.selective_scan import linear_scan, linear_scan_ref
 
 __all__ = ["composed_ss2d_core", "ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref",
@@ -141,6 +141,19 @@ def ss2d_scan_train_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, chunk=SCAN_CHU
     return ys, carries, dbc
 
 
+def _merge_sum(ys, inv):
+    """Each pixel's sum over directions k and slots m of ys[:, k, inv[k, m]]
+    (slot value L = none): (B, K, L, D) -> (B, L, D)."""
+    B, K, L, D = ys.shape
+    pad = torch.cat([ys, ys.new_zeros(B, K, 1, D)], dim=2)
+    inv = inv.long()
+    y = ys.new_zeros(B, L, D)
+    for k in range(K):
+        for m in range(inv.shape[1]):
+            y = y + pad[:, k, inv[k, m]]
+    return y
+
+
 def _ln_gelu_proj_fp32(y, ln_w, ln_b, w_out):
     """The function the TPU backward differentiates over the saved pre-LN sum
     (``_ln_gelu_proj``, fused_ss2d.py:478): fp32 throughout, w_out in fp32,
@@ -162,13 +175,13 @@ def ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out):
     """ys (B, K, L, D) fp32; inv (K, M, L) int, slot value L = none; ln_w, ln_b
     (D) fp32; w_out (dm, D) fp32 or bf16.  Returns (B, L, dm) in w_out's
     dtype; with a bf16 w_out the GELU output is rounded to bf16 first."""
-    return _ln_gelu_proj(merge_sum(ys, inv), ln_w, ln_b, w_out)
+    return _ln_gelu_proj(_merge_sum(ys, inv), ln_w, ln_b, w_out)
 
 
 def ss2d_merge_train_ref(ys, inv, ln_w, ln_b, w_out):
     """K2's train variant: (out, y_sum), y_sum (B, L, D) the pre-LN sum in
     w_out's dtype."""
-    y = merge_sum(ys, inv)
+    y = _merge_sum(ys, inv)
     return _ln_gelu_proj(y, ln_w, ln_b, w_out), y.to(w_out.dtype)
 
 
@@ -210,7 +223,7 @@ def ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_lo
                        (g * hs).sum(-1, keepdim=True)], dim=-1)
     du = lam * delta * Bc + g * Ds.float().reshape(K, 1, -1)
     du = du + torch.einsum("bklc,kcd->bkld", d_dbc, x_proj_w.float())
-    dx = merge_sum(du, inv)
+    dx = _merge_sum(du, inv)
     dwx = torch.einsum("bklc,bkld->kcd", d_dbc, xs)
     dwdt = torch.einsum("bkld,bklr->kdr", ddt, dbcs[..., :R])
     dA = (daA * delta).sum((0, 2))

@@ -25,7 +25,6 @@ __all__ = [
     "order_tables",
     "cross_scan",
     "cross_merge",
-    "merge_sum",
     "raster_tables",
     "line_tables",
     "dilation_tables",
@@ -182,19 +181,6 @@ def _tables_on(kind: str, H: int, W: int, param: int, device: str):
 def order_tables(kind: str, H: int, W: int, param: int, device) -> tuple:
     """(idx, inv) of an order as int32 tensors on ``device`` (cached)."""
     return _tables_on(kind, H, W, param, str(torch.device(device)))
-
-
-def merge_sum(ys: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    """Each pixel's sum over directions k and slots m of ys[:, k, inv[k, m]]
-    (slot value L = none), in ys's dtype: (B, K, L, D) -> (B, L, D)."""
-    B, K, L, D = ys.shape
-    pad = torch.cat([ys, ys.new_zeros(B, K, 1, D)], dim=2)
-    inv = inv.long()
-    y = ys.new_zeros(B, L, D)
-    for k in range(K):
-        for m in range(inv.shape[1]):
-            y = y + pad[:, k, inv[k, m]]
-    return y
 
 
 def cross_scan(x: torch.Tensor, kind: str, H: int, W: int, param: int = 0) -> torch.Tensor:

@@ -23,6 +23,7 @@ function and handing its result back (the dry run and the tests use it).
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import tempfile
 from typing import Callable, List, Optional
@@ -53,24 +54,26 @@ def initialize_from_args(init_method: Optional[str] = None, device: str = "cuda"
             raise ValueError("TRAMBA_NUM_PROCESSES > 1 needs --init_method tcp://host:port")
     if world <= 1:
         return False
+    _join(world, rank, local, init_method, device)
+    return True
+
+
+def _join(world: int, rank: int, local: int, init_method: str, device: str) -> None:
+    """Join the world as ``rank``: NCCL with card ``local`` (modulo the
+    visible cards) on the card, gloo on the CPU."""
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(local % torch.cuda.device_count())
         backend = "nccl"
     else:
         backend = "gloo"
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
-    return True
 
 
 def _spawned(rank: int, fn: Callable, world: int, device: str, init_method: str, out: str,
              args: tuple) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.set_device(rank)
-        backend = "nccl"
-    else:
+    if torch.device(device).type != "cuda":
         torch.set_num_threads(1)  # the processes share the host's cores
-        backend = "gloo"
-    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+    _join(world, rank, rank, init_method, device)
     try:
         torch.save(fn(*args), os.path.join(out, f"rank{rank}.pt"))
     finally:
@@ -82,9 +85,12 @@ def spawn(fn: Callable, world: int, device: str = "cpu", *args) -> List:
     ``torch.distributed`` world (gloo on the CPU; NCCL on the card, process
     r on card r).  Returns each rank's result, in rank order; a failing rank
     raises.  ``fn`` must be importable by name (a module-level function)."""
+    # a fork server that has imported torch and the port once starts each
+    # process in about a second, where a fresh interpreter takes several
+    multiprocessing.set_forkserver_preload(["tramba_tpu_torch.models.registry", fn.__module__])
     with tempfile.TemporaryDirectory() as tmp:
-        torch.multiprocessing.spawn(
+        torch.multiprocessing.start_processes(
             _spawned, args=(fn, world, device, f"file://{tmp}/rendezvous", tmp, args),
-            nprocs=world, join=True)
+            nprocs=world, join=True, start_method="forkserver")
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                 for r in range(world)]
