@@ -16,10 +16,13 @@ Phases, each of which must pass (any failure exits non-zero):
                planted fault (K11 centre tap only; K12 uniform softmax;
                K13 no bias, uniform softmax, no mask) to the same check,
                which it must fail; K1-K4 (fp32,
-               bf16) and K5-K7 at Tramba-P's decoder widths 320/128/64
-               (Tramba-S's decoder has Tramba-V's); bf16 outputs at rtol
+               bf16) and K5-K7 at Tramba-P's decoder widths 320/128/64 and
+               at Tramba-R's 512/256 (Tramba-S's decoder has Tramba-V's), and
+               K7 at the shape of Queue 2 #21 (_dwms_pallas2's own test:
+               12 x 8 px, d 16, hidden 256); bf16 outputs at rtol
                1.6e-2, atol 1e-2; then the training kernels at every
-               shape of the train step: K1's and K2's train variants in fp32
+               shape of the train steps of Tramba-V (and -S), -P and -R:
+               K1's and K2's train variants in fp32
                (fp32 tolerance) and bf16, K8 in fp32 (max abs error <= 1e-4 x
                the largest magnitude of each output) and bf16, and K9
                ln_mlp_bwd and K10 ln_dwms_mlp_bwd (bf16 adjoints: <= 1e-2 x
@@ -31,14 +34,17 @@ Phases, each of which must pass (any failure exits non-zero):
                between 256-row chunks, which must fail; errors, times, and
                each kernel's bound (bytes over the HBM rate or, per type of
                operation, its count over that type's peak rate: the largest)
-  4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD and Tramba-S-TSOD at
+  4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD, Tramba-S-TSOD and
+               Tramba-R-TSOD at
                384px, seeded weights, batch 2 on the card, each in fp32
                (TF32 off) and in bf16: head shapes, finite values, launches
                per forward as the model's modules give them (Tramba-V fp32
                and bf16: K1 33, K2 33, K3 9, K4 1; bf16 also K5 33, K6 24, K7
                6; Tramba-P and -S: K1 12, K2 12, K3 9, K4 1, bf16 also K5 12,
                K7 6, and K6 3, K12 41, K11 38 (Tramba-P) or K6 25, K13 22
-               (Tramba-S); no K11-K13 in fp32); the same weights and image
+               (Tramba-S); Tramba-R (its ResNet-50 in cuDNN, three heads):
+               K1 8, K2 8, K3 6, K4 1, bf16 also K5 8, K6 2, K7 4; no
+               K11-K13 in fp32); the same weights and image
                on the CPU (plain versions, batch 1) agree with mean abs
                difference <= 1e-3 (fp32) per head, and in bf16 <= 2e-2 or,
                where bf16's own noise is larger, <= 1.25 x the CPU's bf16-vs-
@@ -46,22 +52,28 @@ Phases, each of which must pass (any failure exits non-zero):
   5. dump      ``python -m tramba_tpu_torch.dump --measure_fps`` on synthetic
                TSOD10K-style images writes one map per image at its original
                size, then runs the 200-iteration FPS loop; then the same dump
-               with ``--dtype bfloat16``, for Tramba-V, -P and -S
+               with ``--dtype bfloat16``, for Tramba-V, -P, -S and -R
   6. timing    ms per forward: bf16 at batch 1, 8 and 16 and fp32 at 1 for
                each model, Tramba-V's fp32 also at 8; then Tramba-P's and
                -S's bf16 B1 in turns with a copy whose encoder weights are
                cast to bf16 once (the cost of the per-call casts)
   7. profile   device time of the bf16 forward by kernel group (torch.profiler)
                and the device's idle share, at B1 and B16 for each model
-  8. train     fp32, then bf16 training of Tramba-V at full width, batch 4: one train
+  8. train     fp32, then bf16 training of Tramba-V, -S, -P and -R at full
+               width, batch 4: one train
                step launches exactly the kernels the model's modules give
-               (fp32: K1 33, K2 33, K8 33, K3 9, K4 1 and no K5-K7, K9, K10;
-               bf16 also K5 33, K6 24, K9 24, K7 6, K10 6), and leaves every
-               parameter a finite gradient; the loss falls over 10 steps on
-               one batch; ms per step, peak memory and the device time by
-               kernel group; a reduced-depth step (dims 128, depths
-               (1, 1, 2, 1), 96 px) against the CPU's plain step: fp32 loss
-               rtol 1e-4 and per-parameter gradient relative norm <= 1e-3;
+               (Tramba-V fp32: K1 33, K2 33, K8 33, K3 9, K4 1 and no K5-K7,
+               K9, K10; bf16 also K5 33, K6 24, K9 24, K7 6, K10 6), and
+               leaves every parameter a finite gradient (Tramba-R's stage-4
+               parameters none: that stage feeds no head); the loss falls
+               over 10 steps on one batch; ms per step, peak memory and the
+               device time by kernel group; a reduced-depth step (Tramba-V
+               dims 128, depths (1, 1, 2, 1), 96 px; Tramba-S depths 2 per
+               stage, 96 px; Tramba-P depth 1 per stage, 128 px; Tramba-R one
+               bottleneck per stage, 64 px, in train() with drop path 0 so
+               that BatchNorm takes batch statistics) against the CPU's
+               plain step: fp32 loss rtol 1e-4 and per-parameter gradient
+               (and Tramba-R's running statistic) relative norm <= 1e-3;
                bf16 both <= 2e-2 or 1.25 x the CPU's own bf16-vs-fp32 gap of
                that value, whichever is larger
   9. run       ``tramba_tpu_torch.run`` (the training CLI) on a synthetic
@@ -70,7 +82,12 @@ Phases, each of which must pass (any failure exits non-zero):
                record and best-MAE weights, exact launch counts; a
                weights-only ``--resume <best-MAE file>`` to epoch 5, which
                writes the rolling resume dict (every 5 epochs); then
-               ``python -m tramba_tpu_torch.run --resume last`` to epoch 6
+               ``python -m tramba_tpu_torch.run --resume last`` to epoch 6;
+               then Tramba-S, -P and -R at reduced depth in bf16 with
+               ``--pretrained_path auto``, which finds the released file
+               name under ``--pretrained_model``: there the phase writes a
+               synthetic encoder checkpoint under the upstream key names,
+               which the CLI grafts before one epoch of 2 steps
  10. parallel  an NCCL world of one process: the full-width Tramba-V-TSOD
                forward at batch 2 on each parallel SS2D backend
                (tensor_parallel, seq_parallel, hybrid_tp_sp), fp32 and bf16,
@@ -84,8 +101,9 @@ Phases, each of which must pass (any failure exits non-zero):
                step, peak memory and a profile; then
                ``python -m tramba_tpu_torch.dryrun --n 1``
 
-Nothing is cut: every model runs at full depth and width.  The CPU
-comparisons of phase 4 run at batch 1.
+Nothing is cut but where a phase says so (the reduced-depth steps of phase
+8 and phase 9's Tramba-S, -P and -R runs): every model runs at full depth
+and width.  The CPU comparisons of phase 4 run at batch 1.
 The last lines are the kernels' JSON summary, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 """
@@ -135,11 +153,12 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 # the models of phases 4-7, and what phase 6 times: (dtype, ((batch, reps), ...))
-MODELS = ("Tramba-V-TSOD", "Tramba-P-TSOD", "Tramba-S-TSOD")
+MODELS = ("Tramba-V-TSOD", "Tramba-P-TSOD", "Tramba-S-TSOD", "Tramba-R-TSOD")
 _BF16_TIMED = (torch.bfloat16, ((1, 20), (8, 5), (16, 5)))
 TIMED = {"Tramba-V-TSOD": ((torch.float32, ((1, 20), (8, 5))), _BF16_TIMED),
          "Tramba-P-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED),
-         "Tramba-S-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED)}
+         "Tramba-S-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED),
+         "Tramba-R-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED)}
 
 
 def phase(name):
@@ -349,11 +368,16 @@ SS2D_SHAPES = (("raster", 96, 128, 0), ("raster", 48, 256, 0), ("raster", 24, 51
 SS2D_SHAPES_P = (("line", 24, 320, 0), ("line", 48, 128, 0), ("line", 96, 64, 0),
                  ("window", 24, 320, 8), ("window", 48, 128, 12), ("window", 96, 64, 16),
                  ("dilation", 24, 320, 4), ("dilation", 48, 128, 4), ("dilation", 96, 64, 4))
+# Tramba-R's three-stage decoder: the same SS2Ds at its widths 512 / 256 on
+# 48 / 96 px maps (d_inner 1024 / 512, dt_rank 32 / 16)
+SS2D_SHAPES_R = (("line", 48, 512, 0), ("line", 96, 256, 0), ("window", 48, 512, 12),
+                 ("window", 96, 256, 16), ("dilation", 48, 512, 4), ("dilation", 96, 256, 4))
 # (map size, C, factor): PatchExpand (f=2) and FreqExpand2D (f=4) inputs
 EXPAND_SHAPES = ((12, 1024, 2), (24, 512, 2), (48, 256, 2), (12, 512, 4), (24, 256, 4),
                  (48, 128, 4))
 EXPAND_SHAPES_P = ((12, 512, 2), (24, 320, 2), (48, 128, 2), (12, 320, 4), (24, 128, 4),
                    (48, 64, 4))
+EXPAND_SHAPES_R = ((24, 1024, 2), (48, 512, 2), (24, 512, 4), (48, 256, 4))
 
 
 def ss2d_case(dev, gen, dt, kind, H, d_model, param, B):
@@ -394,17 +418,18 @@ def scan_bwd_ops(x, core):
     return ops(torch.float32, 6 * B * K * L * D * (2 * C - 2), 30 * B * K * L * D)
 
 
-def check_train_kernels(checks, dev, gen, dt):
-    """K1's and K2's train variants and K8 at every SS2D shape, B=2, in the
-    compute dtype ``dt`` (bf16: #13's emit_train; K1 takes bf16 x, K2 a bf16
-    w_out and writes a bf16 y_sum, K8 reads bf16 x and g_y).  K8 gets the
+def check_train_kernels(checks, dev, gen, dt, shapes=SS2D_SHAPES):
+    """K1's and K2's train variants and K8 at every SS2D shape of ``shapes``
+    (by default Tramba-V's and -S's), B=2, in the compute dtype ``dt``
+    (bf16: #13's emit_train; K1 takes bf16 x, K2 a bf16 w_out and writes a
+    bf16 y_sum, K8 reads bf16 x and g_y).  K8 gets the
     carries and projections of the plain train forward and a cotangent of the
     pre-LN sum at the scale of the output's."""
     from tramba_tpu_torch.ops import fused_ss2d as tf
 
     B, tag, chunk = 2, f"{NAMES[dt]} train", tf.scan_chunk()
     rel_tol = BWD_REL_TOL if dt == torch.float32 else BWD_REL_TOL_BF16
-    for kind, H, d_model, param in SS2D_SHAPES:
+    for kind, H, d_model, param in shapes:
         m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
         checks.compare("ss2d_scan", None, label,
                        lambda: tf.ss2d_scan(x, idx, *core, emit=True),
@@ -441,16 +466,23 @@ def ffn_case(gen, dev, d, dwms):
             rnd(hid, scale=0.1), *convs, m.fc2.weight.data, rnd(d, scale=0.1)]
 
 
-def check_mlp_bwd(checks, dev, gen):
-    """K9 at every LN-MLP shape of the bf16 train step (the encoder stages;
-    the guides' FFNs share the 24/48/96 px widths) and K10 at every DWMS
-    shape, B=2, against their plain adjoints, with a cotangent g of the
-    output's scale."""
+# (map, d, DWMS?) of the bf16 train steps' FFN adjoints: K9 at every LN-MLP
+# (Tramba-V's and -S's encoder stages, whose widths the guides' FFNs share;
+# Tramba-P's and -R's guides), K10 at every DWMS FFN of the decoder blocks
+MLP_BWD_SHAPES = ((96, 128, False), (48, 256, False), (24, 512, False), (12, 1024, False),
+                  (96, 128, True), (48, 256, True), (24, 512, True))
+MLP_BWD_SHAPES_P = ((96, 64, False), (48, 128, False), (24, 320, False), (96, 64, True),
+                    (48, 128, True), (24, 320, True))
+MLP_BWD_SHAPES_R = ((96, 256, False), (48, 512, False), (96, 256, True), (48, 512, True))
+
+
+def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
+    """K9 and K10 at every shape of ``shapes``, B=2, against their plain
+    adjoints, with a cotangent g of the output's scale."""
     from tramba_tpu_torch.ops import fused_mlp as tm
 
     bf, B, tag = torch.bfloat16, 2, "bf16 train"
-    for H, d, dwms in ((96, 128, False), (48, 256, False), (24, 512, False), (12, 1024, False),
-                       (96, 128, True), (48, 256, True), (24, 512, True)):
+    for H, d, dwms in shapes:
         params = ffn_case(gen, dev, d, dwms)[:-1]  # b2 has no part in the adjoint
         x = torch.randn(B, H, H, d, generator=gen).to(dev, bf)
         g = torch.randn(B, H, H, d, generator=gen).to(dev, bf)
@@ -522,6 +554,10 @@ BF16_SHAPES_P = dict(
               (48, 128, False), (24, 320, False)),
     ln_mlp=((96, 64), (48, 128), (24, 320)),
     ln_dwms_mlp=((96, 64), (48, 128), (24, 320)))
+BF16_SHAPES_R = dict(
+    prologue=((96, 256, True), (48, 512, True), (96, 256, False), (48, 512, False)),
+    ln_mlp=((96, 256), (48, 512)),
+    ln_dwms_mlp=((96, 256), (48, 512)))
 
 
 def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES):
@@ -569,6 +605,25 @@ def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES):
         checks.compare("ln_dwms_mlp", bf, f"{H}px B{B} d{d} hid{4 * d}",
                        lambda: tm.ln_dwms_mlp(*args), lambda: tm.ln_dwms_mlp_ref(*args), reps=10,
                        inputs=args, flops=ops(bf, 4 * M * d * 4 * d, (2 * 83 + 10) * M * 4 * d))
+
+
+def check_dwms_grid_shape(checks, dev, gen):
+    """K7 at the shape of Queue 2 #21's own test (``_dwms_pallas2``,
+    tests/test_fused_mlp.py:195): B 2, 12 x 8 px, d 16, hidden 256."""
+    from tramba_tpu_torch.ops import fused_mlp as tm
+
+    bf, (B, H, W, d, hid) = torch.bfloat16, (2, 12, 8, 16, 256)
+
+    def rnd(*shape, scale=0.2, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+
+    convs = [t for n in (3, 5, 7) for t in (rnd(hid, 1, n, n).to(bf), rnd(hid))]
+    args = (rnd(B, H, W, d, scale=1.0).to(bf), rnd(d, shift=1.0), rnd(d), rnd(hid, d).to(bf),
+            rnd(hid), *convs, rnd(d, hid).to(bf), rnd(d))
+    M = B * H * W
+    checks.compare("ln_dwms_mlp", bf, f"#21 {H}x{W}px B{B} d{d} hid{hid}",
+                   lambda: tm.ln_dwms_mlp(*args), lambda: tm.ln_dwms_mlp_ref(*args), reps=10,
+                   inputs=args, flops=ops(bf, 4 * M * d * hid, (2 * 83 + 10) * M * hid))
 
 
 def check_lgp(checks, dev, gen):
@@ -735,7 +790,8 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None, method="Tramba-V-TSOD"):
     print(f"model {method} 384px {NAMES[dtype]}, {n_params} fp32 parameters; "
           f"launches {launches}", flush=True)
     shapes = [tuple(o.shape) for o in outs]
-    want = [(2, 24, 24, 1), (2, 48, 48, 1), (2, 96, 96, 1), (2, 384, 384, 1)]
+    n = len(model.decoder.seg_layers)  # a head per decoder stage and the full-size one
+    want = [(2, 384 >> (n - s), 384 >> (n - s), 1) for s in range(n - 1)] + [(2, 384, 384, 1)]
     if shapes != want:
         raise AssertionError(f"head shapes {shapes}, expected {want}")
     if any(o.dtype != dtype for o in outs):
@@ -874,16 +930,35 @@ def train_batch(B, size, seed):
     return images, (blobs > 0).float().permute(0, 2, 3, 1)
 
 
-def run_training(dev, card, dtype):
-    """Phase 8: train steps of the full-width model at batch 4 in the compute
-    dtype ``dtype`` (parameters fp32)."""
+# the trained models of phase 8, and the reduced-depth step each is held to
+# the CPU with: (image size, build overrides)
+TRAINED = ("Tramba-V-TSOD", "Tramba-S-TSOD", "Tramba-P-TSOD", "Tramba-R-TSOD")
+REDUCED = {"Tramba-V-TSOD": (96, dict(dims=128, enc_depths=(1, 1, 2, 1), dec_depths=(1, 1, 1, 1))),
+           "Tramba-S-TSOD": (96, dict(enc_config=dict(depths=(2, 2, 2, 2)),
+                                      dec_depths=(1, 1, 1, 1))),
+           "Tramba-P-TSOD": (128, dict(enc_config=dict(depths=(1, 1, 1, 1)),
+                                       dec_depths=(1, 1, 1, 1))),
+           "Tramba-R-TSOD": (64, dict(enc_config=dict(layers=(1, 1, 1, 1)), dec_depths=(1, 1, 1),
+                                      dec_drop_path=0.0))}
+
+
+def unused_parameter(name: str) -> bool:
+    """Tramba-R's stage 4 runs for its running statistics, but its output
+    feeds no head: its parameters are frozen and get no gradient (JAX's are
+    0)."""
+    return name.startswith("encoder.layer4.")
+
+
+def run_training(dev, card, dtype, method="Tramba-V-TSOD"):
+    """Phase 8: train steps of the full-width ``method`` at batch 4 in the
+    compute dtype ``dtype`` (parameters fp32)."""
     from tramba_tpu_torch.models.registry import build
     from tramba_tpu_torch.nn.layers import set_drop_path_generator
     from tramba_tpu_torch.train.optim import make_optimizer
     from tramba_tpu_torch.train.step import train_step
 
     name = NAMES[dtype]
-    model = build("Tramba-V-TSOD", 384, device=dev, seed=0, dtype=dtype)
+    model = build(method, 384, device=dev, seed=0, dtype=dtype)
     set_drop_path_generator(model, torch.Generator(device=dev).manual_seed(1026))
     opt = make_optimizer(model.named_parameters(), 1e-4, [60], [0.2], 1, mu_dtype=torch.bfloat16)
     images, gts = (t.to(dev) for t in train_batch(4, 384, seed=2))
@@ -895,14 +970,20 @@ def run_training(dev, card, dtype):
     step()
     launches = read_counts()
     want = expected_launches(model, train=True)
-    print(f"one {name} train step B4: launches {launches}", flush=True)
+    print(f"one {method} {name} train step B4: launches {launches}", flush=True)
     if launches != want:
-        raise AssertionError(f"{name} train step launches {launches}, expected {want}")
-    bad = [n for n, p in model.named_parameters()
-           if p.grad is None or not torch.isfinite(p.grad).all().item()]
+        raise AssertionError(f"{method} {name} train step launches {launches}, expected {want}")
+    named = list(model.named_parameters())
+    bad = [n for n, p in named if not unused_parameter(n)
+           and (p.grad is None or not torch.isfinite(p.grad).all().item())]
+    bad += [n for n, p in named if unused_parameter(n) and p.grad is not None]
+    bad += [n for n, p in named if p.requires_grad == unused_parameter(n)]
     if bad:
-        raise AssertionError(f"{len(bad)} parameters without a finite gradient, e.g. {bad[:5]}")
-    print(f"every one of {sum(1 for _ in model.parameters())} parameters has a finite gradient",
+        raise AssertionError(f"{len(bad)} parameters without a finite gradient (or with one "
+                             f"where none flows, or frozen where one does), e.g. {bad[:5]}")
+    unused = sum(unused_parameter(n) for n, _ in named)
+    print(f"every one of {len(named) - unused} parameters has a finite gradient"
+          + (f"; the {unused} of stage 4, which feeds no head, none" if unused else ""),
           flush=True)
 
     losses = [step().item() for _ in range(10)]
@@ -914,14 +995,14 @@ def run_training(dev, card, dtype):
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(step, reps=5, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"Tramba-V-TSOD 384px {name} train step B4: {ms:.2f} ms/step, {4000 / ms:.1f} "
+    print(f"{method} 384px {name} train step B4: {ms:.2f} ms/step, {4000 / ms:.1f} "
           f"img/s, peak memory {peak:.2f} GiB [{card}]", flush=True)
     t0 = time.perf_counter()
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3 * 1e3
-    profile_breakdown(step, wall, f"{name} train B4", grad=True, per="step")
+    profile_breakdown(step, wall, f"{method} {name} train B4", grad=True, per="step")
     return ms, peak
 
 
@@ -929,30 +1010,39 @@ def _rel(a, b):
     return (a - b).norm().item() / max(b.norm().item(), 1e-30)
 
 
-def compare_reduced_step(dev, dtype):
-    """Phase 8: one loss and backward of a reduced-depth model (eval mode, so
-    no stochastic depth) on the card and on the CPU, in ``dtype``.  fp32: loss
-    rtol 1e-4, every gradient within 1e-3 relative norm.  bf16: the loss and
-    each gradient within 2e-2 relative (norm), or 1.25 x the CPU's own
-    bf16-vs-fp32 gap of that value where it is larger (the heads' bf16 gate)."""
+def compare_reduced_step(dev, dtype, method="Tramba-V-TSOD"):
+    """Phase 8: one loss and backward of a reduced-depth ``method``
+    (:data:`REDUCED`) on the card and on the CPU, in ``dtype``: eval mode (no
+    stochastic depth), but Tramba-R in train mode with drop path 0, so that
+    its BatchNorms take batch statistics and move their running ones, which
+    are held too.  fp32: loss rtol 1e-4, every gradient (and running
+    statistic) within 1e-3 relative norm.  bf16: the loss and each of them
+    within 2e-2 relative (norm), or 1.25 x the CPU's own bf16-vs-fp32 gap of
+    that value where it is larger (the heads' bf16 gate)."""
     from tramba_tpu_torch.models.registry import build
     from tramba_tpu_torch.train.loss import deep_supervision_loss
 
-    cut = dict(dims=128, enc_depths=(1, 1, 2, 1), dec_depths=(1, 1, 1, 1))
-    images, gts = train_batch(2, 96, seed=3)
+    size, cut = REDUCED[method]
+    images, gts = train_batch(2, size, seed=3)
     runs = [(dev, dtype), (torch.device("cpu"), dtype)]
     if dtype == torch.bfloat16:
         runs.append((torch.device("cpu"), torch.float32))
     res = []
     for d, dt in runs:
         t0 = time.perf_counter()
-        model = build("Tramba-V-TSOD", 96, device=d, seed=0, dtype=dt, **cut)
+        model = build(method, size, device=d, seed=0, dtype=dt, **cut)
+        model.train(method == "Tramba-R-TSOD")
         loss = deep_supervision_loss(model(images.to(d)), gts.to(d))
         loss.backward()
-        res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
-        print(f"reduced step on {d.type} {NAMES[dt]}: loss {loss.item():.6f} "
+        values = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+        values.update({n: b.cpu() for n, b in model.named_buffers() if "running_" in n})
+        res.append((loss.item(), values))
+        print(f"reduced {method} step on {d.type} {NAMES[dt]}: loss {loss.item():.6f} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
     (lc, gc), (lp, gp) = res[:2]
+    if gc.keys() != gp.keys():
+        raise AssertionError(f"card and CPU differ in what has a gradient: "
+                             f"{sorted(gc.keys() ^ gp.keys())[:5]}")
     if dtype == torch.float32:
         loss_tol = TRAIN_LOSS_RTOL
         tols = dict.fromkeys(gp, TRAIN_GRAD_REL)
@@ -962,13 +1052,13 @@ def compare_reduced_step(dev, dtype):
         tols = {n: max(2e-2, BF16_NOISE_FACTOR * _rel(g, gf[n])) for n, g in gp.items()}
     worst = max((_rel(gc[n], g) / tols[n], _rel(gc[n], g), tols[n], n) for n, g in gp.items())
     bad = [n for n, g in gp.items() if not _rel(gc[n], g) <= tols[n]]
-    print(f"reduced {NAMES[dtype]} step card vs CPU: loss rel diff {abs(lc - lp) / abs(lp):.3e} "
-          f"(limit {loss_tol:.3e}); worst per-parameter gradient rel norm {worst[1]:.3e} "
-          f"against its limit {worst[2]:.3e} ({worst[3]}); {len(gp) - len(bad)} of {len(gp)} "
-          f"parameters within their limits", flush=True)
+    print(f"reduced {method} {NAMES[dtype]} step card vs CPU: loss rel diff "
+          f"{abs(lc - lp) / abs(lp):.3e} (limit {loss_tol:.3e}); worst per-parameter gradient "
+          f"rel norm {worst[1]:.3e} against its limit {worst[2]:.3e} ({worst[3]}); "
+          f"{len(gp) - len(bad)} of {len(gp)} values within their limits", flush=True)
     if abs(lc - lp) > loss_tol * abs(lp) or bad:
-        raise AssertionError(f"reduced {NAMES[dtype]} step: loss {lc} vs {lp}, worst grad "
-                             f"{worst}, {len(bad)} gradients beyond their limits")
+        raise AssertionError(f"reduced {method} {NAMES[dtype]} step: loss {lc} vs {lp}, worst "
+                             f"{worst}, {len(bad)} values beyond their limits")
 
 
 def write_tsod(root, splits, seed):
@@ -1038,6 +1128,59 @@ def run_train_entry_point(tmp, dtype):
                              f"{res.stderr[-3000:]}")
     print("python -m tramba_tpu_torch.run --resume last: " + next(
         ln for ln in res.stdout.splitlines() if ln.startswith("Epoch [006/006]")), flush=True)
+    return launches
+
+
+# phase 9's encoder variants and the depth they train at: the reduced steps'
+GRAFTED = {m: REDUCED[m][1] for m in TRAINED[1:]}
+
+
+def run_graft_entry_point(tmp, method):
+    """Phase 9: the training CLI for an encoder variant at the depth of
+    :data:`GRAFTED` (full width, 384 px, bf16, batch 4), with
+    ``--pretrained_path auto``: the phase writes a seeded encoder checkpoint
+    under the released file's name in ``--pretrained_model``, the CLI grafts
+    it and trains one epoch of 2 steps, with exact launch counts.  Returns
+    the launch counts."""
+    import contextlib
+    import functools
+    import io
+
+    from tramba_tpu_torch import run
+    from tramba_tpu_torch.compat.torch_weights import upstream_encoder_state_dict
+    from tramba_tpu_torch.models.registry import build
+    from tramba_tpu_torch.train import loop
+
+    cut = GRAFTED[method]
+    pre = os.path.join(tmp, "pretrained")
+    os.makedirs(pre)
+    path = os.path.join(pre, run._PRETRAINED[method.split("-")[1]])
+    torch.save(upstream_encoder_state_dict(build(method, 384, seed=7, **cut)), path)
+    data = os.path.join(tmp, "data")
+    write_tsod(data, {"Train": 8}, seed=5)
+    flags = ["--method", method, "--data_root", data, "--batch_size", "4", "--save_model",
+             os.path.join(tmp, "results"), "--tf_log_path", "", "--pretrained_model", pre,
+             "--see", "2", "--train_epochs", "1", "--dtype", "bfloat16"]
+    full_build, loop.build = loop.build, functools.partial(build, **cut)
+    out = io.StringIO()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            model, _ = run.main(flags)
+        launches = read_counts()
+    finally:
+        loop.build = full_build
+    text = out.getvalue()
+    print(f"run {method} (depths {cut}) bf16, grafted: 1 epoch in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
+    loaded = f"Loaded pretrained encoder for {method} from {path}"
+    if loaded not in text or "Epoch [001/001] loss" not in text:
+        raise AssertionError(f"{method}: the CLI did not graft and train:\n{text[-2000:]}")
+    print(next(ln for ln in text.splitlines() if ln.startswith("Epoch [001/001]")), flush=True)
+    want = {k: 2 * n for k, n in expected_launches(model, train=True).items()}
+    if launches != want:
+        raise AssertionError(f"{method} run launches {launches}, expected {want}")
     return launches
 
 
@@ -1167,12 +1310,17 @@ def main() -> int:
     check_bf16_only(checks, dev, gen)
     check_lgp(checks, dev, gen)
     check_encoder_kernels(checks, dev, gen)
-    for dtype in (torch.float32, torch.bfloat16):  # K1-K4 at Tramba-P's decoder
+    check_dwms_grid_shape(checks, dev, gen)
+    for dtype in (torch.float32, torch.bfloat16):  # K1-K4 at Tramba-P's and -R's decoders
         check_ss2d_expand(checks, dev, gen, dtype, SS2D_SHAPES_P, EXPAND_SHAPES_P, head_c=64)
+        check_ss2d_expand(checks, dev, gen, dtype, SS2D_SHAPES_R, EXPAND_SHAPES_R, head_c=256)
     check_bf16_only(checks, dev, gen, BF16_SHAPES_P)
+    check_bf16_only(checks, dev, gen, BF16_SHAPES_R)
     for dtype in (torch.float32, torch.bfloat16):
-        check_train_kernels(checks, dev, gen, dtype)
-    check_mlp_bwd(checks, dev, gen)
+        for shapes in (SS2D_SHAPES, SS2D_SHAPES_P, SS2D_SHAPES_R):
+            check_train_kernels(checks, dev, gen, dtype, shapes)
+    for shapes in (MLP_BWD_SHAPES, MLP_BWD_SHAPES_P, MLP_BWD_SHAPES_R):
+        check_mlp_bwd(checks, dev, gen, shapes)
     check_linear_scan(checks, dev, gen)
     torch.cuda.empty_cache()
 
@@ -1202,7 +1350,8 @@ def main() -> int:
     for method, flags in (("Tramba-V-TSOD", ("--measure_fps",)),
                           ("Tramba-V-TSOD", ("--dtype", "bfloat16")),
                           ("Tramba-P-TSOD", ("--dtype", "bfloat16")),
-                          ("Tramba-S-TSOD", ("--dtype", "bfloat16"))):
+                          ("Tramba-S-TSOD", ("--dtype", "bfloat16")),
+                          ("Tramba-R-TSOD", ("--dtype", "bfloat16"))):
         with tempfile.TemporaryDirectory() as tmp:
             run_dump_entry_point(tmp, method, *flags)
 
@@ -1231,8 +1380,7 @@ def main() -> int:
             del once
 
     phase("7 profile")
-    for method, B in (("Tramba-V-TSOD", 1), ("Tramba-V-TSOD", 16), ("Tramba-P-TSOD", 1),
-                      ("Tramba-P-TSOD", 16), ("Tramba-S-TSOD", 1), ("Tramba-S-TSOD", 16)):
+    for method, B in ((m, B) for m in MODELS for B in (1, 16)):
         model = models[method, torch.bfloat16]
         xb = torch.randn(B, 384, 384, 3, device=dev)
         t0 = time.perf_counter()
@@ -1247,16 +1395,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("8 train")
-    for dtype in (torch.float32, torch.bfloat16):
-        run_training(dev, card, dtype)
-        compare_reduced_step(dev, dtype)
-        torch.cuda.empty_cache()
+    for method in TRAINED:
+        for dtype in (torch.float32, torch.bfloat16):
+            run_training(dev, card, dtype, method)
+            compare_reduced_step(dev, dtype, method)
+            torch.cuda.empty_cache()
 
     phase("9 training entry point")
     train_launches = {}
     for dtype in (torch.float32, torch.bfloat16):
         with tempfile.TemporaryDirectory() as tmp:
             train_launches[f"{NAMES[dtype]} train"] = run_train_entry_point(tmp, dtype)
+        torch.cuda.empty_cache()
+    for method in GRAFTED:
+        with tempfile.TemporaryDirectory() as tmp:
+            run_graft_entry_point(tmp, method)
         torch.cuda.empty_cache()
 
     phase("10 parallel")
@@ -1273,7 +1426,8 @@ def main() -> int:
                "prologue": ("tramba_tpu_torch/csrc/prologue.cu",
                             "tramba_tpu/ops/fused_prologue.py:94"),
                "ln_mlp": (mlp, "tramba_tpu/ops/fused_mlp.py:130"),
-               "ln_dwms_mlp": (mlp, "tramba_tpu/ops/fused_mlp.py:360"),
+               "ln_dwms_mlp": (mlp, "tramba_tpu/ops/fused_mlp.py:360 (_dwms_pallas), "
+                                    "tramba_tpu/ops/fused_mlp.py:457 (_dwms_pallas2)"),
                "ss2d_scan_bwd": ("tramba_tpu_torch/csrc/ss2d_bwd.cu",
                                  "tramba_tpu/ops/fused_ss2d.py:638"),
                "ln_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:233"),
@@ -1284,15 +1438,20 @@ def main() -> int:
                "linear_scan": ("tramba_tpu_torch/csrc/scan.cu",
                                "tramba_tpu/ops/selective_scan.py:642")}
     # in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13), and
-    # their bf16 train variants for its emit_train; in fp32 training K1 is #1's
-    # emit-carries variant, K2 #10's emit_ysum; K8 stands for #4
-    # (_dirs_bwd_call) and #5 (_seq_bwd_pallas, fused_ss2d.py:747)
-    replaced = {("ss2d_scan", "bf16"): "tramba_tpu/ops/fused_ss2d_small.py:233",
-                ("ss2d_merge", "bf16"): "tramba_tpu/ops/fused_ss2d_small.py:233",
-                ("ss2d_scan", "fp32 train"): "tramba_tpu/ops/fused_ss2d.py:101",
-                ("ss2d_merge", "fp32 train"): "tramba_tpu/ops/fused_ss2d.py:1561",
-                ("ss2d_scan", "bf16 train"): "tramba_tpu/ops/fused_ss2d_small.py:233",
-                ("ss2d_merge", "bf16 train"): "tramba_tpu/ops/fused_ss2d_small.py:233"}
+    # their bf16 train variants for its emit_train; in training K1 is #1's
+    # emit-carries variant and #2's materialising rows/cols kernels, K2
+    # #10's emit_ysum and #3's merge (TRAMBA_TWO_PHASE_TRAIN=0); K8 stands
+    # for #4 (_dirs_bwd_call) and #5 (_seq_bwd_pallas, fused_ss2d.py:747)
+    f, small = "tramba_tpu/ops/fused_ss2d.py", "tramba_tpu/ops/fused_ss2d_small.py:233"
+    rows_cols = f"{f}:294 (_rows_pallas), {f}:344 (_cols_pallas)"
+    replaced = {("ss2d_scan", "bf16"): small,
+                ("ss2d_merge", "bf16"): small,
+                ("ss2d_scan", "fp32 train"): f"{f}:101 (_fused_pallas), {rows_cols}",
+                ("ss2d_merge", "fp32 train"): f"{f}:1561 (_pair_phase2_rows_merge), "
+                                              f"{f}:426 (_merge_pallas)",
+                ("ss2d_scan", "bf16 train"): f"{small} (_small_pallas), {rows_cols}",
+                ("ss2d_merge", "bf16 train"): f"{small} (_small_pallas), "
+                                              f"{f}:426 (_merge_pallas)"}
     # the shape whose time the summary reports: the largest map of each kernel
     shown = {"ss2d_scan": "line 96px", "ss2d_merge": "line 96px", "ss2d_scan_bwd": "line 96px",
              "expand_ln": "f2 48px", "final_head": "96px", "prologue": "enc/dec LN 96px",

@@ -40,16 +40,18 @@ print(",".join(names))
 print(len(names), bad)
 """
 
-# the parallel layer's modules, which the walk must reach
+# the parallel layer's modules and the encoders, which the walk must reach
 PARALLEL = {"tramba_tpu_torch.parallel.mesh", "tramba_tpu_torch.parallel.distributed",
             "tramba_tpu_torch.parallel.tp", "tramba_tpu_torch.parallel.seq_scan",
             "tramba_tpu_torch.dryrun"}
+ENCODERS = {"tramba_tpu_torch.models.vssm_encoder", "tramba_tpu_torch.models.swin",
+            "tramba_tpu_torch.models.pvt", "tramba_tpu_torch.models.resnet"}
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of tramba_tpu_torch (the parallel layer and the dry run
-    included), and chip_smoke, imported in a fresh interpreter: no jax and no
-    tramba_tpu module is loaded."""
+    """Every module of tramba_tpu_torch (the parallel layer, the dry run and
+    the ResNet-50 encoder included), and chip_smoke, imported in a fresh
+    interpreter: no jax and no tramba_tpu module is loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -57,7 +59,7 @@ def test_port_and_chip_smoke_import_no_jax():
     *_, names, last = res.stdout.strip().splitlines()
     count, bad = last.split(" ", 1)
     assert int(count) > 30 and bad == "[]", res.stdout
-    assert PARALLEL <= set(names.split(",")), names
+    assert PARALLEL | ENCODERS <= set(names.split(",")), names
 
 
 _LAYERS = """

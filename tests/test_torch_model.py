@@ -117,8 +117,6 @@ def test_every_module_imports_without_jax():
 
 
 def test_unported_methods_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build("Tramba-R-TSOD")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         build("BaseUMamba-SOD")
     with pytest.raises(ValueError):

@@ -15,7 +15,11 @@ JAX references run here, on the 8-device virtual CPU mesh of
 * a tiny Tramba-V on each backend against JAX's composed model: 2e-4;
 * the loss (rtol 1e-5) and every parameter's gradient of one step of each
   dry-run grid against ``jax.value_and_grad``: 1e-4 relative norm;
-* the training CLI over two processes against one: 1e-5 on every weight.
+* the training CLI over two processes against one: 1e-5 on every weight;
+* one data-parallel ``train()`` step of a tiny Tramba-R over two processes
+  against the mean of one process's steps on each half of the batch (each
+  process normalises with its own half's statistics): the loss at rtol
+  1e-5, every gradient at 1e-4 relative norm.
 """
 
 import concurrent.futures
@@ -46,6 +50,7 @@ from tramba_tpu_torch.nn.ssm import SS2D
 from tramba_tpu_torch.ops.selective_scan import linear_scan_ref
 from tramba_tpu_torch.parallel.distributed import spawn
 from tramba_tpu_torch.train import loop
+from tramba_tpu_torch.train.loss import deep_supervision_loss
 
 # (order, rate / window, directions) of tests/test_parallel.py:124-146
 TP_KINDS = (("raster", 0, 4), ("window", 4, 4), ("line", 0, 8))
@@ -162,28 +167,70 @@ def _tiny_want(tiny):
                 grads=params_from_jax(jax.tree.map(np.asarray, grads)))
 
 
+def _resnet_inputs():
+    """A batch of 4 and a tiny Tramba-R's seed-0 weights, as numpy arrays:
+    sent to a process, each tensor of a state dict this long would pass the
+    fork server one file descriptor, past its limit."""
+    sd = {k: v.numpy() for k, v in
+          build("Tramba-R-TSOD", cases.IMG_R, seed=0, **cases.TINY_R).state_dict().items()}
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(4, cases.IMG_R, cases.IMG_R, 3)).astype(np.float32)
+    gt = (rng.random((4, cases.IMG_R, cases.IMG_R, 1)) > 0.7).astype(np.float32)
+    return _t(x), _t(gt), sd
+
+
+def _resnet_want(x, gt, sd):
+    """What DDP over two processes computes for one ``train()`` step: the
+    mean over the batch's two halves of one process's loss and gradients
+    (BatchNorm takes each half's own statistics).  Stage 4's parameters,
+    frozen, get none.  It runs on one torch thread, as each process does:
+    in ``train()`` the early BatchNorms' gradients are sums that nearly
+    cancel, and at these inputs another summation order moves them by up to
+    1e-2 of their norm (JAX's differ from either by as much), where a
+    gradient left out of the all-reduce misses by the other half's."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    model = build("Tramba-R-TSOD", cases.IMG_R, seed=None, **cases.TINY_R).train()
+    model.load_state_dict({k: _t(v) for k, v in sd.items()})
+    losses, grads = [], {}
+    for half in (slice(0, 2), slice(2, 4)):
+        loss = deep_supervision_loss(model(x[half]), gt[half])
+        loss.backward()
+        losses.append(loss.item())
+        for n, p in model.named_parameters():
+            grads.setdefault(n, []).append(p.grad)
+        model.zero_grad(set_to_none=True)
+    torch.set_num_threads(threads)
+    return np.mean(losses), {n: None if g[0] is None else (g[0] + g[1]) / 2
+                             for n, g in grads.items()}
+
+
 @pytest.fixture(scope="module")
 def runs():
     """A gloo world of 2 processes (the scan and the tensor-parallel SS2Ds)
     and one of 4 (those, and the tiny model in each dry-run grid), each
     started once, in a thread while this process computes JAX's references
     for them."""
-    tp_inputs, tiny = _tp_inputs(), _tiny_inputs()
+    tp_inputs, tiny, resnet = _tp_inputs(), _tiny_inputs(), _resnet_inputs()
     # sending a tensor to a process moves its storage into shared memory, in
     # place: the worlds get copies, so JAX here never reads a storage that
     # the thread is moving
-    sent_tp, sent_tiny = copy.deepcopy((tp_inputs, (tiny["sd"], tiny["x"], tiny["gt"])))
+    sent_tp, sent_tiny, sent_resnet = copy.deepcopy(
+        (tp_inputs, (tiny["sd"], tiny["x"], tiny["gt"]), resnet))
 
     def both_worlds():
-        return {n: spawn(cases.run_all, n, "cpu", _scan_inputs(n), sent_tp, cfgs, sent_tiny)
+        return {n: spawn(cases.run_all, n, "cpu", _scan_inputs(n), sent_tp, cfgs, sent_tiny,
+                         sent_resnet if n == 2 else None)
                 for n, cfgs in ((2, []), (4, _model_cfgs(4)))}
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         got = pool.submit(both_worlds)
         tp_want = _tp_want(tp_inputs)
         tiny.update(_tiny_want(tiny))
+        resnet_want = _resnet_want(*resnet)
         got = got.result()
-    return dict(worlds={n: dict(n=n, got=g, tp_want=tp_want) for n, g in got.items()}, tiny=tiny)
+    return dict(worlds={n: dict(n=n, got=g, tp_want=tp_want) for n, g in got.items()}, tiny=tiny,
+                resnet_want=resnet_want)
 
 
 @pytest.fixture(scope="module")
@@ -263,6 +310,29 @@ def test_train_step_grads_match_jax(worlds, tiny, name):
             assert grads[pname] is not None, pname
             rel = _rel(grads[pname], w)
             assert rel <= 1e-4, f"{name} rank {rank} {pname}: relative grad error {rel}"
+
+
+def test_tramba_r_data_parallel_step_matches_one_process(runs):
+    """A tiny Tramba-R through DDP over two processes: its stage 4, which
+    feeds no head, is frozen and stays out of DDP's reducer, so every other
+    gradient is all-reduced in the first step (the global loss and each
+    gradient against one process's mean over the two halves) and a second
+    step runs (a parameter the reducer waits for in vain makes DDP's next
+    forward raise)."""
+    want_loss, want = runs["resnet_want"]
+    assert {n for n, g in want.items() if g is None} == {
+        n for n in want if n.startswith("encoder.layer4.")}
+    for rank, res in enumerate(runs["worlds"][2]["got"]):
+        losses, grads = res["resnet"]
+        np.testing.assert_allclose(losses[0], want_loss, rtol=1e-5)
+        assert np.isfinite(losses[1])
+        assert grads.keys() == want.keys()
+        for name, w in want.items():
+            if w is None:
+                assert grads[name] is None, name
+                continue
+            rel = _rel(grads[name], w)
+            assert rel <= 1e-4, f"rank {rank} {name}: relative grad error {rel}"
 
 
 def _write_split(root, split, n, rng):

@@ -17,6 +17,7 @@ import pytest
 import torch
 from PIL import Image
 
+from test_torch_encoders import CUT as ENC_CUT
 from tramba_tpu.compat.torch_weights import convert_tramba_v, state_dict_to_numpy
 from tramba_tpu.models.tramba import TrambaV as JTrambaV
 from tramba_tpu.nn.layers import DropPath as JDropPath
@@ -24,6 +25,7 @@ from tramba_tpu.train import loss as jloss
 from tramba_tpu.train import optim as joptim
 from tramba_tpu_torch import run
 from tramba_tpu_torch.compat.jax_weights import params_from_jax
+from tramba_tpu_torch.compat.torch_weights import upstream_encoder_state_dict
 from tramba_tpu_torch.models.registry import build
 from tramba_tpu_torch.nn.layers import DropPath, set_drop_path_generator
 from tramba_tpu_torch.ops import fused_expand as te
@@ -403,12 +405,59 @@ def test_run_cli_trains_evaluates_saves_and_resumes(tmp_path, monkeypatch, capsy
                                                                           "rest": 12}
 
 
-@pytest.mark.parametrize("method", ["Tramba-S-TSOD", "Tramba-P-SOD"])
-def test_run_cli_names_the_missing_encoder_graft(method):
-    """``--pretrained_path auto`` for a method whose encoder graft is not
-    ported stops with the ROADMAP item that ports it, not a KeyError."""
-    with pytest.raises(SystemExit, match="Queue 1 item 10a"):
-        run.main(["--method", method], device="cpu")
+# the encoder variants cut to size (tests/test_torch_encoders.py, test_torch_resnet.py),
+# a graft checkpoint of each under the upstream names, and one that does not fit
+VARIANTS = {
+    "S": dict(file="swin_base_patch4_window12_384_22k.pth",
+              cut=dict(enc_config=ENC_CUT["swin"], dec_depths=(1, 1, 1, 1)),
+              misfit=dict(ENC_CUT["swin"], embed_dim=96)),
+    "P": dict(file="pvt_v2_b4.pth",
+              cut=dict(enc_config=ENC_CUT["pvt"], dec_depths=(1, 1, 1, 1)),
+              misfit=dict(ENC_CUT["pvt"], embed_dims=(64, 64, 128, 192))),
+    "R": dict(file="resnet50.pth",
+              cut=dict(enc_config={"layers": (1, 1, 1, 1)}, dec_depths=(1, 1, 1)),
+              misfit={"layers": (1, 2, 1, 1)}),
+}
+
+
+def _graft_file(method, seed, **cut):
+    return upstream_encoder_state_dict(build(method, IMG, seed=seed, **cut))
+
+
+@pytest.mark.parametrize("letter", ["S", "P", "R"])
+def test_run_cli_grafts_each_encoder_variant(letter, tmp_path, monkeypatch, capsys):
+    """``--pretrained_path auto`` resolves to the variant's released file
+    under --pretrained_model and warns when it is missing; with the file
+    there (a synthetic graft under the upstream key names) the CLI grafts it
+    and trains the cut model an epoch on the CPU; a graft that does not fit
+    is fatal unless --allow_random_init."""
+    variant, method = VARIANTS[letter], f"Tramba-{letter}-TSOD"
+    monkeypatch.setattr(loop, "build", functools.partial(build, **variant["cut"]))
+    pre = tmp_path / "pretrained"
+    pre.mkdir()
+    args = run.parser().parse_args(["--method", method, "--pretrained_model", str(pre)])
+    run.resolve_pretrained(args)
+    assert args.pretrained_path is None and args.allow_random_init
+    assert f"{pre / variant['file']} not found" in capsys.readouterr().out
+
+    torch.save(_graft_file(method, 3, **variant["cut"]), pre / variant["file"])
+    data = str(tmp_path / "data")
+    _write_split(data, "Train", 4, np.random.default_rng(1))
+    flags = ["--method", method, "--data_root", data, "--img_size", str(IMG), "--batch_size",
+             "2", "--save_model", str(tmp_path / "res"), "--tf_log_path", "",
+             "--pretrained_model", str(pre), "--see", "2", "--train_epochs", "1"]
+    run.main(flags, device="cpu")
+    out = capsys.readouterr().out
+    assert f"Loaded pretrained encoder for {method} from {pre / variant['file']}" in out
+    assert "Epoch [001/001] loss" in out
+
+    misfit = dict(variant["cut"], enc_config=variant["misfit"])
+    torch.save(_graft_file(method, 4, **misfit), pre / variant["file"])
+    with pytest.raises(RuntimeError, match="allow_random_init"):
+        run.main(flags, device="cpu")
+    run.main(flags + ["--allow_random_init"], device="cpu")
+    out = capsys.readouterr().out
+    assert "WARNING: could not load pretrained encoder" in out and "Epoch [001/001] loss" in out
 
 
 def _detached(fn):

@@ -25,6 +25,10 @@ from tramba_tpu_torch.train.loss import deep_supervision_loss
 TINY = dict(dims=8, enc_depths=(1, 1), dec_depths=(1, 1))
 IMG = 32
 MIN_L = 64  # the hybrid's least sequence-parallel L: the 8 x 8 stage
+# a tiny Tramba-R (tests/test_torch_resnet.py's cut): BatchNorms, and a
+# stage 4 whose output feeds no head
+TINY_R = dict(enc_config={"layers": (1, 1, 1, 1)}, dec_depths=(1, 1, 1), dec_drop_path=0.0)
+IMG_R = 64
 
 
 def seq_scan(a, b, g):
@@ -75,6 +79,30 @@ def tiny_model(backend, sd, x, gt, grid_shape):
             {n: p.grad for n, p in model.named_parameters()})
 
 
+def resnet_steps(x, gt, sd):
+    """Two ``train()`` steps of a tiny Tramba-R through DDP over the whole
+    world, each rank on its slice of the batch: the global mean losses of
+    both, and every parameter's gradient after the first.  ``sd`` holds
+    numpy arrays."""
+    data = make_grid().data
+    model = build("Tramba-R-TSOD", IMG_R, seed=None, **TINY_R).train()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    ddp = torch.nn.parallel.DistributedDataParallel(model, process_group=data.group)
+    xs, gs = batch_slice(x, data), batch_slice(gt, data)
+    losses = []
+    for step in range(2):
+        loss = deep_supervision_loss(ddp(xs), gs)
+        loss.backward()
+        if step == 0:
+            grads = {n: None if p.grad is None else p.grad.clone()
+                     for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        total = loss.detach().clone()
+        dist.all_reduce(total, group=data.group)
+        losses.append(total.item() / data.size)
+    return losses, grads
+
+
 def run_cli(rank, world, init, flags, out):
     """One process of ``python -m tramba_tpu_torch.run`` as the JAX
     package's launch protocol starts it (``TRAMBA_NUM_PROCESSES``,
@@ -91,10 +119,12 @@ def run_cli(rank, world, init, flags, out):
         torch.save(model.state_dict(), out)
 
 
-def run_all(seq_args, tp_cases, model_cfgs, model_args):
+def run_all(seq_args, tp_cases, model_cfgs, model_args, resnet_args=None):
     """Everything one world size checks, in one world: the scan, the
-    tensor-parallel SS2Ds and each (name, backend, grid shape) of
-    ``model_cfgs`` on the tiny model."""
+    tensor-parallel SS2Ds, each (name, backend, grid shape) of
+    ``model_cfgs`` on the tiny model and, given ``resnet_args``, the tiny
+    Tramba-R's data-parallel steps."""
     return dict(seq=seq_scan(*seq_args), tp=tp_ss2d(tp_cases),
                 models={name: tiny_model(backend, *model_args, shape)
-                        for name, backend, shape in model_cfgs})
+                        for name, backend, shape in model_cfgs},
+                resnet=resnet_args and resnet_steps(*resnet_args))

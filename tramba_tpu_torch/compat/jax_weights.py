@@ -1,17 +1,20 @@
-"""flax Tramba-V / -S / -P parameter tree -> reference PyTorch state dict.
+"""flax Tramba-V / -S / -P / -R variables -> reference PyTorch state dict.
 
 The exact inverse of ``tramba_tpu/compat/torch_weights.convert_tramba_v``
-and, for Swin-B and PVTv2-b4, of ``convert_tramba_enc`` (its
-``convert_swin_encoder`` :350 and ``convert_pvt_encoder`` :320; numpy only,
-importable without jax): ``convert_tramba_v(params_from_jax(p))`` and
+and, for Swin-B, PVTv2-b4 and ResNet-50, of ``convert_tramba_enc`` (its
+``convert_swin_encoder`` :350, ``convert_pvt_encoder`` :320 and
+``convert_resnet_encoder`` :298, whose ``batch_stats`` become the
+BatchNorms' running statistics; numpy only, importable without jax):
+``convert_tramba_v(params_from_jax(p))`` and
 ``convert_tramba_enc(params_from_jax(p), enc)`` give ``p`` back leaf for
 leaf.  The result loads into the port's ``TrambaV`` / ``TrambaEnc`` with
 ``strict=True``, so both packages can run the same weights.
 
 Layout rules (inverse of torch_weights.py:7-13): Dense kernel (in, out) ->
 Linear weight (out, in); Conv kernel (kh, kw, in/g, out) -> Conv2d weight
-(out, in/g, kh, kw); LayerNorm scale/bias -> weight/bias; SS2D A_logs
-(K, D, N) -> (K*D, N) and Ds (K, D) -> (K*D,).
+(out, in/g, kh, kw); LayerNorm and BatchNorm scale/bias -> weight/bias,
+BatchNorm mean/var -> running_mean/running_var; SS2D A_logs (K, D, N) ->
+(K*D, N) and Ds (K, D) -> (K*D,).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "encoder_from_jax", "pvt_encoder_from_jax",
-           "swin_encoder_from_jax", "ss2d_from_jax", "ss2d_to_jax"]
+           "swin_encoder_from_jax", "resnet_encoder_from_jax", "ss2d_from_jax", "ss2d_to_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -202,16 +205,43 @@ def swin_encoder_from_jax(enc: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def resnet_encoder_from_jax(enc: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ResNet-50 params and ``batch_stats`` trees -> the port's
+    ``encoder.*`` entries under torchvision's names (inverse of
+    ``convert_resnet_encoder``)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def bn(prefix, p, s):
+        _ln(sd, prefix, p)
+        sd[f"{prefix}.running_mean"] = _t(s["mean"])
+        sd[f"{prefix}.running_var"] = _t(s["var"])
+
+    _conv(sd, "encoder.conv1", enc["conv1"])
+    bn("encoder.bn1", enc["bn1"], stats["bn1"])
+    for i, b, blk in _indexed(enc, r"layer(\d+)_(\d+)"):
+        prefix, st = f"encoder.layer{i}.{b}", stats[f"layer{i}_{b}"]
+        for n in (1, 2, 3):
+            _conv(sd, f"{prefix}.conv{n}", blk[f"conv{n}"])
+            bn(f"{prefix}.bn{n}", blk[f"bn{n}"], st[f"bn{n}"])
+        if "downsample_conv" in blk:
+            _conv(sd, f"{prefix}.downsample.0", blk["downsample_conv"])
+            bn(f"{prefix}.downsample.1", blk["downsample_bn"], st["downsample_bn"])
+    return sd
+
+
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax Tramba-V, Tramba-S or Tramba-P variables ({"params": {...}} or
-    the params tree itself), leaves as numpy arrays -> reference state dict
-    of fp32 CPU tensors."""
+    """flax Tramba-V, Tramba-S, Tramba-P or Tramba-R variables ({"params":
+    {...}[, "batch_stats": {...}]} or the params tree itself), leaves as
+    numpy arrays -> reference state dict of fp32 CPU tensors.  Tramba-R's
+    running statistics come from ``batch_stats``."""
     p = variables.get("params", variables)
     dec = p["decoder"]
     if "vssm_encoder" in p:
         sd = encoder_from_jax(p["vssm_encoder"])
     elif "patch_embed_proj" in p["encoder"]:
         sd = swin_encoder_from_jax(p["encoder"])
+    elif "conv1" in p["encoder"]:
+        sd = resnet_encoder_from_jax(p["encoder"], variables["batch_stats"]["encoder"])
     else:
         sd = pvt_encoder_from_jax(p["encoder"])
     for s, e in _indexed(dec, r"expand_(\d+)"):

@@ -1,8 +1,8 @@
 """Model registry: the reference method names (``get_model.py:2-31``).
 
-Port of ``tramba_tpu/models/registry.py``.  Tramba-V, Tramba-S (Swin-B)
-and Tramba-P (PVTv2-b4) are ported; Tramba-R and BaseUMamba raise
-``NotImplementedError`` naming their ROADMAP item.
+Port of ``tramba_tpu/models/registry.py``.  Tramba-V, Tramba-S (Swin-B),
+Tramba-P (PVTv2-b4) and Tramba-R (ResNet-50) are ported; BaseUMamba raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,15 +18,11 @@ from tramba_tpu_torch.nn.init import init_weights
 __all__ = ["build", "METHODS"]
 
 METHODS = ("Tramba-V-TSOD", "Tramba-V-SOD", "Tramba-S-TSOD", "Tramba-S-SOD", "Tramba-P-TSOD",
-           "Tramba-P-SOD")
+           "Tramba-P-SOD", "Tramba-R-TSOD", "Tramba-R-SOD")
 
-_ENC_BY_LETTER = {"S": "swin", "P": "pvt"}
+_ENC_BY_LETTER = {"S": "swin", "P": "pvt", "R": "resnet"}
 
-_NOT_PORTED = {
-    "BaseUMamba-SOD": "ROADMAP.md Queue 1 item 9 (BaseUMamba)",
-    **{f"Tramba-R-{t}": "ROADMAP.md Queue 1 item 10 (encoder variants: Tramba-R)"
-       for t in ("TSOD", "SOD")},
-}
+_NOT_PORTED = {"BaseUMamba-SOD": "ROADMAP.md Queue 1 item 9 (BaseUMamba)"}
 
 
 def build(method: str, img_size: int = 384, *, device="cpu", seed: Optional[int] = 0,
@@ -41,9 +37,10 @@ def build(method: str, img_size: int = 384, *, device="cpu", seed: Optional[int]
     default init (for a checkpoint to overwrite).  ``ssm_backend`` goes to
     every SS2D (JAX ``build(..., ssm_backend=...)``; ``nn/ssm.BACKENDS``);
     the parameters do not depend on it.  ``overrides`` cut the
-    model down for tests: Tramba-V's dims, enc_depths, dec_depths; Tramba-S's
-    and -P's enc_config (a dict over ``swin_b_384_config`` /
-    ``pvt_v2_b4_config``) and dec_depths."""
+    model down for tests: Tramba-V's dims, enc_depths, dec_depths; Tramba-S's,
+    -P's and -R's enc_config (a dict over ``swin_b_384_config`` /
+    ``pvt_v2_b4_config`` / ``resnet50_config``), dec_depths and
+    dec_drop_path."""
     if method in _NOT_PORTED:
         raise NotImplementedError(f"{method} is not ported yet: {_NOT_PORTED[method]}")
     if method not in METHODS:

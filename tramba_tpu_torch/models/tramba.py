@@ -1,12 +1,15 @@
-"""Tramba-V / -S / -P: an encoder + the DFVSS-guided decoder, channels-last.
+"""Tramba-V / -S / -P / -R: an encoder + the DFVSS decoder, channels-last.
 
 Port of ``tramba_tpu/models/tramba.py:78-253`` (reference ``Trambav6.py``,
 ``Trambav6_enc.py``): Tramba-V's VSSM encoder, and ``TrambaEnc``'s Swin-B
-(Tramba-S) and PVTv2-b4 (Tramba-P) encoders with their skip assembly.
+(Tramba-S), PVTv2-b4 (Tramba-P) and ResNet-50 (Tramba-R) encoders with their
+skip assembly.
 Each decoder stage upsamples the deep feature (PatchExpand), gates the skip
 through a FreqBlock guide, reduces the concat with a split dense, and runs
-MultiScaleDecoderBlocks; deep supervision emits 4 logit maps at 1/16, 1/8,
-1/4 and full resolution.  The last head is kernel K4 (FinalPatchExpandX4).
+MultiScaleDecoderBlocks; deep supervision emits a logit map per stage and
+the full-resolution one: 4 maps at 1/16, 1/8, 1/4 and 1/1, Tramba-R's
+three-stage decoder 3 at 1/8, 1/4 and 1/1.  The last head is kernel K4
+(FinalPatchExpandX4).
 ``dtype`` (fp32 or bf16) is the compute dtype: the input is cast to it, the
 modules run in it and the heads come back in it; parameters stay fp32.
 Module names follow the reference state dict (``decoder.expand_layers.{s}``,
@@ -27,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tramba_tpu_torch.models.pvt import PVTv2Encoder, pvt_v2_b4_config
+from tramba_tpu_torch.models.resnet import ResNetEncoder, resnet50_config
 from tramba_tpu_torch.models.swin import SwinEncoder, swin_b_384_config
 from tramba_tpu_torch.models.vssm_encoder import VSSMEncoder, _Stage
 from tramba_tpu_torch.nn.blocks import MultiScaleDecoderBlock
@@ -124,14 +128,24 @@ class TrambaV(nn.Module):
 
 
 class TrambaEnc(nn.Module):
-    """Tramba-S (``enc_type="swin"``, Swin-B) and Tramba-P (``"pvt"``,
-    PVTv2-b4) (Trambav6_enc.py:162-230): the skips are [image, stage maps
-    shallow -> deep], Swin's the stage inputs (its stage-4 output is unused,
-    :212), PVT's its four stage outputs (:216).  ``enc_config`` overrides the
-    encoder's configuration (``swin_b_384_config`` / ``pvt_v2_b4_config``)
-    and ``dec_depths`` the decoder's, to cut the model down for tests; the
-    decoder's widths are the encoder's stage widths ([128, 256, 512, 1024]
-    and [64, 128, 320, 512] at full size, ``tramba.py:229, :234``)."""
+    """Tramba-S (``enc_type="swin"``, Swin-B), Tramba-P (``"pvt"``, PVTv2-b4)
+    and Tramba-R (``"resnet"``, ResNet-50) (Trambav6_enc.py:162-230): the
+    skips are [image, stage maps shallow -> deep], Swin's the stage inputs
+    (its stage-4 output is unused, :212), PVT's its four stage outputs
+    (:216), ResNet's its stages 1-3 (the stem's and stage 4's outputs are
+    unused, :214).  ``enc_config`` overrides the encoder's configuration
+    (``swin_b_384_config`` / ``pvt_v2_b4_config`` / ``resnet50_config``) and
+    ``dec_depths`` the decoder's, to cut the model down for tests; the
+    decoder's widths are the encoder's stage widths ([128, 256, 512, 1024],
+    [64, 128, 320, 512] and [256, 512, 1024], ``tramba.py:229-238``).
+    Tramba-R's BatchNorms take batch statistics in ``train()`` and move
+    their running ones, as JAX's ``deterministic=False`` with a mutable
+    ``batch_stats`` does.  Its stage 4 feeds no head: it runs in ``train()``
+    only, for those statistics (in ``eval()`` it is dead code, which XLA
+    drops from JAX's jitted forward), and its parameters are frozen, since
+    JAX's gradients there are 0 and Adam without decay leaves them as they
+    are; frozen, they stay out of DDP's reducer, which would otherwise wait
+    for their gradients forever."""
 
     def __init__(self, enc_type: str, img_size: int = 384, dtype: torch.dtype = torch.float32,
                  enc_config: Optional[dict] = None, dec_depths: Sequence[int] = (2, 2, 2, 2),
@@ -151,6 +165,12 @@ class TrambaEnc(nn.Module):
             self.encoder = PVTv2Encoder(dtype=dtype, **cfg)
             features = list(cfg["embed_dims"])
             self.checkpoint_ignore = ()
+        elif enc_type == "resnet":
+            cfg = {**resnet50_config(), **(enc_config or {})}
+            self.encoder = ResNetEncoder(dtype=dtype, **cfg)
+            getattr(self.encoder, f"layer{self.encoder.n_stages}").requires_grad_(False)
+            features = [256, 512, 1024]
+            self.checkpoint_ignore = ()
         else:
             raise ValueError(f"unsupported encoder type: {enc_type!r}")
         self.decoder = TrambaDecoder(features, dec_depths, img_size, dtype, dec_drop_path,
@@ -162,6 +182,10 @@ class TrambaEnc(nn.Module):
         x = x.to(self.dtype)
         if self.enc_type == "swin":
             skips = [x] + self.encoder(x)
-        else:
+        elif self.enc_type == "pvt":
             skips = [x] + self.encoder(x)[::-1]
+        else:
+            n = self.encoder.n_stages
+            outs = self.encoder(x, n if self.training else n - 1)
+            skips = [x] + outs[-4:-1][::-1]  # stages 1-3
         return self.decoder(skips)

@@ -2,10 +2,12 @@
 
 Linear weights: truncated normal, std 0.02 (VSSMEncoder._init_weights,
 vmamba.py:459-471); conv weights: kaiming normal (a=1e-2, fan_in); biases 0;
-LayerNorm 1 / 0.  A module that draws its own parameters otherwise (SS2D,
-the PVTv2 and Swin encoders' ``LecunConv2d``, Swin's ``WindowAttention``)
-has a ``reset_own_parameters(generator)`` method, which is called instead.
-Every draw comes from the one ``torch.Generator`` passed in, in module order.
+LayerNorm 1 / 0; BatchNorm scale 1, bias 0 and running statistics 0 / 1, as
+flax's ``nn.BatchNorm`` starts.  A module that draws its own parameters
+otherwise (SS2D, the PVTv2, Swin and ResNet encoders' ``LecunConv2d``, Swin's
+``WindowAttention``) has a ``reset_own_parameters(generator)`` method, which
+is called instead.  Every draw comes from the one ``torch.Generator`` passed
+in, in module order.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import math
 
 import torch
 import torch.nn as nn
+
+from tramba_tpu_torch.nn.layers import BatchNorm
 
 __all__ = ["init_weights"]
 
@@ -33,7 +37,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             nn.init.normal_(m.weight, 0.0, std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+            if isinstance(m, BatchNorm):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
     return model

@@ -14,7 +14,9 @@ input's dtype.  The FFNs take a ``dtype`` and in bf16 run kernels K6
 under autograd their backwards K9 and K10.  ``flax_dense`` and
 ``flax_conv`` apply a Linear or Conv2d with the rounding points of flax's
 ``nn.Dense`` / ``nn.Conv`` in a compute dtype, for the composed parts of the
-PVTv2 and Swin encoders.
+PVTv2 and Swin encoders.  ``BatchNorm`` is flax's ``nn.BatchNorm`` (the
+ResNet-50 encoder's): fp32 statistics, the running variance updated with
+the biased batch variance.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from tramba_tpu_torch.ops.fused_expand import expand_ln, final_head, pixel_shuff
 
 __all__ = [
     "COMPUTE_DTYPES",
+    "BatchNorm",
     "LayerNorm",
     "LecunConv2d",
     "check_dtype",
@@ -71,6 +74,41 @@ class LayerNorm(nn.LayerNorm):
             return super().forward(x)
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
                             self.eps).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel axis
+    of an NHWC tensor.  Parameters ``weight`` / ``bias`` and buffers
+    ``running_mean`` / ``running_var`` under torch's names (torchvision's
+    state dict loads as it is; its ``num_batches_tracked`` has no
+    counterpart, flax keeps no count).  The statistics and the normalisation
+    are fp32 and only the output is rounded to the input's dtype, as flax
+    computes them.  ``train()``: batch statistics, and the running ones move
+    by ``0.9 r + 0.1 s`` with the *biased* batch variance, as flax updates
+    them (``torch.nn.BatchNorm2d`` takes the unbiased one, n / (n - 1)
+    larger); ``eval()``: the running statistics."""
+
+    MOMENTUM, EPS = 0.9, 1e-5
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float().permute(0, 3, 1, 2)
+        if self.training:
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+                self.running_mean.lerp_(mean, 1 - self.MOMENTUM)
+                self.running_var.lerp_(var, 1 - self.MOMENTUM)
+            y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0, self.EPS)
+        else:
+            y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.EPS)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

@@ -28,9 +28,11 @@ import torch.distributed as dist
 from tramba_tpu_torch.parallel.distributed import initialize_from_args
 from tramba_tpu_torch.train.loop import training
 
-# per-method pretrained encoder checkpoints (run.py:11-19): only Tramba-V's
-# graft is ported
-_PRETRAINED = {"V": "vssm_base_0229_ckpt_epoch_237.pth"}
+# per-method pretrained encoder checkpoints, the released files (run.py:11-19)
+_PRETRAINED = {"V": "vssm_base_0229_ckpt_epoch_237.pth",
+               "S": "swin_base_patch4_window12_384_22k.pth",
+               "P": "pvt_v2_b4.pth",
+               "R": "resnet50.pth"}
 
 
 def resolve_pretrained(args) -> None:
@@ -39,12 +41,7 @@ def resolve_pretrained(args) -> None:
     (an explicit --pretrained_path that fails to load is fatal instead)."""
     if args.pretrained_path != "auto":
         return
-    variant = args.method.split("-")[1]
-    if variant not in _PRETRAINED:
-        raise SystemExit(f"--pretrained_path auto: the encoder graft of {args.method} is not "
-                         "ported yet (ROADMAP.md Queue 1 item 10a); pass --pretrained_path '' "
-                         "to train from a random encoder")
-    path = os.path.join(args.pretrained_model, _PRETRAINED[variant])
+    path = os.path.join(args.pretrained_model, _PRETRAINED[args.method.split("-")[1]])
     if os.path.exists(path):
         args.pretrained_path = path
     else:

@@ -4,7 +4,9 @@ Port of ``tramba_tpu/train/checkpoint.py`` with ``torch.save`` in place of
 Orbax.  The formats are the reference's (``train.py:248-263``): (a) the
 best-MAE weights, a state dict under the reference key names, in
 ``{method}_MAE_{mae}_{epoch}.pth``; (b) the resume dict ``{model, optimizer,
-epoch}``; (c) a reference state dict loads with ``strict=True``.
+epoch}``; (c) a reference state dict loads with ``strict=True``.  Tramba-R's
+BatchNorm running statistics travel in all three; the reference's
+``num_batches_tracked`` is dropped at load and never written.
 """
 
 from __future__ import annotations
@@ -28,9 +30,12 @@ def save_params(path: str, model: torch.nn.Module) -> None:
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Load a reference state dict (or a resume dict's ``model``) with
     ``strict=True``, dropping only what the JAX converter also ignores: the
-    weightless buffers (DCT bases, masks, relative-position indices) and the
-    model's ``checkpoint_ignore`` keys (Tramba-S: the stage-4 Swin blocks,
-    never run)."""
+    weightless buffers (DCT bases, masks, relative-position indices,
+    BatchNorm's ``num_batches_tracked``: flax keeps no count and a fixed
+    momentum never reads it) and the model's ``checkpoint_ignore`` keys
+    (Tramba-S: the stage-4 Swin blocks, never run).  BatchNorm's running
+    statistics are buffers of the state dict and load strictly with the
+    weights."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("model", "state_dict"):
         if key in sd and isinstance(sd[key], dict):

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tramba_tpu_torch.compat.torch_weights import graft_vmamba_encoder
+from tramba_tpu_torch.compat.torch_weights import (graft_pvt_encoder, graft_resnet_encoder,
+                                                   graft_swin_encoder, graft_vmamba_encoder)
 from tramba_tpu_torch.data.pipeline import BatchLoader, SODDataset
 from tramba_tpu_torch.eval.metrics import SODMetrics
 from tramba_tpu_torch.models.registry import build
@@ -48,14 +49,27 @@ SEED = 1026  # train.py's seed: numpy, the DropPath generator, the loader's shuf
 
 
 def _graft_encoder(model: torch.nn.Module, sd) -> None:
-    """An upstream VMamba checkpoint -> the encoder's weights under the
-    port's (the reference's) names.  Every grafted entry must exist in the
-    model with the same shape."""
+    """A released encoder checkpoint -> the encoder's weights under the
+    port's (the reference's) names, by the model's encoder
+    (``tramba_tpu/train/loop.py:60-85``): VMamba for Tramba-V, Swin-B for
+    Tramba-S, PVTv2-b4 for Tramba-P, torchvision's ResNet-50 with its running
+    statistics for Tramba-R.  Every grafted entry must exist in the model
+    with the same shape."""
     for key in ("model", "state_dict"):
         if isinstance(sd, dict) and isinstance(sd.get(key), dict):
             sd = sd[key]
-    depths = [len(stage.blocks) for stage in model.vssm_encoder.layers]
-    graft = graft_vmamba_encoder(sd, depths)
+    if hasattr(model, "vssm_encoder"):
+        graft = graft_vmamba_encoder(sd, [len(s.blocks) for s in model.vssm_encoder.layers])
+    else:
+        enc = model.encoder
+        if model.enc_type == "swin":  # stages 1-3 are built; the graft drops stage 4's blocks
+            graft = graft_swin_encoder(sd, [len(s.blocks) for s in enc.layers] + [0])
+        elif model.enc_type == "pvt":
+            graft = graft_pvt_encoder(sd, [len(getattr(enc, f"block{i}"))
+                                           for i in range(1, enc.n_stages + 1)])
+        else:
+            graft = graft_resnet_encoder(sd, [len(getattr(enc, f"layer{i}"))
+                                              for i in range(1, enc.n_stages + 1)])
     have = model.state_dict()
     for name, value in graft.items():
         if name not in have:
