@@ -8,8 +8,10 @@ parent commit unpacked with ``git archive`` into a directory that
 change, change, parent compares two trees on one card), this runs that
 tree's ``chip_smoke.py`` from its root, so each tree builds its own kernels
 and times them with its own code, and reads the times it prints: ms per
-forward (phase 6) and ms per train step (phase 8).  Then a table of the runs
-side by side, with the card's ``name, power.limit``.  ``--logs DIR`` keeps
+forward (phase 6), ms per train step (phase 8), and each SS2D scan kernel's
+ms at each shape phase 3 checks it (K1 ``ss2d_scan``, K8
+``ss2d_scan_bwd``, beside the bound the run computed).  Then tables of the
+runs side by side, with the card's ``name, power.limit``.  ``--logs DIR`` keeps
 each run's whole output.  Exits with the first failing run's code.
 """
 
@@ -23,6 +25,9 @@ import sys
 
 TIMES = (re.compile(r"^Tramba-V-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
          re.compile(r"^Tramba-V-TSOD 384px (\w+ train) step (B\d+): ([\d.]+) ms/step"))
+# phase 3's line of a scan kernel: name, tag, shape, ..., kernel ms, plain ms, bound ms
+SCAN = re.compile(r"^(ss2d_scan(?:_bwd)?)\s+((?:fp32|bf16)(?: train)?)\s+(\S.*?)\s+"
+                  r"max_abs_err .* kernel ([\d.]+) ms plain [\d.]+ ms bound ([\d.]+) ms")
 
 
 def times(stdout: str) -> dict:
@@ -33,6 +38,15 @@ def times(stdout: str) -> dict:
             out[m[1]] = float(m[2])
         elif m := TIMES[1].match(line):
             out[f"{m[1]} {m[2]}"] = float(m[3])
+    return out
+
+
+def scan_times(stdout: str) -> dict:
+    """{(kernel, tag, shape): (ms, bound_ms)} of phase 3's K1 and K8 lines."""
+    out = {}
+    for line in stdout.splitlines():
+        if m := SCAN.match(line):
+            out[m[1], m[2], m[3]] = (float(m[4]), float(m[5]))
     return out
 
 
@@ -57,12 +71,20 @@ def main(argv=None) -> int:
             print(f"{tree}: chip_smoke.py exited {res.returncode}\n{res.stdout[-2000:]}\n"
                   f"{res.stderr[-4000:]}", file=sys.stderr)
             return res.returncode
-        runs.append((tree, times(res.stdout)))
+        runs.append((tree, times(res.stdout), scan_times(res.stdout)))
         print(f"run {i} {tree}: {runs[-1][1]}", flush=True)
     print(f"ms per forward or step, runs in order [{card}]")
     for key in runs[0][1]:
         print(f"{key:14s} " + "  ".join(f"{tree}: {t.get(key, float('nan')):.2f}"
-                                        for tree, t in runs))
+                                        for tree, t, _ in runs))
+    print(f"scan kernels: ms per call (bound ms), runs in order [{card}]")
+    keys = list(dict.fromkeys(k for _, _, sc in runs for k in sc))
+    for key in keys:
+        cells = []
+        for tree, _, sc in runs:
+            ms, bound = sc.get(key, (float("nan"), float("nan")))
+            cells.append(f"{tree}: {ms:.4f} ({bound:.4f})")
+        print(f"{' '.join(key):48s} " + "  ".join(cells))
     return 0
 
 

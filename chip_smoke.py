@@ -31,7 +31,14 @@ Phases, each of which must pass (any failure exits non-zero):
                launches (the tensor-parallel core at 96/48/24/12 px, the
                decoder's K = 8 line core, an SS2D of d_state 16), each with
                L > 256 also holding the plain version with the carry dropped
-               between 256-row chunks, which must fail; errors, times, and
+               between 256-row chunks, which must fail; K1 at B1 and K8 at
+               B4 (the forward's and the train step's batches) at the
+               96 px raster and line SS2Ds, fp32 and bf16, each launched
+               twice and compared bit for bit, with the segment mirror
+               (ops/scan_segments.py) at the kernels' own segment length
+               passing the same check and, with the carry between
+               segments dropped, failing it, and K8's launches by kernel
+               name (torch.profiler); errors, times, and
                each kernel's bound (bytes over the HBM rate or, per type of
                operation, its count over that type's peak rate: the largest)
   4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD, Tramba-S-TSOD and
@@ -113,6 +120,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -306,7 +314,17 @@ class Checks:
         ``inputs`` (the kernel's tensors) and ``flops`` (:func:`ops`) give the
         call's bound."""
         tag = tag or NAMES[dt]
-        got, want = kernel(), plain()
+        got = kernel()
+        plain_ms = None
+        if plain_warmup == 0:  # this first call is the plain version's timed one
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain()
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+        else:
+            want = plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -329,7 +347,8 @@ class Checks:
         bound_ms, bound_by = bound((*inputs, *got), flops)
         del got, want
         ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, 1, warmup=plain_warmup)
+        if plain_ms is None:
+            plain_ms = cuda_ms(plain, 1, warmup=plain_warmup)
         self.rows.setdefault((name, tag), []).append((label, err, ms, plain_ms, bound_ms,
                                                       bound_by))
         what = "err/max|plain|" if rel_tol is not None else "max_rel_err"
@@ -338,18 +357,33 @@ class Checks:
               f"({bound_by})", flush=True)
 
     @staticmethod
-    def planted(name, label, want, faults, tol=KERNEL_TOL_BF16):
-        """Proof that :meth:`compare`'s check (``tol``: bf16's unless given)
-        can see a wrong kernel at these inputs: each of ``faults`` (fault name
-        -> the plain version with that fault planted) must fail the check
-        against ``want``, the plain version's output."""
+    def planted(name, label, want, faults, tol=KERNEL_TOL_BF16, rel_tol=None):
+        """Proof that :meth:`compare`'s check (``tol``: bf16's unless given;
+        with ``rel_tol`` the per-output max-abs check) can see a wrong kernel
+        at these inputs: each of ``faults`` (fault name -> the plain version
+        with that fault planted) must fail the check against ``want``, the
+        plain version's output (a tensor or a tuple)."""
+        want = want if isinstance(want, tuple) else (want,)
         for fault, fn in faults.items():
-            got, w = fn().float(), want.float()
-            bad = ~torch.isclose(got, w, **tol)
-            err, share = (got - w).abs().max().item(), bad.float().mean().item()
+            got = fn()
+            got = got if isinstance(got, tuple) else (got,)
+            failed, err, share = False, 0.0, 0.0
+            for g, w in zip(got, want):
+                g, w = g.float(), w.float()
+                e = (g - w).abs().max().item()
+                err = max(err, e)
+                if rel_tol is None:
+                    bad = ~torch.isclose(g, w, **tol)
+                    share = max(share, bad.float().mean().item())
+                    failed |= bool(bad.any())
+                else:
+                    scale = w.abs().max().item()
+                    share = max(share, e / max(scale, 1e-30))
+                    failed |= not e <= rel_tol * scale
+            what = "of outputs outside the check" if rel_tol is None else "x max|plain| at worst"
             print(f"{name:15s} planted {fault!r:18s} {label:34s} max_abs_err {err:.3e}, "
-                  f"{share:.3f} of outputs outside the check", flush=True)
-            if not bad.any():
+                  f"{share:.3f} {what}", flush=True)
+            if not failed:
                 raise AssertionError(f"{name} {label}: a kernel with the fault {fault!r} "
                                      "would pass the check")
 
@@ -447,6 +481,97 @@ def check_train_kernels(checks, dev, gen, dt, shapes=SS2D_SHAPES):
                        lambda: tf.ss2d_scan_bwd_ref(*args, chunk), reps=3, inputs=args,
                        flops=scan_bwd_ops(x, core), plain_warmup=0, tag=tag, rel_tol=rel_tol)
         del ys, carries, dbc, g_y, args
+
+
+def check_segmented_scans(checks, dev, gen):
+    """K1 and K8 split each direction's steps into segments joined by a
+    carry pass (csrc/ss2d.cu, ss2d_bwd.cu).  At Tramba-V's 96 px raster and
+    line SS2Ds, fp32 and bf16: K1 at B1 (the forward's batch) and K8 at B4
+    (the train step's) against their plain versions with phase 3's checks,
+    and timed; two launches of each give the same bits; the segment mirror
+    (ops/scan_segments.py, at the kernels' own segment length) passes the
+    same check, and with the carry between segments dropped (h for K1, lam
+    for K8) it must fail it.  Then K8's launches by kernel name
+    (torch.profiler) at the line shape, B4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tramba_tpu_torch.ops import fused_ss2d as tf
+    from tramba_tpu_torch.ops import scan_segments as sm
+
+    rel_tol = {torch.float32: BWD_REL_TOL, torch.bfloat16: BWD_REL_TOL_BF16}
+    for dt in (torch.float32, torch.bfloat16):
+        for kind in ("raster", "line"):
+            m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, 96, 128, 0, 1)
+            B, L, D = x.shape
+            K = idx.shape[0]
+            seg = tf.scan_segment_steps(B, L, D, K)
+            print(f"ss2d_scan {NAMES[dt]} {label}: {-(-L // seg)} segments of {seg} steps, "
+                  f"{(D // 32) * -(-L // seg) * K * B} warps", flush=True)
+            checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
+                           lambda: tf.ss2d_scan_ref(x, idx, *core), reps=10,
+                           inputs=(x, idx, *core), flops=scan_ops(x, core), plain_warmup=0)
+            if not torch.equal(tf.ss2d_scan(x, idx, *core), tf.ss2d_scan(x, idx, *core)):
+                raise AssertionError(f"ss2d_scan {label}: two launches differ")
+            want = tf.ss2d_scan_ref(x, idx, *core)
+            la, b, xs, dbcs, _ = sm.scan_terms(x, idx, *core)
+            entries = sm.carry_in(*sm.scan_summaries(la, b, seg))
+            torch.testing.assert_close(
+                sm.scan_outputs(sm.scan_from(la, b, entries, seg), xs, dbcs, core[4])[0], want,
+                **KERNEL_TOL)
+            checks.planted("ss2d_scan", label, want, {"no segment carry": lambda: sm.scan_outputs(
+                sm.scan_from(la, b, torch.zeros_like(entries), seg), xs, dbcs, core[4])[0]},
+                tol=KERNEL_TOL)
+            del want, la, b, xs, dbcs, entries
+
+            m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, 96, 128, 0, 4)
+            B, L, D = x.shape
+            seg = tf.scan_segment_steps(B, L, D, K, bwd=True)
+            _, carries, dbc = tf.ss2d_scan(x, idx, *core, emit=True)
+            g_y = torch.randn(x.shape, generator=gen).to(dev, dt)
+            args = (x, idx, inv, g_y, carries, dbc, *core)
+            checks.compare("ss2d_scan_bwd", None, label, lambda: tf.ss2d_scan_bwd(*args),
+                           lambda: tf.ss2d_scan_bwd_ref(*args, tf.scan_chunk()), reps=3,
+                           inputs=args, flops=scan_bwd_ops(x, core), plain_warmup=0,
+                           tag=f"{NAMES[dt]} train", rel_tol=rel_tol[dt])
+            r1, r2 = tf.ss2d_scan_bwd(*args), tf.ss2d_scan_bwd(*args)
+            if not all(torch.equal(p, q) for p, q in zip(r1, r2)):
+                raise AssertionError(f"ss2d_scan_bwd {label}: two launches differ")
+            del r1, r2
+            want = tf.ss2d_scan_bwd_ref(*args, tf.scan_chunk())
+            terms = sm.adjoint_terms(x, idx, g_y, dbc, *core[1:4])
+            E = sm.carry_back(*sm.adjoint_summaries(terms[0], terms[1], seg))
+
+            def adjoint(E_in):
+                lam = sm.adjoint_from(terms[0], terms[1], E_in, seg)
+                return sm.adjoint_outputs(lam, terms, inv, carries, x.dtype, core[0], core[1],
+                                          core[4], tf.scan_chunk())
+
+            worst = 0.0
+            for i, (g, w) in enumerate(zip(adjoint(E), want)):
+                e, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+                worst = max(worst, e / max(scale, 1e-30))
+                if not e <= rel_tol[dt] * scale:
+                    raise AssertionError(f"segment mirror {label} output {i}: {e} > "
+                                         f"{rel_tol[dt]} x {scale}")
+            print(f"ss2d_scan_bwd   segment mirror     {label:34s} {worst:.3e} x max|plain| at "
+                  "worst", flush=True)
+            checks.planted("ss2d_scan_bwd", label, want,
+                           {"no segment carry": lambda: adjoint(torch.zeros_like(E))},
+                           rel_tol=rel_tol[dt])
+            if kind == "line":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    tf.ss2d_scan_bwd(*args)
+                    torch.cuda.synchronize()
+                parts = {}
+                for e in prof.key_averages():
+                    if e.self_device_time_total > 0:
+                        m = re.search(r"::(\w+)[<(]", e.key)
+                        name = m[1] if m else e.key[:40]
+                        parts[name] = parts.get(name, 0.0) + e.self_device_time_total / 1e3
+                print(f"ss2d_scan_bwd {NAMES[dt]} {label} by kernel [{card_line()}]: " + "; ".join(
+                    f"{k} {t:.4f} ms" for k, t in parts.items()), flush=True)
+            del want, terms, E, args, carries, dbc, g_y
+    torch.cuda.empty_cache()
 
 
 def ffn_case(gen, dev, d, dwms):
@@ -874,12 +999,13 @@ GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
           ("mlp_bwd_ln_kernel", "K9/K10 (c) dh w1 product and LN adjoint"),
           ("mlp_bwd_wgrad_kernel", "K9/K10 (d) dW1, dW2 products"),
           ("mlp_bwd_sum", "K9/K10 (e) partial sums"),
-          ("bwd_scan_kernel", "K8 ss2d_scan_bwd, (a) adjoint scan"),
+          ("bwd_summary_kernel", "K8 ss2d_scan_bwd, (a1) segment summaries"),
+          ("bwd_scan_kernel", "K8 ss2d_scan_bwd, (a2) adjoint scan"),
           ("bwd_dbc_kernel", "K8 ss2d_scan_bwd, (b) projection adjoint"),
           ("bwd_dx_kernel", "K8 ss2d_scan_bwd, (c) dx gather"),
           ("bwd_wgrad_kernel", "K8 ss2d_scan_bwd, (d) weight partials"),
           ("sum_parts_kernel", "K8 ss2d_scan_bwd, (e) partial sums"),
-          ("ss2d_scan_kernel", "K1 ss2d_scan, scan launch"),
+          ("ss2d_seg_kernel", "K1 ss2d_scan, segment scans"),
           ("ss2d_proj_kernel", "K1 ss2d_scan, projection launch"),
           ("ss2d_merge_kernel", "K2 ss2d_merge"),
           ("expand_groups_kernel<", "K3 expand_ln / K4 final_head"),
@@ -1322,6 +1448,7 @@ def main() -> int:
     for shapes in (MLP_BWD_SHAPES, MLP_BWD_SHAPES_P, MLP_BWD_SHAPES_R):
         check_mlp_bwd(checks, dev, gen, shapes)
     check_linear_scan(checks, dev, gen)
+    check_segmented_scans(checks, dev, gen)
     torch.cuda.empty_cache()
 
     phase("4 model")

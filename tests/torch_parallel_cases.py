@@ -13,6 +13,7 @@ import torch
 import torch.distributed as dist
 
 from tramba_tpu_torch.models.registry import build
+from tramba_tpu_torch.nn.layers import sync_batch_norms
 from tramba_tpu_torch.nn.ssm import SS2D
 from tramba_tpu_torch.ops.selective_scan import linear_scan
 from tramba_tpu_torch.parallel.mesh import batch_slice, make_grid
@@ -81,12 +82,14 @@ def tiny_model(backend, sd, x, gt, grid_shape):
 
 def resnet_steps(x, gt, sd):
     """Two ``train()`` steps of a tiny Tramba-R through DDP over the whole
-    world, each rank on its slice of the batch: the global mean losses of
-    both, and every parameter's gradient after the first.  ``sd`` holds
-    numpy arrays."""
+    world, each rank on its slice of the batch and its BatchNorms on the
+    global batch's statistics (as ``train.loop.fit`` sets them): the global
+    mean losses of both, every parameter's gradient after the first and the
+    BatchNorms' running statistics after it.  ``sd`` holds numpy arrays."""
     data = make_grid().data
     model = build("Tramba-R-TSOD", IMG_R, seed=None, **TINY_R).train()
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    sync_batch_norms(model, data)
     ddp = torch.nn.parallel.DistributedDataParallel(model, process_group=data.group)
     xs, gs = batch_slice(x, data), batch_slice(gt, data)
     losses = []
@@ -96,11 +99,12 @@ def resnet_steps(x, gt, sd):
         if step == 0:
             grads = {n: None if p.grad is None else p.grad.clone()
                      for n, p in model.named_parameters()}
+            stats = {n: b.clone() for n, b in model.named_buffers() if "running_" in n}
         model.zero_grad(set_to_none=True)
         total = loss.detach().clone()
         dist.all_reduce(total, group=data.group)
         losses.append(total.item() / data.size)
-    return losses, grads
+    return losses, grads, stats
 
 
 def run_cli(rank, world, init, flags, out):

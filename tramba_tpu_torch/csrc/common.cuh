@@ -18,6 +18,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
@@ -163,13 +164,140 @@ __device__ __forceinline__ float softplus(float v) {
 
 constexpr long kRowBudget = 64 * 1024;  // shared-memory bytes for a block's row tile
 
-// Steps per staged chunk of the SS2D scans and the carries' stride: K1
-// (ss2d.cu) writes the state entering each chunk, K8 (ss2d_bwd.cu) recomputes
-// a chunk's states from it.  The library exports it as ss2d_scan_chunk(), and
-// the Python wrappers size the carries from that.  A warp stages a chunk with
-// two pixel indices per lane, so a chunk is two warps' width of steps.
+// Steps per chunk of the SS2D scans and the carries' stride: K1 (ss2d.cu)
+// writes the state entering each chunk, K8 (ss2d_bwd.cu) recomputes a
+// chunk's states from it.  The library exports it as ss2d_scan_chunk(), and
+// the Python wrappers size the carries from that.  A block stages the inputs
+// one chunk at a time, and a segment (below) is a whole number of chunks.
 constexpr int kScanChunk = 64;
-static_assert(kScanChunk == 64, "the staging in ss2d.cu / ss2d_bwd.cu holds 2 steps per lane");
+
+// ---------------------------------------------------------------------------
+// Segments of the SS2D scans (K1, K8)
+// ---------------------------------------------------------------------------
+//
+// Each direction's L steps are cut into S segments of seg_chunks chunks
+// that run at once: a segment's recurrence from a zero state gives its
+// summary, a carry pass over the summaries gives each segment the state it
+// really starts from, and the segment is run again from there.  S is chosen
+// so that a launch has about `warps` warps (one thread per channel, 32
+// channels a warp) whatever the batch: K1 asks for kScanWarps, K8's longer
+// steps for kScanBwdWarps, several waves of blocks over the 132 SMs each,
+// so that the last wave's idle SMs cost little.
+constexpr int kScanWarps = 4096;
+constexpr int kScanBwdWarps = 8192;
+
+// Chunks per segment for a (B, K, L, D) scan of about `warps` warps.
+static inline int scan_seg_chunks(int B, int L, int D, int K, int warps) {
+  const long base = (long)(D / 32) * K * B;  // warps with one segment per direction
+  const long want = (warps + base - 1) / base;
+  const int chunks = (L + kScanChunk - 1) / kScanChunk;
+  const long per = chunks / want;
+  return per < 1 ? 1 : (int)per;
+}
+
+static inline int scan_segments(int L, int seg_chunks) {
+  return (L + kScanChunk * seg_chunks - 1) / (kScanChunk * seg_chunks);
+}
+
+// Channels per block of the segment kernels: the largest of `cap`, cap / 2,
+// ..., 32 that divides D (D % 32 == 0).
+static inline int scan_block_channels(int D, int cap) {
+  int nc = cap;
+  while (D % nc) nc /= 2;
+  return nc;
+}
+
+// The constants of channel d of direction k that every step reads: its row
+// of wdt (R <= RMAX, kept in registers), dt_bias, A = -exp(A_logs), Ds.
+template <int RMAX>
+struct ScanChannel {
+  float w[RMAX];
+  float bias, A, Dd;
+
+  __device__ __forceinline__ ScanChannel(const float* __restrict__ wdt,
+                                         const float* __restrict__ dt_bias,
+                                         const float* __restrict__ A_logs,
+                                         const float* __restrict__ Ds, int k, int D, int d,
+                                         int R) {
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) w[r] = r < R ? wdt[((long)k * D + d) * R + r] : 0.f;
+    bias = dt_bias[k * D + d];
+    A = -expf(A_logs[k * D + d]);
+    Dd = Ds[k * D + d];
+  }
+
+  // dt before the softplus at one step: bias + dbc[:R] . wdt[k, d], the
+  // staged row db (16-byte aligned) read 16 bytes at a time; w[r] = 0 for
+  // r >= R, so the row's B and C in the last group add nothing
+  __device__ __forceinline__ float v(const float* db, int R) const {
+    static_assert(RMAX % 4 == 0, "rows are read as float4");
+    float v = bias;
+#pragma unroll
+    for (int r = 0; r < RMAX; r += 4) {
+      if (r < R) {
+        const float4 q = *reinterpret_cast<const float4*>(db + r);
+        v = fmaf(q.x, w[r], v);
+        v = fmaf(q.y, w[r + 1], v);
+        v = fmaf(q.z, w[r + 2], v);
+        v = fmaf(q.w, w[r + 3], v);
+      }
+    }
+    return v;
+  }
+};
+
+// Row stride of a (dt, B, C) row of C floats in shared memory (and of K8's
+// d_dbc rows): C rounded up to whole 16-byte groups.
+__host__ __device__ __forceinline__ int row_stride(int C) { return (C + 3) & ~3; }
+
+// Asynchronous copies of chunk [t0, t0 + n) of direction k of image b into
+// one stage buffer of the block: pix_s[t] = idx[k, t0 + t] and the C floats
+// dbc_s[t * row_stride(C) + c] = dbc_b[(pix_s[t] * K + k) * C + c].  Every
+// thread of the block takes part and commits one group (also when it
+// copies nothing).
+__device__ __forceinline__ void stage_scan_rows(int* pix_s, float* dbc_s,
+                                                const int* __restrict__ idx_k,
+                                                const float* __restrict__ dbc_b, int t0, int n,
+                                                int K, int k, int C) {
+  const int Cs = row_stride(C);
+  for (int i = threadIdx.x; i < n * C; i += blockDim.x) {
+    const int t = i / C, c = i - t * C;
+    const int pix = __ldg(idx_k + t0 + t);
+    if (c == 0) pix_s[t] = pix;
+    __pipeline_memcpy_async(dbc_s + t * Cs + c, dbc_b + ((long)pix * K + k) * C + c, 4);
+  }
+  __pipeline_commit();
+}
+
+// Steps whose inputs a scan thread holds in registers ahead of use: the
+// loads of the next kScanAhead steps are in flight while the current ones
+// compute, so a step does not wait on its own gather.
+constexpr int kScanAhead = 8;
+
+// v[i] = src[pix_s[t + i] * D + d] as fp32 for t + i < n, else 0.
+template <typename T>
+__device__ __forceinline__ void load_steps(float (&v)[kScanAhead], const T* __restrict__ src,
+                                           const int* pix_s, int t, int n, int D, int d) {
+#pragma unroll
+  for (int i = 0; i < kScanAhead; ++i)
+    v[i] = t + i < n ? to_f32(src[(long)pix_s[t + i] * D + d]) : 0.f;
+}
+
+// v[i] = src[pix_s[t - i] * D + d] as fp32 for t - i >= 0, else 0 (steps
+// taken backwards).
+template <typename T>
+__device__ __forceinline__ void load_steps_back(float (&v)[kScanAhead],
+                                                const T* __restrict__ src, const int* pix_s,
+                                                int t, int D, int d) {
+#pragma unroll
+  for (int i = 0; i < kScanAhead; ++i)
+    v[i] = t - i >= 0 ? to_f32(src[(long)pix_s[t - i] * D + d]) : 0.f;
+}
+
+// Shared-memory bytes of the two stage buffers of stage_scan_rows.
+static inline size_t scan_rows_smem(int C) {
+  return (size_t)2 * kScanChunk * (row_stride(C) * 4 + 4);
+}
 
 #define TRAMBA_DISPATCH_P(P, ...)        \
   switch (P) {                           \

@@ -7,7 +7,7 @@
 // (:1561, scan half) and _pair_phase2_rows_plain (:1612).  Those split each
 // direction into VMEM chunks with carries because a TPU grid runs in order on
 // one core.  Here every direction is one gather table idx[k, t] (the scan
-// order), and a direction's recurrence runs start to end inside one block.
+// order).
 //
 // K2 replaces the merge tails of _pair_phase2_rows_merge (:1561) and
 // _freq_merge_pallas (:1732) and the XLA _ln_gelu_proj (:478): gather the
@@ -22,25 +22,39 @@
 // it.  In bf16 the train variants are K1<bf16, carries> and K2<bf16, y_sum>,
 // instantiations of their own beside the inference ones.
 //
-// What bounds them on an H100: K1's scan is a chain of L dependent steps per
-// channel, so it is latency-bound and has only B*K*D/32 blocks of one warp;
-// it stages T steps of inputs in shared memory so that a chunk's loads are in
-// flight together.  K1's projection and K2 are small SIMT matrix products
-// (see common.cuh); K2 keeps the LayerNorm'd row in shared memory, so the
-// wide pre-projection tensor never reaches device memory.
+// What bounds them on an H100.  K1's scan is a first-order linear recurrence
+// h_t = a_t h_{t-1} + b_t per channel: L dependent steps (9,216 at 96 px).
+// One warp per (32 channels, k, b) walking them in order would run the
+// Tramba-V 96 px raster scan at B1 on 32 warps of 132 SMs, each step
+// waiting on the last.  So each direction is cut into S segments of whole
+// chunks (common.cuh; ~4,096 warps a launch, 4,608 at that shape) that run
+// at once in three steps:
+//   1. summary kernel: each segment but the last runs from h = 0 and writes
+//      its end state and its decay, the sum of delta * A (exp of it is the
+//      product of its a's);
+//   2. carry pass: each segment's block walks the summaries of the segments
+//      before it, one FMA each, in the output kernel's prologue: no third
+//      launch and no look-back between blocks;
+//   3. output kernel: the segment again from its true entry state, writing
+//      ys (and the train variant's chunk carries).
+// Running a segment twice doubles the softplus/exp work, a few microseconds
+// at these sizes.  A block holds up to 256 channels of one (b, k, segment),
+// so the chunk's (dt, B, C) rows and table entries are staged once for all
+// of them, and each thread holds its u kScanAhead steps ahead in registers.
+// What bounds it now is the bytes: x is read twice per direction and ys
+// written once (bound: chip_smoke.py's `bound`).  K1's projection and K2
+// are small SIMT matrix products (see common.cuh); K2 keeps the
+// LayerNorm'd row in shared memory, so the wide pre-projection tensor never
+// reaches device memory.
 //
 // bf16 (the rounding points of _small_pallas, fused_ss2d_small.py:150-228):
 // K1 reads a bf16 x and still projects (dt, B, C) in fp32 against the fp32
 // x_proj_weight, runs the fp32 state and writes fp32 ys.  K2 reads fp32 ys,
 // normalises in fp32, rounds the GELU output to bf16, multiplies it by a bf16
 // w_out with fp32 accumulation and writes bf16.
-#include <cuda_pipeline.h>
-
 #include "common.cuh"
 
 namespace {
-
-constexpr int kScanT = kScanChunk;  // scan steps per staged chunk (2 per lane)
 
 // dbc[m, n] = sum_d x[m, d] * wx[n, d]: the per-pixel (dt, B, C) projections
 // of all K directions at once (m = b*L + l, n = k*(R+2) + c).
@@ -61,143 +75,132 @@ __global__ void ss2d_proj_kernel(const T* __restrict__ x, const float* __restric
   }
 }
 
-// Asynchronous copies of chunk [t0, t0 + n) of direction k into one stage
-// buffer: u[t][lane] = x[b, pix_t, d] and dbc[t][:] = dbc[b, pix_t, k, :],
-// where pix_t = idx[k, t0 + t] is held in registers, t = lane (pix0) and
-// t = lane + 32 (pix1).  A copy moves 4, 8 or 16 bytes, so an fp32 u is one
-// channel per lane and a bf16 u a pair of channels per lane, two pixels per
-// step (lanes 0-15 and 16-31).
-__device__ __forceinline__ void stage_u(float* u_s, const float* x_b, int pix0, int pix1, int n,
-                                        int D, int d0) {
-  const int lane = threadIdx.x;
-#pragma unroll
-  for (int t = 0; t < kScanT; ++t) {
-    const int pix = __shfl_sync(0xffffffffu, t < 32 ? pix0 : pix1, t & 31);
-    if (t < n) __pipeline_memcpy_async(u_s + t * 32 + lane, x_b + (long)pix * D + d0 + lane, 4);
-  }
-}
-
-__device__ __forceinline__ void stage_u(bf16* u_s, const bf16* x_b, int pix0, int pix1, int n,
-                                        int D, int d0) {
-  const int lane = threadIdx.x, half = lane >> 4, c2 = 2 * (lane & 15);
-#pragma unroll
-  for (int t2 = 0; t2 < kScanT; t2 += 2) {
-    const int t = t2 + half;  // t2 even: t and t2 lie on one side of 32
-    const int pix = __shfl_sync(0xffffffffu, t2 < 32 ? pix0 : pix1, t & 31);
-    if (t < n) __pipeline_memcpy_async(u_s + t * 32 + c2, x_b + (long)pix * D + d0 + c2, 4);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void stage_chunk(T* u_s, float* dbc_s, const T* x_b,
-                                            const float* dbc_b, int pix0, int pix1, int n,
-                                            int D, int d0, int K, int k, int C) {
-  const int lane = threadIdx.x;
-  stage_u(u_s, x_b, pix0, pix1, n, D, d0);
-  for (int i = lane; i < kScanT * C; i += 32) {
-    const int t = i / C, c = i - t * C;
-    const int p0 = __shfl_sync(0xffffffffu, pix0, t & 31);
-    const int p1 = __shfl_sync(0xffffffffu, pix1, t & 31);
-    if (t < n) __pipeline_memcpy_async(dbc_s + i, dbc_b + ((long)(t < 32 ? p0 : p1) * K + k) * C + c, 4);
-  }
-  __pipeline_commit();
-}
-
-// One warp per (32 channels, direction k, batch b).  For t = 0..L-1:
-//   u = x[b, idx[k, t]],  delta = softplus(dbc[:R] . wdt[k, d] + bias),
+// The segmented scan, one thread per channel d of a block of NC channels of
+// direction k of image b, over the steps of segment s (blockIdx.x = s *
+// D / NC + channel block).  Step t of direction k (p = idx[k, t]):
+//   u = x[b, p, d],  delta = softplus(dbc[b, p, k, :R] . wdt[k, d] + bias),
 //   h = exp(delta * A) * h + delta * B * u,  ys[b, k, t, d] = C * h + Ds * u.
-// The inputs of each chunk of T steps arrive in shared memory by
-// asynchronous copies issued one chunk ahead (two stage buffers), so the
-// gathers overlap the previous chunk's recurrence.  A thread keeps its row of
-// wdt in registers (R <= RMAX), and the step loop is unrolled so that the
-// work that does not depend on h (dt, softplus, exp) of several steps
-// overlaps: only the one FMA on h is a chain from step to step.
-// Train variant (kCarries, a separate instantiation so that inference
-// compiles without it): also writes the fp32 state h entering each chunk,
-// carries[b, k, t0 / T, d] (h = 0 entering the first), from which the
-// backward (K8, ss2d_bwd.cu) recomputes a chunk's states.
-template <int RMAX, typename T, bool kCarries>
-__global__ void ss2d_scan_kernel(const T* __restrict__ x, const int* __restrict__ idx,
-                                 const float* __restrict__ dbc, const float* __restrict__ wdt,
-                                 const float* __restrict__ dt_bias,
-                                 const float* __restrict__ A_logs, const float* __restrict__ Ds,
-                                 float* __restrict__ ys, float* __restrict__ carries, int L,
-                                 int D, int K, int R) {
+// The block stages each chunk's table entries and (dt, B, C) rows in shared
+// memory one chunk ahead (cp.async, two buffers), so the rows are read once
+// for all NC channels; each thread reads its own u (NC neighbouring channels
+// of one pixel: one coalesced row), kScanAhead steps ahead into registers.
+// Only the FMA on h chains one step to the next.
+//   kMode 0 (summary): from h = 0, writes the segment's end state and
+//     sum of delta * A, summ[0 / 1][b, k, s, d]; launched for s < S - 1.
+//   kMode 1 (output): the carry pass first: the state entering segment s,
+//     h = sum over j < s of exp(summ[1][j]) * h + summ[0][j] in order, one
+//     FMA per segment; then the segment again from h, writing ys.
+//   kMode 2 (output, train variant): also writes the state entering each
+//     chunk, carries[b, k, chunk, d] (0 entering the first), from which the
+//     backward (K8, ss2d_bwd.cu) recomputes a chunk's states.
+template <int RMAX, typename T, int kMode>
+__global__ void __launch_bounds__(256)
+    ss2d_seg_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+                    const float* __restrict__ dbc, const float* __restrict__ wdt,
+                    const float* __restrict__ dt_bias, const float* __restrict__ A_logs,
+                    const float* __restrict__ Ds, float* __restrict__ summ,
+                    float* __restrict__ ys, float* __restrict__ carries, int B, int L, int D,
+                    int K, int R, int S, int seg_chunks) {
   extern __shared__ float4 smem4[];
-  const int C = R + 2;
-  T* u_s = reinterpret_cast<T*>(smem4);                          // [2][T][32]
-  float* dbc_s = reinterpret_cast<float*>(u_s + 2 * kScanT * 32);  // [2][T][C]
-  const int lane = threadIdx.x;
-  const int d0 = blockIdx.x * 32;
-  const int d = d0 + lane;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  float w[RMAX];
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) w[r] = r < R ? wdt[((long)k * D + d) * R + r] : 0.f;
-  const float bias = dt_bias[k * D + d];
-  const float A = -expf(A_logs[k * D + d]);
-  const float Dd = Ds[k * D + d];
+  const int C = R + 2, Cs = row_stride(C);
+  float* dbc_s = reinterpret_cast<float*>(smem4);        // [2][kScanChunk][Cs]
+  int* pix_s = reinterpret_cast<int*>(dbc_s + 2 * kScanChunk * Cs);  // [2][kScanChunk]
+  const int NC = blockDim.x, nblk = D / NC;
+  const int s = blockIdx.x / nblk;
+  const int d = (blockIdx.x - s * nblk) * NC + threadIdx.x;
+  const int k = blockIdx.y, b = blockIdx.z;
+  const ScanChannel<RMAX> ch(wdt, dt_bias, A_logs, Ds, k, D, d, R);
   const int* idx_k = idx + (long)k * L;
   const T* x_b = x + (long)b * L * D;
   const float* dbc_b = dbc + (long)b * L * K * C;
-  float* y_bk = ys + ((long)b * K + k) * L * D;
-  const int n_chunks = (L + kScanT - 1) / kScanT;
-  float* carry_bk = kCarries ? carries + ((long)b * K + k) * n_chunks * D : nullptr;
-  auto pix_at = [&](int t) { return t < L ? idx_k[t] : 0; };
-  stage_chunk(u_s, dbc_s, x_b, dbc_b, pix_at(lane), pix_at(32 + lane), min(kScanT, L), D, d0,
-              K, k, C);
-  int next0 = pix_at(kScanT + lane), next1 = pix_at(kScanT + 32 + lane);
-  float h = 0.f;
-  for (int t0 = 0, buf = 0; t0 < L; t0 += kScanT, buf ^= 1) {
-    const int n = min(kScanT, L - t0);
-    const int tn = t0 + kScanT;
-    if (tn < L) {
-      stage_chunk(u_s + (buf ^ 1) * kScanT * 32, dbc_s + (buf ^ 1) * kScanT * C, x_b, dbc_b,
-                  next0, next1, min(kScanT, L - tn), D, d0, K, k, C);
-      next0 = pix_at(tn + kScanT + lane);
-      next1 = pix_at(tn + kScanT + 32 + lane);
+  const long bk = (long)b * K + k;
+  const long plane = (long)B * K * S * D;  // one of the two summary maps
+  const int n_chunks = (L + kScanChunk - 1) / kScanChunk;
+  const int c0 = s * seg_chunks, c1 = min(n_chunks, c0 + seg_chunks);
+  float h = 0.f, sdA = 0.f;
+  if (kMode != 0) {
+    const float* hl = summ + bk * S * D + d;
+    const float* la = hl + plane;
+#pragma unroll 4
+    for (int j = 0; j < s; ++j) h = fmaf(expf(la[(long)j * D]), h, hl[(long)j * D]);
+  }
+  float* y_bk = ys + bk * L * D;
+  stage_scan_rows(pix_s, dbc_s, idx_k, dbc_b, c0 * kScanChunk,
+                  min(kScanChunk, L - c0 * kScanChunk), K, k, C);
+  for (int c = c0, buf = 0; c < c1; ++c, buf ^= 1) {
+    const int t0 = c * kScanChunk, n = min(kScanChunk, L - t0);
+    if (c + 1 < c1) {
+      const int tn = t0 + kScanChunk;
+      stage_scan_rows(pix_s + (buf ^ 1) * kScanChunk, dbc_s + (buf ^ 1) * kScanChunk * Cs, idx_k,
+                      dbc_b, tn, min(kScanChunk, L - tn), K, k, C);
       __pipeline_wait_prior(1);
     } else {
       __pipeline_wait_prior(0);
     }
-    __syncwarp();
-    if (kCarries) carry_bk[(long)(t0 / kScanT) * D + d] = h;
-    const T* us = u_s + buf * kScanT * 32;
-    const float* ds = dbc_s + buf * kScanT * C;
-#pragma unroll 4
-    for (int t = 0; t < n; ++t) {
-      const float* db = ds + t * C;
-      float dt = bias;
+    __syncthreads();
+    if (kMode == 2) carries[(bk * n_chunks + c) * D + d] = h;
+    const float* ds = dbc_s + buf * kScanChunk * Cs;
+    const int* ps = pix_s + buf * kScanChunk;
+    float u[kScanAhead], un[kScanAhead];
+    load_steps(u, x_b, ps, 0, n, D, d);
+    for (int tb = 0; tb < n; tb += kScanAhead) {
+      load_steps(un, x_b, ps, tb + kScanAhead, n, D, d);
 #pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < R) dt = fmaf(db[r], w[r], dt);
-      const float delta = softplus(dt);
-      const float u = to_f32(us[t * 32 + lane]);
-      h = fmaf(expf(delta * A), h, delta * db[R] * u);
-      y_bk[(long)(t0 + t) * D + d] = fmaf(h, db[R + 1], u * Dd);
+      for (int i = 0; i < kScanAhead; ++i) {
+        const int t = tb + i;
+        if (t < n) {
+          const float* db = ds + t * Cs;
+          const float delta = softplus(ch.v(db, R));
+          const float dA = delta * ch.A;
+          h = fmaf(expf(dA), h, delta * db[R] * u[i]);
+          if (kMode == 0) {
+            sdA += dA;
+          } else {
+            y_bk[(long)(t0 + t) * D + d] = fmaf(h, db[R + 1], u[i] * ch.Dd);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kScanAhead; ++i) u[i] = un[i];
     }
-    __syncwarp();  // this buffer is refilled by the next iteration's stage
+    __syncthreads();  // this buffer is refilled by the next iteration's stage
+  }
+  if (kMode == 0) {
+    summ[(bk * S + s) * D + d] = h;
+    summ[plane + (bk * S + s) * D + d] = sdA;
   }
 }
 
 template <int RMAX, typename T>
 cudaError_t launch_scan(const T* x, const int* idx, const float* dbc, const float* wdt,
-                        const float* dt_bias, const float* A_logs, const float* Ds, float* ys,
-                        float* carries, int B, int L, int D, int K, int R, cudaStream_t s) {
-  const size_t smem = (size_t)2 * kScanT * (32 * sizeof(T) + (R + 2) * 4);
-  auto kern = carries ? ss2d_scan_kernel<RMAX, T, true> : ss2d_scan_kernel<RMAX, T, false>;
+                        const float* dt_bias, const float* A_logs, const float* Ds, float* summ,
+                        float* ys, float* carries, int B, int L, int D, int K, int R,
+                        cudaStream_t s) {
+  const size_t smem = scan_rows_smem(R + 2);
+  const int per = scan_seg_chunks(B, L, D, K, kScanWarps), S = scan_segments(L, per);
+  const int nc = scan_block_channels(D, 256), nblk = D / nc;
+  if (S > 1) {
+    auto sum_kern = ss2d_seg_kernel<RMAX, T, 0>;
+    cudaError_t e = allow_smem(sum_kern, smem);
+    if (e != cudaSuccess) return e;
+    sum_kern<<<dim3((S - 1) * nblk, K, B), nc, smem, s>>>(
+        x, idx, dbc, wdt, dt_bias, A_logs, Ds, summ, ys, carries, B, L, D, K, R, S, per);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  auto kern = carries ? ss2d_seg_kernel<RMAX, T, 2> : ss2d_seg_kernel<RMAX, T, 1>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(D / 32, K, B), 32, smem, s>>>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, L,
-                                            D, K, R);
+  kern<<<dim3(S * nblk, K, B), nc, smem, s>>>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, summ, ys,
+                                             carries, B, L, D, K, R, S, per);
   return cudaGetLastError();
 }
 
 template <typename T>
 int scan_launch(const T* x, const int* idx, const float* wx, const float* wdt,
                 const float* dt_bias, const float* A_logs, const float* Ds, float* dbc,
-                float* ys, float* carries, int B, int L, int D, int K, int R, cudaStream_t s) {
+                float* summ, float* ys, float* carries, int B, int L, int D, int K, int R,
+                cudaStream_t s) {
   const long M = (long)B * L;
   const int C = R + 2, N = K * C;
   const int P = rows_per_block(M, D, kRowBudget);
@@ -210,12 +213,15 @@ int scan_launch(const T* x, const int* idx, const float* wx, const float* wdt,
     ss2d_proj_kernel<kP, T><<<proj_blocks, proj_threads, proj_smem, s>>>(x, wx, dbc, M, D, N);
   });
   TRAMBA_CHECK_LAUNCH();
+#define TRAMBA_SCAN(RM) \
+  launch_scan<RM>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, summ, ys, carries, B, L, D, K, R, s)
   cudaError_t e;
-  if (R <= 8) e = launch_scan<8>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, B, L, D, K, R, s);
-  else if (R <= 16) e = launch_scan<16>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, B, L, D, K, R, s);
-  else if (R <= 32) e = launch_scan<32>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, B, L, D, K, R, s);
-  else if (R <= 64) e = launch_scan<64>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, ys, carries, B, L, D, K, R, s);
+  if (R <= 8) e = TRAMBA_SCAN(8);
+  else if (R <= 16) e = TRAMBA_SCAN(16);
+  else if (R <= 32) e = TRAMBA_SCAN(32);
+  else if (R <= 64) e = TRAMBA_SCAN(64);
   else e = cudaErrorInvalidValue;
+#undef TRAMBA_SCAN
   return (int)e;
 }
 
@@ -301,22 +307,29 @@ const char* tramba_error_string(int code) { return cudaGetErrorString((cudaError
 // Steps per chunk of K1 and K8 (kScanChunk): the carries' stride.
 int ss2d_scan_chunk() { return kScanChunk; }
 
+// Steps per segment of K1's scan (bwd = 0) or K8's (bwd = 1) at these sizes
+// (the last segment may be shorter): the wrappers size the summaries and
+// K8's partial sums by the segments per direction, S = ceil(L / steps).
+int ss2d_scan_segment_steps(int B, int L, int D, int K, int bwd) {
+  return scan_seg_chunks(B, L, D, K, bwd ? kScanBwdWarps : kScanWarps) * kScanChunk;
+}
+
 // K1.  x (B, L, D) fp32 (bf16 = 0) or bf16 (bf16 = 1); idx (K, L) int32;
 // wx (K, R+2, D); wdt (K, D, R); dt_bias (K, D); A_logs (K, D); Ds (K, D);
-// dbc (B, L, K, R+2) (the projections, kept by training); ys (B, K, L, D);
-// carries (B, K, ceil(L / ss2d_scan_chunk()), D) or null (inference); all
-// fp32 but x.
-// D % 32 == 0, R <= 64.
+// dbc (B, L, K, R+2) (the projections, kept by training); summ (2, B, K, S,
+// D) scratch, S = ceil(L / ss2d_scan_segment_steps(B, L, D, K, 0)); ys
+// (B, K, L, D); carries (B, K, ceil(L / ss2d_scan_chunk()), D) or null
+// (inference); all fp32 but x.  D % 32 == 0, R <= 64.
 int ss2d_scan_launch(const void* x, const int* idx, const float* wx, const float* wdt,
                      const float* dt_bias, const float* A_logs, const float* Ds, float* dbc,
-                     float* ys, float* carries, int B, int L, int D, int K, int R, int bf16_x,
-                     void* stream) {
+                     float* summ, float* ys, float* carries, int B, int L, int D, int K, int R,
+                     int bf16_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_x)
-    return scan_launch(static_cast<const bf16*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, ys,
-                       carries, B, L, D, K, R, s);
-  return scan_launch(static_cast<const float*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, ys,
-                     carries, B, L, D, K, R, s);
+    return scan_launch(static_cast<const bf16*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, summ,
+                       ys, carries, B, L, D, K, R, s);
+  return scan_launch(static_cast<const float*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, summ,
+                     ys, carries, B, L, D, K, R, s);
 }
 
 // K2.  ys (B, K, L, D) fp32; inv (K, Mslots, L) int32; ln_w, ln_b (D) fp32;

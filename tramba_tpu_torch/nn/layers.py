@@ -16,7 +16,9 @@ under autograd their backwards K9 and K10.  ``flax_dense`` and
 ``nn.Dense`` / ``nn.Conv`` in a compute dtype, for the composed parts of the
 PVTv2 and Swin encoders.  ``BatchNorm`` is flax's ``nn.BatchNorm`` (the
 ResNet-50 encoder's): fp32 statistics, the running variance updated with
-the biased batch variance.
+the biased batch variance, and under data parallelism
+(:func:`sync_batch_norms`) the statistics of the whole global batch, as
+JAX's SPMD step takes them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import fused_mlp
 from tramba_tpu_torch.ops.fused_expand import expand_ln, final_head, pixel_shuffle
+from tramba_tpu_torch.parallel.mesh import Axis, reduce_shared
 
 __all__ = [
     "COMPUTE_DTYPES",
@@ -41,6 +44,7 @@ __all__ = [
     "flax_dense",
     "DropPath",
     "set_drop_path_generator",
+    "sync_batch_norms",
     "Mlp",
     "DWConv",
     "DWMSMlp",
@@ -86,7 +90,18 @@ class BatchNorm(nn.Module):
     computes them.  ``train()``: batch statistics, and the running ones move
     by ``0.9 r + 0.1 s`` with the *biased* batch variance, as flax updates
     them (``torch.nn.BatchNorm2d`` takes the unbiased one, n / (n - 1)
-    larger); ``eval()``: the running statistics."""
+    larger); ``eval()``: the running statistics.
+
+    ``data_axis`` (set by :func:`sync_batch_norms`): the data axis of the
+    process grid.  Above one process, ``train()`` takes the statistics of
+    the global batch, as JAX's jitted SPMD step does: each process's fp32
+    per-channel sum, sum of squares and count are all-reduced over the data
+    group (``mesh.reduce_shared``, whose adjoint all-reduces the cotangent,
+    since every process normalises its own slice with the shared sums), then
+    the mean and biased variance E[x^2] - E[x]^2 (flax's fast variance)
+    normalise and move the running statistics, the same on every process.
+    ``torch.nn.SyncBatchNorm`` would move the running variance by the
+    unbiased variance."""
 
     MOMENTUM, EPS = 0.9, 1e-5
 
@@ -96,10 +111,13 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
+        self.data_axis: Axis | None = None
 
     def forward(self, x):
         xf = x.float().permute(0, 3, 1, 2)
-        if self.training:
+        if self.training and self.data_axis is not None and self.data_axis.size > 1:
+            y = self._global_batch_norm(xf)
+        elif self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
                 self.running_mean.lerp_(mean, 1 - self.MOMENTUM)
@@ -109,6 +127,30 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.EPS)
         return y.permute(0, 2, 3, 1).to(x.dtype)
+
+    def _global_batch_norm(self, xf):
+        """Batch norm of this process's NCHW slice with the data group's
+        statistics."""
+        C = xf.shape[1]
+        local = torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                             xf.new_full((C,), xf.numel() // C)])
+        total, sq, count = reduce_shared(local, self.data_axis)
+        mean = total / count
+        var = (sq / count - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, 1 - self.MOMENTUM)
+            self.running_var.lerp_(var, 1 - self.MOMENTUM)
+        shape = (1, C, 1, 1)
+        scale = torch.rsqrt(var + self.EPS) * self.weight
+        return (xf - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+
+
+def sync_batch_norms(module: nn.Module, axis: Axis | None) -> None:
+    """Give every ``BatchNorm`` of ``module`` the data axis over which its
+    ``train()`` statistics are taken (None: this process's batch alone)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.data_axis = axis
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

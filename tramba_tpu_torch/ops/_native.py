@@ -36,11 +36,12 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _LP = ctypes.POINTER(ctypes.c_long)
 # C signature of each launcher: pointers, ints, then the stream
 _SIGNATURES = {
-    "ss2d_scan_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "ss2d_scan_launch": [_P] * 11 + [_I] * 6 + [_P],
+    "ss2d_scan_segment_steps": [_I] * 5,
     "ss2d_merge_launch": [_P] * 7 + [_I] * 7 + [_P],
     "ss2d_scan_chunk": [],
     "ss2d_scan_bwd_rows": [],
-    "ss2d_scan_bwd_launch": [_P] * 22 + [_I] * 7 + [_P],
+    "ss2d_scan_bwd_launch": [_P] * 23 + [_I] * 7 + [_P],
     "expand_ln_launch": [_P] * 5 + [_I] * 6 + [_P],
     "final_head_launch": [_P] * 7 + [_L, _I, _I, _P],
     "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _F, _P],

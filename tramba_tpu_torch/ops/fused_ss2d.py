@@ -51,7 +51,7 @@ from tramba_tpu_torch.ops.selective_scan import linear_scan, linear_scan_ref
 __all__ = ["composed_ss2d_core", "ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref",
            "ss2d_scan_train_ref", "ss2d_merge", "ss2d_merge_ref", "ss2d_merge_train_ref",
            "ss2d_scan_bwd", "ss2d_scan_bwd_ref", "SS2DCore", "ss2d_full", "SCAN_CHUNK",
-           "scan_chunk"]
+           "scan_chunk", "scan_segment_steps"]
 
 SCAN_CHUNK = 64  # the plain versions' default carry stride; the kernels' is scan_chunk()
 
@@ -60,6 +60,14 @@ def scan_chunk() -> int:
     """Steps per chunk of K1 and K8, the carries' stride, as the built
     library defines it (``kScanChunk`` in ``csrc/common.cuh``)."""
     return _native.library().ss2d_scan_chunk()
+
+
+def scan_segment_steps(B: int, L: int, D: int, K: int, bwd: bool = False) -> int:
+    """Steps per segment of K1's scan (or, with ``bwd``, K8's) at these
+    sizes, as the built library cuts each direction (``scan_seg_chunks`` in
+    ``csrc/common.cuh``): a whole number of :func:`scan_chunk` chunks, the
+    last segment shorter where L ends it."""
+    return _native.library().ss2d_scan_segment_steps(B, L, D, K, int(bwd))
 
 
 def _check_table(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -255,12 +263,15 @@ def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, *, emit=False):
             or dt_b.numel() != K * D or A_logs.numel() != K * D or Ds.numel() != K * D):
         raise ValueError("ss2d_scan: parameter shapes do not match x and x_proj_w")
     dbc = torch.empty(B, L, K, C, device=x.device, dtype=torch.float32)
+    summ = torch.empty(2, B, K, -(-L // scan_segment_steps(B, L, D, K)), D, device=x.device,
+                       dtype=torch.float32)
     ys = torch.empty(B, K, L, D, device=x.device, dtype=torch.float32)
     carries = (torch.empty(B, K, -(-L // scan_chunk()), D, device=x.device,
                            dtype=torch.float32) if emit else None)
     _native.launch("ss2d_scan_launch", x.data_ptr(), idx.data_ptr(), x_proj_w.data_ptr(),
                    dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
-                   dbc.data_ptr(), ys.data_ptr(), carries.data_ptr() if emit else None,
+                   dbc.data_ptr(), summ.data_ptr(), ys.data_ptr(),
+                   carries.data_ptr() if emit else None,
                    B, L, D, K, R, int(x.dtype == torch.bfloat16), _native.stream_handle(x))
     ss2d_scan.launches += 1
     return (ys, carries, dbc) if emit else ys
@@ -318,16 +329,19 @@ def ss2d_scan_bwd(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, 
             or tuple(dt_w.shape) != (K, D, R) or dt_b.numel() != K * D
             or A_logs.numel() != K * D or Ds.numel() != K * D):
         raise ValueError("ss2d_scan_bwd: shapes do not match x, idx and x_proj_w")
-    lib = _native.library()
-    chunks = -(-B * L // lib.ss2d_scan_bwd_rows())
+    chunks = -(-B * L // _native.library().ss2d_scan_bwd_rows())
+    S = -(-L // scan_segment_steps(B, L, D, K, bwd=True))
 
     def f32(*shape):
         return torch.empty(*shape, device=x.device, dtype=torch.float32)
 
     dx = torch.empty(B, L, D, device=x.device, dtype=x.dtype)
-    dwx, dwdt, sums = f32(K, C, D), f32(K, D, R), f32(3, B, K, D)
-    scratch = (f32(B, K, L, D), f32(B, K, L, D), f32(B, K, L, D // 32), f32(B, K, L, D // 32),
-               f32(B, K, L, C), f32(chunks, K, C, D), f32(chunks, K, D, R))
+    dwx, dwdt, sums = f32(K, C, D), f32(K, D, R), f32(3, B * S, K, D)
+    # summaries, dxs, ddt, dB / dC partials, d_dbc (rows padded to 16 bytes),
+    # the weight partials
+    scratch = (f32(2, B, K, S, D), f32(B, K, L, D), f32(B, K, L, D), f32(B, K, L, D // 32),
+               f32(B, K, L, D // 32), f32(B, K, L, -(-C // 4) * 4), f32(chunks, K, C, D),
+               f32(chunks, K, D, R))
     _native.launch("ss2d_scan_bwd_launch", x.data_ptr(), idx.data_ptr(), inv.data_ptr(),
                    g_y.data_ptr(), carries.data_ptr(), dbc.data_ptr(), x_proj_w.data_ptr(),
                    dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
@@ -335,7 +349,8 @@ def ss2d_scan_bwd(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, 
                    *(t.data_ptr() for t in scratch), B, L, D, K, R, inv.shape[1],
                    int(x.dtype == torch.bfloat16), _native.stream_handle(x))
     ss2d_scan_bwd.launches += 1
-    # per-image sums of the (K, D) partials, as _full_bwd sums them in XLA (:1081)
+    # the per-image, per-segment (K, D) partials summed in a fixed order, as
+    # _full_bwd sums the per-image ones in XLA (:1081)
     dbias, dA, dDs = sums.sum(1)
     return dx, dwx, dwdt, dbias, dA * -torch.exp(A_logs.reshape(K, D)), dDs
 

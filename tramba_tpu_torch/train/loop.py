@@ -10,7 +10,8 @@ numpy-only modules (``data/pipeline.py``, ``eval/metrics.py``).
 Data parallelism (``:148-160``, ``:243-269``, ``:322``) engages by itself
 when ``torch.distributed`` holds more than one process (``run.py`` sets it up,
 ``parallel/distributed.py``): the model is wrapped in DDP over the data
-group, ``--batch_size`` stays the global batch and each process loads its
+group (and Tramba-R's BatchNorms take the global batch's statistics over
+it), ``--batch_size`` stays the global batch and each process loads its
 slice of it (the loader drops a ragged last batch, so every slice is full
 and DDP's mean of the per-process mean losses is the global mean), and rank
 0 alone evaluates and writes the record, TensorBoard, best-MAE and resume
@@ -37,7 +38,7 @@ from tramba_tpu_torch.compat.torch_weights import (graft_pvt_encoder, graft_resn
 from tramba_tpu_torch.data.pipeline import BatchLoader, SODDataset
 from tramba_tpu_torch.eval.metrics import SODMetrics
 from tramba_tpu_torch.models.registry import build
-from tramba_tpu_torch.nn.layers import set_drop_path_generator
+from tramba_tpu_torch.nn.layers import set_drop_path_generator, sync_batch_norms
 from tramba_tpu_torch.parallel.mesh import Axis, make_grid
 from tramba_tpu_torch.train import checkpoint as ckpt
 from tramba_tpu_torch.train.optim import fast_forward_schedule, make_optimizer, step_decay_schedule
@@ -153,6 +154,7 @@ def fit(args, model: torch.nn.Module, train_loader, device, tb_writer=None,
 
     stepped = model
     if data is not None and data.size > 1:
+        sync_batch_norms(model, data)  # global-batch statistics, as JAX's SPMD step
         stepped = torch.nn.parallel.DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda" else None,
             process_group=data.group)
