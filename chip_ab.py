@@ -8,11 +8,13 @@ parent commit unpacked with ``git archive`` into a directory that
 change, change, parent compares two trees on one card), this runs that
 tree's ``chip_smoke.py`` from its root, so each tree builds its own kernels
 and times them with its own code, and reads the times it prints: ms per
-forward (phase 6), ms per train step (phase 8), and each SS2D scan kernel's
-ms at each shape phase 3 checks it (K1 ``ss2d_scan``, K8
-``ss2d_scan_bwd``, beside the bound the run computed).  Then tables of the
-runs side by side, with the card's ``name, power.limit``.  ``--logs DIR`` keeps
-each run's whole output.  Exits with the first failing run's code.
+forward (phase 6), ms per train step (phase 8), and the ms of K1
+``ss2d_scan``, K8 ``ss2d_scan_bwd``, K2 ``ss2d_merge`` and K6 ``ln_mlp`` at
+each shape phase 3 checks them, beside the bound the run computed and,
+where the tree prints it, the time of the kernel's matrix products alone as
+torch.matmul (``gemm``).  Then tables of the runs side by side, with the
+card's ``name, power.limit``.  ``--logs DIR`` keeps each run's whole output.
+Exits with the first failing run's code.
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ import sys
 
 TIMES = (re.compile(r"^Tramba-V-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
          re.compile(r"^Tramba-V-TSOD 384px (\w+ train) step (B\d+): ([\d.]+) ms/step"))
-# phase 3's line of a scan kernel: name, tag, shape, ..., kernel ms, plain ms, bound ms
-SCAN = re.compile(r"^(ss2d_scan(?:_bwd)?)\s+((?:fp32|bf16)(?: train)?)\s+(\S.*?)\s+"
-                  r"max_abs_err .* kernel ([\d.]+) ms plain [\d.]+ ms bound ([\d.]+) ms")
+# phase 3's line of a tabulated kernel: name, tag, shape, ..., kernel ms, plain
+# ms, bound ms (bound by), and gemm ms where printed
+KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|ln_mlp)\s+((?:fp32|bf16)(?: train)?)\s+"
+                     r"(\S.*?)\s+max_abs_err .* kernel ([\d.]+) ms plain [\d.]+ ms "
+                     r"bound ([\d.]+) ms \(\w+\)(?: gemm ([\d.]+) ms)?")
 
 
 def times(stdout: str) -> dict:
@@ -41,12 +45,14 @@ def times(stdout: str) -> dict:
     return out
 
 
-def scan_times(stdout: str) -> dict:
-    """{(kernel, tag, shape): (ms, bound_ms)} of phase 3's K1 and K8 lines."""
+def kernel_times(stdout: str) -> dict:
+    """{(kernel, tag, shape): (ms, bound_ms, gemm_ms or nan)} of phase 3's
+    K1, K8, K2 and K6 lines."""
     out = {}
     for line in stdout.splitlines():
-        if m := SCAN.match(line):
-            out[m[1], m[2], m[3]] = (float(m[4]), float(m[5]))
+        if m := KERNELS.match(line):
+            out[m[1], m[2], m[3]] = (float(m[4]), float(m[5]),
+                                     float(m[6]) if m[6] else float("nan"))
     return out
 
 
@@ -71,19 +77,19 @@ def main(argv=None) -> int:
             print(f"{tree}: chip_smoke.py exited {res.returncode}\n{res.stdout[-2000:]}\n"
                   f"{res.stderr[-4000:]}", file=sys.stderr)
             return res.returncode
-        runs.append((tree, times(res.stdout), scan_times(res.stdout)))
+        runs.append((tree, times(res.stdout), kernel_times(res.stdout)))
         print(f"run {i} {tree}: {runs[-1][1]}", flush=True)
     print(f"ms per forward or step, runs in order [{card}]")
     for key in runs[0][1]:
         print(f"{key:14s} " + "  ".join(f"{tree}: {t.get(key, float('nan')):.2f}"
                                         for tree, t, _ in runs))
-    print(f"scan kernels: ms per call (bound ms), runs in order [{card}]")
+    print(f"kernels: ms per call (bound ms; gemm ms), runs in order [{card}]")
     keys = list(dict.fromkeys(k for _, _, sc in runs for k in sc))
     for key in keys:
         cells = []
         for tree, _, sc in runs:
-            ms, bound = sc.get(key, (float("nan"), float("nan")))
-            cells.append(f"{tree}: {ms:.4f} ({bound:.4f})")
+            ms, bound, gemm = sc.get(key, (float("nan"),) * 3)
+            cells.append(f"{tree}: {ms:.4f} ({bound:.4f}; {gemm:.4f})")
         print(f"{' '.join(key):48s} " + "  ".join(cells))
     return 0
 

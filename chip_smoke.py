@@ -38,9 +38,20 @@ Phases, each of which must pass (any failure exits non-zero):
                (ops/scan_segments.py) at the kernels' own segment length
                passing the same check and, with the carry between
                segments dropped, failing it, and K8's launches by kernel
-               name (torch.profiler); errors, times, and
-               each kernel's bound (bytes over the HBM rate or, per type of
-               operation, its count over that type's peak rate: the largest)
+               name (torch.profiler); K2 ss2d_merge (fp32 and bf16, both
+               variants, K = 1 / 4 / 8, at every shape above) and K6 ln_mlp
+               (every d) each launched twice and compared bit for bit, each
+               shape also holding its plain version with planted faults to
+               the same check, which it must fail (K2: the last direction
+               left out of the gather; the last 16 channels of D left out
+               of the product; K6: the last 64 hidden units, one
+               warpgroup's slice of its last chunk, left out), and each
+               printed beside its matrix products alone as torch.matmul on
+               the same operands ("gemm": a reference for what the tensor
+               cores give at that shape, never called by the port); errors,
+               times, and each kernel's bound (bytes over the HBM rate or,
+               per type of operation, its count over that type's peak
+               rate: the largest)
   4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD, Tramba-S-TSOD and
                Tramba-R-TSOD at
                384px, seeded weights, batch 2 on the card, each in fp32
@@ -307,12 +318,15 @@ class Checks:
         self.rows = {}
 
     def compare(self, name, dt, label, kernel, plain, reps, inputs, flops, plain_warmup=1,
-                tag=None, rel_tol=None):
+                tag=None, rel_tol=None, gemm=None):
         """``kernel`` and ``plain`` return a tensor or a tuple of tensors.  With
         ``rel_tol`` each output's max abs error must be <= rel_tol x its
         largest magnitude; else assert_close at the dtype's tolerance.
         ``inputs`` (the kernel's tensors) and ``flops`` (:func:`ops`) give the
-        call's bound."""
+        call's bound.  ``gemm``: the kernel's matrix products alone as
+        torch.matmul calls on the same operands, timed beside it as a
+        reference for what the tensor cores give at that shape (the port
+        never calls it)."""
         tag = tag or NAMES[dt]
         got = kernel()
         plain_ms = None
@@ -349,12 +363,13 @@ class Checks:
         ms = cuda_ms(kernel, reps)
         if plain_ms is None:
             plain_ms = cuda_ms(plain, 1, warmup=plain_warmup)
+        gemm_ms = f" gemm {cuda_ms(gemm, reps):.4f} ms" if gemm is not None else ""
         self.rows.setdefault((name, tag), []).append((label, err, ms, plain_ms, bound_ms,
                                                       bound_by))
         what = "err/max|plain|" if rel_tol is not None else "max_rel_err"
         print(f"{name:15s} {tag:10s} {label:34s} max_abs_err {err:.3e} {what} {rel:.3e} "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
+              f"({bound_by}){gemm_ms}", flush=True)
 
     @staticmethod
     def planted(name, label, want, faults, tol=KERNEL_TOL_BF16, rel_tol=None):
@@ -444,6 +459,72 @@ def merge_ops(ys, w_out):
     return ops(w_out.dtype, 2 * B * L * D * w_out.shape[0], (K + 10) * B * L * D)
 
 
+def check_merge(checks, dt, label, shape, inv, tail, emit=False, tag=None):
+    """K2 (``emit``: its train variant) on direction outputs ys of ``shape``
+    (B, K, L, D) against its plain version, timed beside the out projection
+    alone as torch.matmul on the same operands (the GELU'd rows in w_out's
+    dtype); two launches give the same bits; and the check must reject the
+    plain version with the last direction left out of the gather (its table
+    entries emptied) and, separately, with the last 16 channels of D left
+    out of the product.  ys is N(0, 1) and w_out (tail[2]'s shape and dtype)
+    N(0, 1 / D), so the output is O(1) and each direction's share of the sum
+    shows: an SS2D's own ys carry the skip term Ds x, the same in every
+    direction, so without one direction the sum mostly shrinks, which the
+    LayerNorm undoes, and the fault would hide under bf16's tolerance."""
+    from tramba_tpu_torch.ops import fused_ss2d as tf
+
+    ref = tf.ss2d_merge_train_ref if emit else tf.ss2d_merge_ref
+    B, K, L, D = shape
+    gen = torch.Generator().manual_seed(B * K * L + D)
+    ys = torch.randn(shape, generator=gen).to(inv.device)
+    w_out = (torch.randn(tail[2].shape, generator=gen) * D ** -0.5).to(inv.device, tail[2].dtype)
+    tail = (tail[0], tail[1], w_out)
+    a = torch.nn.functional.gelu(torch.nn.functional.layer_norm(
+        tf._merge_sum(ys, inv), (D,), tail[0], tail[1], 1e-5)).to(w_out.dtype).reshape(B * L, D)
+    checks.compare("ss2d_merge", dt, label, lambda: tf.ss2d_merge(ys, inv, *tail, emit_ysum=emit),
+                   lambda: ref(ys, inv, *tail), reps=5, inputs=(ys, inv, *tail),
+                   flops=merge_ops(ys, w_out), tag=tag, gemm=lambda: a @ w_out.t())
+    del a
+    first, second = ((o if emit else (o,)) for o in
+                     (tf.ss2d_merge(ys, inv, *tail, emit_ysum=emit) for _ in range(2)))
+    if not all(torch.equal(p, q) for p, q in zip(first, second)):
+        raise AssertionError(f"ss2d_merge {label}: two launches differ")
+    del first, second
+    no_dir = inv.clone()
+    no_dir[K - 1] = L  # the last direction's entries: none
+    part = w_out.clone()
+    part[:, D - 16:] = 0  # the last 16 channels out of the product
+    tol = KERNEL_TOL_BF16 if w_out.dtype == torch.bfloat16 else KERNEL_TOL
+    checks.planted("ss2d_merge", label, ref(ys, inv, *tail), {
+        "no last direction": lambda: ref(ys, no_dir, *tail),
+        "no last 16 of D": lambda: ref(ys, inv, *tail[:2], part)}, tol=tol)
+
+
+def check_ln_mlp(checks, label, args, flops):
+    """K6 against its plain version, timed beside its two products alone as
+    torch.matmul on the same bf16 operands (bf16(LN(x)) w1^T and the GELU'd
+    hidden rows w2^T); two launches give the same bits; and the check must
+    reject the plain version with the last hidden chunk (the last 64 hidden
+    units, one warpgroup's slice of K6's last chunk) left out."""
+    from tramba_tpu_torch.ops import fused_mlp as tm
+
+    x, ln_w, ln_b, w1, b1, w2, b2 = args
+    d, hid = x.shape[-1], w1.shape[0]
+    y = torch.nn.functional.layer_norm(x.float(), (d,), ln_w, ln_b, 1e-5).to(x.dtype)
+    y = y.reshape(-1, d)
+    h = torch.nn.functional.gelu((y.float() @ w1.float().t()) + b1).to(x.dtype)
+    checks.compare("ln_mlp", torch.bfloat16, label, lambda: tm.ln_mlp(*args),
+                   lambda: tm.ln_mlp_ref(*args), reps=10, inputs=args, flops=flops,
+                   gemm=lambda: (y @ w1.t(), h @ w2.t()))
+    del y, h
+    if not torch.equal(tm.ln_mlp(*args), tm.ln_mlp(*args)):
+        raise AssertionError(f"ln_mlp {label}: two launches differ")
+    short = w2.clone()
+    short[:, hid - 64:] = 0
+    checks.planted("ln_mlp", label, tm.ln_mlp_ref(*args), {
+        "no last chunk": lambda: tm.ln_mlp_ref(x, ln_w, ln_b, w1, b1, short, b2)})
+
+
 def scan_bwd_ops(x, core):
     """K8: K1's projections recomputed, their two adjoints and the weight
     products (three times K1's), and about 30 fp32 operations per step."""
@@ -471,10 +552,7 @@ def check_train_kernels(checks, dev, gen, dt, shapes=SS2D_SHAPES):
                        inputs=(x, idx, *core), flops=scan_ops(x, core), plain_warmup=0, tag=tag)
         ys, carries, dbc = tf.ss2d_scan_train_ref(x, idx, *core, chunk)
         tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data.to(dt))
-        checks.compare("ss2d_merge", None, label,
-                       lambda: tf.ss2d_merge(ys, inv, *tail, emit_ysum=True),
-                       lambda: tf.ss2d_merge_train_ref(ys, inv, *tail), reps=5,
-                       inputs=(ys, inv, *tail), flops=merge_ops(ys, tail[2]), tag=tag)
+        check_merge(checks, None, label, ys.shape, inv, tail, emit=True, tag=tag)
         g_y = torch.randn(x.shape, generator=gen).to(dev, dt)
         args = (x, idx, inv, g_y, carries, dbc, *core)
         checks.compare("ss2d_scan_bwd", None, label, lambda: tf.ss2d_scan_bwd(*args),
@@ -640,11 +718,8 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
         checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
                        lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5, inputs=(x, idx, *core),
                        flops=scan_ops(x, core), plain_warmup=0)
-        ys = tf.ss2d_scan(x, idx, *core)
         tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data.to(dt))
-        checks.compare("ss2d_merge", dt, label, lambda: tf.ss2d_merge(ys, inv, *tail),
-                       lambda: tf.ss2d_merge_ref(ys, inv, *tail), reps=5,
-                       inputs=(ys, inv, *tail), flops=merge_ops(ys, tail[2]))
+        check_merge(checks, dt, label, (B, idx.shape[0], H * H, x.shape[-1]), inv, tail)
     for H, C, f in expand_shapes:
         m = init_weights(_Expand(C, f), gen).to(dev)
         x = torch.randn(B, H, H, C, generator=gen).to(dev, dt)
@@ -717,9 +792,8 @@ def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES):
         args = (rnd(B, H * H, d).to(bf), *ln(d), m.fc1.weight.data.to(bf), rnd(4 * d, scale=0.1),
                 m.fc2.weight.data.to(bf), rnd(d, scale=0.1))
         M = B * H * H
-        checks.compare("ln_mlp", bf, f"{H}px B{B} d{d} hid{4 * d}", lambda: tm.ln_mlp(*args),
-                       lambda: tm.ln_mlp_ref(*args), reps=10, inputs=args,
-                       flops=ops(bf, 4 * M * d * 4 * d, 10 * M * 4 * d))
+        check_ln_mlp(checks, f"{H}px B{B} d{d} hid{4 * d}", args,
+                     ops(bf, 4 * M * d * 4 * d, 10 * M * 4 * d))
     for H, d in shapes["ln_dwms_mlp"]:
         m = init_weights(DWMSMlp(d, 4 * d), gen).to(dev)
         convs = [t for c in (m.dwc3, m.dwc5, m.dwc7)
@@ -762,14 +836,10 @@ def check_lgp(checks, dev, gen):
         return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
 
     for dt in (torch.float32, torch.bfloat16):
-        ys = rnd(B, 1, L, D).to(dt).float()
         inv = torch.arange(L, dtype=torch.int32, device=dev).reshape(1, 1, L)
         tail = (rnd(D, scale=0.1, shift=1.0), rnd(D, scale=0.1),
-                rnd(dm, D, scale=D ** -0.5).to(dt))
-        checks.compare("ss2d_merge", dt, f"lgp 24px B{B} K1 D{D}",
-                       lambda: tf.ss2d_merge(ys, inv, *tail),
-                       lambda: tf.ss2d_merge_ref(ys, inv, *tail), reps=5,
-                       inputs=(ys, inv, *tail), flops=merge_ops(ys, tail[2]))
+                torch.empty(dm, D, device=dev, dtype=dt))  # w_out: check_merge draws it
+        check_merge(checks, dt, f"lgp 24px B{B} K1 D{D}", (B, 1, L, D), inv, tail)
 
 
 # Tramba-P's and Tramba-S's encoder kernels at every 384 px main-path shape:
@@ -1015,7 +1085,7 @@ GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
           ("ln_dwmlp_kernel", "K11 ln_dwmlp"),
           ("proj_in_kernel", "K12/K13 (1) input projection"),
           ("attn_kernel", "K12/K13 (2) attention + out projection"),
-          ("ln_rows_kernel", "LayerNorm launch of K5-K7, K11-K13"),
+          ("ln_rows_kernel", "LayerNorm launch of K5, K7, K11-K13"),
           ("finish_split_kernel", "split sums of K6/K7"),
           ("layer_norm", "LayerNorm (torch)"), ("softmax", "softmax (torch)"),
           ("dgrad", "conv backward (cuDNN)"), ("wgrad", "conv backward (cuDNN)"),

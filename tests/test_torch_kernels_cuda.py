@@ -216,6 +216,69 @@ def test_ln_mlp_matches_plain(dev, B, L, d, hid):
     torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
 
 
+# ---- K2 and K6 at the redesign's ragged and odd shapes ----------------------
+#
+# K2 takes a tile of 16 to 64 pixels and 128 output columns per column tile,
+# a lane up to 16 groups of 4 channels; K6 64 rows, 64-column output tiles
+# (d 320 padded to 384, d 1024 in two column groups) and hidden chunks of
+# 64 or 128, split over blocks at small M.  These shapes leave every edge
+# ragged: pixels past the last tile, dm and hid not multiples of the tiles,
+# a table of many slots, one direction, the widest D.
+
+
+@pytest.mark.parametrize("kind,H,param,D,dm,B,emit", [
+    ("line", 24, 0, 640, 320, 1, False), ("line", 13, 0, 96, 72, 2, True),
+    ("raster", 11, 0, 2048, 1000, 1, False), ("raster", 12, 0, 2048, 1024, 1, True),
+    ("window", 16, 8, 1024, 512, 1, False), ("identity", 7, 0, 40, 24, 2, False)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_merge_redesign_shapes(dev, dt, kind, H, param, D, dm, B, emit):
+    """K2 vs ss2d_merge_ref / ss2d_merge_train_ref; two launches give the
+    same bits."""
+    gen = torch.Generator().manual_seed(D + dm)
+    L = H * H
+    if kind == "identity":  # _lgp_pallas: K = 1, one slot
+        inv = torch.arange(L, dtype=torch.int32).reshape(1, 1, L)
+    else:
+        inv = order_tables(kind, H, H, param, "cpu")[1]
+    ys = _rand(gen, B, inv.shape[0], L, D)
+    p = _ss2d_params(gen, 1, D, 2, dm)
+    tail = (p["ln_w"], p["ln_b"], (p["w_out"] * D ** -0.5).to(dt))
+    ref = tf.ss2d_merge_train_ref if emit else tf.ss2d_merge_ref
+    want = ref(ys, inv, *tail)
+    args = (ys.to(dev), inv.to(dev), *(t.to(dev) for t in tail))
+    got, again = (tf.ss2d_merge(*args, emit_ysum=emit) for _ in range(2))
+    torch.cuda.synchronize()
+    want, got, again = ((o if emit else (o,)) for o in (want, got, again))
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dt and torch.equal(g, a)
+        torch.testing.assert_close(g.cpu().float(), w.float(),
+                                   **(TOL_BF16 if dt == torch.bfloat16 else TOL))
+
+
+@pytest.mark.parametrize("M,d,hid", [(144, 64, 256), (144, 320, 1280), (300, 1024, 4096),
+                                     (77, 256, 1024), (1000, 512, 2048), (576, 512, 2048),
+                                     (129, 128, 512)])
+def test_ln_mlp_redesign_shapes(dev, M, d, hid):
+    """K6 (LayerNorm folded in) vs ln_mlp_ref at the guides' widths, a 12 px
+    map at batch 1 (144 rows), ragged row tiles and split hidden chunks; two
+    launches give the same bits, and no separate LayerNorm launch is made."""
+    gen = torch.Generator().manual_seed(M + d)
+    x = _rand(gen, M, d).to(torch.bfloat16)
+    ln = [_rand(gen, d, scale=0.1, shift=1.0).to(dev), _rand(gen, d, scale=0.1).to(dev)]
+    params = _mlp_params(gen, d, hid, dev)
+    want = tm.ln_mlp_ref(x, *(t.cpu() for t in ln + params))
+    xd = x.to(dev)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tm.ln_mlp(xd, *ln, *params)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
+    assert not any("ln_rows_kernel" in n for n in names), names
+    assert torch.equal(got, tm.ln_mlp(xd, *ln, *params))
+    torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
+
+
 @pytest.mark.parametrize("B,H,W,d,hid", [(2, 11, 13, 48, 80), (1, 9, 9, 512, 2048),
                                          (1, 16, 16, 128, 512)])
 def test_ln_dwms_mlp_matches_plain(dev, B, H, W, d, hid):

@@ -5,22 +5,33 @@
 // arithmetic is always fp32, and a bf16 result is rounded once, to nearest
 // even (`__float2bfloat16_rn`, as jnp's astype), where the TPU kernel rounds.
 //
-// Two patterns for matrix products inside the kernels:
-// * "row blocks" (K1-K4): a block stages P activation rows in shared memory
-//   as fp32, and each thread owns one output column j, reading row j of the
-//   weight 16 bytes at a time and keeping P accumulators in registers.  Plain
-//   SIMT FMA work (no tensor cores, no TMA).
-// * "wmma tiles" (K5-K7, bf16 only): bf16 operands in 16x16x16 tensor-core
-//   fragments (nvcuda::wmma) with fp32 accumulation; A from shared memory, B
-//   straight from the weight in global memory (L2-resident) and shared by up
-//   to four m-tiles, C through a shared fp32 tile.  bf16 x bf16 products are exact in fp32, so only the
-//   summation order differs from the TPU's fp32-accumulating MXU.
+// Three patterns for matrix products inside the kernels:
+// * "row blocks" (K1, K3, K4): a block stages P activation rows in shared
+//   memory as fp32, and each thread owns one output column j, reading row j
+//   of the weight 16 bytes at a time and keeping P accumulators in
+//   registers.  Plain SIMT FMA work (no tensor cores, no TMA).
+// * "wmma tiles" (K5, K7, K9-K13, bf16 only): bf16 operands in 16x16x16
+//   tensor-core fragments (nvcuda::wmma) with fp32 accumulation; A from
+//   shared memory, B straight from the weight in global memory (L2-resident)
+//   and shared by up to four m-tiles, C through a shared fp32 tile.
+// * "staged tiles" (K2, K6): the weight streams through a ring of
+//   shared-memory stages filled several stages ahead of use, and the product
+//   runs from shared memory.  K2: 16-byte cp.async copies (zero-filled past
+//   the edges) into padded rows; bf16 as mma.sync m16n8k16 fragments loaded
+//   by ldmatrix, fp32 as 4x4 register micro-tiles of SIMT FMAs.  K6: TMA
+//   boxes (zeros past the edges) completing on mbarriers, in the 128-byte
+//   swizzled layout (sw128_offset) that warpgroup wgmma m64n64k16 reads
+//   through shared-memory descriptors, the fp32 sums in registers.
+// bf16 x bf16 products are exact in fp32, so only the summation order
+// differs from the TPU's fp32-accumulating MXU.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <cstdint>
 
 using bf16 = __nv_bfloat16;
 
@@ -389,4 +400,154 @@ __device__ __forceinline__ void stage_halo(const bf16* __restrict__ src, int b, 
       val = __ldg(reinterpret_cast<const uint4*>(src + (((long)b * H + gy) * W + gx) * C + k0) + v);
     *reinterpret_cast<uint4*>(dst + e * ldd + v * 8) = val;
   }
+}
+
+// ---------------------------------------------------------------------------
+// staged tiles (K2, K6)
+// ---------------------------------------------------------------------------
+
+// 16-byte asynchronous copy from global to shared memory; with valid ==
+// false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory (lane l gives the address of row
+// l % 8 of matrix l / 8); r[i] is this lane's pair of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// c += a b for one m16n8k16 tile: a the row-major A fragment (ldmatrix_x4
+// of rows 0-15 at k 0 and k 8), b0 / b1 the B fragment of k 0-7 / 8-15
+// (ldmatrix of the n-major B rows), c rows g and g + 8 (g = lane / 4),
+// columns 2 (lane % 4) and + 1.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Element offset of (r, c) in a bf16 tile of R rows stored as K-blocks of
+// 64 columns ([c / 64][r][64]: 128 bytes a row), the 16-byte chunks of each
+// row XOR-swizzled by the row (chunk (c % 64) / 8 sits at ((c % 64) / 8) ^
+// (r % 8)): the layout TMA writes under CU_TENSOR_MAP_SWIZZLE_128B and
+// wgmma reads through a 128-byte-swizzle descriptor.  Tiles start 1024-byte
+// aligned (the swizzle repeats every 8 rows).
+__device__ __forceinline__ int sw128_offset(int r, int c, int R) {
+  return (c >> 6) * (R << 6) + (r << 6) + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// wgmma descriptor of a K-major bf16 operand in the sw128_offset layout,
+// starting at `smem` (row 8 i of a K-block, plus 32 bytes per k16 step):
+// 8-row groups 1024 bytes apart, 128-byte swizzle.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  return (uint64_t)((s & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// mbarriers for the TMA copies: one arrival (the copying thread's, with the
+// byte count) completes a phase once the bytes have landed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(s), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(s), "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of `parity` to complete; traps (a launch error, not a
+// hang) if it has not after about 2^22 polls.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  for (unsigned it = 0;; ++it) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(s), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (it > (1u << 22)) __trap();
+  }
+}
+// TMA: the box at (x, y) (x the inner coordinate) of the 2-D tensor map
+// `map` (a __grid_constant__ kernel parameter) into shared memory, counted
+// on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* smem, const void* map, int x, int y,
+                                            uint64_t* bar) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(s),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Orders shared-memory writes of the threads (generic proxy, cp.async
+// included) before the reads of wgmma (async proxy); a barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving register reads or writes of an
+// accumulator across an asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B^T for one warpgroup: A 64 x 16 and B 64 x 16 (n rows, k
+// contiguous), bf16, both K-major in shared memory (descriptors a, b); d the
+// 64 x 64 fp32 tile, element i of thread t at row 16 (t / 32) + (t % 32) / 4
+// + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2.  scale_d == 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }

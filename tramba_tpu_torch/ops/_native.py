@@ -47,7 +47,7 @@ _SIGNATURES = {
     "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _F, _P],
     "prologue_launch": [_P] * 4 + [_I] * 5 + [_P],
     "ln_mlp_splits": [_L, _I, _I, _IP],
-    "ln_mlp_launch": [_P] * 7 + [_L, _I, _I, _I, _P],
+    "ln_mlp_launch": [_P] * 9 + [_L, _I, _I, _I, _P],
     "ln_dwms_mlp_splits": [_I] * 5 + [_IP],
     "ln_dwms_mlp_launch": [_P] * 13 + [_I] * 6 + [_P],
     "ln_dwmlp_splits": [_I] * 5 + [_IP],

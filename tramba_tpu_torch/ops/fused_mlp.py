@@ -49,9 +49,10 @@ import torch.nn.functional as F
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_card
 
-__all__ = ["layer_norm_bf16", "ln_mlp", "ln_mlp_ref", "ln_dwms_mlp", "ln_dwms_mlp_ref",
-           "ln_dwmlp", "ln_dwmlp_ref", "dwmlp_fusable", "ln_mlp_bwd", "ln_mlp_bwd_ref",
-           "ln_dwms_mlp_bwd", "ln_dwms_mlp_bwd_ref", "LnMlp", "LnDwmsMlp", "LnDwMlp"]
+__all__ = ["layer_norm_bf16", "ln_mlp", "ln_mlp_ref", "check_ln_mlp_shape", "ln_dwms_mlp",
+           "ln_dwms_mlp_ref", "ln_dwmlp", "ln_dwmlp_ref", "dwmlp_fusable", "ln_mlp_bwd",
+           "ln_mlp_bwd_ref", "ln_dwms_mlp_bwd", "ln_dwms_mlp_bwd_ref", "LnMlp", "LnDwmsMlp",
+           "LnDwMlp"]
 
 
 def _ln_rounded(x, ln_w, ln_b, eps=1e-5):
@@ -86,7 +87,8 @@ def _split_scratch(x, name: str, *shape):
 
 def layer_norm_bf16(x, ln_w, ln_b, eps=1e-5):
     """bf16 LayerNorm of a CUDA bf16 tensor over its last axis (fp32
-    statistics): the launch that kernels K5-K7 and K11-K13 start with."""
+    statistics): the launch that kernels K5, K7 and K11-K13 start with (K6
+    normalises its own rows)."""
     d = x.shape[-1]
     check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
     if ln_w.numel() != d or ln_b.numel() != d:
@@ -257,17 +259,31 @@ def _mlp_shapes(name, x, w1, b1, w2, b2):
     return d, hid
 
 
+def check_ln_mlp_shape(M: int, d: int, hid: int) -> None:
+    """Raise ValueError unless K6 takes M rows of width ``d`` and hidden
+    width ``hid``: d and hid multiples of 16 (as K7 and K9 take them), d up
+    to 1024 (a warp holds a row of x in four 16-byte groups a lane for its
+    LayerNorm), any M >= 1.  No launch: the tests hold every model's shapes
+    to it on the CPU."""
+    if M < 1 or d % 16 or hid % 16 or not 0 < d <= 1024 or hid < 16:
+        raise ValueError(f"ln_mlp: M={M} must be positive, d={d} and hid={hid} multiples of "
+                         "16, d at most 1024")
+
+
 def _ln_mlp_launch(x, ln_w, ln_b, w1, b1, w2, b2):
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
-    check_args(x=(x, BF16), w1=(w1, BF16), b1=(b1, F32), w2=(w2, BF16), b2=(b2, F32))
+    check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32), w1=(w1, BF16), b1=(b1, F32),
+               w2=(w2, BF16), b2=(b2, F32))
     d, hid = _mlp_shapes("ln_mlp", x, w1, b1, w2, b2)
     M = x.numel() // d
-    y = layer_norm_bf16(x, ln_w, ln_b)
+    check_ln_mlp_shape(M, d, hid)
+    if ln_w.numel() != d or ln_b.numel() != d:
+        raise ValueError(f"ln_mlp: LN parameters must have {d} elements")
     out = torch.empty_like(x)
     splits, part = _split_scratch(x, "ln_mlp_splits", M, d, hid)
-    _native.launch("ln_mlp_launch", y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                   b2.data_ptr(), out.data_ptr(), part.data_ptr(), M, d, hid, splits,
-                   _native.stream_handle(x))
+    _native.launch("ln_mlp_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                   part.data_ptr(), M, d, hid, splits, _native.stream_handle(x))
     ln_mlp.launches += 1
     return out
 

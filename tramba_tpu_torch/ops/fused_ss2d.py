@@ -50,8 +50,8 @@ from tramba_tpu_torch.ops.selective_scan import linear_scan, linear_scan_ref
 
 __all__ = ["composed_ss2d_core", "ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref",
            "ss2d_scan_train_ref", "ss2d_merge", "ss2d_merge_ref", "ss2d_merge_train_ref",
-           "ss2d_scan_bwd", "ss2d_scan_bwd_ref", "SS2DCore", "ss2d_full", "SCAN_CHUNK",
-           "scan_chunk", "scan_segment_steps"]
+           "check_merge_shape", "ss2d_scan_bwd", "ss2d_scan_bwd_ref", "SS2DCore", "ss2d_full",
+           "SCAN_CHUNK", "scan_chunk", "scan_segment_steps"]
 
 SCAN_CHUNK = 64  # the plain versions' default carry stride; the kernels' is scan_chunk()
 
@@ -280,6 +280,20 @@ def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, *, emit=False):
 ss2d_scan.launches = 0
 
 
+def check_merge_shape(K: int, slots: int, D: int, dm: int, dtype) -> None:
+    """Raise ValueError unless K2 takes ``K`` directions with a table of
+    ``slots`` slots, of width ``D`` into ``dm`` outputs in ``dtype``: a warp
+    reads K directions' table entries at once (K divides 32; any number of
+    slots), a lane sums up to 16 groups of 4 channels (D <= 2048), and
+    w_out's rows are copied 16 bytes at a time (D a multiple of 8 in bf16, of
+    4 in fp32).  No launch: the tests hold every model's shapes to it on the
+    CPU."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    if K < 1 or 32 % K or slots < 1 or D % vec or not 0 < D <= 2048 or dm < 1:
+        raise ValueError(f"ss2d_merge: K={K} must divide 32, slots={slots} be positive, "
+                         f"D={D} a multiple of {vec} up to 2048, dm={dm} positive")
+
+
 def ss2d_merge(ys, inv, ln_w, ln_b, w_out, *, emit_ysum=False):
     """Kernel K2 on CUDA tensors, :func:`ss2d_merge_ref` on CPU tensors.
     ``emit_ysum=True`` (training): returns (out, y_sum) as
@@ -293,9 +307,9 @@ def ss2d_merge(ys, inv, ln_w, ln_b, w_out, *, emit_ysum=False):
     check_args(ys=(ys, F32), ln_w=(ln_w, F32), ln_b=(ln_b, F32),
                w_out=(w_out, F32_BF16))
     _check_table("inv", inv, (K, inv.shape[1], L))
-    vec = 16 // w_out.element_size()  # one 16-byte load of w_out
-    if D % vec or tuple(w_out.shape) != (dm, D) or ln_w.numel() != D or ln_b.numel() != D:
-        raise ValueError(f"ss2d_merge: D must be a multiple of {vec} and w_out (dm, D)")
+    check_merge_shape(K, inv.shape[1], D, dm, w_out.dtype)
+    if tuple(w_out.shape) != (dm, D) or ln_w.numel() != D or ln_b.numel() != D:
+        raise ValueError("ss2d_merge: w_out must be (dm, D) and the LN parameters (D,)")
     out = torch.empty(B, L, dm, device=ys.device, dtype=w_out.dtype)
     y_sum = torch.empty(B, L, D, device=ys.device, dtype=w_out.dtype) if emit_ysum else None
     _native.launch("ss2d_merge_launch", ys.data_ptr(), inv.data_ptr(), ln_w.data_ptr(),
