@@ -8,13 +8,17 @@ parent commit unpacked with ``git archive`` into a directory that
 change, change, parent compares two trees on one card), this runs that
 tree's ``chip_smoke.py`` from its root, so each tree builds its own kernels
 and times them with its own code, and reads the times it prints: ms per
-forward (phase 6), ms per train step (phase 8), and the ms of K1
-``ss2d_scan``, K8 ``ss2d_scan_bwd``, K2 ``ss2d_merge`` and K6 ``ln_mlp`` at
-each shape phase 3 checks them, beside the bound the run computed and,
+forward (phase 6) and per train step (phase 8) of every model, and the ms of K1
+``ss2d_scan``, K8 ``ss2d_scan_bwd``, K2 ``ss2d_merge``, K6 ``ln_mlp``, K7
+``ln_dwms_mlp``, K9 ``ln_mlp_bwd`` and K10 ``ln_dwms_mlp_bwd`` at each shape
+phase 3 checks them, beside the bound the run computed and,
 where the tree prints it, the time of the kernel's matrix products alone as
 torch.matmul (``gemm``).  Then tables of the runs side by side, with the
 card's ``name, power.limit``.  ``--logs DIR`` keeps each run's whole output.
-Exits with the first failing run's code.
+``--ffn-bwd`` runs, instead of the whole ``chip_smoke.py``, only its phase 3
+checks of K9 and K10 (``check_mlp_bwd`` at every shape of the train steps),
+so that a tree can be listed several times in one short call.  Exits with
+the first failing run's code.
 """
 
 from __future__ import annotations
@@ -25,29 +29,31 @@ import re
 import subprocess
 import sys
 
-TIMES = (re.compile(r"^Tramba-V-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
-         re.compile(r"^Tramba-V-TSOD 384px (\w+ train) step (B\d+): ([\d.]+) ms/step"))
+TIMES = (re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
+         re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ train) step (B\d+): ([\d.]+) ms/step"))
 # phase 3's line of a tabulated kernel: name, tag, shape, ..., kernel ms, plain
 # ms, bound ms (bound by), and gemm ms where printed
-KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|ln_mlp)\s+((?:fp32|bf16)(?: train)?)\s+"
+KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|ln_mlp|ln_dwms_mlp|ln_mlp_bwd|ln_dwms_mlp_bwd)"
+                     r"\s+((?:fp32|bf16)(?: train)?)\s+"
                      r"(\S.*?)\s+max_abs_err .* kernel ([\d.]+) ms plain [\d.]+ ms "
                      r"bound ([\d.]+) ms \(\w+\)(?: gemm ([\d.]+) ms)?")
 
 
 def times(stdout: str) -> dict:
-    """{"fp32 B1": ms, ..., "bf16 train B4": ms} from a chip_smoke.py output."""
+    """{"V fp32 B1": ms, ..., "R bf16 train B4": ms} from a chip_smoke.py
+    output (V, S, P, R: the model)."""
     out = {}
     for line in stdout.splitlines():
         if m := TIMES[0].match(line):
-            out[m[1]] = float(m[2])
-        elif m := TIMES[1].match(line):
             out[f"{m[1]} {m[2]}"] = float(m[3])
+        elif m := TIMES[1].match(line):
+            out[f"{m[1]} {m[2]} {m[3]}"] = float(m[4])
     return out
 
 
 def kernel_times(stdout: str) -> dict:
     """{(kernel, tag, shape): (ms, bound_ms, gemm_ms or nan)} of phase 3's
-    K1, K8, K2 and K6 lines."""
+    K1, K8, K2, K6, K7, K9 and K10 lines."""
     out = {}
     for line in stdout.splitlines():
         if m := KERNELS.match(line):
@@ -56,9 +62,19 @@ def kernel_times(stdout: str) -> dict:
     return out
 
 
+# the phase 3 checks of K9 and K10 alone, run in a tree's root (--ffn-bwd)
+FFN_BWD = ("import torch, chip_smoke as cs\n"
+           "torch.backends.cuda.matmul.allow_tf32 = False\n"
+           "checks, gen = cs.Checks(), torch.Generator().manual_seed(0)\n"
+           "for shapes in (cs.MLP_BWD_SHAPES, cs.MLP_BWD_SHAPES_P, cs.MLP_BWD_SHAPES_R):\n"
+           "    cs.check_mlp_bwd(checks, torch.device('cuda'), gen, shapes)\n")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--logs", default="", help="directory for each run's whole output")
+    ap.add_argument("--ffn-bwd", action="store_true",
+                    help="run only phase 3's K9 / K10 checks of each tree")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -68,8 +84,9 @@ def main(argv=None) -> int:
     runs = []
     for i, tree in enumerate(args.trees):
         root = os.path.abspath(tree)
-        res = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py")], cwd=root,
-                             capture_output=True, text=True, timeout=1500)
+        cmd = ["-c", FFN_BWD] if args.ffn_bwd else [os.path.join(root, "chip_smoke.py")]
+        res = subprocess.run([sys.executable, *cmd], cwd=root, capture_output=True, text=True,
+                             timeout=1500)
         if args.logs:
             with open(os.path.join(args.logs, f"{i}_{os.path.basename(root)}.log"), "w") as f:
                 f.write(res.stdout + "\n--- stderr\n" + res.stderr)
@@ -78,7 +95,7 @@ def main(argv=None) -> int:
                   f"{res.stderr[-4000:]}", file=sys.stderr)
             return res.returncode
         runs.append((tree, times(res.stdout), kernel_times(res.stdout)))
-        print(f"run {i} {tree}: {runs[-1][1]}", flush=True)
+        print(f"run {i} {tree}: {runs[-1][1]}, {len(runs[-1][2])} kernel lines", flush=True)
     print(f"ms per forward or step, runs in order [{card}]")
     for key in runs[0][1]:
         print(f"{key:14s} " + "  ".join(f"{tree}: {t.get(key, float('nan')):.2f}"

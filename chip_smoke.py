@@ -45,7 +45,16 @@ Phases, each of which must pass (any failure exits non-zero):
                the same check, which it must fail (K2: the last direction
                left out of the gather; the last 16 channels of D left out
                of the product; K6: the last 64 hidden units, one
-               warpgroup's slice of its last chunk, left out), and each
+               warpgroup's slice of its last chunk, left out); likewise K7
+               ln_dwms_mlp (every shape) and K9 ln_mlp_bwd (every shape),
+               each launched twice and compared bit for bit, with its
+               native launches a call counted by kernel name
+               (torch.profiler), the plain mirror of its stage split
+               (ops/ffn_stages.py) with planted faults failing the same check
+               (K7: no 3x3 taps; h not zero outside the image; the last
+               hidden chunk left out; K9: the LN adjoint's mean term left
+               out; one column group's share of its row sums left out, where
+               stage (c) splits d into groups); each of K2, K6, K7 and K9
                printed beside its matrix products alone as torch.matmul on
                the same operands ("gemm": a reference for what the tensor
                cores give at that shape, never called by the port); errors,
@@ -129,6 +138,7 @@ The last lines are the kernels' JSON summary, the card's
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import re
@@ -525,6 +535,43 @@ def check_ln_mlp(checks, label, args, flops):
         "no last chunk": lambda: tm.ln_mlp_ref(x, ln_w, ln_b, w1, b1, short, b2)})
 
 
+def native_launches(fn, frags) -> float:
+    """Kernels a call of ``fn`` launches whose names hold any of ``frags``,
+    over three profiled calls (torch.profiler)."""
+    from tramba_tpu_torch.utils.profiling import device_time_by_kernel
+
+    times = device_time_by_kernel(fn, iters=3, warmup=1, ranges=RANGES)
+    return sum(n for name, (_, n) in times.items() if any(f in name for f in frags)) / 3
+
+
+def check_ln_dwms_mlp(checks, label, args, flops):
+    """K7 against its plain version, timed beside its two products alone as
+    torch.matmul on the same bf16 operands (bf16(LN(x)) w1^T and GELU'd
+    hidden rows w2^T); two launches give the same bits; its native launches
+    a call; and the check must reject the merged-tap mirror
+    (ops/ffn_stages.py) with each planted fault."""
+    from tramba_tpu_torch.ops import ffn_stages as fs
+    from tramba_tpu_torch.ops import fused_mlp as tm
+
+    x, ln_w, ln_b, w1 = args[:4]
+    w2, d = args[-2], x.shape[-1]
+    y = torch.nn.functional.layer_norm(x.float(), (d,), ln_w, ln_b, 1e-5).to(x.dtype)
+    y = y.reshape(-1, d)
+    h = torch.nn.functional.gelu(y.float() @ w1.float().t()).to(x.dtype)
+    checks.compare("ln_dwms_mlp", torch.bfloat16, label, lambda: tm.ln_dwms_mlp(*args),
+                   lambda: tm.ln_dwms_mlp_ref(*args), reps=10, inputs=args, flops=flops,
+                   gemm=lambda: (y @ w1.t(), h @ w2.t()))
+    del y, h
+    if not torch.equal(tm.ln_dwms_mlp(*args), tm.ln_dwms_mlp(*args)):
+        raise AssertionError(f"ln_dwms_mlp {label}: two launches differ")
+    n = native_launches(lambda: tm.ln_dwms_mlp(*args),
+                        ("ln_fc_kernel", "dwms_tile_kernel", "finish_split_kernel"))
+    print(f"ln_dwms_mlp     {label}: {n:g} native launches a call", flush=True)
+    checks.planted("ln_dwms_mlp", label, tm.ln_dwms_mlp_ref(*args),
+                   {f: functools.partial(fs.dwms_merged_ref, *args, fault=f)
+                    for f in fs.DWMS_FAULTS})
+
+
 def scan_bwd_ops(x, core):
     """K8: K1's projections recomputed, their two adjoints and the weight
     products (three times K1's), and about 30 fp32 operations per step."""
@@ -681,7 +728,12 @@ MLP_BWD_SHAPES_R = ((96, 256, False), (48, 512, False), (96, 256, True), (48, 51
 
 def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
     """K9 and K10 at every shape of ``shapes``, B=2, against their plain
-    adjoints, with a cotangent g of the output's scale."""
+    adjoints, with a cotangent g of the output's scale.  K9 also: timed
+    beside its five products alone as torch.matmul on the same bf16
+    operands, launched twice and compared bit for bit, its native launches a
+    call, and the planted faults of its split mirror (ops/ffn_stages.py)
+    failing the same check; K10's native launches a call."""
+    from tramba_tpu_torch.ops import ffn_stages as fs
     from tramba_tpu_torch.ops import fused_mlp as tm
 
     bf, B, tag = torch.bfloat16, 2, "bf16 train"
@@ -690,16 +742,40 @@ def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
         x = torch.randn(B, H, H, d, generator=gen).to(dev, bf)
         g = torch.randn(B, H, H, d, generator=gen).to(dev, bf)
         M, hid = B * H * H, 4 * d
-        if dwms:
-            name, fn, ref = "ln_dwms_mlp_bwd", tm.ln_dwms_mlp_bwd, tm.ln_dwms_mlp_bwd_ref
-            flops = ops(bf, 10 * M * d * hid, 3 * 2 * 83 * M * hid + 20 * M * hid)
-        else:
-            name, fn, ref = "ln_mlp_bwd", tm.ln_mlp_bwd, tm.ln_mlp_bwd_ref
-            flops = ops(bf, 10 * M * d * hid, 20 * M * hid)
+        label = f"{H}px B{B} d{d} hid{hid}"
         # the kernel reads the weights in bf16: count them so
         inputs = (x, g, *(p.to(bf) if p.dim() > 1 else p for p in params))
-        checks.compare(name, None, f"{H}px B{B} d{d} hid{hid}", lambda: fn(x, g, *params),
-                       lambda: ref(x, g, *params), reps=5, inputs=inputs, flops=flops, tag=tag,
+        if dwms:
+            checks.compare("ln_dwms_mlp_bwd", None, label,
+                           lambda: tm.ln_dwms_mlp_bwd(x, g, *params),
+                           lambda: tm.ln_dwms_mlp_bwd_ref(x, g, *params), reps=5, inputs=inputs,
+                           flops=ops(bf, 10 * M * d * hid, 3 * 2 * 83 * M * hid + 20 * M * hid),
+                           tag=tag, rel_tol=BWD_REL_TOL_BF16)
+            n = native_launches(lambda: tm.ln_dwms_mlp_bwd(x, g, *params),
+                                ("mlp_bwd", "ln_fc_kernel"))
+            print(f"ln_dwms_mlp_bwd {label}: {n:g} native launches a call", flush=True)
+            continue
+        w1, w2 = params[2].to(bf), params[4].to(bf)
+        xf = torch.nn.functional.layer_norm(x.float(), (d,), params[0], params[1], 1e-5)
+        xf, g2 = xf.to(bf).reshape(M, d), g.reshape(M, d)
+        hg = torch.nn.functional.gelu(xf.float() @ w1.float().t()).to(bf)
+        checks.compare("ln_mlp_bwd", None, label, lambda: tm.ln_mlp_bwd(x, g, *params),
+                       lambda: tm.ln_mlp_bwd_ref(x, g, *params), reps=5, inputs=inputs,
+                       flops=ops(bf, 10 * M * d * hid, 20 * M * hid), tag=tag,
+                       rel_tol=BWD_REL_TOL_BF16,
+                       gemm=lambda: (xf @ w1.t(), g2 @ w2, hg @ w1, g2.t() @ hg, hg.t() @ xf))
+        del xf, g2, hg
+        a, b = tm.ln_mlp_bwd(x, g, *params), tm.ln_mlp_bwd(x, g, *params)
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"ln_mlp_bwd {label}: two launches differ")
+        del a, b
+        n = native_launches(lambda: tm.ln_mlp_bwd(x, g, *params), ("mlp_bwd", "ln_fc_kernel"))
+        G = tm.mlp_bwd_column_groups(M, d, hid)  # the kernel's own plan of stage (c)
+        print(f"ln_mlp_bwd      {label}: {n:g} native launches a call, {G} column group(s) "
+              "in (c)", flush=True)
+        faults = {f: functools.partial(fs.mlp_bwd_split_ref, x, g, *params, groups=G, fault=f)
+                  for f in fs.MLP_BWD_FAULTS if f != "no last group's row sums" or G > 1}
+        checks.planted("ln_mlp_bwd", label, tm.ln_mlp_bwd_ref(x, g, *params), faults,
                        rel_tol=BWD_REL_TOL_BF16)
 
 
@@ -801,9 +877,8 @@ def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES):
         args = (rnd(B, H, H, d).to(bf), *ln(d), m.fc1.weight.data.to(bf), rnd(4 * d, scale=0.1),
                 *convs, m.fc2.weight.data.to(bf), rnd(d, scale=0.1))
         M = B * H * H
-        checks.compare("ln_dwms_mlp", bf, f"{H}px B{B} d{d} hid{4 * d}",
-                       lambda: tm.ln_dwms_mlp(*args), lambda: tm.ln_dwms_mlp_ref(*args), reps=10,
-                       inputs=args, flops=ops(bf, 4 * M * d * 4 * d, (2 * 83 + 10) * M * 4 * d))
+        check_ln_dwms_mlp(checks, f"{H}px B{B} d{d} hid{4 * d}", args,
+                          ops(bf, 4 * M * d * 4 * d, (2 * 49 + 10) * M * 4 * d))
 
 
 def check_dwms_grid_shape(checks, dev, gen):
@@ -820,9 +895,8 @@ def check_dwms_grid_shape(checks, dev, gen):
     args = (rnd(B, H, W, d, scale=1.0).to(bf), rnd(d, shift=1.0), rnd(d), rnd(hid, d).to(bf),
             rnd(hid), *convs, rnd(d, hid).to(bf), rnd(d))
     M = B * H * W
-    checks.compare("ln_dwms_mlp", bf, f"#21 {H}x{W}px B{B} d{d} hid{hid}",
-                   lambda: tm.ln_dwms_mlp(*args), lambda: tm.ln_dwms_mlp_ref(*args), reps=10,
-                   inputs=args, flops=ops(bf, 4 * M * d * hid, (2 * 83 + 10) * M * hid))
+    check_ln_dwms_mlp(checks, f"#21 {H}x{W}px B{B} d{d} hid{hid}", args,
+                      ops(bf, 4 * M * d * hid, (2 * 49 + 10) * M * hid))
 
 
 def check_lgp(checks, dev, gen):
@@ -1061,14 +1135,26 @@ def run_dump_entry_point(tmp, method, *flags):
           "sizes", flush=True)
 
 
-# kernel-name fragments -> group of the phase 7 / 8 breakdowns, first match wins
+# the wrappers' record_function ranges (ops/fused_mlp.py) whose launches the
+# profiles tell apart: K9 and K10 launch the same tail kernels (c) - (e)
+RANGES = ("ln_mlp_bwd", "ln_dwms_mlp_bwd")
+# kernel-name fragments (a tuple: all of them) -> group of the phase 7 / 8
+# breakdowns, first match wins; a kernel launched in a range of RANGES is
+# named "<kernel> @ <range>"
 GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
-          ("mlp_bwd_act_kernel", "K9 ln_mlp_bwd, GELU adjoint"),
+          ("ln_fc_kernel<true>", "K9 ln_mlp_bwd, front: LN, h and g w2, GELU adjoint"),
+          (("mlp_bwd_dx_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (c) dh w1 and LN adjoint"),
+          (("mlp_bwd_wgrad_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (d) dW1, dW2 products"),
+          (("mlp_bwd_sum_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (e) partial sums"),
           ("mlp_bwd_dwms", "K10 ln_dwms_mlp_bwd, depthwise stencils"),
-          ("mlp_bwd_fc_kernel", "K9/K10 (a) LN, fc1 and g w2 products"),
-          ("mlp_bwd_ln_kernel", "K9/K10 (c) dh w1 product and LN adjoint"),
-          ("mlp_bwd_wgrad_kernel", "K9/K10 (d) dW1, dW2 products"),
-          ("mlp_bwd_sum", "K9/K10 (e) partial sums"),
+          ("mlp_bwd_sum_taps", "K10 ln_dwms_mlp_bwd, depthwise stencils"),
+          ("mlp_bwd_fc_kernel", "K10 ln_dwms_mlp_bwd, (a) LN, fc1 and g w2 products"),
+          (("mlp_bwd_dx_kernel", "@ ln_dwms_mlp_bwd"),
+           "K10 ln_dwms_mlp_bwd, (c) dh w1 and LN adjoint"),
+          (("mlp_bwd_wgrad_kernel", "@ ln_dwms_mlp_bwd"),
+           "K10 ln_dwms_mlp_bwd, (d) dW1, dW2 products"),
+          (("mlp_bwd_sum_kernel", "@ ln_dwms_mlp_bwd"), "K10 ln_dwms_mlp_bwd, (e) partial sums"),
+          ("mlp_bwd_", "K9 / K10 tail, launched outside their ranges"),
           ("bwd_summary_kernel", "K8 ss2d_scan_bwd, (a1) segment summaries"),
           ("bwd_scan_kernel", "K8 ss2d_scan_bwd, (a2) adjoint scan"),
           ("bwd_dbc_kernel", "K8 ss2d_scan_bwd, (b) projection adjoint"),
@@ -1081,11 +1167,12 @@ GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
           ("expand_groups_kernel<", "K3 expand_ln / K4 final_head"),
           ("prologue_kernel", "K5 prologue"),
           ("ln_mlp_kernel", "K6 ln_mlp"),
-          ("ln_dwms_kernel", "K7 ln_dwms_mlp"),
+          ("ln_fc_kernel<false>", "K7 ln_dwms_mlp, (i) LN and fc1"),
+          ("dwms_tile_kernel", "K7 ln_dwms_mlp, (ii) stencil, GELU and fc2"),
           ("ln_dwmlp_kernel", "K11 ln_dwmlp"),
           ("proj_in_kernel", "K12/K13 (1) input projection"),
           ("attn_kernel", "K12/K13 (2) attention + out projection"),
-          ("ln_rows_kernel", "LayerNorm launch of K5, K7, K11-K13"),
+          ("ln_rows_kernel", "LayerNorm launch of K5, K11-K13"),
           ("finish_split_kernel", "split sums of K6/K7"),
           ("layer_norm", "LayerNorm (torch)"), ("softmax", "softmax (torch)"),
           ("dgrad", "conv backward (cuDNN)"), ("wgrad", "conv backward (cuDNN)"),
@@ -1099,13 +1186,15 @@ def profile_breakdown(fn, wall_ms, label, grad=False, per="fwd"):
     from tramba_tpu_torch.utils.profiling import device_time_by_kernel
 
     iters = 3
-    times = device_time_by_kernel(fn, iters=iters, grad=grad)
+    times = device_time_by_kernel(fn, iters=iters, grad=grad, ranges=RANGES)
     if not times:
         print(f"profile {label}: the profiler recorded no device activity", flush=True)
         return
     groups = {}
     for name, (us, n) in times.items():
-        g = next((grp for frag, grp in GROUPS if frag in name.lower() or frag in name),
+        g = next((grp for frags, grp in GROUPS
+                  if all(f in name.lower() or f in name
+                         for f in (frags if isinstance(frags, tuple) else (frags,)))),
                  "elementwise / other")
         gus, gn = groups.get(g, (0.0, 0))
         groups[g] = (gus + us, gn + n)

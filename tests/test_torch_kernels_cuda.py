@@ -475,6 +475,81 @@ def test_ln_dwms_mlp_bwd_matches_plain(dev, B, H, W, d, hid):
         _bf16_bwd_close(a, b, name)
 
 
+# (map, d) of every main-path K7 (Tramba-V's, -P's and -R's decoder FFNs;
+# Tramba-S's are Tramba-V's) and K9 (the encoders' and guides' LN-MLPs)
+K7_SHAPES = [(96, 128), (48, 256), (24, 512), (96, 64), (48, 128), (24, 320), (96, 256),
+             (48, 512)]
+K9_SHAPES = K7_SHAPES + [(12, 1024)]
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("H,d", K7_SHAPES)
+def test_ln_dwms_mlp_main_path_shapes(dev, H, d, B):
+    """K7 (h written once, the merged 7x7 stencil, fc2 on wgmma) at every
+    main-path shape at B1 and B16 against its plain version on the card;
+    two launches give the same bits."""
+    gen = torch.Generator().manual_seed(H + d + B)
+    hid = 4 * d
+    ln, (w1, b1), convs, (w2, b2) = _dwms_args(gen, d, hid)
+    args = [t.to(dev) for t in (*ln, w1, b1, *convs, w2, b2)]
+    x = _rand(gen, B, H, H, d).to(dev, torch.bfloat16)
+    got = tm.ln_dwms_mlp(x, *args)
+    assert torch.equal(got, tm.ln_dwms_mlp(x, *args))
+    want = tm.ln_dwms_mlp_ref(x, *args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("H,d", K9_SHAPES)
+def test_ln_mlp_bwd_main_path_shapes(dev, H, d, B):
+    """K9 (fused front, column-grouped (c), one-launch sums) at every
+    main-path shape at B1 and B16 against its plain adjoint on the card;
+    two launches give the same bits."""
+    gen = torch.Generator().manual_seed(H + d + B + 1)
+    hid = 4 * d
+    ln, (w1, b1), _, (w2, _) = _dwms_args(gen, d, hid)
+    args = [t.to(dev) for t in (*ln, w1, b1, w2)]
+    x, g = (_rand(gen, B, H * H, d).to(dev, torch.bfloat16) for _ in range(2))
+    got = tm.ln_mlp_bwd(x, g, *args)
+    again = tm.ln_mlp_bwd(x, g, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tm.ln_mlp_bwd_ref(x, g, *args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "d_ln_w", "d_ln_b", "dw1", "db1", "dw2", "db2"), got, want):
+        _bf16_bwd_close(a, b.cpu(), name)
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 16])
+@pytest.mark.parametrize("H,d", K9_SHAPES)
+def test_column_groups_mirror_the_kernel_plan(dev, H, d, B):
+    """The plain mirror's column groups of stage (c)
+    (``ffn_stages.column_groups``) are those the built library plans for K9
+    and K10 at every main-path shape."""
+    from tramba_tpu_torch.ops import ffn_stages as fs
+
+    M = B * H * H
+    assert fs.column_groups(M, d) == tm.mlp_bwd_column_groups(M, d, 4 * d)
+
+
+@pytest.mark.parametrize("B,H,d", [(1, 24, 512), (2, 48, 256), (1, 24, 320), (4, 96, 128)])
+def test_ln_dwms_mlp_bwd_new_tail(dev, B, H, d):
+    """K10 through K9's new (c) - (e), where (c) splits d into column groups
+    (a cluster) and where it does not, against its plain adjoint."""
+    gen = torch.Generator().manual_seed(H + d + 5)
+    hid = 4 * d
+    ln, fc1, convs, (w2, _) = _dwms_args(gen, d, hid)
+    args = [t.to(dev) for t in (*ln, *fc1, *convs, w2)]
+    x, g = (_rand(gen, B, H, H, d).to(dev, torch.bfloat16) for _ in range(2))
+    got = tm.ln_dwms_mlp_bwd(x, g, *args)
+    want = tm.ln_dwms_mlp_bwd_ref(x, g, *args)
+    torch.cuda.synchronize()
+    names = ("dx", "d_ln_w", "d_ln_b", "dw1", "db1", "dk3", "dc3", "dk5", "dc5", "dk7", "dc7",
+             "dw2", "db2")
+    for name, a, b in zip(names, got, want):
+        _bf16_bwd_close(a, b.cpu(), name)
+
+
 @pytest.mark.parametrize("kind,K,H,param,D,R", TRAIN_SHAPES)
 def test_bf16_train_variants_and_scan_bwd_match_plain(dev, kind, K, H, param, D, R):
     """#13's emit_train in bf16: K1 on a bf16 x with carries and dbc, K2 with

@@ -10,27 +10,35 @@
 //   memory as fp32, and each thread owns one output column j, reading row j
 //   of the weight 16 bytes at a time and keeping P accumulators in
 //   registers.  Plain SIMT FMA work (no tensor cores, no TMA).
-// * "wmma tiles" (K5, K7, K9-K13, bf16 only): bf16 operands in 16x16x16
+// * "wmma tiles" (K5, K10's front, K11-K13, bf16 only): bf16 operands in 16x16x16
 //   tensor-core fragments (nvcuda::wmma) with fp32 accumulation; A from
 //   shared memory, B straight from the weight in global memory (L2-resident)
 //   and shared by up to four m-tiles, C through a shared fp32 tile.
-// * "staged tiles" (K2, K6): the weight streams through a ring of
+// * "staged tiles" (K2, K6, K7, K9, K10's tail): the weight streams through a ring of
 //   shared-memory stages filled several stages ahead of use, and the product
 //   runs from shared memory.  K2: 16-byte cp.async copies (zero-filled past
 //   the edges) into padded rows; bf16 as mma.sync m16n8k16 fragments loaded
 //   by ldmatrix, fp32 as 4x4 register micro-tiles of SIMT FMAs.  K6: TMA
 //   boxes (zeros past the edges) completing on mbarriers, in the 128-byte
 //   swizzled layout (sw128_offset) that warpgroup wgmma m64n64k16 reads
-//   through shared-memory descriptors, the fp32 sums in registers.
+//   through shared-memory descriptors, the fp32 sums in registers; K6, K7
+//   and K9's front share the LayerNorm of a 64-row tile into that layout
+//   (ln_rows_sw128) and the front kernel (ln_fc_kernel below), K7 stages
+//   its hidden maps' halos by 4-D TMA boxes, K9 / K10's (c) runs in thread
+//   block clusters, and their weight gradients are mma.sync products of
+//   transposed operands (ldmatrix_x4_trans) from a cp.async ring.
 // bf16 x bf16 products are exact in fp32, so only the summation order
 // differs from the TPU's fp32-accumulating MXU.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <mma.h>
 
+#include <algorithm>
 #include <cstdint>
 
 using bf16 = __nv_bfloat16;
@@ -531,11 +539,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A B^T for one warpgroup: A 64 x 16 and B 64 x 16 (n rows, k
-// contiguous), bf16, both K-major in shared memory (descriptors a, b); d the
-// 64 x 64 fp32 tile, element i of thread t at row 16 (t / 32) + (t % 32) / 4
-// + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2.  scale_d == 0
-// overwrites d.
+// d (+)= A B for one warpgroup: A 64 x 16 (m rows, k contiguous) and B
+// 16 x 64, bf16, in shared memory (descriptors a, b).  B is K-major (64 n
+// rows of 16 k, descriptor start + 16 elements per k16 step of a box) or,
+// with TRANS_B, N-major (16 k rows of 64 n, as a box of a row-major (k, n)
+// matrix: start + 1024 elements per k16 step; the same descriptor, whose
+// 1024-byte stride then steps 8 k rows).  d the 64 x 64 fp32 tile, element
+// i of thread t at row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (t % 4) + i % 2.  scale_d == 0 overwrites d.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
                                                 int scale_d) {
   asm volatile(
@@ -543,11 +555,418 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// Four 8x8 b16 matrices, each transposed on the way: lane l gives the
+// address of stored row l % 8 of matrix l / 8, and r[i] is this lane's pair
+// of matrix i at stored rows 2 (l % 4) and + 1, column l / 4.  It reads
+// mma_bf16_16816's A (or B) fragment from a tile stored with the m (or n)
+// index contiguous, as the weight gradients' operands are.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// TMA: the box at (c0, c1, c2, c3) (c0 the inner coordinate) of the 4-D
+// tensor map `map` into shared memory, counted on `bar`; coordinates may lie
+// outside the tensor, whose elements then arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* smem, const void* map, int c0, int c1, int c2,
+                                            int c3, uint64_t* bar) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(s),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(b)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled from the driver library, found at run time (the
+// kernels link only the CUDA runtime).
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a row-major (rows, cols) bf16 matrix in 64 x 64 boxes,
+// 128-byte swizzle, zeros outside: weights, and the rows of activations.
+static inline bool weight_map(CUtensorMap* map, const bf16* w, long rows, int cols) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, 64}, elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(w), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Tensor map of a (B, H, W, C) fp32 map in boxes of 64 channels x side x
+// side pixels of one image, unswizzled ([y][x][c] in shared memory), zeros
+// outside the map: the SAME padding of a depthwise stencil's input.
+static inline bool halo_map(CUtensorMap* map, const float* h, int B, int H, int W, int C,
+                            int side) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 4, (cuuint64_t)W * C * 4,
+                                 (cuuint64_t)H * W * C * 4};
+  const cuuint32_t box[4] = {64, (cuuint32_t)side, (cuuint32_t)side, 1}, elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(h), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+constexpr int kTileRows = 64;     // rows of one wgmma M tile
+constexpr int kBox = 64 * 64;     // elements of one 64 x 64 TMA box (8 KB in bf16)
+constexpr size_t kSmemBlock = 227 * 1024;  // shared memory one block may use
+
+// The first 1024-aligned address at least `reserve` bytes into the dynamic
+// shared memory (the mbarriers sit before it).
+__device__ __forceinline__ bf16* tiles_start(float4* smem4, int reserve) {
+  return reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem4) + reserve + 1023) &
+                                 ~static_cast<uintptr_t>(1023));
+}
+
+// bf16(LN(x) ln_w + ln_b) (fp32 statistics in two passes, eps 1e-5) of rows
+// [m0, m0 + 64) of x (M, d) into As, a 64 x dp tile in the sw128_offset
+// layout (dp = d rounded up to 64; zeros past d and in rows past M), and,
+// with xf set, into the rows < M of xf (M, d).  One warp a row, `nwarps`
+// warps, four rows' loads in flight a warp; d % 8 == 0 and d <= 1024 (up to
+// four 16-byte groups a lane).
+__device__ __forceinline__ void ln_rows_sw128(const bf16* __restrict__ x,
+                                              const float* __restrict__ ln_w,
+                                              const float* __restrict__ ln_b, long M, int d,
+                                              long m0, int nwarps, bf16* As,
+                                              bf16* __restrict__ xf) {
+  constexpr int kRows = 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, dp = (d + 63) & ~63;
+  for (int r0 = warp * kRows; r0 < kTileRows; r0 += nwarps * kRows) {
+    uint4 raw[kRows][4];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const long m = m0 + r0 + k;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int g = lane + 32 * i;
+        raw[k][i] = m < M && g < d / 8 ? __ldg(reinterpret_cast<const uint4*>(x + m * d) + g)
+                                       : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int r = r0 + k;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          s += f.x + f.y;
+        }
+      }
+      const float mean = warp_sum(s) / d;
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (lane + 32 * i >= d / 8) continue;
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          q = fmaf(f.x - mean, f.x - mean, q);
+          q = fmaf(f.y - mean, f.y - mean, q);
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(q) / d + 1e-5f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int g = lane + 32 * i;
+        if (g >= dp / 8) continue;
+        uint4 o = make_uint4(0u, 0u, 0u, 0u);
+        if (m0 + r < M && g < d / 8) {
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
+          __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            const int c = 8 * g + 2 * e;
+            y[e] = __floats2bfloat162_rn((f.x - mean) * rstd * ln_w[c] + ln_b[c],
+                                         (f.y - mean) * rstd * ln_w[c + 1] + ln_b[c + 1]);
+          }
+          if (xf) *reinterpret_cast<uint4*>(xf + (m0 + r) * d + 8 * g) = o;
+        }
+        *reinterpret_cast<uint4*>(As + sw128_offset(r, 8 * g, kTileRows)) = o;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float gelu_grad(float z) {
+  // Phi(z) + z phi(z), as fused_mlp._gelu_grad
+  return 0.5f * (1.f + erff(z * 0.70710678118654752f)) +
+         z * expf(-0.5f * z * z) * 0.3989422804014327f;
+}
+
+// gelu_exact(z) and gelu_grad(z) from one erff.
+__device__ __forceinline__ void gelu_and_grad(float z, float* g, float* gp) {
+  const float e = erff(z * 0.70710678118654752f);
+  *g = 0.5f * z * (1.f + e);
+  *gp = 0.5f * (1.f + e) + z * expf(-0.5f * z * z) * 0.3989422804014327f;
+}
+
+// K7's merged 7x7 taps, which its front launch writes for its stencil: per
+// chunk of 64 hidden channels, [49][64] taps t = k7 + pad(k5) + pad(k3) +
+// identity (fp32 sums of the bf16 taps), then [64] biases c3 + c5 + c7;
+// zeros past hid.
+struct MergedTaps {
+  const bf16 *k3, *k5, *k7;
+  const float *c3, *c5, *c7;
+  float* out;
+};
+constexpr int kTapChunk = 50 * 64;  // floats of one chunk's merged taps and biases
+
+// Every block of the grid takes its share of the merged taps.
+__device__ __forceinline__ void merge_taps(const MergedTaps& t, int hid) {
+  const long n = (long)(hid + 63) / 64 * kTapChunk;
+  const long stride = (long)gridDim.x * gridDim.y * blockDim.x;
+  for (long e = ((long)blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x; e < n;
+       e += stride) {
+    const int r = (int)(e % kTapChunk), i = r / 64;
+    const long ch = e / kTapChunk * 64 + r % 64;
+    float v = 0.f;
+    if (ch < hid && i == 49) {
+      v = t.c3[ch] + t.c5[ch] + t.c7[ch];
+    } else if (ch < hid) {
+      const int u = i / 7, w = i - u * 7;
+      v = to_f32(t.k7[ch * 49 + i]);
+      if (u >= 1 && u <= 5 && w >= 1 && w <= 5) v += to_f32(t.k5[ch * 25 + (u - 1) * 5 + w - 1]);
+      if (u >= 2 && u <= 4 && w >= 2 && w <= 4) v += to_f32(t.k3[ch * 9 + (u - 2) * 3 + w - 2]);
+      if (i == 24) v += 1.f;
+    }
+    t.out[e] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The LN + fc front of K7 and K9: one kernel, two epilogues
+// ---------------------------------------------------------------------------
+//
+// One block per (64 rows, group of hidden chunks of kFrontHC columns): two
+// warpgroups, each owning 64 of a chunk's columns.  The block normalises its
+// rows once into As (ln_rows_sw128); the weights stream by TMA as one
+// sequence of 64 x 64 tiles, `stages` ring slots with an mbarrier each, and
+// the products run as wgmma m64n64k16 with the sums in registers (K6's
+// scheme: after the block's barrier of tile t, thread 0 issues tile
+// t + stages - 2 into the slot of tile t - 2, whose groups every warpgroup
+// has waited for).
+//   K7 (BWD false): dp / 64 tiles of w1 a chunk; h = LN(x) w1^T + b1 goes
+//     to device memory once, fp32 (M, hid), unrounded, for K7's stencil;
+//     the blocks also share out the merged taps (merge_taps).
+//   K9 (BWD true): then dp / 64 tiles of g's rows and of w2 (d, hid) in
+//     its own layout, the N-major B operand of gw = g w2[:, chunk] (k = d,
+//     as for h); in registers z = h + b1, dh = gw GELU'(z),
+//     hg = bf16(GELU(z)); hg and bf16(dh) are written (M, hid), and the
+//     column sums of the unrounded dh over the tile's rows to
+//     part_db1[row tile, :] (the warps' sums added in a fixed order).
+//     Hidden group 0 also writes xf = bf16(LN(x)) for dW1.  The fp32 h and
+//     g w2 maps of the earlier design never reach device memory.  The warps'
+//     sums pass through the ring slot just consumed (so that two blocks fit
+//     an SM at d <= 128).
+constexpr int kFrontHC = 128;
+
+template <bool BWD>
+__global__ void __launch_bounds__(256, 1)
+    ln_fc_kernel(const __grid_constant__ CUtensorMap map_w1,
+                 const __grid_constant__ CUtensorMap map_g,
+                 const __grid_constant__ CUtensorMap map_w2, const bf16* __restrict__ x,
+                 const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                 const float* __restrict__ b1, float* __restrict__ h, bf16* __restrict__ xf,
+                 bf16* __restrict__ hg, bf16* __restrict__ dh, float* __restrict__ part_db1,
+                 long M, int d, int hid, int cps, int stages, MergedTaps taps) {
+  constexpr int NB = BWD ? 3 : 2;  // boxes a slot: a weight's per warpgroup, then g's
+  extern __shared__ float4 smem4[];
+  const int dp = (d + 63) & ~63, nkd = dp / 64, tpc = BWD ? 2 * nkd : nkd;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);  // one mbarrier a slot (8 at most)
+  bf16* As = tiles_start(smem4, 64);
+  bf16* ring = As + kTileRows * dp;
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long m0 = (long)blockIdx.x * kTileRows;
+  const int nchunks = (hid + kFrontHC - 1) / kFrontHC;
+  const int c_first = blockIdx.y * cps, c_last = min(nchunks, c_first + cps);
+  const int T = (c_last - c_first) * tpc;
+  auto issue = [&](int t) {
+    const int slot = t % stages, c = c_first + t / tpc, u = t % tpc;
+    bf16* dst = ring + (size_t)slot * NB * kBox;
+    if (!BWD || u < nkd) {
+      mbar_expect_tx(full + slot, 2 * kBox * 2);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        tma_load_2d(dst + w * kBox, &map_w1, 64 * u, c * kFrontHC + 64 * w, full + slot);
+    } else {
+      const int k = u - nkd;
+      mbar_expect_tx(full + slot, 3 * kBox * 2);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        tma_load_2d(dst + w * kBox, &map_w2, c * kFrontHC + 64 * w, 64 * k, full + slot);
+      tma_load_2d(dst + 2 * kBox, &map_g, 64 * k, (int)m0, full + slot);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+    for (int t = 0; t < min(T, stages - 2); ++t) issue(t);
+  }
+  if constexpr (!BWD) merge_taps(taps, hid);
+  ln_rows_sw128(x, ln_w, ln_b, M, d, m0, 8, As, BWD && blockIdx.y == 0 ? xf : nullptr);
+  fence_proxy_async();
+
+  float acc[32], gw[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = gw[i] = 0.f;
+  const int wrow = 16 * (warp & 3) + (lane >> 2), wcol = 2 * (lane & 3);
+  for (int t = 0; t < T; ++t) {
+    __syncthreads();  // tile t - 2's reads are done, As is written
+    if (threadIdx.x == 0 && t + stages - 2 < T) issue(t + stages - 2);
+    mbar_wait(full + t % stages, (t / stages) & 1);
+    const bf16* tile = ring + (size_t)(t % stages) * NB * kBox;
+    const int c = c_first + t / tpc, u = t % tpc;
+    if (!BWD || u < nkd) {  // h += LN(x)[:, 64 u + ...] w1[chunk rows of this warpgroup]^T
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        wgmma_m64n64k16(acc, wgmma_desc_sw128(As + u * kBox + 16 * s),
+                        wgmma_desc_sw128(tile + wg * kBox + 16 * s), u > 0 || s > 0);
+    } else {  // gw += g[:, 64 k + ...] w2[64 k + ..., chunk columns of this warpgroup]
+      const int k = u - nkd;
+      fence_regs(gw);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        wgmma_m64n64k16<1>(gw, wgmma_desc_sw128(tile + 2 * kBox + 16 * s),
+                           wgmma_desc_sw128(tile + wg * kBox + 1024 * s), k > 0 || s > 0);
+    }
+    wgmma_commit();
+    if (u != tpc - 1) {
+      wgmma_wait<1>();
+      continue;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    const int c0 = c * kFrontHC + 64 * wg;
+    if constexpr (!BWD) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const long row = m0 + wrow + 8 * ((i >> 1) & 1);
+        const int col = c0 + 8 * (i >> 2) + wcol;
+        if (row < M && col < hid)
+          *reinterpret_cast<float2*>(h + row * hid + col) =
+              make_float2(acc[i] + b1[col], acc[i + 1] + b1[col + 1]);
+      }
+    } else {
+      fence_regs(gw);
+      float s[16];  // this thread's columns summed over its two rows
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const long row = m0 + wrow + 8 * ((i >> 1) & 1);
+        const int col = c0 + 8 * (i >> 2) + wcol;
+        if (row >= M || col >= hid) continue;
+        float g0, g1, p0, p1;
+        gelu_and_grad(acc[i] + b1[col], &g0, &p0);
+        gelu_and_grad(acc[i + 1] + b1[col + 1], &g1, &p1);
+        const float d0 = gw[i] * p0, d1 = gw[i + 1] * p1;
+        *reinterpret_cast<__nv_bfloat162*>(hg + row * hid + col) = __floats2bfloat162_rn(g0, g1);
+        *reinterpret_cast<__nv_bfloat162*>(dh + row * hid + col) = __floats2bfloat162_rn(d0, d1);
+        s[(i >> 2) * 2] += d0;
+        s[(i >> 2) * 2 + 1] += d1;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {  // over the warp's 8 row lanes
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], 4);
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], 8);
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], 16);
+      }
+      // [8 warps][64] sums in tile t's slot, whose products are done in
+      // every warpgroup once all have passed this barrier
+      float* red = reinterpret_cast<float*>(const_cast<bf16*>(tile));
+      __syncthreads();
+      if (lane < 4) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          red[warp * 64 + 8 * k + wcol] = s[2 * k];
+          red[warp * 64 + 8 * k + wcol + 1] = s[2 * k + 1];
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x < 128) {  // the four warps of each warpgroup, in order
+        const int w = threadIdx.x >> 6, cl = threadIdx.x & 63, col = c * kFrontHC + 64 * w + cl;
+        const float* r = red + 4 * w * 64 + cl;
+        if (col < hid) part_db1[(long)blockIdx.x * hid + col] = ((r[0] + r[64]) + r[128]) + r[192];
+      }
+      fence_proxy_async();  // before TMA writes the slot again
+    }
+  }
+}
+
+// Tiling of one front launch (ln_fc_kernel).
+struct FrontPlan {
+  long rows;  // row tiles of 64
+  int groups, cps, stages;
+  size_t smem;
+};
+
+static inline bool plan_front(long M, int d, int hid, bool bwd, FrontPlan* p) {
+  if (d % 16 || hid % 16 || d < 16 || d > 1024 || hid < 16 || M < 1) return false;
+  const int dp = (d + 63) & ~63, nchunks = (hid + kFrontHC - 1) / kFrontHC;
+  const size_t fixed = 1024 + (size_t)kTileRows * dp * 2;
+  const size_t slot = (size_t)(bwd ? 3 : 2) * kBox * 2;
+  // two blocks an SM (113 KB each) where four slots fit in that, else one
+  const size_t budget = fixed + 4 * slot <= 113 * 1024 ? 113 * 1024 : kSmemBlock;
+  p->stages = (int)std::min<size_t>(8, (budget - std::min(budget, fixed)) / slot);
+  p->smem = fixed + (size_t)p->stages * slot;
+  p->rows = (M + kTileRows - 1) / kTileRows;
+  // hidden groups: enough blocks for two a SM, each group whole chunks
+  const long want = std::max(1L, std::min((long)nchunks, (2L * 132 + p->rows - 1) / p->rows));
+  p->cps = (int)((nchunks + want - 1) / want);
+  p->groups = (nchunks + p->cps - 1) / p->cps;
+  return p->stages >= 3;
+}
+
+template <bool BWD>
+static inline int front_launch(const FrontPlan& p, const CUtensorMap& map_w1,
+                               const CUtensorMap& map_g, const CUtensorMap& map_w2,
+                               const bf16* x, const float* ln_w, const float* ln_b,
+                               const float* b1, float* h, bf16* xf, bf16* hg, bf16* dh,
+                               float* part_db1, long M, int d, int hid, MergedTaps taps,
+                               cudaStream_t s) {
+  cudaError_t e = allow_smem(ln_fc_kernel<BWD>, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  ln_fc_kernel<BWD><<<dim3((unsigned)p.rows, p.groups), 256, p.smem, s>>>(
+      map_w1, map_g, map_w2, x, ln_w, ln_b, b1, h, xf, hg, dh, part_db1, M, d, hid, p.cps,
+      p.stages, taps);
+  TRAMBA_CHECK_LAUNCH();
+  return 0;
 }

@@ -1,5 +1,5 @@
 // K6 ln_mlp, K7 ln_dwms_mlp and K11 ln_dwmlp: the block FFNs of the bf16
-// inference path, and the bf16 LayerNorm launch that K5, K7 and K11-K13
+// inference path, and the bf16 LayerNorm launch that K5 and K11-K13
 // start with.
 //
 // K6 replaces _mlp_pallas (tramba_tpu/ops/fused_mlp.py:130, kernel :115):
@@ -12,11 +12,13 @@
 //   h = y @ w1^T + b1 (fp32, zero outside the image); a = dw3(h) + c3 with
 //   bf16 taps (the conv replaces h: no identity term);
 //   out = bf16(bf16(GELU(a)) @ w2^T + b2), y = bf16(LN(x)) with eps 1e-6.
-// It is K7's chain with one 3x3 tap set and a 1-px halo, in a kernel of its
-// own, so that K7 compiles as before.
-// All three keep the wide hidden tensor on chip: the hidden dimension is walked
-// in chunks, each chunk's fc2 product is added to an fp32 output tile, and
-// only the bf16 output reaches device memory.  Where a map gives too few
+// It is K7's old chain with one 3x3 tap set and a 1-px halo (its redesign
+// is a later step).
+// K6 and K11 keep the wide hidden tensor on chip: the hidden dimension is
+// walked in chunks, each chunk's fc2 product is added to an fp32 output
+// tile, and only the bf16 output reaches device memory; K7 writes h once as
+// fp32 (its stencil needs each pixel's h in up to 49 output tiles' halos)
+// and keeps the rest on chip.  Where a map gives too few
 // blocks to fill the card in whole waves (the 24 and 12 px maps), the
 // chunks are split over S blocks per tile (grid z): each writes its fp32
 // partial sum, and one more launch adds b2 to the S partials and rounds,
@@ -35,18 +37,17 @@
 // tile's fp32 sums in registers through the whole hidden loop (the
 // kernel's note below).  Each weight tile serves the block's 64 rows only,
 // so the weights stream from L2 at 64 operations a byte: that stream, not
-// the tensor cores, is what holds it back now (PERF.md).  K7 and K11 run
-// their products as bf16 wmma tiles with fp32 accumulation (common.cuh)
-// reading the weights from L2, and pay 83 (K7) or 9 (K11) depthwise taps
-// per hidden value in fp32 SIMT FMA and the fc1 of a 3-px (1-px) halo
-// around each 8x8 tile (196 / 100 rows for 64 outputs); their blocks' tiles
-// fit the 227 KB of shared memory of one block, and their LN runs once per
-// pixel in its own launch, so halo pixels are not renormalised.
-#include <cuda.h>
-#include <dlfcn.h>
-
-#include <algorithm>
-
+// the tensor cores, is what holds it back now (PERF.md).  K7 does 4 d hid
+// operations a pixel on the tensor cores and 49 FMAs a hidden value in fp32
+// (the merged stencil; its bound in chip_smoke.py still counts the 83 taps
+// of the three convs), on 4 d bytes of x and out and 8 hid bytes of h
+// written and read once: the stencil's fp32 FMAs, and its halo reads of h
+// from L2 (196 of every 64 pixels), are what bound it (its design: the K7
+// section below).  K11 runs its products as bf16 wmma tiles with fp32
+// accumulation (common.cuh) reading the weights from L2, and pays 9
+// depthwise taps per hidden value in fp32 SIMT FMA and the fc1 of a 1-px
+// halo around each 8x8 tile (100 rows for 64 outputs); its LN runs once
+// per pixel in its own launch.
 #include "common.cuh"
 
 namespace {
@@ -122,8 +123,6 @@ __device__ __forceinline__ void split_range(int hid, int HC, int cps, int* c_fir
 // whole hidden loop (128 registers a thread at NT 4); b2 and the one
 // rounding come at the end, or fp32 partial sums go to part[split] when the
 // hidden chunks are split over blocks (finish_split_kernel adds them).
-constexpr int kMlpRows = 64;         // rows per block: one wgmma M tile
-constexpr int kMlpBox = 64 * 64;     // elements of one TMA box (8 KB)
 // tiles whose wgmma groups a warpgroup keeps in flight: 3 where fc2 has
 // several output tiles (separate accumulators) and Gs is double-buffered, 2
 // where it has one
@@ -146,12 +145,11 @@ __global__ void __launch_bounds__(128 * NW, NT == 1 ? 2 : 1)
   extern __shared__ float4 smem4[];
   const int dp = (d + 63) & ~63, nkd = dp / 64, tpc = nkd + NW * NT;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem4);  // one mbarrier a slot (8 at most)
-  bf16* As = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(smem4) + 64 + 1023) & ~static_cast<uintptr_t>(1023));
-  bf16* Gs = As + kMlpRows * dp;
-  bf16* ring = Gs + mlp_g_buffers<NT>() * kMlpRows * HC;
+  bf16* As = tiles_start(smem4, 64);
+  bf16* Gs = As + kTileRows * dp;
+  bf16* ring = Gs + mlp_g_buffers<NT>() * kTileRows * HC;
   const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long m0 = (long)blockIdx.x * kMlpRows;
+  const long m0 = (long)blockIdx.x * kTileRows;
   const int n_base = blockIdx.y * NB;
   const int nchunks = (hid + HC - 1) / HC;
   const int c_first = blockIdx.z * cps, c_last = min(nchunks, c_first + cps);
@@ -159,15 +157,15 @@ __global__ void __launch_bounds__(128 * NW, NT == 1 ? 2 : 1)
   // tile t of the stream into its slot: NW boxes, counted on the slot's barrier
   auto issue = [&](int t) {
     const int slot = t % stages, c = c_first + t / tpc, u = t % tpc;
-    bf16* dst = ring + slot * NW * kMlpBox;
-    mbar_expect_tx(full + slot, NW * kMlpBox * 2);
+    bf16* dst = ring + slot * NW * kBox;
+    mbar_expect_tx(full + slot, NW * kBox * 2);
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       if (u < nkd) {
-        tma_load_2d(dst + w * kMlpBox, &map_w1, 64 * u, c * HC + 64 * w, full + slot);
+        tma_load_2d(dst + w * kBox, &map_w1, 64 * u, c * HC + 64 * w, full + slot);
       } else {
         const int v = u - nkd, s = v / NT, j = v - s * NT;
-        tma_load_2d(dst + w * kMlpBox, &map_w2, c * HC + 64 * s, n_base + w * 64 * NT + 64 * j,
+        tma_load_2d(dst + w * kBox, &map_w2, c * HC + 64 * s, n_base + w * 64 * NT + 64 * j,
                     full + slot);
       }
     }
@@ -178,69 +176,7 @@ __global__ void __launch_bounds__(128 * NW, NT == 1 ? 2 : 1)
     for (int t = 0; t < min(T, stages - W); ++t) issue(t);
   }
 
-  // LayerNorm of the rows into As, one warp per row (d <= 1024: up to four
-  // 16-byte groups a lane), four rows' loads in flight at once, fp32
-  // statistics in two passes, bf16 output
-  constexpr int kRows = 4;
-  for (int r0 = warp * kRows; r0 < kMlpRows; r0 += 4 * NW * kRows) {
-    uint4 raw[kRows][4];
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      const long m = m0 + r0 + k;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int g = lane + 32 * i;
-        raw[k][i] = m < M && g < d / 8 ? __ldg(reinterpret_cast<const uint4*>(x + m * d) + g)
-                                       : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      const int r = r0 + k;
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          s += f.x + f.y;
-        }
-      }
-      const float mean = warp_sum(s) / d;
-      float q = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (lane + 32 * i >= d / 8) continue;
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          q = fmaf(f.x - mean, f.x - mean, q);
-          q = fmaf(f.y - mean, f.y - mean, q);
-        }
-      }
-      const float rstd = rsqrtf(warp_sum(q) / d + 1e-5f);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int g = lane + 32 * i;
-        if (g >= dp / 8) continue;
-        uint4 o = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < M && g < d / 8) {
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
-          __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(h[e]);
-            const int c = 8 * g + 2 * e;
-            y[e] = __floats2bfloat162_rn((f.x - mean) * rstd * ln_w[c] + ln_b[c],
-                                         (f.y - mean) * rstd * ln_w[c + 1] + ln_b[c + 1]);
-          }
-        }
-        *reinterpret_cast<uint4*>(As + sw128_offset(r, 8 * g, kMlpRows)) = o;
-      }
-    }
-  }
+  ln_rows_sw128(x, ln_w, ln_b, M, d, m0, 4 * NW, As, nullptr);
   fence_proxy_async();
 
   float acc[NT][32], h[32];  // acc[j]: output tile j of this warpgroup
@@ -255,15 +191,15 @@ __global__ void __launch_bounds__(128 * NW, NT == 1 ? 2 : 1)
     __syncthreads();  // tile t - W's reads are done, Gs and As are written
     if (threadIdx.x == 0 && t + stages - W < T) issue(t + stages - W);
     mbar_wait(full + t % stages, (t / stages) & 1);
-    const bf16* tile = ring + (t % stages) * NW * kMlpBox + wg * kMlpBox;
+    const bf16* tile = ring + (t % stages) * NW * kBox + wg * kBox;
     const int c = c_first + t / tpc, u = t % tpc;
-    bf16* Gc = Gs + ((c - c_first) % mlp_g_buffers<NT>()) * kMlpRows * HC;  // this chunk's
+    bf16* Gc = Gs + ((c - c_first) % mlp_g_buffers<NT>()) * kTileRows * HC;  // this chunk's
     if (u < nkd) {  // fc1: h = LN(x)[:, 64 u + ...] w1[chunk rows of this warpgroup]^T
       fence_regs(h);
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < 4; ++s)
-        wgmma_m64n64k16(h, wgmma_desc_sw128(As + u * kMlpBox + 16 * s),
+        wgmma_m64n64k16(h, wgmma_desc_sw128(As + u * kBox + 16 * s),
                         wgmma_desc_sw128(tile + 16 * s), u > 0 || s > 0);
     } else {  // fc2: acc[j] += G[:, 64 s2 + ...] w2[columns of tile j]^T
       const int v = u - nkd, s2 = v / NT, j = v - s2 * NT;
@@ -274,7 +210,7 @@ __global__ void __launch_bounds__(128 * NW, NT == 1 ? 2 : 1)
         wgmma_fence();
 #pragma unroll
         for (int s = 0; s < 4; ++s)
-          wgmma_m64n64k16(acc[jj], wgmma_desc_sw128(Gc + s2 * kMlpBox + 16 * s),
+          wgmma_m64n64k16(acc[jj], wgmma_desc_sw128(Gc + s2 * kBox + 16 * s),
                           wgmma_desc_sw128(tile + 16 * s), 1);
       }
     }
@@ -292,7 +228,7 @@ __global__ void __launch_bounds__(128 * NW, NT == 1 ? 2 : 1)
         const int hc = c * HC + col;
         const float g0 = hc < hid ? gelu_exact(h[i] + b1[hc]) : 0.f;
         const float g1 = hc + 1 < hid ? gelu_exact(h[i + 1] + b1[hc + 1]) : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(Gc + sw128_offset(row, col, kMlpRows)) =
+        *reinterpret_cast<__nv_bfloat162*>(Gc + sw128_offset(row, col, kTileRows)) =
             __floats2bfloat162_rn(g0, g1);
       }
       fence_proxy_async();
@@ -320,147 +256,231 @@ __global__ void __launch_bounds__(128 * NW, NT == 1 ? 2 : 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver library, found at run time (the
-// kernels link only the CUDA runtime).
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// Tensor map of a row-major (rows, cols) bf16 matrix in 64 x 64 boxes,
-// 128-byte swizzle, zeros outside.
-bool weight_map(CUtensorMap* map, const bf16* w, int rows, int cols) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, 64}, elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(w), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 // ---- K7 -------------------------------------------------------------------
+//
+// Two launches, and the split finish where one is needed:
+//  (i) ln_fc_kernel<false> (common.cuh): LN, fc1 and b1 of every pixel once;
+//      h fp32 (B, H, W, hid), unrounded, to device memory.
+//  (ii) dwms_tile_kernel: one block of 256 threads per (8x8 output tile,
+//      image, split).  Per chunk of 64 hidden channels:
+//      * the tile's 14 x 14 halo of h arrives by one 4-D TMA box (zeros
+//        outside the image: exactly SAME padding of h, b1 inside), double-
+//        buffered, the next chunk's box in flight while this one is used;
+//      * the chunk's merged taps t = k7 + pad(k5) + pad(k3) + identity
+//        (fp32 sums of the bf16 taps) and bias c3 + c5 + c7, which launch
+//        (i) wrote beside h, arrive by cp.async a chunk ahead: one 7x7
+//        stencil, 49 FMAs a hidden value where the three convs and the
+//        identity take 83 + 4 (the same function, reassociated in fp32);
+//      * a thread owns one channel and two output rows and slides the
+//        7-wide window along each of the 8 halo rows it reads, so one
+//        shared-memory load of h feeds up to 14 FMAs (the taps in registers,
+//        or at NT = 4 read from shared memory, to leave the registers to
+//        the output tile);
+//      * bf16(GELU(a)) goes to a 128-byte-swizzled 64 x 64 A tile (double-
+//        buffered), and fc2 runs as wgmma m64n64k16 on w2 tiles streamed by
+//        TMA, the 64 x d fp32 output tile in registers (NT tiles of 64
+//        columns a warpgroup) through the hidden loop; a chunk's fc2 runs
+//        under the next chunk's stencil.
+constexpr int kT = 8;               // output tile kT x kT pixels (K7 and K11)
+constexpr int kTP = kT * kT;        // 64 output pixels
+constexpr int kE7 = kT + 6;         // K7's halo side: 14
+constexpr int kHalo = kE7 * kE7 * 64;  // fp32 elements of one chunk's halo box (50 KB)
 
-constexpr int kT = 8;                   // output tile kT x kT pixels
-constexpr int kE = kT + 6;              // with the 3-px halo: 14 x 14
-constexpr int kEP = kE * kE;            // 196 halo pixels
-constexpr int kMP = (kEP + 15) / 16 * 16;  // 208 rows, padded for 16-row tiles
-constexpr int kTP = kT * kT;            // 64 output pixels
+// w2 ring slots: two chunks' tiles where shared memory holds them, else 10
+// boxes (D = 2 NT - slots of a chunk's tiles are issued once the previous
+// chunk's first D products are done)
+template <int NW, int NT>
+__host__ __device__ constexpr int dwms_stages() { return 2 * NT < 10 / NW ? 2 * NT : 10 / NW; }
 
-// One block per (8x8 output tile, image, split).  Shared: ys [208][KC+8] bf16
-// (channels [k0, k0+KC) of the LN'd halo tile), h32 [208][HC+4] fp32 (fc1
-// chunk of the halo tile), hs [64][HC+8] bf16 (GELU chunk), acc [64][d+4] fp32
-// (output tile; b2 and the split partials as in K6).
-__global__ void ln_dwms_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
-                               const float* __restrict__ b1, const bf16* __restrict__ k3,
-                               const float* __restrict__ c3, const bf16* __restrict__ k5,
-                               const float* __restrict__ c5, const bf16* __restrict__ k7,
-                               const float* __restrict__ c7, const bf16* __restrict__ w2,
-                               const float* __restrict__ b2, bf16* __restrict__ out,
-                               float* __restrict__ part, int H, int W, int d, int hid, int KC,
-                               int HC, int cps) {
+template <int NW, int NT>
+__host__ __device__ constexpr size_t dwms_smem() {
+  return 1024 + 2 * kTP * 64 * 2 + (size_t)dwms_stages<NW, NT>() * NW * kBox * 2 +
+         2 * kHalo * 4 + 2 * kTapChunk * 4;
+}
+
+template <int NW, int NT>
+__global__ void __launch_bounds__(256, 1)
+    dwms_tile_kernel(const __grid_constant__ CUtensorMap map_h,
+                     const __grid_constant__ CUtensorMap map_w2,
+                     const float* __restrict__ mtaps, const float* __restrict__ b2,
+                     bf16* __restrict__ out, float* __restrict__ part, int H, int W, int d,
+                     int hid, int cps) {
+  constexpr int S = dwms_stages<NW, NT>(), D = 2 * NT - S;
+  constexpr bool kTapRegs = NT < 4;
   extern __shared__ float4 smem4[];
-  const int ldy = KC + 8, ld32 = HC + 4, ldhs = HC + 8, ldacc = d + 4;
-  bf16* ys = reinterpret_cast<bf16*>(smem4);
-  float* h32 = reinterpret_cast<float*>(ys + kMP * ldy);
-  bf16* hs = reinterpret_cast<bf16*>(h32 + kMP * ld32);
-  float* acc = reinterpret_cast<float*>(hs + kTP * ldhs);
+  uint64_t* hbar = reinterpret_cast<uint64_t*>(smem4);  // the two halo buffers' barriers
+  uint64_t* full = hbar + 2;                            // the ring slots'
+  bf16* Gs = tiles_start(smem4, 64);                    // [2][64 x 64] GELU tiles
+  bf16* ring = Gs + 2 * kTP * 64;
+  float* halo = reinterpret_cast<float*>(ring + S * NW * kBox);  // [2][14][14][64]
+  float* ts = halo + 2 * kHalo;  // [2][50][64] merged taps and biases (MergedTaps)
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
   const int tiles_x = (W + kT - 1) / kT;
   const int ty0 = (blockIdx.x / tiles_x) * kT, tx0 = (blockIdx.x % tiles_x) * kT;
   const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < kTP * d; i += blockDim.x) {
-    const int p = i / d, j = i - p * d;
-    acc[p * ldacc + j] = part ? 0.f : b2[j];
+  const int nchunks = (hid + 63) / 64;
+  const int c_first = blockIdx.z * cps, nq = min(nchunks, c_first + cps) - c_first;
+  const int T = nq * NT;  // w2 tiles: chunk t / NT, output tile t % NT of each warpgroup
+  auto issue_w2 = [&](int t) {
+    const int slot = t % S, c = c_first + t / NT, j = t % NT;
+    mbar_expect_tx(full + slot, NW * kBox * 2);
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      tma_load_2d(ring + (slot * NW + w) * kBox, &map_w2, 64 * c, 64 * (w * NT + j), full + slot);
+  };
+  auto issue_halo = [&](int q) {
+    mbar_expect_tx(hbar + (q & 1), kHalo * 4);
+    tma_load_4d(halo + (q & 1) * kHalo, &map_h, 64 * (c_first + q), tx0 - 3, ty0 - 3, b,
+                hbar + (q & 1));
+  };
+  auto issue_taps = [&](int q) {  // by every thread
+    const float* src = mtaps + (long)(c_first + q) * kTapChunk;
+    float* dst = ts + (q & 1) * kTapChunk;
+    for (int e = tid; e < kTapChunk / 4; e += 256) cp_async16(dst + 4 * e, src + 4 * e, true);
+    cp_async_commit();
+  };
+  int issued = 0;  // w2 tiles issued (thread 0)
+  if (tid == 0) {
+    mbar_init(hbar, 1);
+    mbar_init(hbar + 1, 1);
+    for (int i = 0; i < S; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+    issue_halo(0);
+    for (; issued < min(T, S); ++issued) issue_w2(issued);
   }
-  int c_first, c_last;
-  split_range(hid, HC, cps, &c_first, &c_last);
-  for (int c0 = c_first; c0 < c_last; c0 += HC) {
-    // fc1 of the halo tile, K-chunked when the whole LN'd tile does not fit
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      if (KC < d || c0 == c_first) {
-        __syncthreads();
-        stage_halo(y, b, H, W, d, ty0 - 3, tx0 - 3, kE, kE, kMP, k0, KC, ys, ldy);
-        __syncthreads();
-      }
-      mma_tiles(ys, ldy, w1 + (long)c0 * d + k0, d, h32, ld32, kMP / 16, HC / 16, KC, k0 > 0);
+  issue_taps(0);
+  __syncthreads();
+
+  float acc[NT][32];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  const int cl = tid & 63, rp = tid >> 6;  // stencil: channel, pair of output rows
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<0>();  // this chunk's taps (all threads' pieces: after the barrier)
+    if constexpr (D > 0) {
+      if (q > 0 && wg < NW) wgmma_wait<NT - D>();  // the previous chunk's first D tiles
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < kEP * HC; i += blockDim.x) {
-      const int e = i / HC, j = i - e * HC;
-      const int gy = ty0 - 3 + e / kE, gx = tx0 - 3 + e % kE;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      float* v = h32 + e * ld32 + j;
-      *v = inside ? *v + b1[c0 + j] : 0.f;
+    if (q + 1 < nq) issue_taps(q + 1);  // its buffer was last read before the last barrier
+    if (tid == 0) {
+      if (D > 0 && q > 0)
+        for (; issued < min(T, (q - 1) * NT + D + S); ++issued) issue_w2(issued);
+      if (q + 1 < nq) issue_halo(q + 1);  // its buffer's last reads ended before the last barrier
     }
-    __syncthreads();
+    mbar_wait(hbar + (q & 1), (q >> 1) & 1);
+    bf16* G = Gs + (q & 1) * kTP * 64;
     {
-      // thread -> channel j of the chunk; the block's threads cover HC
-      // channels times kThreads / HC pixel groups
-      const int j = threadIdx.x % HC, g = threadIdx.x / HC, G = blockDim.x / HC;
-      const int c = c0 + j;
-      float t3[9], t5[25], t7[49];
+      const float* hb = halo + (q & 1) * kHalo + cl;
+      const float* tq = ts + (q & 1) * kTapChunk + cl;
+      float a0[kT], a1[kT], tap[kTapRegs ? 49 : 1];
+      const float bias = tq[49 * 64];
 #pragma unroll
-      for (int i = 0; i < 9; ++i) t3[i] = to_f32(k3[(long)c * 9 + i]);
+      for (int px = 0; px < kT; ++px) a0[px] = a1[px] = bias;
+      if constexpr (kTapRegs) {
 #pragma unroll
-      for (int i = 0; i < 25; ++i) t5[i] = to_f32(k5[(long)c * 25 + i]);
+        for (int i = 0; i < 49; ++i) tap[i] = tq[i * 64];
+      }
+      auto tap_at = [&](int i) {
+        if constexpr (kTapRegs) {
+          return tap[i];
+        } else {
+          return tq[i * 64];
+        }
+      };
 #pragma unroll
-      for (int i = 0; i < 49; ++i) t7[i] = to_f32(k7[(long)c * 49 + i]);
-      const float cb3 = c3[c], cb5 = c5[c], cb7 = c7[c];
-      const float* hj = h32 + j;
-      for (int p = g; p < kTP; p += G) {
-        const int py = p / kT, px = p % kT;
-        float a = hj[((py + 3) * kE + px + 3) * ld32] + cb3;
-        a += cb5;
-        a += cb7;
+      for (int r = 0; r < 8; ++r) {  // halo row 2 rp + r feeds output rows 2 rp and 2 rp + 1
+        const float* row = hb + (2 * rp + r) * kE7 * 64;
+        float v[kE7];
 #pragma unroll
-        for (int u = 0; u < 3; ++u)
+        for (int xx = 0; xx < kE7; ++xx) v[xx] = row[xx * 64];
 #pragma unroll
-          for (int v = 0; v < 3; ++v)
-            a = fmaf(t3[u * 3 + v], hj[((py + 2 + u) * kE + px + 2 + v) * ld32], a);
+        for (int kx = 0; kx < 7; ++kx) {
+          if (r < 7) {
+            const float t = tap_at(r * 7 + kx);
 #pragma unroll
-        for (int u = 0; u < 5; ++u)
+            for (int px = 0; px < kT; ++px) a0[px] = fmaf(t, v[px + kx], a0[px]);
+          }
+          if (r > 0) {
+            const float t = tap_at((r - 1) * 7 + kx);
 #pragma unroll
-          for (int v = 0; v < 5; ++v)
-            a = fmaf(t5[u * 5 + v], hj[((py + 1 + u) * kE + px + 1 + v) * ld32], a);
+            for (int px = 0; px < kT; ++px) a1[px] = fmaf(t, v[px + kx], a1[px]);
+          }
+        }
+      }
+      // the GELU tile's buffer was last read by the fc2 of chunk q - 2,
+      // which every warpgroup waited for before the previous chunk's barrier
 #pragma unroll
-        for (int u = 0; u < 7; ++u)
-#pragma unroll
-          for (int v = 0; v < 7; ++v)
-            a = fmaf(t7[u * 7 + v], hj[((py + u) * kE + px + v) * ld32], a);
-        hs[p * ldhs + j] = __float2bfloat16_rn(gelu_exact(a));
+      for (int px = 0; px < kT; ++px) {
+        G[sw128_offset(16 * rp + px, cl, kTP)] = __float2bfloat16_rn(gelu_exact(a0[px]));
+        G[sw128_offset(16 * rp + 8 + px, cl, kTP)] = __float2bfloat16_rn(gelu_exact(a1[px]));
       }
     }
+    if (wg < NW) wgmma_wait<0>();  // the previous chunk's fc2, run under this stencil
+    fence_proxy_async();
     __syncthreads();
-    mma_tiles(hs, ldhs, w2 + c0, hid, acc, ldacc, kTP / 16, d / 16, HC, true);
-    __syncthreads();
+    if (tid == 0)
+      for (; issued < min(T, q * NT + S); ++issued) issue_w2(issued);
+    if (wg < NW) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int t = q * NT + j;
+        mbar_wait(full + t % S, (t / S) & 1);
+        const bf16* tile = ring + ((t % S) * NW + wg) * kBox;
+        fence_regs(acc[j]);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n64k16(acc[j], wgmma_desc_sw128(G + 16 * s), wgmma_desc_sw128(tile + 16 * s),
+                          1);
+        wgmma_commit();
+      }
+    }
   }
-  float* part_s = part ? part + blockIdx.z * (long)gridDim.y * H * W * d : nullptr;
-  for (int i = threadIdx.x; i < kTP * d; i += blockDim.x) {
-    const int p = i / d, j = i - p * d;
-    const int gy = ty0 + p / kT, gx = tx0 + p % kT;
-    if (gy >= H || gx >= W) continue;
-    const long o = (((long)b * H + gy) * W + gx) * d + j;
-    if (part_s) {
-      part_s[o] = acc[p * ldacc + j];
-    } else {
-      out[o] = __float2bfloat16_rn(acc[p * ldacc + j]);
+  if (wg >= NW) return;
+  wgmma_wait<0>();
+  const int wrow = 16 * (warp & 3) + (lane >> 2), wcol = 2 * (lane & 3);
+  float* part_s = part ? part + (long)blockIdx.z * gridDim.y * H * W * d : nullptr;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    fence_regs(acc[j]);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int p = wrow + 8 * ((i >> 1) & 1);
+      const int gy = ty0 + p / kT, gx = tx0 + p % kT;
+      const int col = 64 * (wg * NT + j) + 8 * (i >> 2) + wcol;
+      if (gy >= H || gx >= W || col >= d) continue;
+      const long o = (((long)b * H + gy) * W + gx) * d + col;
+      if (part_s) {
+        *reinterpret_cast<float2*>(part_s + o) = make_float2(acc[j][i], acc[j][i + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(out + o) =
+            __floats2bfloat162_rn(acc[j][i] + b2[col], acc[j][i + 1] + b2[col + 1]);
+      }
     }
   }
 }
 
-size_t dwms_smem(int d, int KC, int HC) {
-  return (size_t)kMP * ((KC + 8) * 2 + (HC + 4) * 4) + (size_t)kTP * ((HC + 8) * 2 + (d + 4) * 4);
+// fc2's warpgroups NW and output tiles NT a warpgroup of K7 at width d: d up
+// to 512 (the tile's registers), one warpgroup at d <= 64.
+bool plan_dwms(int d, int hid, int* NW, int* NT) {
+  if (d % 16 || hid % 16 || d < 16 || d > 512 || hid < 16) return false;
+  const int tiles = (d + 63) / 64;
+  *NW = tiles == 1 ? 1 : 2;
+  *NT = (tiles + *NW - 1) / *NW;
+  return true;
 }
+
+#define TRAMBA_DWMS_DISPATCH(NW, NT, ...)                               \
+  switch ((NW) * 8 + (NT)) {                                            \
+    case 9: { constexpr int kNW = 1, kNT = 1; __VA_ARGS__; } break;     \
+    case 17: { constexpr int kNW = 2, kNT = 1; __VA_ARGS__; } break;    \
+    case 18: { constexpr int kNW = 2, kNT = 2; __VA_ARGS__; } break;    \
+    case 19: { constexpr int kNW = 2, kNT = 3; __VA_ARGS__; } break;    \
+    case 20: { constexpr int kNW = 2, kNT = 4; __VA_ARGS__; } break;    \
+    default: return (int)cudaErrorInvalidValue;                         \
+  }
 
 // ---- K11 ------------------------------------------------------------------
 
@@ -554,18 +574,16 @@ size_t dwmlp_smem(int d, int KC, int HC) {
   return (size_t)kMP1 * ((KC + 8) * 2 + (HC + 4) * 4) + (size_t)kTP * ((HC + 8) * 2 + (d + 4) * 4);
 }
 
-constexpr size_t kSmemMax = 227 * 1024;
 
 // The largest hidden chunk HC (then K chunk KC) whose tiles fit one block of
-// K7 (smem = dwms_smem) or K11 (dwmlp_smem; d 320 stages its input in chunks
-// of 64 channels).
+// K11 (smem = dwmlp_smem; d 320 stages its input in chunks of 64 channels).
 bool pick_chunks(size_t (*smem)(int, int, int), int d, int hid, int* KC, int* HC) {
   for (int hc = 128; hc >= 16; hc /= 2) {
     if (hid % hc || kThreads % hc) continue;
     const int kcs[] = {d, 256, 128, 64, 32, 16};
     for (int kc : kcs) {
       if (kc > d || d % kc) continue;
-      if (smem(d, kc, hc) <= kSmemMax) {
+      if (smem(d, kc, hc) <= kSmemBlock) {
         *KC = kc;
         *HC = hc;
         return true;
@@ -580,9 +598,11 @@ bool pick_chunks(size_t (*smem)(int, int, int), int d, int hid, int* KC, int* HC
 // s splits is ceil(blocks * s / slots) / s of one block's full work, slots
 // being the blocks the card holds at once.  Returns the fewest splits that
 // cut it by more than 10% each time, at most 8 and at most `nchunks`, after
-// rounding to whole chunks per split.
+// rounding to whole chunks per split; with below_a_wave, none unless the
+// grid fills less than one wave.
 template <typename Kern>
-int pick_splits(Kern kernel, size_t smem, long blocks, int nchunks, int* splits) {
+int pick_splits(Kern kernel, size_t smem, long blocks, int nchunks, int* splits,
+                bool below_a_wave = false) {
   cudaError_t e = allow_smem(kernel, smem);
   int per_sm = 0, dev = 0, sms = 0;
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
@@ -592,7 +612,7 @@ int pick_splits(Kern kernel, size_t smem, long blocks, int nchunks, int* splits)
   const long slots = std::max(1L, (long)per_sm * sms);
   int best = 1;
   double best_cost = (double)((blocks + slots - 1) / slots);
-  for (int s = 2; s <= std::min(8, nchunks); ++s) {
+  for (int s = 2; s <= std::min(8, nchunks) && !(below_a_wave && blocks >= slots); ++s) {
     const double cost = (double)((blocks * s + slots - 1) / slots) / s;
     if (cost < 0.9 * best_cost) {
       best = s;
@@ -626,17 +646,17 @@ bool plan_mlp(long M, int d, int hid, MlpPlan* p) {
   p->NT = (per_block / p->NW + 63) / 64;
   p->groups = (d + 64 * p->NT * p->NW - 1) / (64 * p->NT * p->NW);
   p->nchunks = (hid + 64 * p->NW - 1) / (64 * p->NW);
-  p->rows = (M + kMlpRows - 1) / kMlpRows;
+  p->rows = (M + kTileRows - 1) / kTileRows;
   const int dp = (d + 63) & ~63;
   const int in_flight = p->NT > 1 ? 3 : 2, g_buffers = p->NT > 1 ? 2 : 1;
   // the mbarriers (up to 8) and the 1024-byte alignment of the tiles, then
   // the LN rows, the GELU buffers, the ring
-  const size_t fixed = 1024 + (size_t)kMlpRows * (dp + g_buffers * 64 * p->NW) * 2;
-  const size_t tile = (size_t)kMlpBox * p->NW * 2;
+  const size_t fixed = 1024 + (size_t)kTileRows * (dp + g_buffers * 64 * p->NW) * 2;
+  const size_t tile = (size_t)kBox * p->NW * 2;
   // two blocks an SM (113 KB each) where the accumulators leave the
   // registers for it and the ring keeps two tiles ahead
-  size_t budget = p->NT <= 2 ? 113 * 1024 : kSmemMax;
-  if (fixed + (in_flight + 2) * tile > budget) budget = kSmemMax;
+  size_t budget = p->NT <= 2 ? 113 * 1024 : kSmemBlock;
+  if (fixed + (in_flight + 2) * tile > budget) budget = kSmemBlock;
   p->stages = (int)std::min<size_t>(8, (budget - std::min(budget, fixed)) / tile);
   p->smem = fixed + (size_t)p->stages * tile;
   return p->stages > in_flight;
@@ -669,7 +689,7 @@ int pick_mlp_splits(const MlpPlan& p, long M, int d, int hid, int* splits) {
   });
   if (e != cudaSuccess) return (int)e;
   const long slots = std::max(1L, (long)per_sm * sms), blocks = p.rows * p.groups;
-  const double block_s = 2.0 * kMlpRows * hid * (((d + 63) & ~63) + 64.0 * p.NT * p.NW) / 2.5e12;
+  const double block_s = 2.0 * kTileRows * hid * (((d + 63) & ~63) + 64.0 * p.NT * p.NW) / 2.5e12;
   int best = 1;
   double best_cost = 0;
   for (int s = 1; s <= std::min(16, p.nchunks); ++s) {
@@ -734,39 +754,58 @@ int ln_mlp_launch(const bf16* x, const float* ln_w, const float* ln_b, const bf1
   return S > 1 ? finish_split(part, b2, out, M * d, d, S, s) : 0;
 }
 
-// Splits of the hidden dimension that ln_dwms_mlp_launch should use.
+// Splits of the hidden chunks that ln_dwms_mlp_launch should use: only
+// where the tiles of the map fill less than one wave (24 px at B1-B2).
 int ln_dwms_mlp_splits(int B, int H, int W, int d, int hid, int* splits) {
-  int KC, HC;
-  if (d % 16 || hid % 16 || !pick_chunks(dwms_smem, d, hid, &KC, &HC))
-    return (int)cudaErrorInvalidValue;
+  int NW, NT;
+  if (!plan_dwms(d, hid, &NW, &NT)) return (int)cudaErrorInvalidValue;
   const long tiles = (long)((H + kT - 1) / kT) * ((W + kT - 1) / kT);
-  return pick_splits(ln_dwms_kernel, dwms_smem(d, KC, HC), tiles * B, hid / HC, splits);
+  TRAMBA_DWMS_DISPATCH(NW, NT, {
+    return pick_splits(dwms_tile_kernel<kNW, kNT>, dwms_smem<kNW, kNT>(), tiles * B,
+                       (hid + 63) / 64, splits, true);
+  });
+  return 0;
 }
 
-// K7.  y (B, H, W, d) bf16, already LN'd; w1 (hid, d) bf16; b1 (hid) fp32;
-// k3 (hid, 3*3), k5 (hid, 5*5), k7 (hid, 7*7) bf16; c3, c5, c7 (hid) fp32;
-// w2 (d, hid) bf16; b2 (d) fp32; out (B, H, W, d) bf16; `splits` from
-// ln_dwms_mlp_splits, with scratch part (splits, B, H, W, d) fp32 when it is
-// above 1.  d, hid multiples of 16.
-int ln_dwms_mlp_launch(const bf16* y, const bf16* w1, const float* b1, const bf16* k3,
-                       const float* c3, const bf16* k5, const float* c5, const bf16* k7,
-                       const float* c7, const bf16* w2, const float* b2, bf16* out, float* part,
-                       int B, int H, int W, int d, int hid, int splits, void* stream) {
+// K7.  x (B, H, W, d) bf16; ln_w, ln_b (d) fp32 (LayerNorm eps 1e-5, folded
+// into the fc1 launch); w1 (hid, d) bf16; b1 (hid) fp32; k3 (hid, 3*3), k5
+// (hid, 5*5), k7 (hid, 7*7) bf16; c3, c5, c7 (hid) fp32; w2 (d, hid) bf16;
+// b2 (d) fp32; out (B, H, W, d) bf16; scratch h: B H W hid + 50 * 64 *
+// ceil(hid / 64) fp32 (the fc1 map, then the merged taps), and part
+// (splits, B, H, W, d) fp32 when `splits` (from ln_dwms_mlp_splits) is above
+// 1.  d, hid multiples of 16, d <= 512.
+int ln_dwms_mlp_launch(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w1,
+                       const float* b1, const bf16* k3, const float* c3, const bf16* k5,
+                       const float* c5, const bf16* k7, const float* c7, const bf16* w2,
+                       const float* b2, bf16* out, float* h, float* part, int B, int H, int W,
+                       int d, int hid, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int KC, HC;
-  if (d % 16 || hid % 16 || splits < 1 || !pick_chunks(dwms_smem, d, hid, &KC, &HC))
+  const long M = (long)B * H * W;
+  int NW, NT;
+  FrontPlan fp;
+  if (splits < 1 || !plan_dwms(d, hid, &NW, &NT) || !plan_front(M, d, hid, false, &fp))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = dwms_smem(d, KC, HC);
-  cudaError_t e = allow_smem(ln_dwms_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
+  CUtensorMap map_w1, map_h, map_w2;
+  if (!weight_map(&map_w1, w1, hid, d) || !weight_map(&map_w2, w2, d, hid) ||
+      !halo_map(&map_h, h, B, H, W, hid, kE7))
+    return (int)cudaErrorInvalidValue;
+  float* mtaps = h + M * hid;
+  int rc = front_launch<false>(fp, map_w1, map_w1, map_w1, x, ln_w, ln_b, b1, h, nullptr,
+                               nullptr, nullptr, nullptr, M, d, hid,
+                               MergedTaps{k3, k5, k7, c3, c5, c7, mtaps}, s);
+  if (rc) return rc;
   const int tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);
-  const int nchunks = hid / HC, cps = (nchunks + splits - 1) / splits;
+  const int nchunks = (hid + 63) / 64, cps = (nchunks + splits - 1) / splits;
   const int S = (nchunks + cps - 1) / cps;
-  ln_dwms_kernel<<<dim3(tiles, B, S), kThreads, smem, s>>>(
-      y, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2, out, S > 1 ? part : nullptr, H, W, d, hid, KC,
-      HC, cps);
+  TRAMBA_DWMS_DISPATCH(NW, NT, {
+    auto kern = dwms_tile_kernel<kNW, kNT>;
+    cudaError_t e = allow_smem(kern, dwms_smem<kNW, kNT>());
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3(tiles, B, S), 256, dwms_smem<kNW, kNT>(), s>>>(
+        map_h, map_w2, mtaps, b2, out, S > 1 ? part : nullptr, H, W, d, hid, cps);
+  });
   TRAMBA_CHECK_LAUNCH();
-  return S > 1 ? finish_split(part, b2, out, (long)B * H * W * d, d, S, s) : 0;
+  return S > 1 ? finish_split(part, b2, out, M * d, d, S, s) : 0;
 }
 
 // Splits of the hidden dimension that ln_dwmlp_launch should use.

@@ -49,10 +49,11 @@ _SIGNATURES = {
     "ln_mlp_splits": [_L, _I, _I, _IP],
     "ln_mlp_launch": [_P] * 9 + [_L, _I, _I, _I, _P],
     "ln_dwms_mlp_splits": [_I] * 5 + [_IP],
-    "ln_dwms_mlp_launch": [_P] * 13 + [_I] * 6 + [_P],
+    "ln_dwms_mlp_launch": [_P] * 16 + [_I] * 6 + [_P],
     "ln_dwmlp_splits": [_I] * 5 + [_IP],
     "ln_dwmlp_launch": [_P] * 9 + [_I] * 6 + [_P],
     "mlp_bwd_scratch": [_I] * 6 + [_LP],
+    "mlp_bwd_column_groups": [_I] * 3,
     "ln_mlp_bwd_launch": [_P] * 15 + [_I] * 3 + [_P],
     "ln_dwms_mlp_bwd_launch": [_P] * 27 + [_I] * 5 + [_P],
     "attn_proj_in_launch": [_P] * 4 + [_L, _I, _I, _I, _F, _P],

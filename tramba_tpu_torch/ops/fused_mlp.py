@@ -45,14 +45,16 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_card
 
 __all__ = ["layer_norm_bf16", "ln_mlp", "ln_mlp_ref", "check_ln_mlp_shape", "ln_dwms_mlp",
-           "ln_dwms_mlp_ref", "ln_dwmlp", "ln_dwmlp_ref", "dwmlp_fusable", "ln_mlp_bwd",
-           "ln_mlp_bwd_ref", "ln_dwms_mlp_bwd", "ln_dwms_mlp_bwd_ref", "LnMlp", "LnDwmsMlp",
-           "LnDwMlp"]
+           "ln_dwms_mlp_ref", "check_ln_dwms_mlp_shape", "ln_dwmlp", "ln_dwmlp_ref",
+           "dwmlp_fusable", "ln_mlp_bwd", "ln_mlp_bwd_ref", "check_ln_mlp_bwd_shape",
+           "mlp_bwd_column_groups",
+           "ln_dwms_mlp_bwd", "ln_dwms_mlp_bwd_ref", "LnMlp", "LnDwmsMlp", "LnDwMlp"]
 
 
 def _ln_rounded(x, ln_w, ln_b, eps=1e-5):
@@ -77,6 +79,10 @@ def _splits(name: str, device: int, *shape) -> int:
     return out.value
 
 
+def _f32(*shape, like):
+    return torch.empty(*shape, device=like.device, dtype=torch.float32)
+
+
 def _split_scratch(x, name: str, *shape):
     """(splits, fp32 scratch for that many partial outputs of K6 / K7: shape
     (splits, *x.shape), or an empty tensor when it is 1)."""
@@ -87,8 +93,8 @@ def _split_scratch(x, name: str, *shape):
 
 def layer_norm_bf16(x, ln_w, ln_b, eps=1e-5):
     """bf16 LayerNorm of a CUDA bf16 tensor over its last axis (fp32
-    statistics): the launch that kernels K5, K7 and K11-K13 start with (K6
-    normalises its own rows)."""
+    statistics): the launch that kernels K5 and K11-K13 start with (K6, K7
+    and K9 normalise their own rows)."""
     d = x.shape[-1]
     check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
     if ln_w.numel() != d or ln_b.numel() != d:
@@ -312,20 +318,35 @@ def _dwms_checks(name, x, w1, b1, taps, w2, b2):
     return d, hid
 
 
+def check_ln_dwms_mlp_shape(B: int, H: int, W: int, d: int, hid: int) -> None:
+    """Raise ValueError unless K7 takes a (B, H, W, d) map with hidden width
+    ``hid``: d and hid multiples of 16, d from 16 to 512 (its 64 x d output
+    tile stays in registers).  No launch: the tests hold every model's
+    shapes to it on the CPU."""
+    if min(B, H, W) < 1 or d % 16 or hid % 16 or not 16 <= d <= 512 or hid < 16:
+        raise ValueError(f"ln_dwms_mlp: B={B}, H={H}, W={W} must be positive, d={d} and "
+                         f"hid={hid} multiples of 16, d from 16 to 512")
+
+
 def _ln_dwms_mlp_launch(x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2):
     cd = x.dtype
     w1, w2 = w1.to(cd), w2.to(cd)
     taps = ((k3.to(cd), c3), (k5.to(cd), c5), (k7.to(cd), c7))
-    check_args(b2=(b2, F32))
+    check_args(ln_w=(ln_w, F32), ln_b=(ln_b, F32), b2=(b2, F32))
     d, hid = _dwms_checks("ln_dwms_mlp", x, w1, b1, taps, w2, b2)
     B, H, W, _ = x.shape
-    y = layer_norm_bf16(x, ln_w, ln_b)
+    check_ln_dwms_mlp_shape(B, H, W, d, hid)
+    if ln_w.numel() != d or ln_b.numel() != d:
+        raise ValueError(f"ln_dwms_mlp: LN parameters must have {d} elements")
     out = torch.empty_like(x)
+    # fc1's output, read by the stencil's halos, then the merged taps and
+    # biases: 50 x 64 floats a chunk of 64 hidden channels
+    h = _f32(B * H * W * hid + 50 * 64 * -(-hid // 64), like=x)
     splits, part = _split_scratch(x, "ln_dwms_mlp_splits", B, H, W, d, hid)
-    _native.launch("ln_dwms_mlp_launch", y.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                   *(t.data_ptr() for kc in taps for t in kc), w2.data_ptr(), b2.data_ptr(),
-                   out.data_ptr(), part.data_ptr(), B, H, W, d, hid, splits,
-                   _native.stream_handle(x))
+    _native.launch("ln_dwms_mlp_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                   w1.data_ptr(), b1.data_ptr(), *(t.data_ptr() for kc in taps for t in kc),
+                   w2.data_ptr(), b2.data_ptr(), out.data_ptr(), h.data_ptr(), part.data_ptr(),
+                   B, H, W, d, hid, splits, _native.stream_handle(x))
     ln_dwms_mlp.launches += 1
     return out
 
@@ -370,8 +391,28 @@ def _bwd_scratch(x, dwms, *shape):
     return torch.empty(n.value, device=x.device, dtype=torch.uint8)
 
 
-def _f32(*shape, like):
-    return torch.empty(*shape, device=like.device, dtype=torch.float32)
+def check_ln_mlp_bwd_shape(M: int, d: int, hid: int, name: str = "ln_mlp_bwd") -> None:
+    """Raise ValueError unless K9 (and K10, ``name``) takes M rows of width d
+    and hidden width hid: d and hid multiples of 16, d from 16 to 1024, and
+    d's 64-column tiles split into column groups of 1, 2, 4 or 8 tiles, at
+    most 8 groups (a thread block cluster): every d but those of 9, 11, 13
+    or 15 tiles.  No launch."""
+    tiles = -(-d // 64)
+    if (M < 1 or d % 16 or hid % 16 or not 16 <= d <= 1024 or hid < 16
+            or tiles in (9, 11, 13, 15)):
+        raise ValueError(f"{name}: M={M} must be positive, d={d} and hid={hid} multiples of "
+                         "16, d from 16 to 1024 and not of 9, 11, 13 or 15 tiles of 64")
+
+
+def mlp_bwd_column_groups(M: int, d: int, hid: int) -> int:
+    """Column groups of d that stage (c) of K9 and K10 splits M rows into, as
+    the built library plans them (``plan_dx`` in ``csrc/mlp_bwd.cu``;
+    :func:`tramba_tpu_torch.ops.ffn_stages.column_groups` is its plain
+    mirror).  No launch; raises for shapes the kernels do not take."""
+    G = _native.library().mlp_bwd_column_groups(M, d, hid)
+    if G < 1:
+        raise ValueError(f"ln_mlp_bwd: no plan for M={M}, d={d}, hid={hid}")
+    return G
 
 
 def ln_mlp_bwd(x, g, ln_w, ln_b, w1, b1, w2):
@@ -384,17 +425,19 @@ def ln_mlp_bwd(x, g, ln_w, ln_b, w1, b1, w2):
                b1=(b1, F32), w2=(w2c, BF16))
     d, hid = _mlp_shapes("ln_mlp_bwd", x, w1c, b1, w2c, None)
     M = x.numel() // d
+    check_ln_mlp_bwd_shape(M, d, hid)
     if g.shape != x.shape or ln_w.numel() != d or ln_b.numel() != d:
         raise ValueError("ln_mlp_bwd: g must have x's shape, LN parameters d elements")
     dx = torch.empty_like(x)
     dw1, db1, dw2 = _f32(hid, d, like=x), _f32(hid, like=x), _f32(d, hid, like=x)
     db2, dln_w, dln_b = _f32(d, like=x), _f32(d, like=x), _f32(d, like=x)
     scratch = _bwd_scratch(x, 0, M, 1, 1, d, hid)
-    _native.launch("ln_mlp_bwd_launch", x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
-                   ln_b.data_ptr(), w1c.data_ptr(), b1.data_ptr(), w2c.data_ptr(), dx.data_ptr(),
-                   dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-                   dln_w.data_ptr(), dln_b.data_ptr(), scratch.data_ptr(), M, d, hid,
-                   _native.stream_handle(x))
+    with record_function("ln_mlp_bwd"):  # tells K9's launches from K10's in a profile
+        _native.launch("ln_mlp_bwd_launch", x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
+                       ln_b.data_ptr(), w1c.data_ptr(), b1.data_ptr(), w2c.data_ptr(),
+                       dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+                       db2.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(), scratch.data_ptr(),
+                       M, d, hid, _native.stream_handle(x))
     ln_mlp_bwd.launches += 1
     return dx, dln_w, dln_b, dw1, db1, dw2, db2
 
@@ -415,17 +458,20 @@ def ln_dwms_mlp_bwd(x, g, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2):
     if g.shape != x.shape or ln_w.numel() != d or ln_b.numel() != d:
         raise ValueError("ln_dwms_mlp_bwd: g must have x's shape, LN parameters d elements")
     B, H, W, _ = x.shape
+    check_ln_mlp_bwd_shape(B * H * W, d, hid, "ln_dwms_mlp_bwd")
     dx = torch.empty_like(x)
     dw1, db1, dw2 = _f32(hid, d, like=x), _f32(hid, like=x), _f32(d, hid, like=x)
     dk = [t for n in (3, 5, 7) for t in (_f32(hid, 1, n, n, like=x), _f32(hid, like=x))]
     db2, dln_w, dln_b = _f32(d, like=x), _f32(d, like=x), _f32(d, like=x)
     scratch = _bwd_scratch(x, 1, B, H, W, d, hid)
-    _native.launch("ln_dwms_mlp_bwd_launch", x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
-                   ln_b.data_ptr(), w1c.data_ptr(), b1.data_ptr(),
-                   *(t.data_ptr() for kc in taps for t in kc), w2c.data_ptr(), dx.data_ptr(),
-                   dw1.data_ptr(), db1.data_ptr(), *(t.data_ptr() for t in dk), dw2.data_ptr(),
-                   db2.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(), scratch.data_ptr(),
-                   B, H, W, d, hid, _native.stream_handle(x))
+    with record_function("ln_dwms_mlp_bwd"):
+        _native.launch("ln_dwms_mlp_bwd_launch", x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
+                       ln_b.data_ptr(), w1c.data_ptr(), b1.data_ptr(),
+                       *(t.data_ptr() for kc in taps for t in kc), w2c.data_ptr(),
+                       dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                       *(t.data_ptr() for t in dk), dw2.data_ptr(), db2.data_ptr(),
+                       dln_w.data_ptr(), dln_b.data_ptr(), scratch.data_ptr(),
+                       B, H, W, d, hid, _native.stream_handle(x))
     ln_dwms_mlp_bwd.launches += 1
     return (dx, dln_w, dln_b, dw1, db1, *dk, dw2, db2)
 

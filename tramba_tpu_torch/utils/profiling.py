@@ -5,7 +5,8 @@ Port of ``tramba_tpu/utils/profiling.py:134`` ``measure_inference_speed``.
 Time comes from CUDA events around the timed iterations; a call whose inputs
 are not on a CUDA device raises, since its number would not be the card's.
 ``device_time_by_kernel`` sums the device time of each kernel name that
-``torch.profiler`` records over a few calls.
+``torch.profiler`` records over a few calls, telling apart the launches
+made inside the ``record_function`` ranges it is given.
 """
 
 from __future__ import annotations
@@ -46,11 +47,15 @@ def measure_inference_speed(fn: Callable, args: Sequence[torch.Tensor], max_iter
 
 
 def device_time_by_kernel(fn: Callable, iters: int = 3, warmup: int = 2,
-                          grad: bool = False) -> dict:
+                          grad: bool = False, ranges: Sequence[str] = ()) -> dict:
     """{kernel name: (device microseconds, launches)} summed over ``iters``
     calls of ``fn()`` after ``warmup`` calls, from ``torch.profiler``'s CUDA
-    events, with autograd off unless ``grad`` (a train step).  Empty when
-    the profiler records no device activity."""
+    events, with autograd off unless ``grad`` (a train step).  A kernel
+    that runs inside the device span of a ``record_function`` range named
+    in ``ranges`` is keyed ``"<kernel name> @ <range>"``, so that one kernel
+    that two wrappers share is counted per wrapper; the spans themselves,
+    and any other range's, are not counted as kernels.  Empty when the
+    profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -63,9 +68,17 @@ def device_time_by_kernel(fn: Callable, iters: int = 3, warmup: int = 2,
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+    cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a record_function range also appears on the device, spanning the
+    # kernels launched in it; it is no kernel itself
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in cuda if e.name in ranges]
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = out.get(e.name, (0.0, 0))
-            out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in cuda:
+        if e.name in ranges or getattr(e, "is_user_annotation", False):
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        r = next((name for s, t, name in spans if s <= t0 and t1 <= t), None)
+        key = f"{e.name} @ {r}" if r else e.name
+        us, n = out.get(key, (0.0, 0))
+        out[key] = (us + e.time_range.elapsed_us(), n + 1)
     return out
