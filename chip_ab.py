@@ -9,16 +9,18 @@ change, change, parent compares two trees on one card), this runs that
 tree's ``chip_smoke.py`` from its root, so each tree builds its own kernels
 and times them with its own code, and reads the times it prints: ms per
 forward (phase 6) and per train step (phase 8) of every model, and the ms of K1
-``ss2d_scan``, K8 ``ss2d_scan_bwd``, K2 ``ss2d_merge``, K6 ``ln_mlp``, K7
-``ln_dwms_mlp``, K9 ``ln_mlp_bwd`` and K10 ``ln_dwms_mlp_bwd`` at each shape
-phase 3 checks them, beside the bound the run computed and,
+``ss2d_scan``, K8 ``ss2d_scan_bwd``, K2 ``ss2d_merge``, K5 ``prologue``, K6
+``ln_mlp``, K7 ``ln_dwms_mlp``, K9 ``ln_mlp_bwd`` and K10 ``ln_dwms_mlp_bwd`` at
+each shape phase 3 checks them, beside the bound the run computed and,
 where the tree prints it, the time of the kernel's matrix products alone as
 torch.matmul (``gemm``).  Then tables of the runs side by side, with the
 card's ``name, power.limit``.  ``--logs DIR`` keeps each run's whole output.
 ``--ffn-bwd`` runs, instead of the whole ``chip_smoke.py``, only its phase 3
 checks of K9 and K10 (``check_mlp_bwd`` at every shape of the train steps),
-so that a tree can be listed several times in one short call.  Exits with
-the first failing run's code.
+and ``--k5-k10`` only its checks of K5 (every shape of Tramba-V's, -P's and
+-R's forwards, through ``check_bf16_only`` with no K6 / K7 shapes) and of
+K10 (the DWMS shapes of ``check_mlp_bwd``), so that a tree can be listed
+several times in one short call.  Exits with the first failing run's code.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ TIMES = (re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
          re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ train) step (B\d+): ([\d.]+) ms/step"))
 # phase 3's line of a tabulated kernel: name, tag, shape, ..., kernel ms, plain
 # ms, bound ms (bound by), and gemm ms where printed
-KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|ln_mlp|ln_dwms_mlp|ln_mlp_bwd|ln_dwms_mlp_bwd)"
+KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|prologue|ln_mlp|ln_dwms_mlp|ln_mlp_bwd|"
+                     r"ln_dwms_mlp_bwd)"
                      r"\s+((?:fp32|bf16)(?: train)?)\s+"
                      r"(\S.*?)\s+max_abs_err .* kernel ([\d.]+) ms plain [\d.]+ ms "
                      r"bound ([\d.]+) ms \(\w+\)(?: gemm ([\d.]+) ms)?")
@@ -53,7 +56,7 @@ def times(stdout: str) -> dict:
 
 def kernel_times(stdout: str) -> dict:
     """{(kernel, tag, shape): (ms, bound_ms, gemm_ms or nan)} of phase 3's
-    K1, K8, K2, K6, K7, K9 and K10 lines."""
+    K1, K8, K2, K5, K6, K7, K9 and K10 lines."""
     out = {}
     for line in stdout.splitlines():
         if m := KERNELS.match(line):
@@ -68,13 +71,25 @@ FFN_BWD = ("import torch, chip_smoke as cs\n"
            "checks, gen = cs.Checks(), torch.Generator().manual_seed(0)\n"
            "for shapes in (cs.MLP_BWD_SHAPES, cs.MLP_BWD_SHAPES_P, cs.MLP_BWD_SHAPES_R):\n"
            "    cs.check_mlp_bwd(checks, torch.device('cuda'), gen, shapes)\n")
+# the phase 3 checks of K5 and K10 alone (--k5-k10): the same calls in the
+# parent's chip_smoke.py and in this one
+K5_K10 = ("import torch, chip_smoke as cs\n"
+          "torch.backends.cuda.matmul.allow_tf32 = False\n"
+          "checks, gen, dev = cs.Checks(), torch.Generator().manual_seed(0), torch.device('cuda')\n"
+          "for k5, bwd in ((cs.BF16_SHAPES, cs.MLP_BWD_SHAPES), (cs.BF16_SHAPES_P, "
+          "cs.MLP_BWD_SHAPES_P), (cs.BF16_SHAPES_R, cs.MLP_BWD_SHAPES_R)):\n"
+          "    cs.check_bf16_only(checks, dev, gen, dict(k5, ln_mlp=(), ln_dwms_mlp=()))\n"
+          "    cs.check_mlp_bwd(checks, dev, gen, tuple(s for s in bwd if s[2]))\n")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--logs", default="", help="directory for each run's whole output")
-    ap.add_argument("--ffn-bwd", action="store_true",
-                    help="run only phase 3's K9 / K10 checks of each tree")
+    short = ap.add_mutually_exclusive_group()
+    short.add_argument("--ffn-bwd", action="store_true",
+                       help="run only phase 3's K9 / K10 checks of each tree")
+    short.add_argument("--k5-k10", action="store_true",
+                       help="run only phase 3's K5 / K10 checks of each tree")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -84,7 +99,8 @@ def main(argv=None) -> int:
     runs = []
     for i, tree in enumerate(args.trees):
         root = os.path.abspath(tree)
-        cmd = ["-c", FFN_BWD] if args.ffn_bwd else [os.path.join(root, "chip_smoke.py")]
+        cmd = (["-c", FFN_BWD] if args.ffn_bwd else ["-c", K5_K10] if args.k5_k10
+               else [os.path.join(root, "chip_smoke.py")])
         res = subprocess.run([sys.executable, *cmd], cwd=root, capture_output=True, text=True,
                              timeout=1500)
         if args.logs:

@@ -48,16 +48,26 @@ Phases, each of which must pass (any failure exits non-zero):
                warpgroup's slice of its last chunk, left out); likewise K7
                ln_dwms_mlp (every shape) and K9 ln_mlp_bwd (every shape),
                each launched twice and compared bit for bit, with its
-               native launches a call counted by kernel name
-               (torch.profiler), the plain mirror of its stage split
+               native launches a call (the library's count), the plain
+               mirror of its stage split
                (ops/ffn_stages.py) with planted faults failing the same check
                (K7: no 3x3 taps; h not zero outside the image; the last
                hidden chunk left out; K9: the LN adjoint's mean term left
                out; one column group's share of its row sums left out, where
-               stage (c) splits d into groups); each of K2, K6, K7 and K9
+               stage (c) splits d into groups); likewise K5 prologue (every
+               shape: one native launch, the LayerNorm folded in; the tile
+               mirror ops/prologue_stages.py passes the check at the
+               kernel's own plan, and fails it with u not zero outside the
+               image, the halo's ring of rows not normalised, or the halo
+               clamped to the image's edge) and K10 ln_dwms_mlp_bwd (every
+               shape: 6 native launches a call; the merged-tap mirror with
+               dacc not zero outside, no identity in dh, or dk3 taken
+               off-centre); each of K2, K5, K6, K7, K9 and K10
                printed beside its matrix products alone as torch.matmul on
                the same operands ("gemm": a reference for what the tensor
-               cores give at that shape, never called by the port); errors,
+               cores give at that shape, never called by the port); native
+               launches a call are the library's own count of its kernel
+               launches, read around three calls that must agree; errors,
                times, and each kernel's bound (bytes over the HBM rate or,
                per type of operation, its count over that type's peak
                rate: the largest)
@@ -535,13 +545,23 @@ def check_ln_mlp(checks, label, args, flops):
         "no last chunk": lambda: tm.ln_mlp_ref(x, ln_w, ln_b, w1, b1, short, b2)})
 
 
-def native_launches(fn, frags) -> float:
-    """Kernels a call of ``fn`` launches whose names hold any of ``frags``,
-    over three profiled calls (torch.profiler)."""
-    from tramba_tpu_torch.utils.profiling import device_time_by_kernel
+def native_launches(fn) -> int:
+    """Kernels one call of ``fn`` launches, from the library's own count of
+    its launches (every launch site of csrc/ adds one), read around each of
+    three calls; raises unless the three agree.  (torch.profiler on the card
+    may miss kernels launched at the start of its window, so it does not
+    count them.)"""
+    from tramba_tpu_torch.ops import _native
 
-    times = device_time_by_kernel(fn, iters=3, warmup=1, ranges=RANGES)
-    return sum(n for name, (_, n) in times.items() if any(f in name for f in frags)) / 3
+    counts = []
+    for _ in range(3):
+        n0 = _native.native_launch_count()
+        fn()
+        counts.append(_native.native_launch_count() - n0)
+    torch.cuda.synchronize()
+    if len(set(counts)) != 1:
+        raise AssertionError(f"three calls launched {counts} kernels")
+    return counts[0]
 
 
 def check_ln_dwms_mlp(checks, label, args, flops):
@@ -564,8 +584,7 @@ def check_ln_dwms_mlp(checks, label, args, flops):
     del y, h
     if not torch.equal(tm.ln_dwms_mlp(*args), tm.ln_dwms_mlp(*args)):
         raise AssertionError(f"ln_dwms_mlp {label}: two launches differ")
-    n = native_launches(lambda: tm.ln_dwms_mlp(*args),
-                        ("ln_fc_kernel", "dwms_tile_kernel", "finish_split_kernel"))
+    n = native_launches(lambda: tm.ln_dwms_mlp(*args))
     print(f"ln_dwms_mlp     {label}: {n:g} native launches a call", flush=True)
     checks.planted("ln_dwms_mlp", label, tm.ln_dwms_mlp_ref(*args),
                    {f: functools.partial(fs.dwms_merged_ref, *args, fault=f)
@@ -728,11 +747,11 @@ MLP_BWD_SHAPES_R = ((96, 256, False), (48, 512, False), (96, 256, True), (48, 51
 
 def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
     """K9 and K10 at every shape of ``shapes``, B=2, against their plain
-    adjoints, with a cotangent g of the output's scale.  K9 also: timed
-    beside its five products alone as torch.matmul on the same bf16
-    operands, launched twice and compared bit for bit, its native launches a
-    call, and the planted faults of its split mirror (ops/ffn_stages.py)
-    failing the same check; K10's native launches a call."""
+    adjoints, with a cotangent g of the output's scale, each timed beside
+    its five products alone as torch.matmul on the same bf16 operands,
+    launched twice and compared bit for bit, its native launches a call, and
+    the planted faults of its split mirror (ops/ffn_stages.py) failing the
+    same check."""
     from tramba_tpu_torch.ops import ffn_stages as fs
     from tramba_tpu_torch.ops import fused_mlp as tm
 
@@ -745,38 +764,40 @@ def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
         label = f"{H}px B{B} d{d} hid{hid}"
         # the kernel reads the weights in bf16: count them so
         inputs = (x, g, *(p.to(bf) if p.dim() > 1 else p for p in params))
-        if dwms:
-            checks.compare("ln_dwms_mlp_bwd", None, label,
-                           lambda: tm.ln_dwms_mlp_bwd(x, g, *params),
-                           lambda: tm.ln_dwms_mlp_bwd_ref(x, g, *params), reps=5, inputs=inputs,
-                           flops=ops(bf, 10 * M * d * hid, 3 * 2 * 83 * M * hid + 20 * M * hid),
-                           tag=tag, rel_tol=BWD_REL_TOL_BF16)
-            n = native_launches(lambda: tm.ln_dwms_mlp_bwd(x, g, *params),
-                                ("mlp_bwd", "ln_fc_kernel"))
-            print(f"ln_dwms_mlp_bwd {label}: {n:g} native launches a call", flush=True)
-            continue
-        w1, w2 = params[2].to(bf), params[4].to(bf)
+        w1, w2 = params[2].to(bf), params[-1].to(bf)
         xf = torch.nn.functional.layer_norm(x.float(), (d,), params[0], params[1], 1e-5)
         xf, g2 = xf.to(bf).reshape(M, d), g.reshape(M, d)
         hg = torch.nn.functional.gelu(xf.float() @ w1.float().t()).to(bf)
-        checks.compare("ln_mlp_bwd", None, label, lambda: tm.ln_mlp_bwd(x, g, *params),
-                       lambda: tm.ln_mlp_bwd_ref(x, g, *params), reps=5, inputs=inputs,
-                       flops=ops(bf, 10 * M * d * hid, 20 * M * hid), tag=tag,
-                       rel_tol=BWD_REL_TOL_BF16,
-                       gemm=lambda: (xf @ w1.t(), g2 @ w2, hg @ w1, g2.t() @ hg, hg.t() @ xf))
-        del xf, g2, hg
-        a, b = tm.ln_mlp_bwd(x, g, *params), tm.ln_mlp_bwd(x, g, *params)
+        gemm = lambda: (xf @ w1.t(), g2 @ w2, hg @ w1, g2.t() @ hg, hg.t() @ xf)  # noqa: E731
+        if dwms:
+            name, kernel, plain = "ln_dwms_mlp_bwd", tm.ln_dwms_mlp_bwd, tm.ln_dwms_mlp_bwd_ref
+            # the merged taps: one 49-tap stencil a value for acc, one for
+            # dh, one 49-offset correlation for the three tap gradients
+            flops = ops(bf, 10 * M * d * hid, 3 * 2 * 49 * M * hid + 20 * M * hid)
+        else:
+            name, kernel, plain = "ln_mlp_bwd", tm.ln_mlp_bwd, tm.ln_mlp_bwd_ref
+            flops = ops(bf, 10 * M * d * hid, 20 * M * hid)
+        checks.compare(name, None, label, lambda: kernel(x, g, *params),
+                       lambda: plain(x, g, *params), reps=5, inputs=inputs, flops=flops, tag=tag,
+                       rel_tol=BWD_REL_TOL_BF16, gemm=gemm)
+        del xf, g2, hg, gemm
+        a, b = kernel(x, g, *params), kernel(x, g, *params)
         if not all(torch.equal(u, v) for u, v in zip(a, b)):
-            raise AssertionError(f"ln_mlp_bwd {label}: two launches differ")
+            raise AssertionError(f"{name} {label}: two launches differ")
         del a, b
-        n = native_launches(lambda: tm.ln_mlp_bwd(x, g, *params), ("mlp_bwd", "ln_fc_kernel"))
+        n = native_launches(lambda: kernel(x, g, *params))
         G = tm.mlp_bwd_column_groups(M, d, hid)  # the kernel's own plan of stage (c)
-        print(f"ln_mlp_bwd      {label}: {n:g} native launches a call, {G} column group(s) "
-              "in (c)", flush=True)
-        faults = {f: functools.partial(fs.mlp_bwd_split_ref, x, g, *params, groups=G, fault=f)
-                  for f in fs.MLP_BWD_FAULTS if f != "no last group's row sums" or G > 1}
-        checks.planted("ln_mlp_bwd", label, tm.ln_mlp_bwd_ref(x, g, *params), faults,
-                       rel_tol=BWD_REL_TOL_BF16)
+        print(f"{name:15s} {label}: {n:g} native launches a call, {G} column group(s) in (c)",
+              flush=True)
+        if n != (6 if dwms else 4):
+            raise AssertionError(f"{name} {label}: {n} native launches a call")
+        if dwms:
+            faults = {f: functools.partial(fs.dwms_bwd_merged_ref, x, g, *params, fault=f)
+                      for f in fs.DWMS_BWD_FAULTS}
+        else:
+            faults = {f: functools.partial(fs.mlp_bwd_split_ref, x, g, *params, groups=G, fault=f)
+                      for f in fs.MLP_BWD_FAULTS if f != "no last group's row sums" or G > 1}
+        checks.planted(name, label, plain(x, g, *params), faults, rel_tol=BWD_REL_TOL_BF16)
 
 
 def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shapes=EXPAND_SHAPES,
@@ -859,10 +880,7 @@ def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES):
         norm = ln(dm) if with_ln else (None, None)
         args = (x, *norm, m.in_proj.weight.data.to(bf), m.conv2d.weight.data.to(bf))
         label = f"{'enc/dec LN' if with_ln else 'guide'} {H}px B{B} dm{dm} D{2 * dm}"
-        M, D = B * H * H, 2 * dm
-        checks.compare("prologue", bf, label, lambda: tp.prologue(*args),
-                       lambda: tp.prologue_ref(*args), reps=10, inputs=args,
-                       flops=ops(bf, 2 * M * dm * D, 2 * 9 * M * D + 10 * M * D))
+        check_prologue(checks, label, args)
     for H, d in shapes["ln_mlp"]:
         m = init_weights(Mlp(d, 4 * d), gen).to(dev)
         args = (rnd(B, H * H, d).to(bf), *ln(d), m.fc1.weight.data.to(bf), rnd(4 * d, scale=0.1),
@@ -879,6 +897,44 @@ def check_bf16_only(checks, dev, gen, shapes=BF16_SHAPES):
         M = B * H * H
         check_ln_dwms_mlp(checks, f"{H}px B{B} d{d} hid{4 * d}", args,
                           ops(bf, 4 * M * d * 4 * d, (2 * 49 + 10) * M * 4 * d))
+
+
+def check_prologue(checks, label, args):
+    """K5 against its plain version, timed beside its product alone as
+    torch.matmul on the same bf16 operands (bf16(LN(x)) w_in^T); two launches
+    give the same bits; one native launch a call (the LayerNorm folded in:
+    no ln_rows_kernel); the tile mirror (ops/prologue_stages.py) at the
+    kernel's own plan passes the same check, and with each planted fault that
+    bears on these inputs fails it."""
+    from tramba_tpu_torch.ops import fused_prologue as tp
+    from tramba_tpu_torch.ops import prologue_stages as ps
+
+    x, ln_w, ln_b, w_in, conv_k = args
+    B, H, W, dm = x.shape
+    M, D = B * H * W, w_in.shape[0]
+    y = x if ln_w is None else torch.nn.functional.layer_norm(x.float(), (dm,), ln_w, ln_b,
+                                                               1e-5).to(x.dtype)
+    y = y.reshape(M, dm)
+    checks.compare("prologue", torch.bfloat16, label, lambda: tp.prologue(*args),
+                   lambda: tp.prologue_ref(*args), reps=10, inputs=args,
+                   flops=ops(torch.bfloat16, 2 * M * dm * D, 2 * 9 * M * D + 10 * M * D),
+                   gemm=lambda: y @ w_in.t())
+    del y
+    if not torch.equal(tp.prologue(*args), tp.prologue(*args)):
+        raise AssertionError(f"prologue {label}: two launches differ")
+    n = native_launches(lambda: tp.prologue(*args))
+    plan = ps.prologue_plan(B, H, W, dm, D)
+    print(f"prologue        {label}: {n:g} native launches a call, {plan['tiles']} tiles of "
+          f"{plan['tile'][0]}x{plan['tile'][1]} ({plan['mt']} x 64 halo rows), "
+          f"{plan['groups']} channel group(s)", flush=True)
+    if n != 1:
+        raise AssertionError(f"prologue {label}: {n} native launches a call, not 1")
+    want = tp.prologue_ref(*args)
+    torch.testing.assert_close(ps.prologue_tiled_ref(*args).float(), want.float(),
+                               **KERNEL_TOL_BF16)
+    checks.planted("prologue", label, want,
+                   {f: functools.partial(ps.prologue_tiled_ref, *args, fault=f)
+                    for f in ps.prologue_faults(ln_w is not None)})
 
 
 def check_dwms_grid_shape(checks, dev, gen):
@@ -1142,13 +1198,13 @@ RANGES = ("ln_mlp_bwd", "ln_dwms_mlp_bwd")
 # breakdowns, first match wins; a kernel launched in a range of RANGES is
 # named "<kernel> @ <range>"
 GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
-          ("ln_fc_kernel<true>", "K9 ln_mlp_bwd, front: LN, h and g w2, GELU adjoint"),
+          ("ln_fc_kernel<1>", "K9 ln_mlp_bwd, front: LN, h and g w2, GELU adjoint"),
           (("mlp_bwd_dx_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (c) dh w1 and LN adjoint"),
           (("mlp_bwd_wgrad_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (d) dW1, dW2 products"),
           (("mlp_bwd_sum_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (e) partial sums"),
-          ("mlp_bwd_dwms", "K10 ln_dwms_mlp_bwd, depthwise stencils"),
-          ("mlp_bwd_sum_taps", "K10 ln_dwms_mlp_bwd, depthwise stencils"),
-          ("mlp_bwd_fc_kernel", "K10 ln_dwms_mlp_bwd, (a) LN, fc1 and g w2 products"),
+          ("ln_fc_kernel<2>", "K10 ln_dwms_mlp_bwd, front: LN, h and g w2 maps"),
+          ("mlp_bwd_dwms_acc", "K10 ln_dwms_mlp_bwd, (b1) stencil, dacc, hg"),
+          ("mlp_bwd_dwms_adj", "K10 ln_dwms_mlp_bwd, (b2) dh and tap gradients"),
           (("mlp_bwd_dx_kernel", "@ ln_dwms_mlp_bwd"),
            "K10 ln_dwms_mlp_bwd, (c) dh w1 and LN adjoint"),
           (("mlp_bwd_wgrad_kernel", "@ ln_dwms_mlp_bwd"),
@@ -1167,12 +1223,12 @@ GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
           ("expand_groups_kernel<", "K3 expand_ln / K4 final_head"),
           ("prologue_kernel", "K5 prologue"),
           ("ln_mlp_kernel", "K6 ln_mlp"),
-          ("ln_fc_kernel<false>", "K7 ln_dwms_mlp, (i) LN and fc1"),
+          ("ln_fc_kernel<0>", "K7 ln_dwms_mlp, (i) LN and fc1"),
           ("dwms_tile_kernel", "K7 ln_dwms_mlp, (ii) stencil, GELU and fc2"),
           ("ln_dwmlp_kernel", "K11 ln_dwmlp"),
           ("proj_in_kernel", "K12/K13 (1) input projection"),
           ("attn_kernel", "K12/K13 (2) attention + out projection"),
-          ("ln_rows_kernel", "LayerNorm launch of K5, K11-K13"),
+          ("ln_rows_kernel", "LayerNorm launch of K11-K13"),
           ("finish_split_kernel", "split sums of K6/K7"),
           ("layer_norm", "LayerNorm (torch)"), ("softmax", "softmax (torch)"),
           ("dgrad", "conv backward (cuDNN)"), ("wgrad", "conv backward (cuDNN)"),

@@ -550,6 +550,66 @@ def test_ln_dwms_mlp_bwd_new_tail(dev, B, H, d):
         _bf16_bwd_close(a, b.cpu(), name)
 
 
+@pytest.mark.parametrize("B,H,W,d,hid", [(1, 3, 5, 32, 128), (2, 6, 6, 64, 256),
+                                         (1, 1, 1, 16, 64), (3, 9, 17, 48, 80)])
+def test_ln_dwms_mlp_bwd_small_and_odd_maps(dev, B, H, W, d, hid):
+    """K10's stencils on maps smaller than the 7x7 window (1 x 1, 3 x 5, 6 x 6:
+    every halo pixel but the map's own arrives as a TMA zero) and on ragged 8x8
+    tiles with a hidden width that ends inside a 64-channel chunk (hid 80);
+    six native launches a call; two launches give the same bits."""
+    gen = torch.Generator().manual_seed(H * W + d)
+    ln, fc1, convs, (w2, _) = _dwms_args(gen, d, hid)
+    args = [t.to(dev) for t in (*ln, *fc1, *convs, w2)]
+    x, g = (_rand(gen, B, H, W, d).to(dev, torch.bfloat16) for _ in range(2))
+    from tramba_tpu_torch.ops import _native
+
+    n0 = _native.native_launch_count()
+    got = tm.ln_dwms_mlp_bwd(x, g, *args)
+    assert _native.native_launch_count() - n0 == 6  # front, two stencils, K9's (c)-(e)
+    assert all(torch.equal(a, b) for a, b in zip(got, tm.ln_dwms_mlp_bwd(x, g, *args)))
+    want = tm.ln_dwms_mlp_bwd_ref(x, g, *args)
+    torch.cuda.synchronize()
+    names = ("dx", "d_ln_w", "d_ln_b", "dw1", "db1", "dk3", "dc3", "dk5", "dc5", "dk7", "dc7",
+             "dw2", "db2")
+    for name, a, b in zip(names, got, want):
+        _bf16_bwd_close(a, b.cpu(), name)
+
+
+# (map, dm, with LN) of every main-path K5: Tramba-V's (and -S's decoder)
+# encoder and decoder SS2Ds with their block's LN and the guides without,
+# Tramba-P's and -R's decoders
+K5_SHAPES = [(96, 128, True), (48, 256, True), (24, 512, True), (12, 1024, True),
+             (96, 128, False), (48, 256, False), (24, 512, False), (96, 64, True),
+             (24, 320, True), (24, 320, False), (96, 256, True), (48, 512, False)]
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("H,dm,with_ln", K5_SHAPES)
+def test_prologue_main_path_shapes(dev, H, dm, with_ln, B):
+    """K5 (one native launch, LN folded in, in_proj on wgmma) at the main
+    path's shapes at B1 and B16 against its plain version on the card; two
+    launches give the same bits; the tile mirror's plan is the kernel's."""
+    from tramba_tpu_torch.ops import prologue_stages as ps
+
+    gen = torch.Generator().manual_seed(H + dm + B + with_ln)
+    D = 2 * dm
+    x = _rand(gen, B, H, H, dm).to(dev, torch.bfloat16)
+    ln = ((_rand(gen, dm, scale=0.1, shift=1.0).to(dev), _rand(gen, dm, scale=0.1).to(dev))
+          if with_ln else (None, None))
+    w_in = _rand(gen, D, dm, scale=dm ** -0.5).to(dev, torch.bfloat16)
+    k = _rand(gen, D, 1, 3, 3, scale=0.3).to(dev, torch.bfloat16)
+    from tramba_tpu_torch.ops import _native
+
+    n0 = _native.native_launch_count()
+    got = tp.prologue(x, *ln, w_in, k)
+    assert _native.native_launch_count() - n0 == 1  # the LayerNorm folded in
+    assert torch.equal(got, tp.prologue(x, *ln, w_in, k))
+    torch.testing.assert_close(got.float(), tp.prologue_ref(x, *ln, w_in, k).float(), **TOL_BF16)
+    plan = ps.prologue_plan(B, H, H, dm, D)
+    assert tp.prologue_plan(B, H, H, dm, D) == (*plan["tile"], plan["mt"], plan["groups"],
+                                                 plan["stages"])
+
+
 @pytest.mark.parametrize("kind,K,H,param,D,R", TRAIN_SHAPES)
 def test_bf16_train_variants_and_scan_bwd_match_plain(dev, kind, K, H, param, D, R):
     """#13's emit_train in bf16: K1 on a bf16 x with carries and dbc, K2 with

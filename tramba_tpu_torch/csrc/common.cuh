@@ -10,21 +10,22 @@
 //   memory as fp32, and each thread owns one output column j, reading row j
 //   of the weight 16 bytes at a time and keeping P accumulators in
 //   registers.  Plain SIMT FMA work (no tensor cores, no TMA).
-// * "wmma tiles" (K5, K10's front, K11-K13, bf16 only): bf16 operands in 16x16x16
+// * "wmma tiles" (K11-K13, bf16 only): bf16 operands in 16x16x16
 //   tensor-core fragments (nvcuda::wmma) with fp32 accumulation; A from
 //   shared memory, B straight from the weight in global memory (L2-resident)
 //   and shared by up to four m-tiles, C through a shared fp32 tile.
-// * "staged tiles" (K2, K6, K7, K9, K10's tail): the weight streams through a ring of
+// * "staged tiles" (K2, K5, K6, K7, K9, K10): the weight streams through a ring of
 //   shared-memory stages filled several stages ahead of use, and the product
 //   runs from shared memory.  K2: 16-byte cp.async copies (zero-filled past
 //   the edges) into padded rows; bf16 as mma.sync m16n8k16 fragments loaded
 //   by ldmatrix, fp32 as 4x4 register micro-tiles of SIMT FMAs.  K6: TMA
 //   boxes (zeros past the edges) completing on mbarriers, in the 128-byte
 //   swizzled layout (sw128_offset) that warpgroup wgmma m64n64k16 reads
-//   through shared-memory descriptors, the fp32 sums in registers; K6, K7
-//   and K9's front share the LayerNorm of a 64-row tile into that layout
-//   (ln_rows_sw128) and the front kernel (ln_fc_kernel below), K7 stages
-//   its hidden maps' halos by 4-D TMA boxes, K9 / K10's (c) runs in thread
+//   through shared-memory descriptors, the fp32 sums in registers; K5, K6,
+//   K7, K9 and K10 share the LayerNorm of gathered rows into that layout
+//   (ln_gather_sw128: K5's rows are its tile's halo pixels), K7, K9 and K10
+//   the front kernel (ln_fc_kernel below), K7 and K10 stage their hidden
+//   maps' halos by 4-D TMA boxes, K9 / K10's (c) runs in thread
 //   block clusters, and their weight gradients are mma.sync products of
 //   transposed operands (ldmatrix_x4_trans) from a cp.async ring.
 // bf16 x bf16 products are exact in fp32, so only the summation order
@@ -43,8 +44,18 @@
 
 using bf16 = __nv_bfloat16;
 
+// Kernels the library has launched: every launch site adds one, through
+// TRAMBA_CHECK_LAUNCH (or directly where a launcher returns a cudaError_t);
+// tramba_native_launches() reads it, so a caller can count the launches of
+// one call of a wrapper exactly.
+inline long& native_launch_count() {
+  static long n = 0;
+  return n;
+}
+
 #define TRAMBA_CHECK_LAUNCH()                 \
   do {                                        \
+    ++native_launch_count();                  \
     cudaError_t e__ = cudaGetLastError();     \
     if (e__ != cudaSuccess) return (int)e__;  \
   } while (0)
@@ -647,79 +658,119 @@ __device__ __forceinline__ bf16* tiles_start(float4* smem4, int reserve) {
                                  ~static_cast<uintptr_t>(1023));
 }
 
-// bf16(LN(x) ln_w + ln_b) (fp32 statistics in two passes, eps 1e-5) of rows
-// [m0, m0 + 64) of x (M, d) into As, a 64 x dp tile in the sw128_offset
-// layout (dp = d rounded up to 64; zeros past d and in rows past M), and,
-// with xf set, into the rows < M of xf (M, d).  One warp a row, `nwarps`
-// warps, four rows' loads in flight a warp; d % 8 == 0 and d <= 1024 (up to
-// four 16-byte groups a lane).
-__device__ __forceinline__ void ln_rows_sw128(const bf16* __restrict__ x,
-                                              const float* __restrict__ ln_w,
-                                              const float* __restrict__ ln_b, long M, int d,
-                                              long m0, int nwarps, bf16* As,
-                                              bf16* __restrict__ xf) {
-  constexpr int kRows = 4;
+// bf16(LN(x) ln_w + ln_b) (fp32 statistics in two passes, eps 1e-5) of
+// `rows` gathered rows of x (., d) into As, a rows x dp tile in the
+// sw128_offset layout (dp = d rounded up to 64; zeros past d): row r is row
+// row_of(r) of x, or zeros where row_of(r) < 0; without ln_w, the rows of x
+// as they are (y = x).  With xf set, the normalised rows also go to
+// xf[row_of(r)].  One warp a row, `nwarps` warps; a lane holds KG 16-byte
+// groups of a row (d <= 256 KG), and a warp keeps 8 rows' loads in flight
+// (4 at KG = 4); d % 8 == 0, rows a multiple of 8.
+template <int KG, typename RowOf>
+__device__ __forceinline__ void ln_gather_sw128(const bf16* __restrict__ x,
+                                                const float* __restrict__ ln_w,
+                                                const float* __restrict__ ln_b, int d, int rows,
+                                                const RowOf& row_of, int nwarps, bf16* As,
+                                                bf16* __restrict__ xf) {
+  constexpr int kRows = KG == 1 ? 8 : 16 / KG;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, dp = (d + 63) & ~63;
-  for (int r0 = warp * kRows; r0 < kTileRows; r0 += nwarps * kRows) {
-    uint4 raw[kRows][4];
+  // this lane's columns of ln_w and ln_b, held in registers where a lane has
+  // at most two groups
+  constexpr int KP = KG <= 2 ? KG : 1;
+  float pw[KP][8], pb[KP][8];
+#pragma unroll
+  for (int i = 0; i < KP; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = 8 * (lane + 32 * i) + e;
+      pw[i][e] = KG <= 2 && ln_w && c < d ? ln_w[c] : 0.f;
+      pb[i][e] = KG <= 2 && ln_w && c < d ? ln_b[c] : 0.f;
+    }
+  for (int r0 = warp * kRows; r0 < rows; r0 += nwarps * kRows) {
+    uint4 raw[kRows][KG];
+    int src[kRows];  // a pixel or row index (< 2^31), or -1
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
-      const long m = m0 + r0 + k;
+      src[k] = (int)row_of(r0 + k);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < KG; ++i) {
         const int g = lane + 32 * i;
-        raw[k][i] = m < M && g < d / 8 ? __ldg(reinterpret_cast<const uint4*>(x + m * d) + g)
-                                       : make_uint4(0u, 0u, 0u, 0u);
+        raw[k][i] = src[k] >= 0 && g < d / 8
+                        ? __ldg(reinterpret_cast<const uint4*>(x + (long)src[k] * d) + g)
+                        : make_uint4(0u, 0u, 0u, 0u);
       }
     }
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int r = r0 + k;
-      float s = 0.f;
+      float mean = 0.f, rstd = 0.f;
+      if (ln_w) {
+        float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          s += f.x + f.y;
-        }
-      }
-      const float mean = warp_sum(s) / d;
-      float q = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (lane + 32 * i >= d / 8) continue;
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          q = fmaf(f.x - mean, f.x - mean, q);
-          q = fmaf(f.y - mean, f.y - mean, q);
-        }
-      }
-      const float rstd = rsqrtf(warp_sum(q) / d + 1e-5f);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int g = lane + 32 * i;
-        if (g >= dp / 8) continue;
-        uint4 o = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < M && g < d / 8) {
+        for (int i = 0; i < KG; ++i) {
           const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
-          __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float2 f = __bfloat1622float2(h[e]);
-            const int c = 8 * g + 2 * e;
-            y[e] = __floats2bfloat162_rn((f.x - mean) * rstd * ln_w[c] + ln_b[c],
-                                         (f.y - mean) * rstd * ln_w[c + 1] + ln_b[c + 1]);
+            s += f.x + f.y;
           }
-          if (xf) *reinterpret_cast<uint4*>(xf + (m0 + r) * d + 8 * g) = o;
         }
-        *reinterpret_cast<uint4*>(As + sw128_offset(r, 8 * g, kTileRows)) = o;
+        mean = warp_sum(s) / d;
+        float q = 0.f;
+#pragma unroll
+        for (int i = 0; i < KG; ++i) {
+          if (lane + 32 * i >= d / 8) continue;
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            q = fmaf(f.x - mean, f.x - mean, q);
+            q = fmaf(f.y - mean, f.y - mean, q);
+          }
+        }
+        rstd = rsqrtf(warp_sum(q) / d + 1e-5f);
+      }
+#pragma unroll
+      for (int i = 0; i < KG; ++i) {
+        const int g = lane + 32 * i;
+        if (g >= dp / 8) continue;
+        uint4 o = make_uint4(0u, 0u, 0u, 0u);
+        if (src[k] >= 0 && g < d / 8) {
+          if (ln_w) {
+            const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[k][i]);
+            __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(h[e]);
+              const int c = 8 * g + 2 * e;
+              const int ip = KG <= 2 ? i : 0;
+              const float w0 = KG <= 2 ? pw[ip][2 * e] : ln_w[c];
+              const float w1 = KG <= 2 ? pw[ip][2 * e + 1] : ln_w[c + 1];
+              const float b0 = KG <= 2 ? pb[ip][2 * e] : ln_b[c];
+              const float b1 = KG <= 2 ? pb[ip][2 * e + 1] : ln_b[c + 1];
+              y[e] = __floats2bfloat162_rn((f.x - mean) * rstd * w0 + b0,
+                                           (f.y - mean) * rstd * w1 + b1);
+            }
+          } else {
+            o = raw[k][i];
+          }
+          if (xf) *reinterpret_cast<uint4*>(xf + (long)src[k] * d + 8 * g) = o;
+        }
+        *reinterpret_cast<uint4*>(As + sw128_offset(r, 8 * g, rows)) = o;
       }
     }
   }
+}
+
+// ln_gather_sw128 of rows [m0, m0 + 64) of x (M, d) (zeros past M) into a
+// 64 x dp tile, and with xf set into the rows < M of xf (M, d); d <= 1024.
+__device__ __forceinline__ void ln_rows_sw128(const bf16* __restrict__ x,
+                                              const float* __restrict__ ln_w,
+                                              const float* __restrict__ ln_b, long M, int d,
+                                              long m0, int nwarps, bf16* As,
+                                              bf16* __restrict__ xf) {
+  ln_gather_sw128<4>(x, ln_w, ln_b, d, kTileRows,
+                     [=](int r) { return m0 + r < M ? m0 + r : -1L; }, nwarps, As, xf);
 }
 
 __device__ __forceinline__ float gelu_grad(float z) {
@@ -769,7 +820,7 @@ __device__ __forceinline__ void merge_taps(const MergedTaps& t, int hid) {
 }
 
 // ---------------------------------------------------------------------------
-// The LN + fc front of K7 and K9: one kernel, two epilogues
+// The LN + fc front of K7, K9 and K10: one kernel, three epilogues
 // ---------------------------------------------------------------------------
 //
 // One block per (64 rows, group of hidden chunks of kFrontHC columns): two
@@ -780,30 +831,37 @@ __device__ __forceinline__ void merge_taps(const MergedTaps& t, int hid) {
 // scheme: after the block's barrier of tile t, thread 0 issues tile
 // t + stages - 2 into the slot of tile t - 2, whose groups every warpgroup
 // has waited for).
-//   K7 (BWD false): dp / 64 tiles of w1 a chunk; h = LN(x) w1^T + b1 goes
+//   K7 (kFrontK7): dp / 64 tiles of w1 a chunk; h = LN(x) w1^T + b1 goes
 //     to device memory once, fp32 (M, hid), unrounded, for K7's stencil;
 //     the blocks also share out the merged taps (merge_taps).
-//   K9 (BWD true): then dp / 64 tiles of g's rows and of w2 (d, hid) in
+//   K9 (kFrontK9): then dp / 64 tiles of g's rows and of w2 (d, hid) in
 //     its own layout, the N-major B operand of gw = g w2[:, chunk] (k = d,
 //     as for h); in registers z = h + b1, dh = gw GELU'(z),
 //     hg = bf16(GELU(z)); hg and bf16(dh) are written (M, hid), and the
 //     column sums of the unrounded dh over the tile's rows to
 //     part_db1[row tile, :] (the warps' sums added in a fixed order).
-//     Hidden group 0 also writes xf = bf16(LN(x)) for dW1.  The fp32 h and
-//     g w2 maps of the earlier design never reach device memory.  The warps'
-//     sums pass through the ring slot just consumed (so that two blocks fit
-//     an SM at d <= 128).
+//     The warps' sums pass through the ring slot just consumed (so that
+//     two blocks fit an SM at d <= 128).
+//   K10 (kFrontK10): K9's two products; h = LN(x) w1^T + b1 and gw = g w2
+//     go to device memory once each, fp32 (M, hid), for K10's two stencil
+//     launches (each pixel's h and dacc are read by the halos of up to 9
+//     tiles), and the blocks share out the merged taps as K7's do.
+//   K9 and K10: hidden group 0 also writes xf = bf16(LN(x)) for dW1.
 constexpr int kFrontHC = 128;
 
-template <bool BWD>
+constexpr int kFrontK7 = 0, kFrontK9 = 1, kFrontK10 = 2;
+
+template <int MODE>
 __global__ void __launch_bounds__(256, 1)
     ln_fc_kernel(const __grid_constant__ CUtensorMap map_w1,
                  const __grid_constant__ CUtensorMap map_g,
                  const __grid_constant__ CUtensorMap map_w2, const bf16* __restrict__ x,
                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                 const float* __restrict__ b1, float* __restrict__ h, bf16* __restrict__ xf,
-                 bf16* __restrict__ hg, bf16* __restrict__ dh, float* __restrict__ part_db1,
-                 long M, int d, int hid, int cps, int stages, MergedTaps taps) {
+                 const float* __restrict__ b1, float* __restrict__ h, float* __restrict__ gwo,
+                 bf16* __restrict__ xf, bf16* __restrict__ hg, bf16* __restrict__ dh,
+                 float* __restrict__ part_db1, long M, int d, int hid, int cps, int stages,
+                 MergedTaps taps) {
+  constexpr bool BWD = MODE != kFrontK7;  // the g w2 product too
   constexpr int NB = BWD ? 3 : 2;  // boxes a slot: a weight's per warpgroup, then g's
   extern __shared__ float4 smem4[];
   const int dp = (d + 63) & ~63, nkd = dp / 64, tpc = BWD ? 2 * nkd : nkd;
@@ -837,7 +895,7 @@ __global__ void __launch_bounds__(256, 1)
     mbar_init_fence();
     for (int t = 0; t < min(T, stages - 2); ++t) issue(t);
   }
-  if constexpr (!BWD) merge_taps(taps, hid);
+  if constexpr (MODE != kFrontK9) merge_taps(taps, hid);
   ln_rows_sw128(x, ln_w, ln_b, M, d, m0, 8, As, BWD && blockIdx.y == 0 ? xf : nullptr);
   fence_proxy_async();
 
@@ -875,14 +933,17 @@ __global__ void __launch_bounds__(256, 1)
     wgmma_wait<0>();
     fence_regs(acc);
     const int c0 = c * kFrontHC + 64 * wg;
-    if constexpr (!BWD) {
+    if constexpr (MODE != kFrontK9) {
+      if constexpr (MODE == kFrontK10) fence_regs(gw);
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const long row = m0 + wrow + 8 * ((i >> 1) & 1);
         const int col = c0 + 8 * (i >> 2) + wcol;
-        if (row < M && col < hid)
-          *reinterpret_cast<float2*>(h + row * hid + col) =
-              make_float2(acc[i] + b1[col], acc[i + 1] + b1[col + 1]);
+        if (row >= M || col >= hid) continue;
+        *reinterpret_cast<float2*>(h + row * hid + col) =
+            make_float2(acc[i] + b1[col], acc[i + 1] + b1[col + 1]);
+        if constexpr (MODE == kFrontK10)
+          *reinterpret_cast<float2*>(gwo + row * hid + col) = make_float2(gw[i], gw[i + 1]);
       }
     } else {
       fence_regs(gw);
@@ -955,17 +1016,17 @@ static inline bool plan_front(long M, int d, int hid, bool bwd, FrontPlan* p) {
   return p->stages >= 3;
 }
 
-template <bool BWD>
+template <int MODE>
 static inline int front_launch(const FrontPlan& p, const CUtensorMap& map_w1,
                                const CUtensorMap& map_g, const CUtensorMap& map_w2,
                                const bf16* x, const float* ln_w, const float* ln_b,
-                               const float* b1, float* h, bf16* xf, bf16* hg, bf16* dh,
-                               float* part_db1, long M, int d, int hid, MergedTaps taps,
-                               cudaStream_t s) {
-  cudaError_t e = allow_smem(ln_fc_kernel<BWD>, p.smem);
+                               const float* b1, float* h, float* gw, bf16* xf, bf16* hg,
+                               bf16* dh, float* part_db1, long M, int d, int hid,
+                               MergedTaps taps, cudaStream_t s) {
+  cudaError_t e = allow_smem(ln_fc_kernel<MODE>, p.smem);
   if (e != cudaSuccess) return (int)e;
-  ln_fc_kernel<BWD><<<dim3((unsigned)p.rows, p.groups), 256, p.smem, s>>>(
-      map_w1, map_g, map_w2, x, ln_w, ln_b, b1, h, xf, hg, dh, part_db1, M, d, hid, p.cps,
+  ln_fc_kernel<MODE><<<dim3((unsigned)p.rows, p.groups), 256, p.smem, s>>>(
+      map_w1, map_g, map_w2, x, ln_w, ln_b, b1, h, gw, xf, hg, dh, part_db1, M, d, hid, p.cps,
       p.stages, taps);
   TRAMBA_CHECK_LAUNCH();
   return 0;

@@ -1,6 +1,5 @@
 // K6 ln_mlp, K7 ln_dwms_mlp and K11 ln_dwmlp: the block FFNs of the bf16
-// inference path, and the bf16 LayerNorm launch that K5 and K11-K13
-// start with.
+// inference path, and the bf16 LayerNorm launch that K11-K13 start with.
 //
 // K6 replaces _mlp_pallas (tramba_tpu/ops/fused_mlp.py:130, kernel :115):
 //   y = bf16(LN(x)); h = bf16(GELU(y @ w1^T + b1)); out = bf16(h @ w2^T + b2).
@@ -259,7 +258,7 @@ __global__ void __launch_bounds__(128 * NW, NT == 1 ? 2 : 1)
 // ---- K7 -------------------------------------------------------------------
 //
 // Two launches, and the split finish where one is needed:
-//  (i) ln_fc_kernel<false> (common.cuh): LN, fc1 and b1 of every pixel once;
+//  (i) ln_fc_kernel<kFrontK7> (common.cuh): LN, fc1 and b1 of every pixel once;
 //      h fp32 (B, H, W, hid), unrounded, to device memory.
 //  (ii) dwms_tile_kernel: one block of 256 threads per (8x8 output tile,
 //      image, split).  Per chunk of 64 hidden channels:
@@ -790,8 +789,8 @@ int ln_dwms_mlp_launch(const bf16* x, const float* ln_w, const float* ln_b, cons
       !halo_map(&map_h, h, B, H, W, hid, kE7))
     return (int)cudaErrorInvalidValue;
   float* mtaps = h + M * hid;
-  int rc = front_launch<false>(fp, map_w1, map_w1, map_w1, x, ln_w, ln_b, b1, h, nullptr,
-                               nullptr, nullptr, nullptr, M, d, hid,
+  int rc = front_launch<kFrontK7>(fp, map_w1, map_w1, map_w1, x, ln_w, ln_b, b1, h, nullptr,
+                                  nullptr, nullptr, nullptr, nullptr, M, d, hid,
                                MergedTaps{k3, k5, k7, c3, c5, c7, mtaps}, s);
   if (rc) return rc;
   const int tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);

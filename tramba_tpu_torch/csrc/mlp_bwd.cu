@@ -16,17 +16,22 @@
 // Weights in torch layout: w1 (hid, d), w2 (d, hid), taps (hid, 1, k, k).
 //
 // Launches of one call.  K9 (four):
-//  front  ln_fc_kernel<true> (common.cuh), one block per (64-row tile,
+//  front  ln_fc_kernel<kFrontK9> (common.cuh), one block per (64-row tile,
 //         hidden group): LN into a swizzled tile, h = xf w1^T and
 //         g w2[:, chunk] on wgmma (k = d) from TMA-fed tiles, then in
 //         registers hg = bf16(GELU(h + b1)) and dh = (g w2) GELU'(h + b1),
 //         written bf16 with the tile's db1 column sums; xf for dW1.
-// K10 keeps its own front (five): (a) mlp_bwd_fc_kernel, row tiles x
-//         hidden slices (wmma tiles): xf, h and g w2 as fp32 maps for
-//         (b) mlp_bwd_dwms_act_kernel, mlp_bwd_dwms_dh_kernel and
-//         mlp_bwd_dwms_tap_kernel (3/5/7 stencils, one thread per channel):
-//         hg and bf16(dh), per-row partial sums of db1, the taps and dc, and
-//         mlp_bwd_sum_taps_kernel.
+// K10 (six): the same front as ln_fc_kernel<kFrontK10>, which writes h and
+//         g w2 once each as fp32 maps and the merged 7x7 taps
+//         t = k7 + pad(k5) + pad(k3) + identity (bias c3 + c5 + c7), then
+//  (b1)   mlp_bwd_dwms_acc_kernel: acc = the merged stencil of h on a 4-D
+//         TMA halo box, dacc = (g w2) GELU'(acc) written over g w2 in
+//         place, hg = bf16(GELU(acc));
+//  (b2)   mlp_bwd_dwms_adj_kernel: on TMA halo boxes of dacc and h,
+//         dh = corr(flip(t), dacc) (the identity included) written bf16
+//         with per-block db1 partials, and the tap-gradient partials at the
+//         49 offsets sum dacc(p) h(p + o), one correlation for the three tap
+//         sets (dk5 and dk3 are its central 5x5 and 3x3), and sum dacc.
 // Both then run the same tail:
 //  (c) mlp_bwd_dx_kernel: dxf = bf16(dh) w1 on wgmma in 64-row tiles, split
 //      over column groups of d (a thread block cluster) where the row tiles
@@ -36,90 +41,26 @@
 //  (d) mlp_bwd_wgrad_kernel: dW2 and dW1 in one launch, 128 x 128 output
 //      tiles over segments of rows (mma.sync from a cp.async ring);
 //  (e) mlp_bwd_sum_kernel: every partial buffer added up in a fixed order in
-//      one launch: no float atomics, so every result is the same from run to
-//      run.
+//      one launch (K10's tap partials too): no float atomics, so every
+//      result is the same from run to run.
 // What bounds them on an H100: the five products, 10 M d hid operations
 // (dh, hg and the weights' tiles cross L2, about 64 operations a byte per
-// 64-row tile), above the bytes of x, g, dx and the weights; K10 adds its
-// fp32 maps and 3 x 83 stencil FMAs per hidden value in fp32 SIMT (its
-// redesign is a later step).
+// 64-row tile), above the bytes of x, g, dx and the weights.  K10 adds
+// 3 x 49 fp32 FMAs a hidden value (the forward stencil, dh, the tap
+// gradients; ~0.044 ms of the card's fp32 rate at 96 px d128 B2, as much as
+// its products) and its fp32 h and dacc maps (16 hid bytes a pixel written,
+// read back through halos of 196 of every 64 pixels, mostly from L2).  Its
+// design against that: each stencil runs once on a TMA halo in shared memory
+// (zeros outside the image: the SAME padding), a thread owns one channel
+// and two output rows and slides a 7-wide window along the 8 halo rows it
+// reads (one shared-memory load feeds up to 14 FMAs, the taps and the
+// partial sums in registers), and the adjoint launch walks several tiles a
+// block so that its tap partials stay few.
 #include <cooperative_groups.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kChan = 128;  // channels per block of the elementwise and stencil launches
-constexpr int kTaps = 9 + 25 + 49;
-
-// C (+)= A * B over all 16x16 tiles of an (Mt*16) x (Nt*16) output, as
-// common.cuh's mma_tiles but with the layouts of A and B as template
-// parameters: LA row_major reads (m, k) at A[m * lda + k], col_major at
-// A[k * lda + m]; LB row_major reads (k, n) at B[k * ldb + n], col_major at
-// B[n * ldb + k].  A in shared memory; B in shared or global memory; C fp32
-// in shared memory.  K % 16 == 0.
-template <typename LA, typename LB>
-__device__ __forceinline__ void mma_tiles_ab(const bf16* A, int lda, const bf16* B, long ldb,
-                                             float* C, int ldc, int Mt, int Nt, int K,
-                                             bool accumulate) {
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int groups = (Mt + kMmaGroup - 1) / kMmaGroup;
-  for (int t = warp; t < Nt * groups; t += nwarps) {
-    const int nt = t % Nt, m0 = (t / Nt) * kMmaGroup;
-    const int mn = min(kMmaGroup, Mt - m0);
-    wm::fragment<wm::accumulator, 16, 16, 16, float> c[kMmaGroup];
-#pragma unroll
-    for (int i = 0; i < kMmaGroup; ++i) {
-      if (i >= mn) break;
-      if (accumulate) {
-        wm::load_matrix_sync(c[i], C + (m0 + i) * 16 * ldc + nt * 16, ldc, wm::mem_row_major);
-      } else {
-        wm::fill_fragment(c[i], 0.f);
-      }
-    }
-    for (int k = 0; k < K; k += 16) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, LB> b;
-      if constexpr (std::is_same<LB, wm::row_major>::value) {
-        wm::load_matrix_sync(b, B + (long)k * ldb + nt * 16, (unsigned)ldb);
-      } else {
-        wm::load_matrix_sync(b, B + (long)nt * 16 * ldb + k, (unsigned)ldb);
-      }
-#pragma unroll
-      for (int i = 0; i < kMmaGroup; ++i) {
-        if (i >= mn) break;
-        wm::fragment<wm::matrix_a, 16, 16, 16, bf16, LA> a;
-        if constexpr (std::is_same<LA, wm::row_major>::value) {
-          wm::load_matrix_sync(a, A + (m0 + i) * 16 * lda + k, lda);
-        } else {
-          wm::load_matrix_sync(a, A + k * lda + (m0 + i) * 16, lda);
-        }
-        wm::mma_sync(c[i], a, b, c[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMmaGroup; ++i) {
-      if (i >= mn) break;
-      wm::store_matrix_sync(C + (m0 + i) * 16 * ldc + nt * 16, c[i], ldc, wm::mem_row_major);
-    }
-  }
-}
-
-// Copy rows [m0, m0 + rows) x columns [k0, k0 + n) of a row-major bf16 (M, ld)
-// matrix into shared memory (row stride lds), zero past M.  n, k0, ld
-// multiples of 8.
-__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, long M, long ld, long m0,
-                                           int rows, long k0, int n, bf16* dst, int lds) {
-  const int vn = n / 8;
-  for (int i = threadIdx.x; i < rows * vn; i += blockDim.x) {
-    const int p = i / vn, v = i - p * vn;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + p < M) val = __ldg(reinterpret_cast<const uint4*>(src + (m0 + p) * ld + k0) + v);
-    *reinterpret_cast<uint4*>(dst + p * lds + v * 8) = val;
-  }
-}
 
 // LayerNorm statistics of row m of x (M, d) bf16, one warp, two passes (the
 // TPU kernel's mean of squared deviations).
@@ -137,230 +78,225 @@ __device__ __forceinline__ void row_stats(const bf16* __restrict__ xr, int d, fl
   *rstd = rsqrtf(warp_sum(q) / d + 1e-5f);
 }
 
-// ---- (a) ------------------------------------------------------------------
-
-// One block per (BM rows, hidden slice).  Shared: xs, gs [BM][d+8] bf16 (the
-// LN'd rows and the rows of g), cs [BM][HC+4] fp32 (one hidden chunk).
-// Writes xf (M, d) bf16 (slice 0 only), h = xf w1^T + b1 and gw = g w2, both
-// (M, hid) fp32.
-__global__ void mlp_bwd_fc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                          const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                          const bf16* __restrict__ w1, const float* __restrict__ b1,
-                          const bf16* __restrict__ w2, bf16* __restrict__ xf,
-                          float* __restrict__ h, float* __restrict__ gw, long M, int d, int hid,
-                          int BM, int HC, int cps) {
-  extern __shared__ float4 smem4[];
-  const int ldx = d + 8, ldc = HC + 4;
-  bf16* xs = reinterpret_cast<bf16*>(smem4);
-  bf16* gs = xs + BM * ldx;
-  float* cs = reinterpret_cast<float*>(gs + BM * ldx);
-  const long m0 = (long)blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  for (int p = warp; p < BM; p += nwarps) {
-    bf16* row = xs + p * ldx;
-    if (m0 + p >= M) {
-      for (int i = lane; i < d; i += 32) row[i] = __float2bfloat16_rn(0.f);
-      continue;
-    }
-    const bf16* xr = x + (m0 + p) * d;
-    float mean, rstd;
-    row_stats(xr, d, &mean, &rstd);
-    for (int i = lane; i < d; i += 32) {
-      const bf16 v = __float2bfloat16_rn((to_f32(xr[i]) - mean) * rstd * ln_w[i] + ln_b[i]);
-      row[i] = v;
-      if (blockIdx.y == 0) xf[(m0 + p) * d + i] = v;
-    }
-  }
-  stage_rows(g, M, d, m0, BM, 0, d, gs, ldx);
-  __syncthreads();
-  const int c_first = blockIdx.y * cps * HC, c_last = min(hid, c_first + cps * HC);
-  for (int c0 = c_first; c0 < c_last; c0 += HC) {
-    mma_tiles_ab<wm::row_major, wm::col_major>(xs, ldx, w1 + (long)c0 * d, d, cs, ldc, BM / 16,
-                                               HC / 16, d, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * HC; i += blockDim.x) {
-      const int p = i / HC, j = i - p * HC;
-      if (m0 + p < M) h[(m0 + p) * hid + c0 + j] = cs[p * ldc + j] + b1[c0 + j];
-    }
-    __syncthreads();
-    mma_tiles_ab<wm::row_major, wm::row_major>(gs, ldx, w2 + c0, hid, cs, ldc, BM / 16, HC / 16,
-                                               d, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * HC; i += blockDim.x) {
-      const int p = i / HC, j = i - p * HC;
-      if (m0 + p < M) gw[(m0 + p) * hid + c0 + j] = cs[p * ldc + j];
-    }
-    __syncthreads();
-  }
-}
-
 // ---- (b), K10 ---------------------------------------------------------------
+//
+// Both stencil launches run blocks of 256 threads on 8 x 8 output tiles and
+// chunks of 64 hidden channels: thread t owns channel t % 64 of the chunk
+// and output rows 2 (t / 64) and + 1 of the tile, whose 14 x 14 halo (3 px
+// a side) arrives as one 4-D TMA box of 64 channels (50 KB of fp32).
+constexpr int kT = 8;                  // output tile kT x kT pixels
+constexpr int kE7 = kT + 6;            // halo side: 14
+constexpr int kHalo = kE7 * kE7 * 64;  // fp32 elements of one chunk's halo box
+constexpr int kTapRows = 50;           // the 49 tap offsets, then the bias / dc row
 
-struct Taps {
-  float t3[9], t5[25], t7[49];
-};
-
-__device__ __forceinline__ void load_taps(const bf16* k3, const bf16* k5, const bf16* k7, int c,
-                                          Taps& t) {
-#pragma unroll
-  for (int i = 0; i < 9; ++i) t.t3[i] = to_f32(k3[(long)c * 9 + i]);
-#pragma unroll
-  for (int i = 0; i < 25; ++i) t.t5[i] = to_f32(k5[(long)c * 25 + i]);
-#pragma unroll
-  for (int i = 0; i < 49; ++i) t.t7[i] = to_f32(k7[(long)c * 49 + i]);
+// Copies one chunk's merged taps and bias ([50][64] fp32, MergedTaps) into
+// shared memory by cp.async, every thread taking part.
+__device__ __forceinline__ void stage_taps(const float* __restrict__ mtaps, int q, float* ts) {
+  const float* src = mtaps + (long)q * kTapChunk;
+  for (int e = threadIdx.x; e < kTapChunk / 4; e += blockDim.x)
+    cp_async16(ts + 4 * e, src + 4 * e, true);
+  cp_async_commit();
 }
 
-// v[(b, y, x), c] of a (B, H, W, hid) map, 0 outside the image.
-struct MapAt {
-  const float* v;
-  int H, W, hid, c;
-  long base;  // (b * H) * W
-  __device__ __forceinline__ float operator()(int y, int x) const {
-    return (y >= 0 && y < H && x >= 0 && x < W) ? v[((base + (long)y * W) + x) * hid + c] : 0.f;
-  }
-};
-
-// One block per (image row b*H + y, kChan channels), a thread per channel,
-// walking the row: acc = h + c3 + c5 + c7 + sum_k dwk(h), then in place
-// gw := dacc = gw * GELU'(acc), and hg = bf16(GELU(acc)).
-__global__ void mlp_bwd_dwms_act_kernel(const float* __restrict__ h, float* __restrict__ gw,
-                                bf16* __restrict__ hg, const bf16* __restrict__ k3,
-                                const float* __restrict__ c3, const bf16* __restrict__ k5,
-                                const float* __restrict__ c5, const bf16* __restrict__ k7,
-                                const float* __restrict__ c7, int H, int W, int hid) {
-  const int c = blockIdx.y * kChan + threadIdx.x;
-  if (c >= hid) return;
-  const int b = blockIdx.x / H, y = blockIdx.x % H;
-  Taps t;
-  load_taps(k3, k5, k7, c, t);
-  const MapAt hv{h, H, W, hid, c, (long)b * H * W};
-  const float cb3 = c3[c], cb5 = c5[c], cb7 = c7[c];
-  for (int x = 0; x < W; ++x) {
-    float a = hv(y, x) + cb3;
-    a += cb5;
-    a += cb7;
+// s0[px] (output row 2 rp) and s1[px] (row 2 rp + 1) += the 7x7 stencil of
+// channel cl of a halo box, the taps read through tap(i) for offset
+// i = 7 di + dj (di, dj in [0, 7): the halo pixel (row + di, col + dj)).
+template <typename Tap>
+__device__ __forceinline__ void stencil_rows(const float* hb, int rp, const Tap& tap,
+                                             float (&s0)[kT], float (&s1)[kT]) {
 #pragma unroll
-    for (int u = 0; u < 3; ++u)
+  for (int r = 0; r < 8; ++r) {  // halo row 2 rp + r feeds output rows 2 rp and 2 rp + 1
+    const float* row = hb + (2 * rp + r) * kE7 * 64;
+    float v[kE7];
 #pragma unroll
-      for (int v = 0; v < 3; ++v) a = fmaf(t.t3[u * 3 + v], hv(y + u - 1, x + v - 1), a);
+    for (int xx = 0; xx < kE7; ++xx) v[xx] = row[xx * 64];
 #pragma unroll
-    for (int u = 0; u < 5; ++u)
+    for (int kx = 0; kx < 7; ++kx) {
+      if (r < 7) {
+        const float t = tap(r * 7 + kx);
 #pragma unroll
-      for (int v = 0; v < 5; ++v) a = fmaf(t.t5[u * 5 + v], hv(y + u - 2, x + v - 2), a);
+        for (int px = 0; px < kT; ++px) s0[px] = fmaf(t, v[px + kx], s0[px]);
+      }
+      if (r > 0) {
+        const float t = tap((r - 1) * 7 + kx);
 #pragma unroll
-    for (int u = 0; u < 7; ++u)
-#pragma unroll
-      for (int v = 0; v < 7; ++v) a = fmaf(t.t7[u * 7 + v], hv(y + u - 3, x + v - 3), a);
-    const long o = (((long)b * H + y) * W + x) * hid + c;
-    gw[o] = gw[o] * gelu_grad(a);
-    hg[o] = __float2bfloat16_rn(gelu_exact(a));
-  }
-}
-
-// Same blocks: dh = dacc + sum_k sum_{i,j} k[i, j] dacc(y - i + r, x - j + r)
-// (the taps' adjoint: a correlation with the flipped taps) -> bf16, and the
-// row's sum of the unrounded dh per channel (part_db1[row, c]).
-__global__ void mlp_bwd_dwms_dh_kernel(const float* __restrict__ dacc, bf16* __restrict__ dh,
-                               const bf16* __restrict__ k3, const bf16* __restrict__ k5,
-                               const bf16* __restrict__ k7, float* __restrict__ part_db1, int H,
-                               int W, int hid) {
-  const int c = blockIdx.y * kChan + threadIdx.x;
-  if (c >= hid) return;
-  const int b = blockIdx.x / H, y = blockIdx.x % H;
-  Taps t;
-  load_taps(k3, k5, k7, c, t);
-  const MapAt dv{dacc, H, W, hid, c, (long)b * H * W};
-  float s = 0.f;
-  for (int x = 0; x < W; ++x) {
-    float a = dv(y, x);
-#pragma unroll
-    for (int u = 0; u < 3; ++u)
-#pragma unroll
-      for (int v = 0; v < 3; ++v) a = fmaf(t.t3[u * 3 + v], dv(y - u + 1, x - v + 1), a);
-#pragma unroll
-    for (int u = 0; u < 5; ++u)
-#pragma unroll
-      for (int v = 0; v < 5; ++v) a = fmaf(t.t5[u * 5 + v], dv(y - u + 2, x - v + 2), a);
-#pragma unroll
-    for (int u = 0; u < 7; ++u)
-#pragma unroll
-      for (int v = 0; v < 7; ++v) a = fmaf(t.t7[u * 7 + v], dv(y - u + 3, x - v + 3), a);
-    dh[(((long)b * H + y) * W + x) * hid + c] = __float2bfloat16_rn(a);
-    s += a;
-  }
-  part_db1[(long)blockIdx.x * hid + c] = s;
-}
-
-// One block per (TR image rows, kChan channels): the rows' partial tap
-// gradients sum dacc(p) h(p + (i, j) - r) of the 83 taps and sum dacc (the
-// gradient of each conv bias), written to part[tile, tap, c] (tap 83: dc).
-__global__ void mlp_bwd_dwms_tap_kernel(const float* __restrict__ dacc, const float* __restrict__ h,
-                                float* __restrict__ part, int B, int H, int W, int hid, int TR) {
-  const int c = blockIdx.y * kChan + threadIdx.x;
-  if (c >= hid) return;
-  float a3[9], a5[25], a7[49], sc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 9; ++i) a3[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 25; ++i) a5[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 49; ++i) a7[i] = 0.f;
-  const int r0 = blockIdx.x * TR, r1 = min(B * H, r0 + TR);
-  for (int r = r0; r < r1; ++r) {
-    const int b = r / H, y = r % H;
-    const MapAt hv{h, H, W, hid, c, (long)b * H * W};
-    for (int x = 0; x < W; ++x) {
-      const float da = dacc[(((long)b * H + y) * W + x) * hid + c];
-      sc += da;
-#pragma unroll
-      for (int u = 0; u < 3; ++u)
-#pragma unroll
-        for (int v = 0; v < 3; ++v) a3[u * 3 + v] = fmaf(da, hv(y + u - 1, x + v - 1), a3[u * 3 + v]);
-#pragma unroll
-      for (int u = 0; u < 5; ++u)
-#pragma unroll
-        for (int v = 0; v < 5; ++v) a5[u * 5 + v] = fmaf(da, hv(y + u - 2, x + v - 2), a5[u * 5 + v]);
-#pragma unroll
-      for (int u = 0; u < 7; ++u)
-#pragma unroll
-        for (int v = 0; v < 7; ++v) a7[u * 7 + v] = fmaf(da, hv(y + u - 3, x + v - 3), a7[u * 7 + v]);
+        for (int px = 0; px < kT; ++px) s1[px] = fmaf(t, v[px + kx], s1[px]);
+      }
     }
   }
-  float* out = part + (long)blockIdx.x * (kTaps + 1) * hid + c;
-#pragma unroll
-  for (int i = 0; i < 9; ++i) out[(long)i * hid] = a3[i];
-#pragma unroll
-  for (int i = 0; i < 25; ++i) out[(long)(9 + i) * hid] = a5[i];
-#pragma unroll
-  for (int i = 0; i < 49; ++i) out[(long)(34 + i) * hid] = a7[i];
-  out[(long)kTaps * hid] = sc;
 }
 
-// The tap partials summed over tiles in order, into dk3 (hid, 9), dk5
-// (hid, 25), dk7 (hid, 49) and dc3 = dc5 = dc7 (hid); one thread per
-// (tap, channel).
-__global__ void mlp_bwd_sum_taps_kernel(const float* __restrict__ part, int tiles, int hid,
-                                float* __restrict__ dk3, float* __restrict__ dk5,
-                                float* __restrict__ dk7, float* __restrict__ dc3,
-                                float* __restrict__ dc5, float* __restrict__ dc7) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long n = (long)(kTaps + 1) * hid;
-  if (i >= n) return;
-  const int tap = (int)(i / hid), c = (int)(i % hid);
-  float s = 0.f;
-  for (int t = 0; t < tiles; ++t) s += part[(long)t * n + i];
-  if (tap < 9) {
-    dk3[(long)c * 9 + tap] = s;
-  } else if (tap < 34) {
-    dk5[(long)c * 25 + tap - 9] = s;
-  } else if (tap < kTaps) {
-    dk7[(long)c * 49 + tap - 34] = s;
-  } else {
-    dc3[c] = s;
-    dc5[c] = s;
-    dc7[c] = s;
+// (b1) One block per (8x8 tile, image, chunk): acc = bias + the merged
+// stencil of h; in place dacc := gw GELU'(acc) (gw = g w2 from the front),
+// and hg = bf16(GELU(acc)).
+__global__ void __launch_bounds__(256, 2)
+    mlp_bwd_dwms_acc_kernel(const __grid_constant__ CUtensorMap map_h,
+                            const float* __restrict__ mtaps, float* __restrict__ dacc,
+                            bf16* __restrict__ hg, int H, int W, int hid) {
+  extern __shared__ float4 smem4[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);
+  float* halo = reinterpret_cast<float*>(tiles_start(smem4, 64));  // [14][14][64]
+  float* ts = halo + kHalo;                                         // [50][64]
+  const int tid = threadIdx.x, cl = tid & 63, rp = tid >> 6;
+  const int tiles_x = (W + kT - 1) / kT;
+  const int ty0 = (blockIdx.x / tiles_x) * kT, tx0 = (blockIdx.x % tiles_x) * kT;
+  const int b = blockIdx.y, q = blockIdx.z;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bar, kHalo * 4);
+    tma_load_4d(halo, &map_h, 64 * q, tx0 - 3, ty0 - 3, b, bar);
+  }
+  stage_taps(mtaps, q, ts);
+  cp_async_wait<0>();
+  __syncthreads();  // the taps, and the barrier's initialisation
+  float tap[49], a0[kT], a1[kT];
+  const float bias = ts[49 * 64 + cl];
+#pragma unroll
+  for (int i = 0; i < 49; ++i) tap[i] = ts[i * 64 + cl];
+#pragma unroll
+  for (int px = 0; px < kT; ++px) a0[px] = a1[px] = bias;
+  mbar_wait(bar, 0);
+  stencil_rows(halo + cl, rp, [&](int i) { return tap[i]; }, a0, a1);
+  const int c = 64 * q + cl;
+  if (c >= hid) return;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int gy = ty0 + 2 * rp + e;
+    if (gy >= H) continue;
+#pragma unroll
+    for (int px = 0; px < kT; ++px) {
+      const int gx = tx0 + px;
+      if (gx >= W) continue;
+      const long o = (((long)b * H + gy) * W + gx) * hid + c;
+      float gv, gp;
+      gelu_and_grad(e ? a1[px] : a0[px], &gv, &gp);
+      dacc[o] *= gp;
+      hg[o] = __float2bfloat16_rn(gv);
+    }
   }
 }
+
+// (b2) One block per (run of `tpb` consecutive tiles of the flattened
+// (image, tile) index, chunk).  Per tile, the halo boxes of dacc and h
+// arrive by TMA on one mbarrier (zeros outside the image); then
+//   dh = sum_o t[o] dacc(p - o), the taps flipped (tap 48 - i), the
+//   identity in the centre tap: written bf16, its unrounded sum kept for
+//   db1;
+//   g[o] += sum_p dacc(p) h(p + o) at the 49 offsets o, and sum_p dacc(p),
+//   over the tile's 64 pixels (dacc of pixels outside the image is 0).
+// At the end the four row pairs' sums of each channel are added in order in
+// shared memory (the halo buffers) and written as the block's partials:
+// part_tap[block, 0..48 | 49, c], part_db1[block, c].
+__global__ void __launch_bounds__(256, 2)
+    mlp_bwd_dwms_adj_kernel(const __grid_constant__ CUtensorMap map_dacc,
+                            const __grid_constant__ CUtensorMap map_h,
+                            const float* __restrict__ mtaps, bf16* __restrict__ dh,
+                            float* __restrict__ part_db1, float* __restrict__ part_tap, int B,
+                            int H, int W, int hid, int tpb) {
+  extern __shared__ float4 smem4[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);
+  float* hd = reinterpret_cast<float*>(tiles_start(smem4, 64));  // [14][14][64] of dacc
+  float* hh = hd + kHalo;                                         // [14][14][64] of h
+  float* ts = hh + kHalo;                                         // [50][64]
+  const int tid = threadIdx.x, cl = tid & 63, rp = tid >> 6, q = blockIdx.y;
+  const int tiles_x = (W + kT - 1) / kT, ntiles = tiles_x * ((H + kT - 1) / kT);
+  const int t_first = blockIdx.x * tpb, n = min(B * ntiles, t_first + tpb) - t_first;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  stage_taps(mtaps, q, ts);
+  cp_async_wait<0>();
+  __syncthreads();
+  // dh's taps are read from shared memory (one load feeds 8 FMAs), leaving
+  // the registers to the 50 partial sums
+  const float* tq = ts + cl;
+  float g[kTapRows], sdh = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTapRows; ++i) g[i] = 0.f;
+  const int c = 64 * q + cl;
+  for (int k = 0; k < n; ++k) {
+    const int tt = t_first + k, b = tt / ntiles, tile = tt - b * ntiles;
+    const int ty0 = (tile / tiles_x) * kT, tx0 = (tile % tiles_x) * kT;
+    if (tid == 0) {  // the previous tile's reads ended before the last barrier
+      mbar_expect_tx(bar, 2 * kHalo * 4);
+      tma_load_4d(hd, &map_dacc, 64 * q, tx0 - 3, ty0 - 3, b, bar);
+      tma_load_4d(hh, &map_h, 64 * q, tx0 - 3, ty0 - 3, b, bar);
+    }
+    mbar_wait(bar, k & 1);
+    {
+      float a0[kT], a1[kT];
+#pragma unroll
+      for (int px = 0; px < kT; ++px) a0[px] = a1[px] = 0.f;
+      stencil_rows(hd + cl, rp, [&](int i) { return tq[(48 - i) * 64]; }, a0, a1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gy = ty0 + 2 * rp + e;
+#pragma unroll
+        for (int px = 0; px < kT; ++px) {
+          const int gx = tx0 + px;
+          if (gy >= H || gx >= W || c >= hid) continue;
+          const float v = e ? a1[px] : a0[px];
+          dh[(((long)b * H + gy) * W + gx) * hid + c] = __float2bfloat16_rn(v);
+          sdh += v;
+        }
+      }
+    }
+    {
+      // this thread's dacc: the halo's centre rows 2 rp + 3 and + 4
+      float d0[kT], d1[kT];
+#pragma unroll
+      for (int px = 0; px < kT; ++px) {
+        d0[px] = hd[((2 * rp + 3) * kE7 + px + 3) * 64 + cl];
+        d1[px] = hd[((2 * rp + 4) * kE7 + px + 3) * 64 + cl];
+        g[49] += d0[px];
+        g[49] += d1[px];
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float* row = hh + (2 * rp + r) * kE7 * 64 + cl;
+        float v[kE7];
+#pragma unroll
+        for (int xx = 0; xx < kE7; ++xx) v[xx] = row[xx * 64];
+#pragma unroll
+        for (int kx = 0; kx < 7; ++kx) {
+          if (r < 7) {
+#pragma unroll
+            for (int px = 0; px < kT; ++px) g[r * 7 + kx] = fmaf(d0[px], v[px + kx], g[r * 7 + kx]);
+          }
+          if (r > 0) {
+#pragma unroll
+            for (int px = 0; px < kT; ++px)
+              g[(r - 1) * 7 + kx] = fmaf(d1[px], v[px + kx], g[(r - 1) * 7 + kx]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every read of this tile's halos is done
+  }
+  // the four row pairs' sums in order: red [4][51][64] over the halo buffers
+  float* red = hd;
+#pragma unroll
+  for (int i = 0; i < kTapRows; ++i) red[(rp * (kTapRows + 1) + i) * 64 + cl] = g[i];
+  red[(rp * (kTapRows + 1) + kTapRows) * 64 + cl] = sdh;
+  __syncthreads();
+  for (int i = tid; i < (kTapRows + 1) * 64; i += 256) {
+    const int o = i / 64, ch = 64 * q + i % 64;
+    const float v = ((red[i] + red[(kTapRows + 1) * 64 + i]) + red[2 * (kTapRows + 1) * 64 + i]) +
+                    red[3 * (kTapRows + 1) * 64 + i];
+    if (ch >= hid) continue;
+    if (o < kTapRows) {
+      part_tap[((long)blockIdx.x * kTapRows + o) * hid + ch] = v;
+    } else {
+      part_db1[(long)blockIdx.x * hid + ch] = v;
+    }
+  }
+}
+
+constexpr size_t kAccSmem = 1024 + (size_t)(kHalo + kTapChunk) * 4;
+constexpr size_t kAdjSmem = 1024 + (size_t)(2 * kHalo + kTapChunk) * 4;
+static_assert(4 * (kTapRows + 1) * 64 <= 2 * kHalo, "the adjoint's reduction fits its halos");
 
 // ---- (c) ------------------------------------------------------------------
 //
@@ -667,7 +603,11 @@ __global__ void __launch_bounds__(256) mlp_bwd_wgrad_kernel(WgradJob j0, WgradJo
 //
 // Every partial buffer of one call added up in one launch: job blockIdx.y,
 // out[i] = sum over s < n of part[s N + i], s in order (no float atomics,
-// so every result is the same from run to run).
+// so every result is the same from run to run).  K10 adds one more job
+// (blockIdx.y == kSumJobs): its tap partials [block][50][hid], the sum at
+// offset o < 49 going to dk7 and, in the central 5x5 / 3x3 offsets, to dk5
+// / dk3 (the same sum: dk5[i, j] = dk7[i + 1, j + 1]), row 49 to dc3 = dc5 =
+// dc7.
 struct SumJob {
   const float* part;
   float* out;
@@ -678,14 +618,35 @@ constexpr int kSumJobs = 6;
 struct SumJobs {
   SumJob job[kSumJobs];
 };
+struct TapJob {
+  const float* part;
+  int n, hid;
+  float *dk3, *dk5, *dk7, *dc3, *dc5, *dc7;
+};
 
-__global__ void mlp_bwd_sum_kernel(SumJobs jobs) {
-  const SumJob jb = jobs.job[blockIdx.y];
+__global__ void mlp_bwd_sum_kernel(SumJobs jobs, TapJob taps) {
+  const bool tap_job = blockIdx.y == kSumJobs;
+  const SumJob jb = tap_job ? SumJob{taps.part, nullptr, (long)kTapRows * taps.hid, taps.n}
+                            : jobs.job[blockIdx.y];
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < jb.N;
        i += (long)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < jb.n; ++k) s += jb.part[(long)k * jb.N + i];
-    jb.out[i] = s;
+    if (!tap_job) {
+      jb.out[i] = s;
+      continue;
+    }
+    const int o = (int)(i / taps.hid), c = (int)(i % taps.hid);
+    if (o == 49) {
+      taps.dc3[c] = s;
+      taps.dc5[c] = s;
+      taps.dc7[c] = s;
+      continue;
+    }
+    const int u = o / 7, v = o % 7;
+    taps.dk7[(long)c * 49 + o] = s;
+    if (u >= 1 && u <= 5 && v >= 1 && v <= 5) taps.dk5[(long)c * 25 + (u - 1) * 5 + v - 1] = s;
+    if (u >= 2 && u <= 4 && v >= 2 && v <= 4) taps.dk3[(long)c * 9 + (u - 2) * 3 + v - 2] = s;
   }
 }
 
@@ -696,18 +657,16 @@ __global__ void mlp_bwd_sum_kernel(SumJobs jobs) {
 struct Plan {
   long M, R;  // rows, 64-row tiles
   int d, hid;
-  FrontPlan front;        // K9's front
-  int BMa, HCa, cps, Sa;  // K10's (a): rows per block, hidden chunk, chunks per slice, slices
-  long act_tiles;         // K10's (b): image rows, the db1 partials' count
-  int TR, tap_tiles;      // K10's image rows per tap block, tap blocks
+  FrontPlan front;
+  int tiles, chunks;      // K10's (b): 8x8 tiles of an image, 64-channel chunks
+  int tpb, adj_blocks;    // (b2): tiles a block walks, blocks along the tiles
+  long db1_parts;         // db1 partials: the front's row tiles (K9) or (b2)'s blocks
   int G, NW, NT, stages_c;  // (c): column groups (cluster size), warpgroups, tiles, ring slots
   size_t smem_c;
   int S;     // (d): row segments
   long seg;  // rows per segment
-  size_t off[10], total;  // scratch: xf h gw hg dh pdb1 pln pw2 pw1 ptap
+  size_t off[10], total;  // scratch: xf h gw hg dh pdb1 pln pw2 pw1 ptap (+ the merged taps)
 };
-
-size_t fc_smem(int BM, int d, int HC) { return (size_t)BM * (2 * (d + 8) * 2 + (HC + 4) * 4); }
 
 // (c): the fewest column groups G (a divisor of d's 64-column tiles, at most
 // 8, a cluster) of 1, 2, 4 or 8 tiles each that give the row tiles a wave
@@ -742,26 +701,18 @@ bool make_plan(int dwms, int B, int H, int W, int d, int hid, Plan* p) {
   p->R = (M + kTileRows - 1) / kTileRows;
   p->d = d;
   p->hid = hid;
-  if (!plan_dx(p)) return false;
+  if (!plan_dx(p) || !plan_front(M, d, hid, true, &p->front)) return false;
+  p->chunks = (hid + 63) / 64;
   if (dwms) {
-    p->HCa = 128;
-    while (hid % p->HCa) p->HCa /= 2;
-    p->BMa = 32;
-    while (p->BMa > 16 && fc_smem(p->BMa, d, p->HCa) > kSmemBlock) p->BMa /= 2;
-    if (fc_smem(p->BMa, d, p->HCa) > kSmemBlock) return false;
-    const long row_blocks = (M + p->BMa - 1) / p->BMa;
-    const int nchunks = hid / p->HCa;
-    const int want =
-        (int)std::max(1L, std::min((long)nchunks, (2L * 132 + row_blocks - 1) / row_blocks));
-    p->cps = (nchunks + want - 1) / want;
-    p->Sa = (nchunks + p->cps - 1) / p->cps;
-    p->act_tiles = (long)B * H;
-    p->TR = std::max(1, (int)((long)B * H * ((hid + kChan - 1) / kChan) / (4 * 132)));
-    p->tap_tiles = (B * H + p->TR - 1) / p->TR;
+    p->tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);
+    // (b2): about two waves of two blocks an SM, each walking tpb tiles
+    const long all = (long)B * p->tiles;
+    p->tpb = (int)std::max(1L, all * p->chunks / (2L * 2 * 132));
+    p->adj_blocks = (int)((all + p->tpb - 1) / p->tpb);
+    p->db1_parts = p->adj_blocks;
   } else {
-    if (!plan_front(M, d, hid, true, &p->front)) return false;
-    p->act_tiles = p->R;
-    p->TR = p->tap_tiles = 0;
+    p->tiles = p->tpb = p->adj_blocks = 0;
+    p->db1_parts = p->R;
   }
   // (d): segments of whole 32-row slabs, about two blocks an SM in all
   const long tiles = 2L * ((d + kWgT - 1) / kWgT) * ((hid + kWgT - 1) / kWgT);
@@ -774,11 +725,13 @@ bool make_plan(int dwms, int B, int H, int W, int d, int hid, Plan* p) {
                             dwms ? mh * 4 : 0,
                             mh * 2,
                             mh * 2,
-                            (size_t)p->act_tiles * hid * 4,
+                            (size_t)p->db1_parts * hid * 4,
                             (size_t)3 * p->R * d * 4,
                             (size_t)p->S * d * hid * 4,
                             (size_t)p->S * hid * d * 4,
-                            (size_t)p->tap_tiles * (kTaps + 1) * hid * 4};
+                            dwms ? ((size_t)p->adj_blocks * kTapRows * hid +
+                                    (size_t)p->chunks * kTapChunk) * 4
+                                 : 0};
   size_t o = 0;
   for (int i = 0; i < 10; ++i) {
     p->off[i] = o;
@@ -802,24 +755,11 @@ T* at(void* scratch, const Plan& p, int i) {
     default: return (int)cudaErrorInvalidValue;                        \
   }
 
-// K10's (a): the LN'd rows, h and g w2 as fp32 maps for its stencils.
-int run_fc(const Plan& p, void* scratch, const bf16* x, const bf16* g, const float* ln_w,
-           const float* ln_b, const bf16* w1, const float* b1, const bf16* w2, cudaStream_t s) {
-  const size_t smem = fc_smem(p.BMa, p.d, p.HCa);
-  cudaError_t e = allow_smem(mlp_bwd_fc_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  mlp_bwd_fc_kernel<<<dim3((unsigned)((p.M + p.BMa - 1) / p.BMa), p.Sa), kThreads, smem, s>>>(
-      x, g, ln_w, ln_b, w1, b1, w2, at<bf16>(scratch, p, 0), at<float>(scratch, p, 1),
-      at<float>(scratch, p, 2), p.M, p.d, p.hid, p.BMa, p.HCa, p.cps);
-  TRAMBA_CHECK_LAUNCH();
-  return 0;
-}
-
 // (c) - (e), which both adjoints share, after xf, hg, bf16(dh) and the db1
 // partials are in the scratch.
 int run_tail(const Plan& p, void* scratch, const bf16* x, const bf16* g, const float* ln_w,
              const bf16* w1, bf16* dx, float* dw1, float* db1, float* dw2, float* db2,
-             float* dln_w, float* dln_b, cudaStream_t s) {
+             float* dln_w, float* dln_b, TapJob taps, cudaStream_t s) {
   const bf16* xf = at<bf16>(scratch, p, 0);
   const bf16* hg = at<bf16>(scratch, p, 3);
   const bf16* dh = at<bf16>(scratch, p, 4);
@@ -861,12 +801,13 @@ int run_tail(const Plan& p, void* scratch, const bf16* x, const bf16* g, const f
   const long plane = p.R * p.d;
   const SumJobs jobs{{{pw2, dw2, (long)p.d * p.hid, p.S},
                       {pw1, dw1, (long)p.hid * p.d, p.S},
-                      {at<float>(scratch, p, 5), db1, p.hid, (int)p.act_tiles},
+                      {at<float>(scratch, p, 5), db1, p.hid, (int)p.db1_parts},
                       {pln, dln_w, p.d, (int)p.R},
                       {pln + plane, dln_b, p.d, (int)p.R},
                       {pln + 2 * plane, db2, p.d, (int)p.R}}};
   const long blocks = std::min(((long)p.d * p.hid + 255) / 256, 264L);
-  mlp_bwd_sum_kernel<<<dim3((unsigned)blocks, kSumJobs), 256, 0, s>>>(jobs);
+  mlp_bwd_sum_kernel<<<dim3((unsigned)blocks, kSumJobs + (taps.part ? 1 : 0)), 256, 0, s>>>(
+      jobs, taps);
   TRAMBA_CHECK_LAUNCH();
   return 0;
 }
@@ -907,12 +848,13 @@ int ln_mlp_bwd_launch(const bf16* x, const bf16* g, const float* ln_w, const flo
   if (!weight_map(&map_w1, w1, hid, d) || !weight_map(&map_g, g, M, d) ||
       !weight_map(&map_w2, w2, d, hid))
     return (int)cudaErrorInvalidValue;
-  const int rc = front_launch<true>(p.front, map_w1, map_g, map_w2, x, ln_w, ln_b, b1, nullptr,
-                                    at<bf16>(scratch, p, 0), at<bf16>(scratch, p, 3),
-                                    at<bf16>(scratch, p, 4), at<float>(scratch, p, 5), M, d,
-                                    hid, MergedTaps{}, s);
+  const int rc = front_launch<kFrontK9>(p.front, map_w1, map_g, map_w2, x, ln_w, ln_b, b1,
+                                        nullptr, nullptr, at<bf16>(scratch, p, 0),
+                                        at<bf16>(scratch, p, 3), at<bf16>(scratch, p, 4),
+                                        at<float>(scratch, p, 5), M, d, hid, MergedTaps{}, s);
   if (rc) return rc;
-  return run_tail(p, scratch, x, g, ln_w, w1, dx, dw1, db1, dw2, db2, dln_w, dln_b, s);
+  return run_tail(p, scratch, x, g, ln_w, w1, dx, dw1, db1, dw2, db2, dln_w, dln_b, TapJob{},
+                  s);
 }
 
 // K10.  x, g (B, H, W, d) bf16; ln_w, ln_b (d), b1 (hid), c3, c5, c7 (hid)
@@ -920,6 +862,7 @@ int ln_mlp_bwd_launch(const bf16* x, const bf16* g, const float* ln_w, const flo
 // (d, hid) bf16.  Outputs: dx (B, H, W, d) bf16; dw1 (hid, d), db1, dk3,
 // dk5, dk7 (as the taps), dc3, dc5, dc7 (hid), dw2 (d, hid), db2, dln_w,
 // dln_b (d) fp32.  scratch: mlp_bwd_scratch(1, B, H, W, d, hid) bytes.
+// Six launches: the front, (b1), (b2), (c), (d), (e).
 int ln_dwms_mlp_bwd_launch(const bf16* x, const bf16* g, const float* ln_w, const float* ln_b,
                            const bf16* w1, const float* b1, const bf16* k3, const float* c3,
                            const bf16* k5, const float* c5, const bf16* k7, const float* c7,
@@ -930,27 +873,32 @@ int ln_dwms_mlp_bwd_launch(const bf16* x, const bf16* g, const float* ln_w, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Plan p;
   if (!make_plan(1, B, H, W, d, hid, &p)) return (int)cudaErrorInvalidValue;
-  int rc = run_fc(p, scratch, x, g, ln_w, ln_b, w1, b1, w2, s);
-  if (rc) return rc;
   float* h = at<float>(scratch, p, 1);
   float* dacc = at<float>(scratch, p, 2);  // g w2, then dacc in place
-  const dim3 rows_grid((unsigned)(B * H), (hid + kChan - 1) / kChan);
-  mlp_bwd_dwms_act_kernel<<<rows_grid, kChan, 0, s>>>(h, dacc, at<bf16>(scratch, p, 3), k3, c3,
-                                                      k5, c5, k7, c7, H, W, hid);
-  TRAMBA_CHECK_LAUNCH();
-  mlp_bwd_dwms_dh_kernel<<<rows_grid, kChan, 0, s>>>(dacc, at<bf16>(scratch, p, 4), k3, k5, k7,
-                                                     at<float>(scratch, p, 5), H, W, hid);
-  TRAMBA_CHECK_LAUNCH();
   float* ptap = at<float>(scratch, p, 9);
-  mlp_bwd_dwms_tap_kernel<<<dim3(p.tap_tiles, (hid + kChan - 1) / kChan), kChan, 0, s>>>(
-      dacc, h, ptap, B, H, W, hid, p.TR);
+  float* mtaps = ptap + (size_t)p.adj_blocks * kTapRows * hid;
+  CUtensorMap map_w1, map_g, map_w2, map_h, map_dacc;
+  if (!weight_map(&map_w1, w1, hid, d) || !weight_map(&map_g, g, p.M, d) ||
+      !weight_map(&map_w2, w2, d, hid) || !halo_map(&map_h, h, B, H, W, hid, kE7) ||
+      !halo_map(&map_dacc, dacc, B, H, W, hid, kE7))
+    return (int)cudaErrorInvalidValue;
+  int rc = front_launch<kFrontK10>(p.front, map_w1, map_g, map_w2, x, ln_w, ln_b, b1, h, dacc,
+                                   at<bf16>(scratch, p, 0), nullptr, nullptr, nullptr, p.M, d,
+                                   hid, MergedTaps{k3, k5, k7, c3, c5, c7, mtaps}, s);
+  if (rc) return rc;
+  cudaError_t e = allow_smem(mlp_bwd_dwms_acc_kernel, kAccSmem);
+  if (e != cudaSuccess) return (int)e;
+  mlp_bwd_dwms_acc_kernel<<<dim3(p.tiles, B, p.chunks), 256, kAccSmem, s>>>(
+      map_h, mtaps, dacc, at<bf16>(scratch, p, 3), H, W, hid);
   TRAMBA_CHECK_LAUNCH();
-  const long nt = (long)(kTaps + 1) * hid;
-  mlp_bwd_sum_taps_kernel<<<(unsigned)((nt + 255) / 256), 256, 0, s>>>(ptap, p.tap_tiles, hid,
-                                                                       dk3, dk5, dk7, dc3, dc5,
-                                                                       dc7);
+  e = allow_smem(mlp_bwd_dwms_adj_kernel, kAdjSmem);
+  if (e != cudaSuccess) return (int)e;
+  mlp_bwd_dwms_adj_kernel<<<dim3(p.adj_blocks, p.chunks), 256, kAdjSmem, s>>>(
+      map_dacc, map_h, mtaps, at<bf16>(scratch, p, 4), at<float>(scratch, p, 5), ptap, B, H, W,
+      hid, p.tpb);
   TRAMBA_CHECK_LAUNCH();
-  return run_tail(p, scratch, x, g, ln_w, w1, dx, dw1, db1, dw2, db2, dln_w, dln_b, s);
+  return run_tail(p, scratch, x, g, ln_w, w1, dx, dw1, db1, dw2, db2, dln_w, dln_b,
+                  TapJob{ptap, p.adj_blocks, hid, dk3, dk5, dk7, dc3, dc5, dc7}, s);
 }
 
 }  // extern "C"

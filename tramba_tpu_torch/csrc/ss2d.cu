@@ -196,6 +196,7 @@ cudaError_t launch_scan(const T* x, const int* idx, const float* dbc, const floa
     if (e != cudaSuccess) return e;
     sum_kern<<<dim3((S - 1) * nblk, K, B), nc, smem, s>>>(
         x, idx, dbc, wdt, dt_bias, A_logs, Ds, summ, ys, carries, B, L, D, K, R, S, per);
+    ++native_launch_count();
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -204,6 +205,7 @@ cudaError_t launch_scan(const T* x, const int* idx, const float* dbc, const floa
   if (e != cudaSuccess) return e;
   kern<<<dim3(S * nblk, K, B), nc, smem, s>>>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, summ, ys,
                                              carries, B, L, D, K, R, S, per);
+  ++native_launch_count();
   return cudaGetLastError();
 }
 
@@ -600,6 +602,9 @@ int merge_launch(const float* ys, const int* inv, const float* ln_w, const float
 extern "C" {
 
 const char* tramba_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// Kernels the library has launched since it was loaded (native_launch_count).
+long tramba_native_launches() { return native_launch_count(); }
 
 // Steps per chunk of K1 and K8 (kScanChunk): the carries' stride.
 int ss2d_scan_chunk() { return kScanChunk; }

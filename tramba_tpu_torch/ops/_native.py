@@ -22,7 +22,7 @@ import tempfile
 import torch
 
 __all__ = ["on_card", "check_args", "needs_grad", "recompute_vjp", "F32", "BF16", "F32_BF16",
-           "library", "build", "launch", "stream_handle"]
+           "library", "build", "launch", "native_launch_count", "stream_handle"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -45,7 +45,8 @@ _SIGNATURES = {
     "expand_ln_launch": [_P] * 5 + [_I] * 6 + [_P],
     "final_head_launch": [_P] * 7 + [_L, _I, _I, _P],
     "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _F, _P],
-    "prologue_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "prologue_launch": [_P] * 6 + [_I] * 5 + [_P],
+    "prologue_plan": [_I] * 5 + [_IP],
     "ln_mlp_splits": [_L, _I, _I, _IP],
     "ln_mlp_launch": [_P] * 9 + [_L, _I, _I, _I, _P],
     "ln_dwms_mlp_splits": [_I] * 5 + [_IP],
@@ -165,7 +166,16 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tramba_error_string.argtypes = [ctypes.c_int]
     lib.tramba_error_string.restype = ctypes.c_char_p
+    lib.tramba_native_launches.argtypes = []
+    lib.tramba_native_launches.restype = ctypes.c_long
     return lib
+
+
+def native_launch_count() -> int:
+    """Kernels the built library has launched so far (every launch site of
+    ``csrc/`` counts one): the difference over a wrapper call is the number
+    of kernels that call launched."""
+    return library().tramba_native_launches()
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -1,7 +1,8 @@
-"""Plain mirrors of how the redesigned K7 ``ln_dwms_mlp`` and K9 ``ln_mlp_bwd``
-split their work (``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``), beside the plain
-versions in :mod:`tramba_tpu_torch.ops.fused_mlp` that follow the TPU
-kernels' own order.
+"""Plain mirrors of how the redesigned K7 ``ln_dwms_mlp``, K9 ``ln_mlp_bwd``
+and K10 ``ln_dwms_mlp_bwd`` split their work (``csrc/mlp.cu``,
+``csrc/mlp_bwd.cu``), beside the plain versions in
+:mod:`tramba_tpu_torch.ops.fused_mlp` that follow the TPU kernels' own
+order.
 
 * :func:`dwms_merged_ref`: K7 computes h = LN(x) w1^T + b1 once for every
   pixel (fp32, zero outside the image), then runs one 7x7 depthwise stencil
@@ -13,6 +14,12 @@ kernels' own order.
   only hg, bf16(dh) and the db1 sums; its stage (c) computes dxf in column
   groups of d (:func:`column_groups`, the kernel's choice), and the LN
   adjoint's two row sums are each group's share added in group order.
+* :func:`dwms_bwd_merged_ref`: K10 runs its three depthwise convs as the
+  merged 7x7 tap set t (identity included) of K7: one forward stencil
+  acc = t * h + bias, dh = the correlation of dacc (zero outside the
+  image) with the flipped taps, and one 49-offset correlation
+  dk[o] = sum_p dacc(p) h(p + o) whose central 5x5 and 3x3 are dk5 and dk3.
+  The same function as ``ln_dwms_mlp_bwd_ref`` reassociated in fp32.
 
 Each takes ``fault``, a named mistake planted in the mirror, so that a
 check can show it would see a kernel making it (``chip_smoke.py`` phase 3).
@@ -23,13 +30,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tramba_tpu_torch.ops.fused_mlp import _gelu_grad, _linear, _ln_fwd, _ln_rounded, _rows_t
+from tramba_tpu_torch.ops.fused_mlp import (_gelu_grad, _linear, _ln_bwd, _ln_fwd, _ln_rounded,
+                                            _rows_t)
 
-__all__ = ["DWMS_FAULTS", "MLP_BWD_FAULTS", "dwms_merged_ref", "column_groups",
-           "mlp_bwd_split_ref"]
+__all__ = ["DWMS_FAULTS", "MLP_BWD_FAULTS", "DWMS_BWD_FAULTS", "dwms_merged_ref",
+           "column_groups", "mlp_bwd_split_ref", "dwms_bwd_merged_ref"]
 
 DWMS_FAULTS = ("no 3x3 taps", "h not zero outside", "no last chunk")
 MLP_BWD_FAULTS = ("no mean term", "no last group's row sums")
+DWMS_BWD_FAULTS = ("dacc not zero outside", "no identity in dh", "dk3 taken off-centre")
 
 _CHUNK = 64  # K7's hidden chunk
 
@@ -120,3 +129,40 @@ def mlp_bwd_split_ref(x, g, ln_w, ln_b, w1, b1, w2, groups=None, fault=None):
     return (dx.to(cd), (dxf * xn).reshape(-1, d).sum(0), dxf.reshape(-1, d).sum(0),
             _rows_t(dhc, xf), dh.reshape(-1, dh.shape[-1]).sum(0), _rows_t(g32, hg),
             g32.reshape(-1, d).sum(0))
+
+
+def dwms_bwd_merged_ref(x, g, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, fault=None):
+    """K10's adjoint computed as the kernel splits it: the same outputs as
+    ``ln_dwms_mlp_bwd_ref`` (dx, d_ln_w, d_ln_b, dw1, db1, dk3, dc3, dk5, dc5,
+    dk7, dc7, dw2, db2).  ``fault``: one of :data:`DWMS_BWD_FAULTS` or None
+    ("dacc not zero outside": the adjoint stencil's halo clamped to the
+    image's edge pixels instead of zero-filled)."""
+    cd = x.dtype
+    hid = w1.shape[0]
+    xn, rstd, xf = _ln_fwd(x, ln_w, ln_b)
+    g32 = g.to(cd).float()
+    w1c, w2c = w1.to(cd).float(), w2.to(cd).float()
+    # the front: h and g w2, once per pixel, fp32
+    h = (xf @ w1c.t() + b1.float()).permute(0, 3, 1, 2)
+    gw = (g32 @ w2c).permute(0, 3, 1, 2)
+    # (b1): one merged stencil
+    t = _merged_taps(k3, k5, k7, cd)
+    acc = F.conv2d(h, t, c3.float() + c5.float() + c7.float(), padding=3, groups=hid)
+    dacc = gw * _gelu_grad(acc)
+    hg = F.gelu(acc).to(cd).float().permute(0, 2, 3, 1)
+    # (b2): dh = sum_o t[o] dacc(p - o) on a zero halo, and the 49 offsets
+    pad = "replicate" if fault == "dacc not zero outside" else "constant"
+    t_dh = t.clone()
+    if fault == "no identity in dh":
+        t_dh[:, :, 3, 3] -= 1.0
+    dh = F.conv2d(F.pad(dacc, (3, 3, 3, 3), mode=pad), t_dh.flip(-2, -1), groups=hid)
+    dk7 = torch.nn.grad.conv2d_weight(h, t.shape, dacc, padding=3, groups=hid)
+    dk3 = dk7[:, :, 1:4, 1:4] if fault == "dk3 taken off-centre" else dk7[:, :, 2:5, 2:5]
+    dc = dacc.sum((0, 2, 3))
+    dh = dh.permute(0, 2, 3, 1)
+    dhc = dh.to(cd).float()
+    # (c) - (e): K9's tail
+    dx, d_ln_w, d_ln_b = _ln_bwd(dhc @ w1c, xn, rstd, ln_w)
+    return (dx.to(cd), d_ln_w, d_ln_b, _rows_t(dhc, xf), dh.reshape(-1, hid).sum(0),
+            dk3.contiguous(), dc, dk7[:, :, 1:6, 1:6].contiguous(), dc, dk7, dc,
+            _rows_t(g32, hg), g32.reshape(-1, g32.shape[-1]).sum(0))

@@ -93,8 +93,8 @@ def _split_scratch(x, name: str, *shape):
 
 def layer_norm_bf16(x, ln_w, ln_b, eps=1e-5):
     """bf16 LayerNorm of a CUDA bf16 tensor over its last axis (fp32
-    statistics): the launch that kernels K5 and K11-K13 start with (K6, K7
-    and K9 normalise their own rows)."""
+    statistics): the launch that kernels K11-K13 start with (K5, K6, K7, K9
+    and K10 normalise their own rows)."""
     d = x.shape[-1]
     check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
     if ln_w.numel() != d or ln_b.numel() != d:
