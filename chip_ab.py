@@ -2,25 +2,31 @@
 
     python3 chip_ab.py [--logs DIR] TREE [TREE ...]
 
-Each TREE is the root of a checkout of the repository (for example the
-parent commit unpacked with ``git archive`` into a directory that
-``.gitignore`` lists, and ``.``).  For each, in the order given (parent,
-change, change, parent compares two trees on one card), this runs that
-tree's ``chip_smoke.py`` from its root, so each tree builds its own kernels
-and times them with its own code, and reads the times it prints: ms per
-forward (phase 6) and per train step (phase 8) of every model, and the ms of K1
-``ss2d_scan``, K8 ``ss2d_scan_bwd``, K2 ``ss2d_merge``, K5 ``prologue``, K6
-``ln_mlp``, K7 ``ln_dwms_mlp``, K9 ``ln_mlp_bwd`` and K10 ``ln_dwms_mlp_bwd`` at
-each shape phase 3 checks them, beside the bound the run computed and,
-where the tree prints it, the time of the kernel's matrix products alone as
-torch.matmul (``gemm``).  Then tables of the runs side by side, with the
-card's ``name, power.limit``.  ``--logs DIR`` keeps each run's whole output.
-``--ffn-bwd`` runs, instead of the whole ``chip_smoke.py``, only its phase 3
-checks of K9 and K10 (``check_mlp_bwd`` at every shape of the train steps),
-and ``--k5-k10`` only its checks of K5 (every shape of Tramba-V's, -P's and
--R's forwards, through ``check_bf16_only`` with no K6 / K7 shapes) and of
-K10 (the DWMS shapes of ``check_mlp_bwd``), so that a tree can be listed
-several times in one short call.  Exits with the first failing run's code.
+Each TREE is the root of a checkout of the repository (for example the parent
+commit unpacked with ``git archive`` into a directory that ``.gitignore``
+lists, and ``.``). For each, in the order given (parent, change, change,
+parent compares two trees on one card), this runs that tree's
+``chip_smoke.py`` from its root, so each tree builds its own kernels and times
+them with its own code, and reads the times it prints: ms per forward (phase
+6) and per train step (phase 8) of every model, and the ms of K1
+``ss2d_scan``, K8 ``ss2d_scan_bwd``, K2 ``ss2d_merge``, K3 ``expand_ln``, K4
+``final_head``, K5 ``prologue``, K6 ``ln_mlp``, K7 ``ln_dwms_mlp``, K9
+``ln_mlp_bwd`` and K10 ``ln_dwms_mlp_bwd`` at each shape phase 3 checks them,
+beside the bound the run computed and, where the tree prints it, the time of
+the kernel's matrix products alone as torch.matmul (``gemm``). Then tables of
+the runs side by side, with the card's ``name, power.limit``. ``--logs DIR``
+keeps each run's whole output. ``--ffn-bwd`` runs, instead of the whole
+``chip_smoke.py``, only its phase 3 checks of K9 and K10 (``check_mlp_bwd`` at
+every shape of the train steps), and ``--k5-k10`` only its checks of K5 (every
+shape of Tramba-V's, -P's and -R's forwards, through ``check_bf16_only`` with
+no K6 / K7 shapes) and of K10 (the DWMS shapes of ``check_mlp_bwd``), and
+``--k3-k4`` only its checks of K3 and K4 (``check_ss2d_expand`` with no SS2D
+shapes, at Tramba-V's, -P's and -R's shapes, fp32 and bf16, B2) followed by a
+timing snippet that is the same code in every tree: each tree's
+``fused_expand.expand_ln`` and ``final_head`` at Tramba-V's seven shapes at
+B16 (the timed forward's batch), fp32 and bf16, with their plain versions, by
+CUDA events (``chip_smoke.cuda_ms``), so that a tree can be listed several times in one
+short call. Exits with the first failing run's code.
 """
 
 from __future__ import annotations
@@ -35,10 +41,10 @@ TIMES = (re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
          re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ train) step (B\d+): ([\d.]+) ms/step"))
 # phase 3's line of a tabulated kernel: name, tag, shape, ..., kernel ms, plain
 # ms, bound ms (bound by), and gemm ms where printed
-KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|prologue|ln_mlp|ln_dwms_mlp|ln_mlp_bwd|"
-                     r"ln_dwms_mlp_bwd)"
+KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|expand_ln|final_head|prologue|ln_mlp|"
+                     r"ln_dwms_mlp|ln_mlp_bwd|ln_dwms_mlp_bwd)"
                      r"\s+((?:fp32|bf16)(?: train)?)\s+"
-                     r"(\S.*?)\s+max_abs_err .* kernel ([\d.]+) ms plain [\d.]+ ms "
+                     r"(\S.*?)\s+max_abs_err .* kernel ([\d.]+) ms plain ([\d.]+) ms "
                      r"bound ([\d.]+) ms \(\w+\)(?: gemm ([\d.]+) ms)?")
 
 
@@ -55,13 +61,16 @@ def times(stdout: str) -> dict:
 
 
 def kernel_times(stdout: str) -> dict:
-    """{(kernel, tag, shape): (ms, bound_ms, gemm_ms or nan)} of phase 3's
-    K1, K8, K2, K5, K6, K7, K9 and K10 lines."""
+    """{(kernel, tag, shape): (ms, bound_ms, gemm_ms or nan, plain_ms)} of
+    phase 3's K1, K8, K2, K3, K4, K5, K6, K7, K9 and K10 lines, and of the
+    ``--k3-k4`` snippet's B16 lines (bound and gemm nan)."""
     out = {}
     for line in stdout.splitlines():
         if m := KERNELS.match(line):
-            out[m[1], m[2], m[3]] = (float(m[4]), float(m[5]),
-                                     float(m[6]) if m[6] else float("nan"))
+            out[m[1], m[2], m[3]] = (float(m[4]), float(m[6]),
+                                     float(m[7]) if m[7] else float("nan"), float(m[5]))
+        elif m := B16.match(line):
+            out[m[1], m[2], m[3]] = (float(m[4]), float("nan"), float("nan"), float(m[5]))
     return out
 
 
@@ -82,6 +91,41 @@ K5_K10 = ("import torch, chip_smoke as cs\n"
           "    cs.check_mlp_bwd(checks, dev, gen, tuple(s for s in bwd if s[2]))\n")
 
 
+# the phase 3 checks of K3 and K4 alone (--k3-k4), then the same B16 timing
+# code in every tree: each tree's wrappers at Tramba-V's seven shapes
+K3_K4 = ("import torch, chip_smoke as cs\n"
+         "from tramba_tpu_torch.nn.init import init_weights\n"
+         "from tramba_tpu_torch.nn.layers import FinalPatchExpandX4, _Expand\n"
+         "from tramba_tpu_torch.ops import fused_expand as te\n"
+         "torch.backends.cuda.matmul.allow_tf32 = False\n"
+         "checks, gen, dev = cs.Checks(), torch.Generator().manual_seed(0), torch.device('cuda')\n"
+         "for dt in (torch.float32, torch.bfloat16):\n"
+         "    for shapes, c in ((cs.EXPAND_SHAPES, 128), (cs.EXPAND_SHAPES_P, 64), "
+         "(cs.EXPAND_SHAPES_R, 256)):\n"
+         "        cs.check_ss2d_expand(checks, dev, gen, dt, (), shapes, head_c=c)\n"
+         "card, B = cs.card_line(), 16\n"
+         "for dt in (torch.float32, torch.bfloat16):\n"
+         "    for H, C, f in cs.EXPAND_SHAPES:\n"
+         "        m = init_weights(_Expand(C, f), gen).to(dev)\n"
+         "        args = (torch.randn(B, H, H, C, generator=gen).to(dev, dt), "
+         "m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data)\n"
+         "        ms = cs.cuda_ms(lambda: te.expand_ln(*args), 20, warmup=2)\n"
+         "        pms = cs.cuda_ms(lambda: te.expand_ln_ref(*args), 5, warmup=2)\n"
+         "        print(f'b16 expand_ln {cs.NAMES[dt]} f{f} {H}px B{B} C{C}: {ms:.4f} ms, '\n"
+         "              f'plain {pms:.4f} ms [{card}]')\n"
+         "    m = init_weights(FinalPatchExpandX4(128), gen).to(dev)\n"
+         "    args = (torch.randn(B, 96, 96, 128, generator=gen).to(dev, dt), "
+         "m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data, "
+         "(torch.randn(128, generator=gen) * 0.1).to(dev), "
+         "torch.randn(1, generator=gen).to(dev))\n"
+         "    ms = cs.cuda_ms(lambda: te.final_head(*args), 20, warmup=2)\n"
+         "    pms = cs.cuda_ms(lambda: te.final_head_ref(*args), 5, warmup=2)\n"
+         "    print(f'b16 final_head {cs.NAMES[dt]} 96px B{B} C128: {ms:.4f} ms, '\n"
+         "          f'plain {pms:.4f} ms [{card}]')\n")
+# a line of the K3_K4 snippet's B16 timing: name, dtype, shape, ms, plain ms
+B16 = re.compile(r"^b16 (expand_ln|final_head) (fp32|bf16) (.*?): ([\d.]+) ms, plain ([\d.]+) ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--logs", default="", help="directory for each run's whole output")
@@ -90,6 +134,9 @@ def main(argv=None) -> int:
                        help="run only phase 3's K9 / K10 checks of each tree")
     short.add_argument("--k5-k10", action="store_true",
                        help="run only phase 3's K5 / K10 checks of each tree")
+    short.add_argument("--k3-k4", action="store_true",
+                       help="run only phase 3's K3 / K4 checks of each tree, and time both "
+                            "at Tramba-V's shapes at B16")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -100,7 +147,7 @@ def main(argv=None) -> int:
     for i, tree in enumerate(args.trees):
         root = os.path.abspath(tree)
         cmd = (["-c", FFN_BWD] if args.ffn_bwd else ["-c", K5_K10] if args.k5_k10
-               else [os.path.join(root, "chip_smoke.py")])
+               else ["-c", K3_K4] if args.k3_k4 else [os.path.join(root, "chip_smoke.py")])
         res = subprocess.run([sys.executable, *cmd], cwd=root, capture_output=True, text=True,
                              timeout=1500)
         if args.logs:
@@ -116,13 +163,13 @@ def main(argv=None) -> int:
     for key in runs[0][1]:
         print(f"{key:14s} " + "  ".join(f"{tree}: {t.get(key, float('nan')):.2f}"
                                         for tree, t, _ in runs))
-    print(f"kernels: ms per call (bound ms; gemm ms), runs in order [{card}]")
+    print(f"kernels: ms per call (bound ms; gemm ms; plain ms), runs in order [{card}]")
     keys = list(dict.fromkeys(k for _, _, sc in runs for k in sc))
     for key in keys:
         cells = []
         for tree, _, sc in runs:
-            ms, bound, gemm = sc.get(key, (float("nan"),) * 3)
-            cells.append(f"{tree}: {ms:.4f} ({bound:.4f}; {gemm:.4f})")
+            ms, bound, gemm, plain = sc.get(key, (float("nan"),) * 4)
+            cells.append(f"{tree}: {ms:.4f} ({bound:.4f}; {gemm:.4f}; {plain:.4f})")
         print(f"{' '.join(key):48s} " + "  ".join(cells))
     return 0
 

@@ -62,7 +62,14 @@ Phases, each of which must pass (any failure exits non-zero):
                clamped to the image's edge) and K10 ln_dwms_mlp_bwd (every
                shape: 6 native launches a call; the merged-tap mirror with
                dacc not zero outside, no identity in dh, or dk3 taken
-               off-centre); each of K2, K5, K6, K7, K9 and K10
+               off-centre); likewise K3 expand_ln and K4 final_head (every
+               shape of Tramba-V, -P and -R, fp32 and bf16, and Tramba-V's
+               bf16 shapes again at B16: one native launch a call, the plan
+               the library reports equal to ops/expand_stages.py's, whose
+               block mirror passes the check and fails it with p1 and p2
+               swapped in the store, the padded columns left in the
+               statistics or the last K chunk left out, K4 also with the
+               mean left out of the head sum); each of K2-K7, K9 and K10
                printed beside its matrix products alone as torch.matmul on
                the same operands ("gemm": a reference for what the tensor
                cores give at that shape, never called by the port); native
@@ -801,15 +808,13 @@ def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
 
 
 def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shapes=EXPAND_SHAPES,
-                      head_c=128):
+                      head_c=128, B=2):
     """K1-K4 at every shape of the main path (by default Tramba-V's), in
-    dtype ``dt``."""
+    dtype ``dt``, at batch ``B``."""
     from tramba_tpu_torch.nn.init import init_weights
     from tramba_tpu_torch.nn.layers import FinalPatchExpandX4, _Expand
-    from tramba_tpu_torch.ops import fused_expand as te
     from tramba_tpu_torch.ops import fused_ss2d as tf
 
-    B = 2
     for kind, H, d_model, param in ss2d_shapes:
         m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
         checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
@@ -822,9 +827,8 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
         x = torch.randn(B, H, H, C, generator=gen).to(dev, dt)
         args = (x, m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data)
         out_c = args[1].shape[0]  # Dense C -> f C (pixel shuffle), LN over C / f
-        checks.compare("expand_ln", dt, f"f{f} {H}px B{B} C{C}", lambda: te.expand_ln(*args),
-                       lambda: te.expand_ln_ref(*args), reps=10, inputs=args,
-                       flops=ops(dt, 2 * B * H * H * C * out_c, 8 * B * H * H * out_c))
+        check_expand(checks, dt, f"f{f} {H}px B{B} C{C}", args,
+                     ops(dt, 2 * B * H * H * C * out_c, 8 * B * H * H * out_c))
     C = head_c
     m = init_weights(FinalPatchExpandX4(C), gen).to(dev)
     seg_w = (torch.randn(C, generator=gen) * 0.1).to(dev)
@@ -832,9 +836,83 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
     x = torch.randn(B, 96, 96, C, generator=gen).to(dev, dt)
     args = (x, m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data, seg_w, seg_b)
     M = B * 96 * 96
-    checks.compare("final_head", dt, f"96px B{B} C{C}", lambda: te.final_head(*args),
-                   lambda: te.final_head_ref(*args), reps=10, inputs=args,
-                   flops=ops(dt, 2 * M * C * 16 * C, 10 * M * 16 * C))
+    check_head(checks, dt, f"96px B{B} C{C}", args, ops(dt, 2 * M * C * 16 * C, 10 * M * 16 * C))
+
+
+def _plan_text(plan):
+    from tramba_tpu_torch.ops import expand_stages as es
+
+    return (f"{es.ROUTES[plan['route']]}, {plan['tiles']} x {plan['sets']} blocks of "
+            f"{plan['rows']} rows, wn {plan['wn']}, split {plan['split']}, gpb {plan['gpb']}, "
+            f"{plan['stages']} slots, {plan['smem']} B")
+
+
+def check_expand(checks, dt, label, args, flops):
+    """K3 against its plain version, timed beside its product alone as
+    torch.matmul on the same operands (x w^T: "gemm"); two launches give the
+    same bits; one native launch a call; the plan the library reports is its
+    plain mirror's (ops/expand_stages.py), whose block-by-block version passes
+    the same check and, with each planted fault that bears on the plan (p1
+    and p2 swapped in the store; the padded columns left in the statistics;
+    the last K chunk left out), fails it at bf16's tolerance."""
+    from tramba_tpu_torch.ops import expand_stages as es
+    from tramba_tpu_torch.ops import fused_expand as te
+
+    x, w = args[:2]
+    B, H, W, C = x.shape
+    co = w.shape[0] // 4
+    x2 = x.reshape(-1, C)
+    checks.compare("expand_ln", dt, label, lambda: te.expand_ln(*args),
+                   lambda: te.expand_ln_ref(*args), reps=10, inputs=args, flops=flops,
+                   gemm=lambda: x2 @ w.t())
+    if not torch.equal(te.expand_ln(*args), te.expand_ln(*args)):
+        raise AssertionError(f"expand_ln {label}: two launches differ")
+    n = native_launches(lambda: te.expand_ln(*args))
+    plan = te.expand_plan(B, H, W, C, co, dt)
+    print(f"expand_ln       {NAMES[dt]} {label}: {n:g} native launches a call; "
+          f"{_plan_text(plan)}", flush=True)
+    if n != 1:
+        raise AssertionError(f"expand_ln {label}: {n} native launches a call, not 1")
+    if plan != es.expand_plan(B * H * W, C, co, dt):
+        raise AssertionError(f"expand_ln {label}: the library's plan {plan} is not the mirror's")
+    want = te.expand_ln_ref(*args)
+    tol = KERNEL_TOL_BF16 if dt == torch.bfloat16 else KERNEL_TOL
+    torch.testing.assert_close(es.expand_tiled_ref(*args).float(), want.float(), **tol)
+    checks.planted("expand_ln", label, want,
+                   {f: functools.partial(es.expand_tiled_ref, *args, fault=f)
+                    for f in es.expand_faults(plan, co)})
+
+
+def check_head(checks, dt, label, args, flops):
+    """K4 as :func:`check_expand` holds K3: gemm x w1^T; faults: the last K
+    chunk left out, the mean left out of the head sum, the padded columns
+    left in the statistics (where the plan pads)."""
+    from tramba_tpu_torch.ops import expand_stages as es
+    from tramba_tpu_torch.ops import fused_expand as te
+
+    x, w1 = args[:2]
+    C = x.shape[-1]
+    M = x.numel() // C
+    x2 = x.reshape(M, C)
+    checks.compare("final_head", dt, label, lambda: te.final_head(*args),
+                   lambda: te.final_head_ref(*args), reps=10, inputs=args, flops=flops,
+                   gemm=lambda: x2 @ w1.t())
+    if not torch.equal(te.final_head(*args), te.final_head(*args)):
+        raise AssertionError(f"final_head {label}: two launches differ")
+    n = native_launches(lambda: te.final_head(*args))
+    plan = te.head_plan(M, C, dt)
+    print(f"final_head      {NAMES[dt]} {label}: {n:g} native launches a call; "
+          f"{_plan_text(plan)}", flush=True)
+    if n != 1:
+        raise AssertionError(f"final_head {label}: {n} native launches a call, not 1")
+    if plan != es.head_plan(M, C, dt):
+        raise AssertionError(f"final_head {label}: the library's plan {plan} is not the mirror's")
+    want = te.final_head_ref(*args)
+    tol = KERNEL_TOL_BF16 if dt == torch.bfloat16 else KERNEL_TOL
+    torch.testing.assert_close(es.head_tiled_ref(*args).float(), want.float(), **tol)
+    checks.planted("final_head", label, want,
+                   {f: functools.partial(es.head_tiled_ref, *args, fault=f)
+                    for f in es.head_faults(plan, C)})
 
 
 # bf16-only kernels at Tramba-V's shapes: (map, d_model, with LN) of K5,
@@ -1220,7 +1298,8 @@ GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
           ("ss2d_seg_kernel", "K1 ss2d_scan, segment scans"),
           ("ss2d_proj_kernel", "K1 ss2d_scan, projection launch"),
           ("ss2d_merge_kernel", "K2 ss2d_merge"),
-          ("expand_groups_kernel<", "K3 expand_ln / K4 final_head"),
+          ("expand_wgmma_kernel", "K3 expand_ln"), ("expand_simt_kernel", "K3 expand_ln"),
+          ("head_wgmma_kernel", "K4 final_head"), ("head_simt_kernel", "K4 final_head"),
           ("prologue_kernel", "K5 prologue"),
           ("ln_mlp_kernel", "K6 ln_mlp"),
           ("ln_fc_kernel<0>", "K7 ln_dwms_mlp, (i) LN and fc1"),
@@ -1648,6 +1727,9 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     check_ss2d_expand(checks, dev, gen, torch.float32)
     check_ss2d_expand(checks, dev, gen, torch.bfloat16)
+    # K3 / K4 at the batch of the timed bf16 forward, where their B2 calls
+    # are dominated by the host's clock
+    check_ss2d_expand(checks, dev, gen, torch.bfloat16, (), B=16)
     check_bf16_only(checks, dev, gen)
     check_lgp(checks, dev, gen)
     check_encoder_kernels(checks, dev, gen)

@@ -177,6 +177,41 @@ def test_final_head_bf16_matches_plain(dev):
     torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
 
 
+# Tramba-V's K3 shapes (map, C, factor) and its K4 (96 px, C 128: factor 16)
+V_EXPAND_SHAPES = [(12, 1024, 2), (24, 512, 2), (48, 256, 2), (12, 512, 4), (24, 256, 4),
+                   (48, 128, 4), (96, 128, 16)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [2, 16])
+@pytest.mark.parametrize("H,C,f", V_EXPAND_SHAPES)
+def test_expand_and_head_main_path_shapes(dev, H, C, f, B, dt):
+    """K3 and K4 (one native launch a call: wgmma in bf16, SIMT micro-tiles
+    in fp32) at Tramba-V's shapes at B2 and at B16, the timed forward's
+    batch, against their plain versions on the card; two launches give the
+    same bits."""
+    from tramba_tpu_torch.ops import _native
+
+    gen = torch.Generator().manual_seed(H + C + f + B)
+    if f == 16:
+        kern, ref = te.final_head, te.final_head_ref
+        args = [_rand(gen, B, H, H, C).to(dt), _rand(gen, 16 * C, C, scale=C ** -0.5).to(dt),
+                _rand(gen, C, scale=0.1, shift=1.0), _rand(gen, C, scale=0.1),
+                _rand(gen, C, scale=0.1), _rand(gen, 1)]
+    else:
+        kern, ref = te.expand_ln, te.expand_ln_ref
+        co = f * C // 4
+        args = [_rand(gen, B, H, H, C).to(dt), _rand(gen, f * C, C, scale=C ** -0.5).to(dt),
+                _rand(gen, co, scale=0.1, shift=1.0), _rand(gen, co, scale=0.1)]
+    args = [t.to(dev) for t in args]
+    n0 = _native.native_launch_count()
+    got = kern(*args)
+    assert _native.native_launch_count() - n0 == 1
+    assert got.dtype == dt and torch.equal(got, kern(*args))
+    torch.testing.assert_close(got.float(), ref(*args).float(),
+                               **(TOL_BF16 if dt == torch.bfloat16 else TOL))
+
+
 @pytest.mark.parametrize("with_ln", [True, False])
 @pytest.mark.parametrize("B,H,W,dm,D", [(2, 9, 11, 48, 80), (1, 12, 12, 320, 128)])
 def test_prologue_matches_plain(dev, with_ln, B, H, W, dm, D):

@@ -106,6 +106,29 @@ def test_dump_writes_maps_at_original_size(tiny, tiny_dataset, tmp_path):
             assert im.size == (50 + i, 44 + i) and im.mode == "L"
 
 
+def test_dump_runs_where_its_model_is(tiny, tiny_dataset, tmp_path):
+    """With ``device`` omitted the dump runs on the model's own device: a CPU
+    model writes the same maps as with ``device="cpu"``."""
+    from tramba_tpu_torch.eval.dump import dump_saliency_maps
+
+    for sub, kw in (("default", {}), ("cpu", {"device": "cpu"})):
+        assert dump_saliency_maps(tiny, tiny_dataset, str(tmp_path / sub), img_size=IMG,
+                                  batch_size=3, **kw) == 4
+    for i in range(4):
+        with Image.open(tmp_path / "default" / f"i{i}.png") as a, \
+                Image.open(tmp_path / "cpu" / f"i{i}.png") as b:
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_dump_device_is_the_models_parameter_device():
+    from tramba_tpu_torch.eval.dump import model_device
+
+    lin = torch.nn.Linear(2, 2).to(torch.device("meta"))
+    assert model_device(lin) == torch.device("meta")
+    assert model_device(lin, "cpu") == torch.device("cpu")  # an explicit device wins
+    assert model_device(torch.nn.ReLU()) == torch.device("cpu")  # no parameters
+
+
 def test_every_module_imports_without_jax():
     names = [m.name for m in pkgutil.walk_packages(tramba_tpu_torch.__path__, "tramba_tpu_torch.")]
     assert "tramba_tpu_torch.dump" in names and len(names) > 15

@@ -17,15 +17,27 @@ import torch
 
 from tramba_tpu_torch.data.pipeline import BatchLoader, SODDataset
 
-__all__ = ["dump_saliency_maps"]
+__all__ = ["dump_saliency_maps", "model_device"]
+
+
+def model_device(model: torch.nn.Module, device=None) -> torch.device:
+    """``device`` where given, else the device of the model's first parameter
+    (the CPU for a model without parameters)."""
+    if device is not None:
+        return torch.device(device)
+    param = next(model.parameters(), None)
+    return param.device if param is not None else torch.device("cpu")
 
 
 @torch.no_grad()
 def dump_saliency_maps(model: torch.nn.Module, data_root: str, save_path: str,
                        img_size: int = 384, sets: Sequence[str] = ("Test",),
-                       batch_size: int = 8, device="cpu") -> int:
+                       batch_size: int = 8, device=None) -> int:
     """Writes ``<save_path>/<name>.png`` for every image of ``sets`` under
-    ``data_root`` ({set}/image + {set}/mask); returns the number written."""
+    ``data_root`` ({set}/image + {set}/mask); returns the number written.
+    The images go to ``device``, by default the model's own
+    (:func:`model_device`)."""
+    device = model_device(model, device)
     os.makedirs(save_path, exist_ok=True)
     ds = SODDataset(data_root, list(sets), img_size, mode="test")
     loader = BatchLoader(ds, batch_size=batch_size, shuffle=False)

@@ -43,7 +43,9 @@ _SIGNATURES = {
     "ss2d_scan_bwd_rows": [],
     "ss2d_scan_bwd_launch": [_P] * 23 + [_I] * 7 + [_P],
     "expand_ln_launch": [_P] * 5 + [_I] * 6 + [_P],
+    "expand_ln_plan": [_I] * 6 + [_IP],
     "final_head_launch": [_P] * 7 + [_L, _I, _I, _P],
+    "final_head_plan": [_L, _I, _I, _IP],
     "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _F, _P],
     "prologue_launch": [_P] * 6 + [_I] * 5 + [_P],
     "prologue_plan": [_I] * 5 + [_IP],

@@ -4,7 +4,12 @@ Port of ``tramba_tpu/ops/fused_expand.py``.  K3 is Dense C -> f*C, the x2
 pixel shuffle in the reference's (p1, p2, c) channel order, then LayerNorm
 (PatchExpand f=2, FreqExpand2D f=4).  K4 is Dense C -> 16C, a LayerNorm per
 slot of C channels and the 1x1 seg conv, with the 16C-wide tensor kept out
-of device memory.  Both run in ``csrc/expand.cu``.
+of device memory.  Both run in ``csrc/expand.cu``, one launch a call: in
+bf16 their products on ``wgmma`` from TMA-staged tiles with the LayerNorm
+(K3) or the per-slot head (K4) in the accumulators' epilogue, in fp32 as
+SIMT register micro-tiles from staged shared tiles.  :func:`expand_plan` and
+:func:`head_plan` report the launchers' tiling, which
+``ops/expand_stages.py`` mirrors in plain PyTorch.
 
 The wrappers pick by the tensors' device as in ``ops/fused_ss2d.py``, and
 count launches in ``<wrapper>.launches``.  Under autograd on the card the
@@ -19,13 +24,19 @@ as ``_expand_pallas`` and ``_final_head_pallas`` do.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, on_card
 
-__all__ = ["pixel_shuffle", "expand_ln", "expand_ln_ref", "final_head", "final_head_ref"]
+__all__ = ["pixel_shuffle", "expand_ln", "expand_ln_ref", "final_head", "final_head_ref",
+           "expand_plan", "head_plan"]
+
+# fields of a plan, in the order the library reports them
+PLAN_FIELDS = ("route", "rows", "wn", "split", "gpb", "sets", "tiles", "stages", "smem")
 
 
 def pixel_shuffle(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -52,6 +63,24 @@ def final_head_ref(x, w1, ln_w, ln_b, seg_w, seg_b):
     e = (x.float() @ w1.float().t()).reshape(B, h, w, 16, C)
     y = F.layer_norm(e, (C,), ln_w, ln_b, 1e-5)
     return (y @ seg_w + seg_b.sum()).to(x.dtype)
+
+
+def expand_plan(B: int, H: int, W: int, C: int, co: int, dtype: torch.dtype) -> dict:
+    """K3's plan as the built library makes it (``plan_expand`` in
+    ``csrc/expand.cu``; :func:`tramba_tpu_torch.ops.expand_stages.expand_plan`
+    is its plain mirror), {field: value} over :data:`PLAN_FIELDS`.  No launch;
+    raises for shapes the kernel does not take."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    _native.launch("expand_ln_plan", B, H, W, C, co, int(dtype == torch.bfloat16), out)
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def head_plan(M: int, C: int, dtype: torch.dtype) -> dict:
+    """K4's plan as the built library makes it (``plan_head``), as
+    :func:`expand_plan`."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    _native.launch("final_head_plan", M, C, int(dtype == torch.bfloat16), out)
+    return dict(zip(PLAN_FIELDS, out))
 
 
 class _KernelWithPlainVjp(torch.autograd.Function):
