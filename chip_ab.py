@@ -11,7 +11,8 @@ them with its own code, and reads the times it prints: ms per forward (phase
 6) and per train step (phase 8) of every model, and the ms of K1
 ``ss2d_scan``, K8 ``ss2d_scan_bwd``, K2 ``ss2d_merge``, K3 ``expand_ln``, K4
 ``final_head``, K5 ``prologue``, K6 ``ln_mlp``, K7 ``ln_dwms_mlp``, K9
-``ln_mlp_bwd`` and K10 ``ln_dwms_mlp_bwd`` at each shape phase 3 checks them,
+``ln_mlp_bwd``, K10 ``ln_dwms_mlp_bwd``, K11 ``ln_dwmlp``, K12 ``sra`` and K13
+``window_attn`` at each shape phase 3 checks them,
 beside the bound the run computed and, where the tree prints it, the time of
 the kernel's matrix products alone as torch.matmul (``gemm``). Then tables of
 the runs side by side, with the card's ``name, power.limit``. ``--logs DIR``
@@ -26,7 +27,11 @@ timing snippet that is the same code in every tree: each tree's
 ``fused_expand.expand_ln`` and ``final_head`` at Tramba-V's seven shapes at
 B16 (the timed forward's batch), fp32 and bf16, with their plain versions, by
 CUDA events (``chip_smoke.cuda_ms``), so that a tree can be listed several times in one
-short call. Exits with the first failing run's code.
+short call; ``--k11-k13`` likewise runs only its checks of K11 ``ln_dwmlp``, K12 ``sra`` and
+K13 ``window_attn`` (``check_encoder_kernels``), then the same snippet in every tree: the
+three at every shape of Tramba-P's and -S's encoders at B16, with their plain versions, and
+both models' bf16 B16 forward (ms, and the device time by kernel group with each tree's
+own groups). Exits with the first failing run's code.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ TIMES = (re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
 # phase 3's line of a tabulated kernel: name, tag, shape, ..., kernel ms, plain
 # ms, bound ms (bound by), and gemm ms where printed
 KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|expand_ln|final_head|prologue|ln_mlp|"
-                     r"ln_dwms_mlp|ln_mlp_bwd|ln_dwms_mlp_bwd)"
+                     r"ln_dwms_mlp|ln_mlp_bwd|ln_dwms_mlp_bwd|ln_dwmlp|sra|window_attn)"
                      r"\s+((?:fp32|bf16)(?: train)?)\s+"
                      r"(\S.*?)\s+max_abs_err .* kernel ([\d.]+) ms plain ([\d.]+) ms "
                      r"bound ([\d.]+) ms \(\w+\)(?: gemm ([\d.]+) ms)?")
@@ -122,8 +127,67 @@ K3_K4 = ("import torch, chip_smoke as cs\n"
          "    pms = cs.cuda_ms(lambda: te.final_head_ref(*args), 5, warmup=2)\n"
          "    print(f'b16 final_head {cs.NAMES[dt]} 96px B{B} C128: {ms:.4f} ms, '\n"
          "          f'plain {pms:.4f} ms [{card}]')\n")
-# a line of the K3_K4 snippet's B16 timing: name, dtype, shape, ms, plain ms
-B16 = re.compile(r"^b16 (expand_ln|final_head) (fp32|bf16) (.*?): ([\d.]+) ms, plain ([\d.]+) ms")
+# the phase 3 checks of K11, K12 and K13 alone (--k11-k13), then the same
+# B16 code in every tree: each tree's wrappers at Tramba-P's and -S's encoder
+# shapes, and the bf16 B16 forwards of both models with their profiles by
+# kernel group (each tree's own groups)
+K11_K13 = ("import time, torch, chip_smoke as cs\n"
+           "from tramba_tpu_torch.models.registry import build\n"
+           "from tramba_tpu_torch.models.swin import shift_attn_mask\n"
+           "from tramba_tpu_torch.ops import fused_attn as ta, fused_mlp as tm\n"
+           "torch.backends.cuda.matmul.allow_tf32 = False\n"
+           "checks, gen, dev = cs.Checks(), torch.Generator().manual_seed(0), torch.device('cuda')\n"
+           "cs.check_encoder_kernels(checks, dev, gen)\n"
+           "card, B, bf = cs.card_line(), 16, torch.bfloat16\n"
+           "def rnd(*shape, scale=1.0, shift=0.0):\n"
+           "    return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)\n"
+           "def timed(name, label, fn, plain):\n"
+           "    ms = cs.cuda_ms(fn, 20, warmup=2)\n"
+           "    pms = cs.cuda_ms(plain, 3, warmup=1)\n"
+           "    print(f'b16 {name} bf16 {label}: {ms:.4f} ms, plain {pms:.4f} ms [{card}]', "
+           "flush=True)\n"
+           "for H, d, hid in cs.K11_SHAPES:\n"
+           "    args = (rnd(B, H, H, d).to(bf), rnd(d, scale=0.1, shift=1.0), rnd(d, scale=0.1), "
+           "rnd(hid, d, scale=d ** -0.5).to(bf), rnd(hid, scale=0.1), "
+           "rnd(hid, 1, 3, 3, scale=1 / 3).to(bf), rnd(hid, scale=0.1), "
+           "rnd(d, hid, scale=hid ** -0.5).to(bf), rnd(d, scale=0.1))\n"
+           "    timed('ln_dwmlp', f'{H}px B{B} d{d} hid{hid}', lambda: tm.ln_dwmlp(*args), "
+           "lambda: tm.ln_dwmlp_ref(*args))\n"
+           "for H, C, nh in cs.K12_SHAPES:\n"
+           "    args = (rnd(B, H * H, C, scale=2.0).to(bf), rnd(C, scale=0.1, shift=1.0), "
+           "rnd(C, scale=0.1), rnd(C, C, scale=C ** -0.5).to(bf), rnd(C, scale=0.1), "
+           "rnd(B, nh, 144, C // nh).to(bf), rnd(B, nh, 144, C // nh).to(bf), "
+           "rnd(C, C, scale=C ** -0.5).to(bf), rnd(C, scale=0.1))\n"
+           "    timed('sra', f'{H}px B{B} C{C} nh{nh}', lambda: ta.sra(*args, nh), "
+           "lambda: ta.sra_ref(*args, nh))\n"
+           "for H, C, nh in cs.K13_SHAPES:\n"
+           "    for mask in (None, torch.from_numpy(shift_attn_mask(H, H, 12, 6)).to(dev)):\n"
+           "        args = (rnd(B, H, H, C, scale=2.0).to(bf), rnd(C, scale=0.1, shift=1.0), "
+           "rnd(C, scale=0.1), rnd(3 * C, C, scale=C ** -0.5).to(bf), rnd(3 * C, scale=0.1), "
+           "rnd(nh, 144, 144), mask, rnd(C, C, scale=C ** -0.5).to(bf), rnd(C, scale=0.1))\n"
+           "        label = f'{H}px B{B} C{C} nh{nh} ' + ('shifted' if mask is not None "
+           "else 'unshifted')\n"
+           "        timed('window_attn', label, lambda: ta.window_attn(*args, nh), "
+           "lambda: ta.window_attn_ref(*args, nh))\n"
+           "del args\n"
+           "for method in ('Tramba-P-TSOD', 'Tramba-S-TSOD'):\n"
+           "    model = build(method, 384, device=dev, seed=0, dtype=bf)\n"
+           "    xb = torch.randn(B, 384, 384, 3, generator=gen).to(dev)\n"
+           "    with torch.no_grad():\n"
+           "        ms = cs.cuda_ms(lambda: model(xb), 5, warmup=2)\n"
+           "        print(f'{method} 384px bf16 B{B}: {ms:.2f} ms/forward [{card}]', flush=True)\n"
+           "        t0 = time.perf_counter()\n"
+           "        for _ in range(3):\n"
+           "            model(xb)\n"
+           "        torch.cuda.synchronize()\n"
+           "    cs.profile_breakdown(lambda: model(xb), (time.perf_counter() - t0) / 3 * 1e3, "
+           "f'{method} bf16 B{B}')\n"
+           "    del model, xb\n"
+           "    torch.cuda.empty_cache()\n")
+# a line of the K3_K4 or K11_K13 snippet's B16 timing: name, dtype, shape, ms,
+# plain ms
+B16 = re.compile(r"^b16 (expand_ln|final_head|ln_dwmlp|sra|window_attn) (fp32|bf16) (.*?): "
+                 r"([\d.]+) ms, plain ([\d.]+) ms")
 
 
 def main(argv=None) -> int:
@@ -137,6 +201,9 @@ def main(argv=None) -> int:
     short.add_argument("--k3-k4", action="store_true",
                        help="run only phase 3's K3 / K4 checks of each tree, and time both "
                             "at Tramba-V's shapes at B16")
+    short.add_argument("--k11-k13", action="store_true",
+                       help="run only phase 3's K11-K13 checks of each tree, time them at "
+                            "B16, and time and profile Tramba-P's and -S's bf16 B16 forwards")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -147,7 +214,8 @@ def main(argv=None) -> int:
     for i, tree in enumerate(args.trees):
         root = os.path.abspath(tree)
         cmd = (["-c", FFN_BWD] if args.ffn_bwd else ["-c", K5_K10] if args.k5_k10
-               else ["-c", K3_K4] if args.k3_k4 else [os.path.join(root, "chip_smoke.py")])
+               else ["-c", K3_K4] if args.k3_k4 else ["-c", K11_K13] if args.k11_k13
+               else [os.path.join(root, "chip_smoke.py")])
         res = subprocess.run([sys.executable, *cmd], cwd=root, capture_output=True, text=True,
                              timeout=1500)
         if args.logs:

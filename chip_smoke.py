@@ -10,12 +10,23 @@ Phases, each of which must pass (any failure exits non-zero):
                (rtol 1e-3, atol 1e-4), then in bf16 K1-K4 and K5-K7, and K2
                as _lgp_pallas (one-slot identity table); Tramba-P's and
                Tramba-S's encoder kernels K11 ln_dwmlp, K12 sra and K13
-               window_attn (shifted and unshifted) in bf16, with weights at
-               fan-in scale, an N(0, 1) relative-position bias and output
-               bias 0, each shape also holding its plain version with a
-               planted fault (K11 centre tap only; K12 uniform softmax;
-               K13 no bias, uniform softmax, no mask) to the same check,
-               which it must fail; K1-K4 (fp32,
+               window_attn (shifted and unshifted) in bf16 at B2 and B16,
+               with weights at fan-in scale, an N(0, 1) relative-position
+               bias and output bias 0, each shape also holding its plain
+               version with a planted fault (K11 centre tap only; K12
+               uniform softmax; K13 no bias, uniform softmax, no mask) to
+               the same check, which it must fail; K11 and K13 also
+               launched twice and compared bit for bit, with their native
+               launches a call (K11 1, or 2 where its plan splits the
+               hidden chunks; K13 2, no LayerNorm launch), the library's
+               plans equal to ops/encoder_stages.py's, whose mirrors of
+               their splits pass the check at B2 and fail it with each
+               planted fault that bears (K11: h not zero outside the image,
+               the halo cut at the tile edge, no last chunk, no last split;
+               K13: window 0's mask on every window, every row group's
+               queries from row 0, heads swapped in the merged row), each
+               timed beside the same function as PyTorch's own calls
+               ("lib": a yardstick the port never calls); K1-K4 (fp32,
                bf16) and K5-K7 at Tramba-P's decoder widths 320/128/64 and
                at Tramba-R's 512/256 (Tramba-S's decoder has Tramba-V's), and
                K7 at the shape of Queue 2 #21 (_dwms_pallas2's own test:
@@ -345,7 +356,7 @@ class Checks:
         self.rows = {}
 
     def compare(self, name, dt, label, kernel, plain, reps, inputs, flops, plain_warmup=1,
-                tag=None, rel_tol=None, gemm=None):
+                tag=None, rel_tol=None, gemm=None, lib=None):
         """``kernel`` and ``plain`` return a tensor or a tuple of tensors.  With
         ``rel_tol`` each output's max abs error must be <= rel_tol x its
         largest magnitude; else assert_close at the dtype's tolerance.
@@ -353,7 +364,9 @@ class Checks:
         call's bound.  ``gemm``: the kernel's matrix products alone as
         torch.matmul calls on the same operands, timed beside it as a
         reference for what the tensor cores give at that shape (the port
-        never calls it)."""
+        never calls it).  ``lib``: the same function as a chain of PyTorch's
+        own calls (cuBLAS, cuDNN, SDPA), timed beside it as a yardstick only
+        (printed as "lib")."""
         tag = tag or NAMES[dt]
         got = kernel()
         plain_ms = None
@@ -391,6 +404,8 @@ class Checks:
         if plain_ms is None:
             plain_ms = cuda_ms(plain, 1, warmup=plain_warmup)
         gemm_ms = f" gemm {cuda_ms(gemm, reps):.4f} ms" if gemm is not None else ""
+        if lib is not None:
+            gemm_ms += f" lib {cuda_ms(lib, reps, warmup=2):.4f} ms"
         self.rows.setdefault((name, tag), []).append((label, err, ms, plain_ms, bound_ms,
                                                       bound_by))
         what = "err/max|plain|" if rel_tol is not None else "max_rel_err"
@@ -812,7 +827,7 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
     """K1-K4 at every shape of the main path (by default Tramba-V's), in
     dtype ``dt``, at batch ``B``."""
     from tramba_tpu_torch.nn.init import init_weights
-    from tramba_tpu_torch.nn.layers import FinalPatchExpandX4, _Expand
+    from tramba_tpu_torch.nn.layers import _Expand
     from tramba_tpu_torch.ops import fused_ss2d as tf
 
     for kind, H, d_model, param in ss2d_shapes:
@@ -830,13 +845,26 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
         check_expand(checks, dt, f"f{f} {H}px B{B} C{C}", args,
                      ops(dt, 2 * B * H * H * C * out_c, 8 * B * H * H * out_c))
     C = head_c
-    m = init_weights(FinalPatchExpandX4(C), gen).to(dev)
-    seg_w = (torch.randn(C, generator=gen) * 0.1).to(dev)
-    seg_b = torch.randn(1, generator=gen).to(dev)
-    x = torch.randn(B, 96, 96, C, generator=gen).to(dev, dt)
-    args = (x, m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data, seg_w, seg_b)
+    args = head_inputs(dev, gen, dt, C, B)
     M = B * 96 * 96
     check_head(checks, dt, f"96px B{B} C{C}", args, ops(dt, 2 * M * C * 16 * C, 10 * M * 16 * C))
+
+
+def head_inputs(dev, gen, dt, C, B=2, H=96):
+    """K4's arguments for a (B, H, H, C) map: FinalPatchExpandX4's seeded
+    expand and LayerNorm, seg_w uniform on [0.05, 0.15] and seg_b N(0, 1).
+    seg_w is positive so that sum(ln_w seg_w) is at least 0.05 C: the head
+    sum's mean term rstd m sum(ln_w seg_w), which a kernel could leave out,
+    then stands well above the check on every draw (a zero-mean seg_w lets
+    the sum fall near 0)."""
+    from tramba_tpu_torch.nn.init import init_weights
+    from tramba_tpu_torch.nn.layers import FinalPatchExpandX4
+
+    m = init_weights(FinalPatchExpandX4(C), gen).to(dev)
+    seg_w = (torch.rand(C, generator=gen) * 0.1 + 0.05).to(dev)
+    seg_b = torch.randn(1, generator=gen).to(dev)
+    x = torch.randn(B, H, H, C, generator=gen).to(dev, dt)
+    return (x, m.expand.weight.data.to(dt), m.norm.weight.data, m.norm.bias.data, seg_w, seg_b)
 
 
 def _plan_text(plan):
@@ -1059,18 +1087,57 @@ K12_SHAPES = ((96, 64, 1), (48, 128, 2), (24, 320, 5), (12, 512, 8))
 K13_SHAPES = ((96, 128, 4), (48, 256, 8), (24, 512, 16))
 
 
-def check_encoder_kernels(checks, dev, gen):
+def dwmlp_lib(x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps=1e-6):
+    """K11's function as PyTorch's own bf16 calls (a yardstick only):
+    F.layer_norm, a cuBLAS linear, cuDNN's depthwise 3x3, GELU, a linear."""
+    F, bf = torch.nn.functional, torch.bfloat16
+    y = F.layer_norm(x, (x.shape[-1],), ln_w.to(bf), ln_b.to(bf), eps)
+    h = F.linear(y, w1, b1.to(bf)).permute(0, 3, 1, 2)
+    a = F.conv2d(h, k3, c3.to(bf), padding=1, groups=k3.shape[0])
+    return F.linear(F.gelu(a).permute(0, 2, 3, 1), w2, b2.to(bf))
+
+
+def window_attn_lib(x, ln_w, ln_b, wqkv, bqkv, am, wp, bp, nh, eps=1e-5):
+    """K13's function as PyTorch's own bf16 calls (a yardstick only):
+    F.layer_norm, the window partition, a cuBLAS linear, SDPA with ``am``
+    (bias + mask, (nW or 1, nh, N, N) bf16) as its attn_mask, a linear, the
+    reverse."""
+    F, bf = torch.nn.functional, torch.bfloat16
+    B, H, W, C = x.shape
+    N = am.shape[-1]
+    w = int(round(N ** 0.5))
+    y = F.layer_norm(x, (C,), ln_w.to(bf), ln_b.to(bf), eps)
+    win = y.reshape(B, H // w, w, W // w, w, C).permute(0, 1, 3, 2, 4, 5)
+    win = win.reshape(B, (H // w) * (W // w), N, C)
+    q, k, v = F.linear(win, wqkv, bqkv.to(bf)).reshape(*win.shape[:3], 3, nh, C // nh).permute(
+        3, 0, 1, 4, 2, 5)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+    out = F.linear(o.transpose(-2, -3).reshape(win.shape), wp, bp.to(bf))
+    out = out.reshape(B, H // w, W // w, w, w, C).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(B, H, W, C)
+
+
+def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
     """K11 ln_dwmlp, K12 sra and K13 window_attn against their plain
-    versions at B=2 in bf16.  The weights are drawn at fan-in scale (std
-    fan_in^-1/2), the relative-position bias N(0, 1) and the output bias 0,
-    so the scores are O(1) and the output is the kernel's own work.  Each
-    shape then holds the plain version with a planted fault to the same
-    check, which it must fail (:meth:`Checks.planted`)."""
+    versions in bf16, at each batch of ``batches``.  The weights are drawn
+    at fan-in scale (std fan_in^-1/2), the relative-position bias N(0, 1)
+    and the output bias 0, so the scores are O(1) and the output is the
+    kernel's own work.  Each shape then holds the plain version with a
+    planted fault to the same check, which it must fail
+    (:meth:`Checks.planted`).  K11 and K13 also: two launches give the same
+    bits; native launches a call (K11 1, or 2 where the plan splits the
+    hidden chunks; K13 2: no LayerNorm launch); the plan the library reports
+    is its plain mirror's (ops/encoder_stages.py), and at B2 the mirror of
+    the kernels' split passes the check and, with each planted fault that
+    bears on the shape, fails it; each printed beside its function as
+    PyTorch's own calls ("lib": :func:`dwmlp_lib`, :func:`window_attn_lib`,
+    a yardstick the port never calls)."""
     from tramba_tpu_torch.models.swin import shift_attn_mask
+    from tramba_tpu_torch.ops import encoder_stages as es
     from tramba_tpu_torch.ops import fused_attn as ta
     from tramba_tpu_torch.ops import fused_mlp as tm
 
-    bf, B = torch.bfloat16, 2
+    bf = torch.bfloat16
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
@@ -1084,52 +1151,103 @@ def check_encoder_kernels(checks, dev, gen):
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(*shape, device=dev, dtype=dtype)
 
-    for H, d, hid in K11_SHAPES:
-        x, (g, b), k3 = rnd(B, H, H, d).to(bf), ln(d), rnd(hid, 1, 3, 3, scale=1 / 3).to(bf)
-        w1, b1, c3, w2 = dense(hid, d), rnd(hid, scale=0.1), rnd(hid, scale=0.1), dense(d, hid)
-        args = (x, g, b, w1, b1, k3, c3, w2, zeros(d))
-        label, M = f"{H}px B{B} d{d} hid{hid}", B * H * H
-        checks.compare("ln_dwmlp", bf, label, lambda: tm.ln_dwmlp(*args),
-                       lambda: tm.ln_dwmlp_ref(*args), reps=10, inputs=args,
-                       flops=ops(bf, 4 * M * d * hid, (2 * 9 + 10) * M * hid))
-        centre = zeros(hid, 1, 3, 3, dtype=bf)
-        centre[..., 1, 1] = k3[..., 1, 1]
-        checks.planted("ln_dwmlp", label, tm.ln_dwmlp_ref(*args), {
-            "centre tap only": lambda: tm.ln_dwmlp_ref(x, g, b, w1, b1, centre, c3, w2, zeros(d))})
-    for H, C, nh in K12_SHAPES:
-        Lk, M = 144, B * H * H
-        k, v = (rnd(B, nh, Lk, C // nh).to(bf) for _ in range(2))
-        x, (g, b), wq, bq, wp = rnd(B, H * H, C, scale=2.0).to(bf), ln(C), dense(C, C), \
-            rnd(C, scale=0.1), dense(C, C)
-        args = (x, g, b, wq, bq, k, v, wp, zeros(C))
-        label = f"{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}"
-        checks.compare("sra", bf, label, lambda: ta.sra(*args, nh),
-                       lambda: ta.sra_ref(*args, nh), reps=10, inputs=args,
-                       flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C, 6 * M * nh * Lk + 10 * M * C))
-        checks.planted("sra", label, ta.sra_ref(*args, nh), {  # q = 0: uniform over the keys
-            "uniform softmax": lambda: ta.sra_ref(x, g, b, zeros(C, C, dtype=bf), zeros(C), k, v,
-                                                  wp, zeros(C), nh)})
-    for H, C, nh in K13_SHAPES:
-        N, M = 144, B * H * H
-        bias = rnd(nh, N, N)
-        for mask in (None, torch.from_numpy(shift_attn_mask(H, H, 12, 6)).to(dev)):
-            x, (g, b), wqkv, bqkv, wp = rnd(B, H, H, C, scale=2.0).to(bf), ln(C), \
-                dense(3 * C, C), rnd(3 * C, scale=0.1), dense(C, C)
-            args = (x, g, b, wqkv, bqkv, bias, mask, wp, zeros(C))
-            label = f"{H}px B{B} C{C} nh{nh} {'shifted' if mask is not None else 'unshifted'}"
-            checks.compare("window_attn", bf, label, lambda: ta.window_attn(*args, nh),
-                           lambda: ta.window_attn_ref(*args, nh), reps=10, inputs=args,
-                           flops=ops(bf, 8 * M * C * C + 4 * M * N * C, 8 * M * nh * N))
-            # q = 0 and no bias: uniform over each window's unmasked keys
-            wkv, bkv = wqkv.clone(), bqkv.clone()
-            wkv[:C], bkv[:C] = 0, 0
-            faults = {"no bias": lambda: ta.window_attn_ref(*args[:5], zeros(nh, N, N),
-                                                            *args[6:], nh),
-                      "uniform softmax": lambda: ta.window_attn_ref(
-                          x, g, b, wkv, bkv, zeros(nh, N, N), mask, wp, zeros(C), nh)}
-            if mask is not None:
-                faults["no mask"] = lambda: ta.window_attn_ref(*args[:6], None, *args[7:], nh)
-            checks.planted("window_attn", label, ta.window_attn_ref(*args, nh), faults)
+    def same_bits(name, label, fn):
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{name} {label}: two launches differ")
+
+    for B in batches:
+        for H, d, hid in K11_SHAPES:
+            x, (g, b), k3 = rnd(B, H, H, d).to(bf), ln(d), rnd(hid, 1, 3, 3, scale=1 / 3).to(bf)
+            w1, b1, c3, w2 = dense(hid, d), rnd(hid, scale=0.1), rnd(hid, scale=0.1), dense(d, hid)
+            args = (x, g, b, w1, b1, k3, c3, w2, zeros(d))
+            label, M = f"{H}px B{B} d{d} hid{hid}", B * H * H
+            checks.compare("ln_dwmlp", bf, label, lambda: tm.ln_dwmlp(*args),
+                           lambda: tm.ln_dwmlp_ref(*args), reps=10, inputs=args,
+                           flops=ops(bf, 4 * M * d * hid, (2 * 9 + 10) * M * hid),
+                           lib=lambda: dwmlp_lib(*args))
+            same_bits("ln_dwmlp", label, lambda: tm.ln_dwmlp(*args))
+            n = native_launches(lambda: tm.ln_dwmlp(*args))
+            plan = tm.dwmlp_plan(B, H, H, d, hid, x.device.index)
+            print(f"ln_dwmlp        {label}: {n:g} native launches a call; {plan}", flush=True)
+            if n != (2 if plan["splits"] > 1 else 1):
+                raise AssertionError(f"ln_dwmlp {label}: {n} native launches a call, "
+                                     f"{plan['splits']} splits")
+            if plan != es.dwmlp_plan(B, H, H, d, hid):
+                raise AssertionError(f"ln_dwmlp {label}: the library's plan {plan} is not the "
+                                     "mirror's")
+            want = tm.ln_dwmlp_ref(*args)
+            centre = zeros(hid, 1, 3, 3, dtype=bf)
+            centre[..., 1, 1] = k3[..., 1, 1]
+            faults = {"centre tap only": lambda: tm.ln_dwmlp_ref(x, g, b, w1, b1, centre, c3,
+                                                                 w2, zeros(d))}
+            if B == batches[0]:
+                tiled = functools.partial(es.dwmlp_tiled_ref, *args, splits=plan["splits"])
+                torch.testing.assert_close(tiled().float(), want.float(), **KERNEL_TOL_BF16)
+                faults.update({f: functools.partial(tiled, fault=f)
+                               for f in es.dwmlp_faults(plan)})
+            checks.planted("ln_dwmlp", label, want, faults)
+            del want
+        for H, C, nh in K12_SHAPES:
+            Lk, M = 144, B * H * H
+            k, v = (rnd(B, nh, Lk, C // nh).to(bf) for _ in range(2))
+            x, (g, b), wq, bq, wp = rnd(B, H * H, C, scale=2.0).to(bf), ln(C), dense(C, C), \
+                rnd(C, scale=0.1), dense(C, C)
+            args = (x, g, b, wq, bq, k, v, wp, zeros(C))
+            label = f"{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}"
+            checks.compare("sra", bf, label, lambda: ta.sra(*args, nh),
+                           lambda: ta.sra_ref(*args, nh), reps=10, inputs=args,
+                           flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C,
+                                     6 * M * nh * Lk + 10 * M * C))
+            checks.planted("sra", label, ta.sra_ref(*args, nh), {  # q = 0: uniform over the keys
+                "uniform softmax": lambda: ta.sra_ref(x, g, b, zeros(C, C, dtype=bf), zeros(C),
+                                                      k, v, wp, zeros(C), nh)})
+        for H, C, nh in K13_SHAPES:
+            N, M, nW = 144, B * H * H, (H // 12) ** 2
+            bias = rnd(nh, N, N)
+            for mask in (None, torch.from_numpy(shift_attn_mask(H, H, 12, 6)).to(dev)):
+                x, (g, b), wqkv, bqkv, wp = rnd(B, H, H, C, scale=2.0).to(bf), ln(C), \
+                    dense(3 * C, C), rnd(3 * C, scale=0.1), dense(C, C)
+                args = (x, g, b, wqkv, bqkv, bias, mask, wp, zeros(C))
+                label = (f"{H}px B{B} C{C} nh{nh} "
+                         f"{'shifted' if mask is not None else 'unshifted'}")
+                am = (bias[None] + (0 if mask is None else mask[:, None])).to(bf)
+                checks.compare("window_attn", bf, label, lambda: ta.window_attn(*args, nh),
+                               lambda: ta.window_attn_ref(*args, nh), reps=10, inputs=args,
+                               flops=ops(bf, 8 * M * C * C + 4 * M * N * C, 8 * M * nh * N),
+                               lib=lambda: window_attn_lib(x, g, b, wqkv, bqkv, am, wp,
+                                                           zeros(C), nh))
+                del am
+                same_bits("window_attn", label, lambda: ta.window_attn(*args, nh))
+                n = native_launches(lambda: ta.window_attn(*args, nh))
+                plan = ta.window_attn_plan(B, H, H, C, nh, 12, x.device.index)
+                print(f"window_attn     {label}: {n:g} native launches a call; {plan}",
+                      flush=True)
+                if n != 2:
+                    raise AssertionError(f"window_attn {label}: {n} native launches a call, "
+                                         "not 2")
+                mirror = es.window_plan(B, H, H, C, nh, 12)
+                if plan != {k: mirror[k] for k in plan}:
+                    raise AssertionError(f"window_attn {label}: the library's plan {plan} is "
+                                         f"not the mirror's {mirror}")
+                want = ta.window_attn_ref(*args, nh)
+                # q = 0 and no bias: uniform over each window's unmasked keys
+                wkv, bkv = wqkv.clone(), bqkv.clone()
+                wkv[:C], bkv[:C] = 0, 0
+                faults = {"no bias": lambda: ta.window_attn_ref(*args[:5], zeros(nh, N, N),
+                                                                *args[6:], nh),
+                          "uniform softmax": lambda: ta.window_attn_ref(
+                              x, g, b, wkv, bkv, zeros(nh, N, N), mask, wp, zeros(C), nh)}
+                if mask is not None:
+                    faults["no mask"] = lambda: ta.window_attn_ref(*args[:6], None, *args[7:],
+                                                                   nh)
+                if B == batches[0]:
+                    tiled = functools.partial(es.window_tiled_ref, *args, nh)
+                    torch.testing.assert_close(tiled().float(), want.float(), **KERNEL_TOL_BF16)
+                    faults.update({f: functools.partial(tiled, fault=f)
+                                   for f in es.window_faults(N, nW, mask is not None)})
+                checks.planted("window_attn", label, want, faults)
+                del want
+        torch.cuda.empty_cache()
 
 
 # K14 at the shapes the parallel layer launches, (label, R = B x K, L, C) at
@@ -1304,11 +1422,13 @@ GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
           ("ln_mlp_kernel", "K6 ln_mlp"),
           ("ln_fc_kernel<0>", "K7 ln_dwms_mlp, (i) LN and fc1"),
           ("dwms_tile_kernel", "K7 ln_dwms_mlp, (ii) stencil, GELU and fc2"),
-          ("ln_dwmlp_kernel", "K11 ln_dwmlp"),
-          ("proj_in_kernel", "K12/K13 (1) input projection"),
-          ("attn_kernel", "K12/K13 (2) attention + out projection"),
-          ("ln_rows_kernel", "LayerNorm launch of K11-K13"),
-          ("finish_split_kernel", "split sums of K6/K7"),
+          ("dwmlp_tile_kernel", "K11 ln_dwmlp"),
+          ("ln_fc_kernel<3>", "K13 window_attn, (i) LN and qkv projection"),
+          ("window_attn_kernel", "K13 window_attn, (ii) attention and out projection"),
+          ("proj_in_kernel", "K12 sra, (1) q projection"),
+          ("attn_kernel", "K12 sra, (2) attention and out projection"),
+          ("ln_rows_kernel", "LayerNorm launch of K12"),
+          ("finish_split_kernel", "split sums of K6/K7/K11"),
           ("layer_norm", "LayerNorm (torch)"), ("softmax", "softmax (torch)"),
           ("dgrad", "conv backward (cuDNN)"), ("wgrad", "conv backward (cuDNN)"),
           ("conv", "conv (cuDNN)"), ("cudnn", "conv (cuDNN)"), ("fprop", "conv (cuDNN)"),

@@ -227,11 +227,12 @@ def test_gate_admitted_shapes_pass_the_kernel_shape_checks():
                 if not ta.window_attn_fusable(2 * w, 2 * w, C, nh, w, bf):
                     continue
                 N = w * w
-                (y2, wqkv, bqkv, wp, bp), Cq = ta._window_operands(
+                (wqkv, bqkv, wp, bp), Cq, w2 = ta._window_operands(
                     torch.zeros(1, 2 * w, 2 * w, C), torch.zeros(3 * C, C), torch.zeros(3 * C),
                     torch.zeros(nh, N, N), torch.zeros(4, N, N), torch.zeros(C, C),
                     torch.zeros(C), nh)
-                assert Cq % 16 == 0 and tuple(wqkv.shape) == (3 * Cq, y2.shape[-1])
+                assert Cq % 16 == 0 and tuple(wqkv.shape) == (3 * Cq, C) and w2 == w
+                assert tuple(wp.shape) == (Cq, Cq) and bqkv.numel() == 3 * Cq
                 seen += 1
     assert seen > 300
 
@@ -276,9 +277,9 @@ def test_padded_operands_compute_the_plain_function():
     bias = _t(rng.normal(size=(nh, w * w, w * w)).astype(f))
     want = ta.window_attn_ref(xw, ln_w, ln_b, wqkv, bqkv, bias, None, wp, bp, nh)
     yw = torch.nn.functional.layer_norm(xw, (C,), ln_w, ln_b, 1e-5)
-    (y2, wqkv2, bqkv2, wp2, bp2), Cq = ta._window_operands(yw, wqkv, bqkv, bias, None, wp, bp,
-                                                           nh)
-    qkv = y2 @ wqkv2.t() + bqkv2
+    (wqkv2, bqkv2, wp2, bp2), Cq, _ = ta._window_operands(xw, wqkv, bqkv, bias, None, wp, bp,
+                                                          nh)
+    qkv = yw @ wqkv2.t() + bqkv2
     win = qkv.reshape(2, 2, w, 2, w, 3 * Cq).permute(0, 1, 3, 2, 4, 5).reshape(-1, w * w, 3 * Cq)
     q, kk, vv = win.split(Cq, -1)
     o = _heads_fp32(q * (C // nh) ** -0.5, kk, vv, nh, bias)

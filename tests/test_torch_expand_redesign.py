@@ -155,6 +155,21 @@ def test_head_planted_faults_fail(dt, B, h, w, C):
         assert _fails(es.head_tiled_ref(*args, fault=fault), want), fault
 
 
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_head_mean_fault_fails_on_every_draw(dt, C):
+    """``chip_smoke.head_inputs`` (seg_w positive) at Tramba-P's, -V's and
+    -R's head widths: on each of eight draws of a small map the planted "no
+    mean in the head sum" fails the card's check and the fault-free mirror
+    passes it."""
+    for seed in range(8):
+        args = chip_smoke.head_inputs("cpu", torch.Generator().manual_seed(seed), TDT[dt], C,
+                                      B=1, H=4)
+        want = te.final_head_ref(*args)
+        assert not _fails(es.head_tiled_ref(*args), want), seed
+        assert _fails(es.head_tiled_ref(*args, fault="no mean in the head sum"), want), seed
+
+
 def test_pad_fault_counts_zero_columns():
     """co 12 paired: the block's 64 columns hold 24 of the two groups and 40
     TMA zeros past 4 co = 48 (group set 1) or the next groups' rows (set 0);

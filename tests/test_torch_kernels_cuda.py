@@ -716,10 +716,21 @@ def test_bf16_kernels_carry_gradients(dev):
 
 
 @pytest.mark.parametrize("B,H,W,d,hid", [(2, 11, 13, 48, 128), (1, 24, 24, 320, 1280),
-                                         (2, 16, 16, 64, 512)])
+                                         (2, 16, 16, 64, 512), (16, 24, 24, 320, 1280),
+                                         (1, 12, 20, 128, 1024), (16, 9, 30, 64, 512),
+                                         (2, 16, 16, 384, 1536), (1, 16, 16, 512, 2048),
+                                         (16, 16, 16, 512, 2048), (2, 11, 13, 400, 512)])
 def test_ln_dwmlp_matches_plain(dev, B, H, W, d, hid):
-    """Ragged 8x8 tiles with 1-px halos; d 320 / hid 1280 is PVT stage 3,
-    which stages its input in chunks of 64 channels."""
+    """Ragged 8x8 tiles with 1-px halos (maps whose sides are no multiple of
+    8); d 320 / hid 1280 is PVT stage 3 (three warpgroup tiles of fc2's
+    columns), at B1 (the hidden chunks split over blocks) and B16; d 384 the
+    widest one-launch shape; d 512 / hid 2048 PVT stage 4 at 512 px and d 400
+    on a ragged map, on the wide route (K7's two launches).  One native
+    launch a call, two on the wide route, one more where the plan splits the
+    chunks; the plan is the mirror's (ops/encoder_stages.py)."""
+    from tramba_tpu_torch.ops import _native
+    from tramba_tpu_torch.ops import encoder_stages as es
+
     gen = torch.Generator().manual_seed(d + H + 3)
     x = _rand(gen, B, H, W, d).to(torch.bfloat16)
     ln = [_rand(gen, d, scale=0.1, shift=1.0), _rand(gen, d, scale=0.1)]
@@ -728,9 +739,15 @@ def test_ln_dwmlp_matches_plain(dev, B, H, W, d, hid):
     args = ln + [w1, b1] + conv + [w2, b2]
     want = tm.ln_dwmlp_ref(x, *args)
     n = tm.ln_dwmlp.launches
-    got = tm.ln_dwmlp(x.to(dev), *(t.to(dev) for t in args))
+    card = [x.to(dev), *(t.to(dev) for t in args)]
+    n0 = _native.native_launch_count()
+    got = tm.ln_dwmlp(*card)
+    plan = tm.dwmlp_plan(B, H, W, d, hid)
+    assert plan == es.dwmlp_plan(B, H, W, d, hid) and plan["wide"] == (d > 384)
+    assert _native.native_launch_count() - n0 == 1 + plan["wide"] + (plan["splits"] > 1)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and tm.ln_dwmlp.launches == n + 1
+    assert torch.equal(got, tm.ln_dwmlp(*card))
     torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
 
 
@@ -760,25 +777,33 @@ def test_sra_matches_plain(dev, B, N, C, nh, Lk):
     torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
 
 
-@pytest.mark.parametrize("B,H,C,nh,w,masked", [(2, 24, 128, 4, 12, True),
-                                               (1, 24, 512, 16, 12, False), (1, 8, 64, 2, 4, True),
-                                               (2, 8, 40, 5, 4, True)])
-def test_window_attn_matches_plain(dev, B, H, C, nh, w, masked):
-    """Swin stage widths with their 12 x 12 windows, shifted (masked) or not;
-    C = 40 with head width 8, padded to 16 in the wrapper."""
+@pytest.mark.parametrize("B,H,W,C,nh,w,masked", [
+    (2, 24, 24, 128, 4, 12, True), (1, 24, 24, 512, 16, 12, False), (1, 8, 8, 64, 2, 4, True),
+    (2, 8, 8, 40, 5, 4, True), (16, 24, 24, 512, 16, 12, True), (1, 24, 48, 256, 8, 12, True),
+    (2, 16, 8, 64, 8, 8, False)])
+def test_window_attn_matches_plain(dev, B, H, W, C, nh, w, masked):
+    """Swin stage widths with their 12 x 12 windows, shifted (masked) or not,
+    at B1, B2 and B16, and on a 24 x 48 map; C = 40 (head width 8) and C 64
+    over 8 heads, padded to 16 in the wrapper; windows of 4 and 8; two
+    native launches a call (no LayerNorm launch)."""
     from tramba_tpu_torch.models.swin import shift_attn_mask
+    from tramba_tpu_torch.ops import _native
 
-    gen = torch.Generator().manual_seed(C + H + masked)
-    x = _rand(gen, B, H, H, C, scale=2.0).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(C + H + W + masked)
+    x = _rand(gen, B, H, W, C, scale=2.0).to(torch.bfloat16)
     ln_w, ln_b, wqkv, bqkv, wp, bp = _attn_weights(gen, C, 3)
     bias = _rand(gen, nh, w * w, w * w)
-    mask = torch.from_numpy(shift_attn_mask(H, H, w, w // 2)) if masked else None
+    mask = torch.from_numpy(shift_attn_mask(H, W, w, w // 2)) if masked else None
     args = (x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp)
     want = ta.window_attn_ref(*args, nh)
     n = ta.window_attn.launches
-    got = ta.window_attn(*(None if t is None else t.to(dev) for t in args), nh)
+    card = [None if t is None else t.to(dev) for t in args]
+    n0 = _native.native_launch_count()
+    got = ta.window_attn(*card, nh)
+    assert _native.native_launch_count() - n0 == 2
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and ta.window_attn.launches == n + 1
+    assert torch.equal(got, ta.window_attn(*card, nh))
     torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
 
 

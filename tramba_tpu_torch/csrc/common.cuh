@@ -10,24 +10,26 @@
 //   shared memory as fp32, and each thread owns one output column j, reading
 //   row j of the weight 16 bytes at a time and keeping P accumulators in
 //   registers.  Plain SIMT FMA work (no tensor cores, no TMA).
-// * "wmma tiles" (K11-K13, bf16 only): bf16 operands in 16x16x16
+// * "wmma tiles" (K12, bf16 only): bf16 operands in 16x16x16
 //   tensor-core fragments (nvcuda::wmma) with fp32 accumulation; A from
 //   shared memory, B straight from the weight in global memory (L2-resident)
 //   and shared by up to four m-tiles, C through a shared fp32 tile.
-// * "staged tiles" (K2-K7, K9, K10): the weight streams through a ring of
+// * "staged tiles" (K2-K7, K9-K11, K13): the weight streams through a ring of
 //   shared-memory stages filled several stages ahead of use, and the product
 //   runs from shared memory.  K2: 16-byte cp.async copies (zero-filled past
 //   the edges) into padded rows; bf16 as mma.sync m16n8k16 fragments loaded
 //   by ldmatrix, fp32 as 4x4 register micro-tiles of SIMT FMAs.  K6: TMA
 //   boxes (zeros past the edges) completing on mbarriers, in the 128-byte
 //   swizzled layout (sw128_offset) that warpgroup wgmma m64n64k16 reads
-//   through shared-memory descriptors, the fp32 sums in registers; K5, K6,
-//   K7, K9 and K10 share the LayerNorm of gathered rows into that layout
-//   (ln_gather_sw128: K5's rows are its tile's halo pixels), K7, K9 and K10
-//   the front kernel (ln_fc_kernel below), K7 and K10 stage their hidden
-//   maps' halos by 4-D TMA boxes, K9 / K10's (c) runs in thread
+//   through shared-memory descriptors, the fp32 sums in registers; K5-K7
+//   and K9-K11 share the LayerNorm of gathered rows into that layout
+//   (ln_gather_sw128: K5's and K11's rows are their tiles' halo pixels), K7,
+//   K9, K10 and K13 the front kernel (ln_fc_kernel below), K7 and K10 stage
+//   their hidden maps' halos by 4-D TMA boxes, K9 / K10's (c) runs in thread
 //   block clusters, and their weight gradients are mma.sync products of
-//   transposed operands (ldmatrix_x4_trans) from a cp.async ring.  K3 and
+//   transposed operands (ldmatrix_x4_trans) from a cp.async ring; K13's
+//   attention runs mma.sync on ldmatrix fragments of cp.async-staged q, k,
+//   v and its output projection wgmma on TMA boxes of wp.  K3 and
 //   K4 (expand.cu): in bf16 x and the weight as TMA boxes, wgmma up to
 //   m64n256k16 (wgmma_m64nk16) with the LayerNorm and the head computed from
 //   the accumulators; in fp32 register micro-tiles of SIMT FMAs from a
@@ -407,24 +409,6 @@ __device__ __forceinline__ void mma_tiles(const bf16* A, int lda, const bf16* __
   }
 }
 
-// Stage channels [k0, k0 + KC) of a halo tile of a (B, H, W, C) bf16 map in
-// shared memory: row e < E*Ex of `dst` (stride ldd) is pixel
-// (y0 + e / Ex, x0 + e % Ex) of image b; rows outside the image and rows
-// [E*Ex, rows) are zero.  C, k0, KC multiples of 8; ldd % 8 == 0.
-__device__ __forceinline__ void stage_halo(const bf16* __restrict__ src, int b, int H, int W,
-                                           int C, int y0, int x0, int Ey, int Ex, int rows,
-                                           int k0, int KC, bf16* dst, int ldd) {
-  const int vn = KC / 8;
-  for (int i = threadIdx.x; i < rows * vn; i += blockDim.x) {
-    const int e = i / vn, v = i - e * vn;
-    const int gy = y0 + e / Ex, gx = x0 + e % Ex;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (e < Ey * Ex && gy >= 0 && gy < H && gx >= 0 && gx < W)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (((long)b * H + gy) * W + gx) * C + k0) + v);
-    *reinterpret_cast<uint4*>(dst + e * ldd + v * 8) = val;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // staged tiles (K2, K6)
 // ---------------------------------------------------------------------------
@@ -772,8 +756,8 @@ __device__ __forceinline__ bf16* tiles_start(float4* smem4, int reserve) {
                                  ~static_cast<uintptr_t>(1023));
 }
 
-// bf16(LN(x) ln_w + ln_b) (fp32 statistics in two passes, eps 1e-5) of
-// `rows` gathered rows of x (., d) into As, a rows x dp tile in the
+// bf16(LN(x) ln_w + ln_b) (fp32 statistics in two passes, eps 1e-5 unless
+// given) of `rows` gathered rows of x (., d) into As, a rows x dp tile in the
 // sw128_offset layout (dp = d rounded up to 64; zeros past d): row r is row
 // row_of(r) of x, or zeros where row_of(r) < 0; without ln_w, the rows of x
 // as they are (y = x).  With xf set, the normalised rows also go to
@@ -785,7 +769,7 @@ __device__ __forceinline__ void ln_gather_sw128(const bf16* __restrict__ x,
                                                 const float* __restrict__ ln_w,
                                                 const float* __restrict__ ln_b, int d, int rows,
                                                 const RowOf& row_of, int nwarps, bf16* As,
-                                                bf16* __restrict__ xf) {
+                                                bf16* __restrict__ xf, float eps = 1e-5f) {
   constexpr int kRows = KG == 1 ? 8 : 16 / KG;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, dp = (d + 63) & ~63;
   // this lane's columns of ln_w and ln_b, held in registers where a lane has
@@ -842,7 +826,7 @@ __device__ __forceinline__ void ln_gather_sw128(const bf16* __restrict__ x,
             q = fmaf(f.y - mean, f.y - mean, q);
           }
         }
-        rstd = rsqrtf(warp_sum(q) / d + 1e-5f);
+        rstd = rsqrtf(warp_sum(q) / d + eps);
       }
 #pragma unroll
       for (int i = 0; i < KG; ++i) {
@@ -882,9 +866,9 @@ __device__ __forceinline__ void ln_rows_sw128(const bf16* __restrict__ x,
                                               const float* __restrict__ ln_w,
                                               const float* __restrict__ ln_b, long M, int d,
                                               long m0, int nwarps, bf16* As,
-                                              bf16* __restrict__ xf) {
+                                              bf16* __restrict__ xf, float eps = 1e-5f) {
   ln_gather_sw128<4>(x, ln_w, ln_b, d, kTileRows,
-                     [=](int r) { return m0 + r < M ? m0 + r : -1L; }, nwarps, As, xf);
+                     [=](int r) { return m0 + r < M ? m0 + r : -1L; }, nwarps, As, xf, eps);
 }
 
 __device__ __forceinline__ float gelu_grad(float z) {
@@ -903,11 +887,13 @@ __device__ __forceinline__ void gelu_and_grad(float z, float* g, float* gp) {
 // K7's merged 7x7 taps, which its front launch writes for its stencil: per
 // chunk of 64 hidden channels, [49][64] taps t = k7 + pad(k5) + pad(k3) +
 // identity (fp32 sums of the bf16 taps), then [64] biases c3 + c5 + c7;
-// zeros past hid.
+// zeros past hid.  K11's wide route passes k5, k7, c5, c7 null and no
+// identity: t = pad(k3), biases c3.
 struct MergedTaps {
   const bf16 *k3, *k5, *k7;
   const float *c3, *c5, *c7;
   float* out;
+  bool identity = true;
 };
 constexpr int kTapChunk = 50 * 64;  // floats of one chunk's merged taps and biases
 
@@ -921,13 +907,15 @@ __device__ __forceinline__ void merge_taps(const MergedTaps& t, int hid) {
     const long ch = e / kTapChunk * 64 + r % 64;
     float v = 0.f;
     if (ch < hid && i == 49) {
-      v = t.c3[ch] + t.c5[ch] + t.c7[ch];
+      v = t.c3[ch];
+      if (t.c5) v = v + t.c5[ch] + t.c7[ch];
     } else if (ch < hid) {
       const int u = i / 7, w = i - u * 7;
-      v = to_f32(t.k7[ch * 49 + i]);
-      if (u >= 1 && u <= 5 && w >= 1 && w <= 5) v += to_f32(t.k5[ch * 25 + (u - 1) * 5 + w - 1]);
+      if (t.k7) v = to_f32(t.k7[ch * 49 + i]);
+      if (t.k5 && u >= 1 && u <= 5 && w >= 1 && w <= 5)
+        v += to_f32(t.k5[ch * 25 + (u - 1) * 5 + w - 1]);
       if (u >= 2 && u <= 4 && w >= 2 && w <= 4) v += to_f32(t.k3[ch * 9 + (u - 2) * 3 + w - 2]);
-      if (i == 24) v += 1.f;
+      if (t.identity && i == 24) v += 1.f;
     }
     t.out[e] = v;
   }
@@ -961,9 +949,20 @@ __device__ __forceinline__ void merge_taps(const MergedTaps& t, int hid) {
 //     launches (each pixel's h and dacc are read by the halos of up to 9
 //     tiles), and the blocks share out the merged taps as K7's do.
 //   K9 and K10: hidden group 0 also writes xf = bf16(LN(x)) for dW1.
+//   K13 (kFrontQKV): the qkv projection of Swin's window attention: w1 is
+//     wqkv (3 Cq, C) and b1 bqkv; bf16((LN(x) w1^T + b1) s) goes to qo.out
+//     (M, 3 Cq), s = qo.scale on the q columns (those below qo.nscale),
+//     else 1: the rounding points of q, k and v.
 constexpr int kFrontHC = 128;
 
-constexpr int kFrontK7 = 0, kFrontK9 = 1, kFrontK10 = 2;
+constexpr int kFrontK7 = 0, kFrontK9 = 1, kFrontK10 = 2, kFrontQKV = 3;
+
+// K13's output of the front: see kFrontQKV.
+struct QkvOut {
+  bf16* out;
+  int nscale;
+  float scale;
+};
 
 template <int MODE>
 __global__ void __launch_bounds__(256, 1)
@@ -974,8 +973,8 @@ __global__ void __launch_bounds__(256, 1)
                  const float* __restrict__ b1, float* __restrict__ h, float* __restrict__ gwo,
                  bf16* __restrict__ xf, bf16* __restrict__ hg, bf16* __restrict__ dh,
                  float* __restrict__ part_db1, long M, int d, int hid, int cps, int stages,
-                 MergedTaps taps) {
-  constexpr bool BWD = MODE != kFrontK7;  // the g w2 product too
+                 MergedTaps taps, QkvOut qo, float eps) {
+  constexpr bool BWD = MODE == kFrontK9 || MODE == kFrontK10;  // the g w2 product too
   constexpr int NB = BWD ? 3 : 2;  // boxes a slot: a weight's per warpgroup, then g's
   extern __shared__ float4 smem4[];
   const int dp = (d + 63) & ~63, nkd = dp / 64, tpc = BWD ? 2 * nkd : nkd;
@@ -1009,8 +1008,8 @@ __global__ void __launch_bounds__(256, 1)
     mbar_init_fence();
     for (int t = 0; t < min(T, stages - 2); ++t) issue(t);
   }
-  if constexpr (MODE != kFrontK9) merge_taps(taps, hid);
-  ln_rows_sw128(x, ln_w, ln_b, M, d, m0, 8, As, BWD && blockIdx.y == 0 ? xf : nullptr);
+  if constexpr (MODE == kFrontK7 || MODE == kFrontK10) merge_taps(taps, hid);
+  ln_rows_sw128(x, ln_w, ln_b, M, d, m0, 8, As, BWD && blockIdx.y == 0 ? xf : nullptr, eps);
   fence_proxy_async();
 
   float acc[32], gw[32];
@@ -1047,7 +1046,17 @@ __global__ void __launch_bounds__(256, 1)
     wgmma_wait<0>();
     fence_regs(acc);
     const int c0 = c * kFrontHC + 64 * wg;
-    if constexpr (MODE != kFrontK9) {
+    if constexpr (MODE == kFrontQKV) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const long row = m0 + wrow + 8 * ((i >> 1) & 1);
+        const int col = c0 + 8 * (i >> 2) + wcol;
+        if (row >= M || col >= hid) continue;
+        const float s = col < qo.nscale ? qo.scale : 1.f;  // nscale is even
+        *reinterpret_cast<__nv_bfloat162*>(qo.out + row * hid + col) =
+            __floats2bfloat162_rn((acc[i] + b1[col]) * s, (acc[i + 1] + b1[col + 1]) * s);
+      }
+    } else if constexpr (MODE != kFrontK9) {
       if constexpr (MODE == kFrontK10) fence_regs(gw);
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
@@ -1114,7 +1123,7 @@ struct FrontPlan {
 };
 
 static inline bool plan_front(long M, int d, int hid, bool bwd, FrontPlan* p) {
-  if (d % 16 || hid % 16 || d < 16 || d > 1024 || hid < 16 || M < 1) return false;
+  if (d % 8 || hid % 16 || d < 8 || d > 1024 || hid < 16 || M < 1) return false;
   const int dp = (d + 63) & ~63, nchunks = (hid + kFrontHC - 1) / kFrontHC;
   const size_t fixed = 1024 + (size_t)kTileRows * dp * 2;
   const size_t slot = (size_t)(bwd ? 3 : 2) * kBox * 2;
@@ -1136,12 +1145,13 @@ static inline int front_launch(const FrontPlan& p, const CUtensorMap& map_w1,
                                const bf16* x, const float* ln_w, const float* ln_b,
                                const float* b1, float* h, float* gw, bf16* xf, bf16* hg,
                                bf16* dh, float* part_db1, long M, int d, int hid,
-                               MergedTaps taps, cudaStream_t s) {
+                               MergedTaps taps, cudaStream_t s, QkvOut qo = QkvOut{},
+                               float eps = 1e-5f) {
   cudaError_t e = allow_smem(ln_fc_kernel<MODE>, p.smem);
   if (e != cudaSuccess) return (int)e;
   ln_fc_kernel<MODE><<<dim3((unsigned)p.rows, p.groups), 256, p.smem, s>>>(
       map_w1, map_g, map_w2, x, ln_w, ln_b, b1, h, gw, xf, hg, dh, part_db1, M, d, hid, p.cps,
-      p.stages, taps);
+      p.stages, taps, qo, eps);
   TRAMBA_CHECK_LAUNCH();
   return 0;
 }

@@ -1,5 +1,5 @@
 // K6 ln_mlp, K7 ln_dwms_mlp and K11 ln_dwmlp: the block FFNs of the bf16
-// inference path, and the bf16 LayerNorm launch that K11-K13 start with.
+// inference path, and the bf16 LayerNorm launch that K12 starts with.
 //
 // K6 replaces _mlp_pallas (tramba_tpu/ops/fused_mlp.py:130, kernel :115):
 //   y = bf16(LN(x)); h = bf16(GELU(y @ w1^T + b1)); out = bf16(h @ w2^T + b2).
@@ -11,8 +11,6 @@
 //   h = y @ w1^T + b1 (fp32, zero outside the image); a = dw3(h) + c3 with
 //   bf16 taps (the conv replaces h: no identity term);
 //   out = bf16(bf16(GELU(a)) @ w2^T + b2), y = bf16(LN(x)) with eps 1e-6.
-// It is K7's old chain with one 3x3 tap set and a 1-px halo (its redesign
-// is a later step).
 // K6 and K11 keep the wide hidden tensor on chip: the hidden dimension is
 // walked in chunks, each chunk's fc2 product is added to an fp32 output
 // tile, and only the bf16 output reaches device memory; K7 writes h once as
@@ -42,11 +40,18 @@
 // of the three convs), on 4 d bytes of x and out and 8 hid bytes of h
 // written and read once: the stencil's fp32 FMAs, and its halo reads of h
 // from L2 (196 of every 64 pixels), are what bound it (its design: the K7
-// section below).  K11 runs its products as bf16 wmma tiles with fp32
-// accumulation (common.cuh) reading the weights from L2, and pays 9
-// depthwise taps per hidden value in fp32 SIMT FMA and the fc1 of a 1-px
-// halo around each 8x8 tile (100 rows for 64 outputs); its LN runs once
-// per pixel in its own launch.
+// section below).  K11 does 4 d hid operations a pixel on the tensor cores
+// (and recomputes fc1 on its tiles' halos: 2.0x fc1's rows) and 9 FMAs and
+// a GELU a hidden value in fp32, on 4 d bytes of x and out: its bound is the
+// tensor cores' (d hid / d = hid operations a byte, far over the ridge).
+// What holds it back is the chain of each hidden chunk's phases (fc1, its
+// epilogue, the stencil, fc2) within a block, and the stream of both
+// weights from L2 through every block (2 d hid bytes for 64 output pixels);
+// its design (the K11 section below): the LayerNorm folded in, both
+// products on wgmma from one TMA ring, h kept in shared memory, and fc2 of
+// one chunk under the next chunk's epilogue and stencil.  Up to d 384; a
+// wider K11 (no PVTv2-b4 stage at 384 px) runs K7's launches with K11's
+// taps and eps (the wide route, same section).
 #include "common.cuh"
 
 namespace {
@@ -482,115 +487,349 @@ bool plan_dwms(int d, int hid, int* NW, int* NT) {
   }
 
 // ---- K11 ------------------------------------------------------------------
+//
+// One launch (and the split finish where a split runs).  One block of two
+// warpgroups per (8x8 output tile, image, split):
+//   * the tile's 10 x 10 halo pixels are normalised by the block itself
+//     (ln_gather_sw128: fp32 statistics, eps from the caller, one rounding
+//     to bf16) into As, kHaloRows x dp in the 128-byte-swizzled layout that
+//     wgmma reads: no LayerNorm launch, no round trip of y;
+//   * per chunk of 64 hidden channels, fc1 runs as wgmma m64n64k16 on the
+//     halo rows, warpgroup w on rows [64 w, 64 w + 64) (the second M tile
+//     reads past row 104 into the next K block: rows whose results are
+//     dropped), w1's boxes streamed by TMA into a ring of 64 x 64 boxes;
+//     h + b1, zero outside the image, goes to h32 in fp32, unrounded;
+//   * the 3x3 stencil (bf16 taps, c3) and the exact GELU run in fp32 on the
+//     256 threads (a thread: one channel, two output rows), bf16(GELU) into
+//     a 64 x 64 swizzled A tile, double-buffered;
+//   * fc2 runs as wgmma on w2's boxes from the same ring, the 64 x d fp32
+//     output tile in registers through the hidden loop (warpgroup w owns
+//     output tiles [NT w, NT w + NT) of 64 columns: at d 320 that is 96
+//     registers a thread where one warpgroup would need 160).  fc1 of chunk
+//     q + 1 is issued before fc2 of chunk q, and only fc1 is waited for:
+//     fc2 of chunk q runs under the epilogue and stencil of chunk q + 1.
+// h is never written to device memory.  K7 writes its h once because each
+// of its pixels feeds the 14 x 14 halos of up to 4 tiles (196 halo pixels
+// for 64 outputs); K11's 1-px halo is 100 pixels for 64 outputs, and fc1 is
+// only d deep, so the block recomputes fc1 on its halo (2.0x the rows: the
+// halo of 100 rounds up to two 64-row M tiles).  A 16 x 8 tile would round
+// 180 halo rows up to 192 (1.5x), but it halves the blocks of the 24 px
+// map (3 x 3 tiles of 8 at 24 px against 2 x 3 of 16 x 8 with a third of
+// the second row of tiles past the image), and needs three M tiles for two
+// warpgroups; 8 x 8 maps one M tile to each warpgroup.  Where the tiles
+// fill the card badly (the 24 px map at B1-B2, 9 tiles an image), the
+// hidden chunks are split over blocks (cheapest_splits, K6's rule: waves of
+// the block's products against the bytes of the fp32 partial sums) and
+// finish_split_kernel adds b2 and rounds.
+// Wide route (d from 400 to 512, no PVTv2-b4 stage at 384 px; its 512-wide
+// stage 4 at 512 px): the LN'd halo rows and a chunk's weight boxes no longer
+// fit one block, so the call runs K7's two launches instead, with K11's eps
+// and taps: ln_fc_kernel<kFrontK7> writes h = LN(x) w1^T + b1 once in fp32
+// (the same rounding points) and the merged taps t = pad(k3), c3 (no
+// identity); dwms_tile_kernel runs the 7x7 stencil, whose taps outside the
+// central 3x3 are zero, GELU and fc2 (K7's split rule).
+constexpr int kE1 = kT + 2;       // halo side: 10
+constexpr int kEP1 = kE1 * kE1;   // 100 halo pixels
+constexpr int kHaloRows = 104;    // rows of As: the halo rounded up to 8
+constexpr int kLdH = 72;          // floats a row of h32: 64 + 8, float2 stores conflict-free
+constexpr int kDwmlpMaxStages = 16;
+constexpr int kDwmlpParams = 64 + 64 + 64 * 9 / 2;  // floats of one chunk's b1, c3, taps
 
-constexpr int kE1 = kT + 2;                 // with the 1-px halo: 10 x 10
-constexpr int kEP1 = kE1 * kE1;             // 100 halo pixels
-constexpr int kMP1 = (kEP1 + 15) / 16 * 16;  // 112 rows, padded for 16-row tiles
+// Tiling of one K11 launch (dwmlp_tile_kernel).
+struct DwmlpPlan {
+  int NT;       // fc2 output tiles of 64 columns a warpgroup
+  int nkd;      // 64-column k-slabs of d: fc1's boxes a chunk; fc2 has as many 64-row tiles
+  int stages;   // ring slots, one 64 x 64 box each
+  int per_sm;   // blocks an SM
+  size_t smem;
+  int tiles;    // 8x8 output tiles of one image
+  int nchunks;  // hidden chunks of 64
+};
 
-// One block per (8x8 output tile, image, split), as K7.  Shared: ys
-// [112][KC+8] bf16 (channels [k0, k0+KC) of the LN'd halo tile), h32
-// [112][HC+4] fp32 (fc1 chunk of the halo tile), hs [64][HC+8] bf16 (GELU
-// chunk), acc [64][d+4] fp32 (output tile; b2 and the split partials as in
-// K6).
-__global__ void ln_dwmlp_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
-                                const float* __restrict__ b1, const bf16* __restrict__ k3,
-                                const float* __restrict__ c3, const bf16* __restrict__ w2,
-                                const float* __restrict__ b2, bf16* __restrict__ out,
-                                float* __restrict__ part, int H, int W, int d, int hid, int KC,
-                                int HC, int cps) {
+bool plan_dwmlp(int H, int W, int d, int hid, DwmlpPlan* p) {
+  if (d % 16 || hid % 16 || d < 16 || d > 384 || hid < 16 || H < 1 || W < 1) return false;
+  p->nkd = (d + 63) / 64;
+  p->NT = (p->nkd + 1) / 2;
+  p->tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);
+  p->nchunks = (hid + 63) / 64;
+  // the mbarriers and the alignment, As, the two GELU tiles, h32, two
+  // chunks' parameters; the ring
+  const size_t fixed = 1024 + (size_t)p->nkd * kHaloRows * 128 + 2 * kTP * 128 +
+                       (size_t)kEP1 * kLdH * 4 + 2 * kDwmlpParams * 4;
+  const size_t box = kBox * 2;
+  const int group = 2 * p->nkd;  // the boxes of one chunk: w1's and w2's
+  // two blocks an SM (113 KB each) where one warpgroup's output tile is a
+  // single 64-column tile and the ring still holds a chunk's boxes
+  size_t budget = kSmemBlock;
+  if (p->NT == 1 && fixed + group * box <= 113 * 1024) budget = 113 * 1024;
+  p->stages = (int)std::min<size_t>(kDwmlpMaxStages, (budget - std::min(budget, fixed)) / box);
+  p->per_sm = budget == kSmemBlock ? 1 : 2;
+  p->smem = fixed + (size_t)p->stages * box;
+  return p->NT <= 3 && p->stages >= group;
+}
+
+// Splits of the hidden chunks over blocks for K6 and K11: on `slots` block
+// slots, s splits take ceil(blocks s / slots) waves of 1 / s of a block's
+// products (`block_s` seconds, taken at ~2.5 TFLOP/s an SM) and move 8 M d s
+// bytes of fp32 partial sums (at ~2.5 TB/s); the cheapest s up to 16 and
+// `nchunks`, rounded to whole chunks per split.
+int cheapest_splits(long blocks, long slots, int nchunks, double block_s, long M, int d) {
+  slots = std::max(1L, slots);
+  int best = 1;
+  double best_cost = 0;
+  for (int s = 1; s <= std::min(16, nchunks); ++s) {
+    const double cost = (double)((blocks * s + slots - 1) / slots) * block_s / s +
+                        (s > 1 ? 8.0 * M * d * s / 2.5e12 : 0.0);
+    if (s == 1 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  const int cps = (nchunks + best - 1) / best;
+  return (nchunks + cps - 1) / cps;
+}
+
+// K11's splits on `sms` SMs: a block's products are fc1 on its two M tiles
+// and fc2 on one, each d deep, for every chunk.
+int pick_dwmlp_splits(const DwmlpPlan& p, int B, int H, int W, int d, int sms) {
+  const double block_s = 2.0 * 64 * 64 * 64 * p.nchunks * (2.0 * p.nkd + p.nkd) / 2.5e12;
+  return cheapest_splits((long)p.tiles * B, (long)p.per_sm * sms, p.nchunks, block_s,
+                         (long)B * H * W, d);
+}
+
+// The ring's stream of boxes: w1 of local chunk 0, then for q = 1 .. nq - 1
+// w1 of chunk q and w2 of chunk q - 1, then w2 of the last chunk.
+struct DwmlpStream {
+  int nkd, nq;
+  __device__ int w1(int q) const { return q == 0 ? 0 : nkd + (q - 1) * 2 * nkd; }
+  __device__ int w2(int q) const { return nkd + q * 2 * nkd + (q + 1 < nq ? nkd : 0); }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(256, NT == 1 ? 2 : 1)
+    dwmlp_tile_kernel(const __grid_constant__ CUtensorMap map_w1,
+                      const __grid_constant__ CUtensorMap map_w2, const bf16* __restrict__ x,
+                      const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                      const float* __restrict__ b1, const bf16* __restrict__ k3,
+                      const float* __restrict__ c3, const float* __restrict__ b2,
+                      bf16* __restrict__ out, float* __restrict__ part, int H, int W, int d,
+                      int hid, int cps, int stages, float eps) {
   extern __shared__ float4 smem4[];
-  const int ldy = KC + 8, ld32 = HC + 4, ldhs = HC + 8, ldacc = d + 4;
-  bf16* ys = reinterpret_cast<bf16*>(smem4);
-  float* h32 = reinterpret_cast<float*>(ys + kMP1 * ldy);
-  bf16* hs = reinterpret_cast<bf16*>(h32 + kMP1 * ld32);
-  float* acc = reinterpret_cast<float*>(hs + kTP * ldhs);
+  const int nkd = (d + 63) / 64, group = 2 * nkd;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);  // one mbarrier a ring slot
+  bf16* As = tiles_start(smem4, 8 * kDwmlpMaxStages);
+  bf16* Gs = As + (size_t)nkd * kHaloRows * 64;  // [2][64 x 64] GELU tiles
+  bf16* ring = Gs + 2 * kTP * 64;
+  float* h32 = reinterpret_cast<float*>(ring + (size_t)stages * kBox);  // [100][kLdH]
+  float* prm = h32 + kEP1 * kLdH;  // [2][kDwmlpParams]: a chunk's b1, c3, then taps (bf16)
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
   const int tiles_x = (W + kT - 1) / kT;
   const int ty0 = (blockIdx.x / tiles_x) * kT, tx0 = (blockIdx.x % tiles_x) * kT;
   const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < kTP * d; i += blockDim.x) {
-    const int p = i / d, j = i - p * d;
-    acc[p * ldacc + j] = part ? 0.f : b2[j];
-  }
-  int c_first, c_last;
-  split_range(hid, HC, cps, &c_first, &c_last);
-  for (int c0 = c_first; c0 < c_last; c0 += HC) {
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      if (KC < d || c0 == c_first) {
-        __syncthreads();
-        stage_halo(y, b, H, W, d, ty0 - 1, tx0 - 1, kE1, kE1, kMP1, k0, KC, ys, ldy);
-        __syncthreads();
-      }
-      mma_tiles(ys, ldy, w1 + (long)c0 * d + k0, d, h32, ld32, kMP1 / 16, HC / 16, KC, k0 > 0);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kEP1 * HC; i += blockDim.x) {
-      const int e = i / HC, j = i - e * HC;
-      const int gy = ty0 - 1 + e / kE1, gx = tx0 - 1 + e % kE1;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      float* v = h32 + e * ld32 + j;
-      *v = inside ? *v + b1[c0 + j] : 0.f;
-    }
-    __syncthreads();
-    {
-      // thread -> channel j of the chunk, as in K7
-      const int j = threadIdx.x % HC, g = threadIdx.x / HC, G = blockDim.x / HC;
-      const int c = c0 + j;
-      float t3[9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) t3[i] = to_f32(k3[(long)c * 9 + i]);
-      const float cb3 = c3[c];
-      const float* hj = h32 + j;
-      for (int p = g; p < kTP; p += G) {
-        const int py = p / kT, px = p % kT;
-        float a = cb3;
-#pragma unroll
-        for (int u = 0; u < 3; ++u)
-#pragma unroll
-          for (int v = 0; v < 3; ++v)
-            a = fmaf(t3[u * 3 + v], hj[((py + u) * kE1 + px + v) * ld32], a);
-        hs[p * ldhs + j] = __float2bfloat16_rn(gelu_exact(a));
-      }
-    }
-    __syncthreads();
-    mma_tiles(hs, ldhs, w2 + c0, hid, acc, ldacc, kTP / 16, d / 16, HC, true);
-    __syncthreads();
-  }
-  float* part_s = part ? part + blockIdx.z * (long)gridDim.y * H * W * d : nullptr;
-  for (int i = threadIdx.x; i < kTP * d; i += blockDim.x) {
-    const int p = i / d, j = i - p * d;
-    const int gy = ty0 + p / kT, gx = tx0 + p % kT;
-    if (gy >= H || gx >= W) continue;
-    const long o = (((long)b * H + gy) * W + gx) * d + j;
-    if (part_s) {
-      part_s[o] = acc[p * ldacc + j];
+  const int nchunks = (hid + 63) / 64;
+  const int c_first = blockIdx.z * cps, nq = min(nchunks, c_first + cps) - c_first;
+  const DwmlpStream st{nkd, nq};
+  const int T = nq * group;
+  auto issue = [&](int t) {
+    int q, box;
+    bool is_w1 = t < nkd;
+    if (is_w1) {
+      q = 0;
+      box = t;
     } else {
-      out[o] = __float2bfloat16_rn(acc[p * ldacc + j]);
+      const int g = 1 + (t - nkd) / group, r = (t - nkd) % group;
+      is_w1 = g < nq && r < nkd;
+      q = is_w1 ? g : g - 1;
+      box = is_w1 || g == nq ? r : r - nkd;
     }
+    const int slot = t % stages, c = c_first + q;
+    mbar_expect_tx(full + slot, kBox * 2);
+    if (is_w1) {
+      tma_load_2d(ring + (size_t)slot * kBox, &map_w1, 64 * box, 64 * c, full + slot);
+    } else {
+      tma_load_2d(ring + (size_t)slot * kBox, &map_w2, 64 * c, 64 * box, full + slot);
+    }
+  };
+  int issued = 0;  // boxes issued (warp 0)
+  auto refill = [&](int free_end) {  // the boxes before free_end are consumed; a box a lane
+    const int end = min(T, free_end + stages);
+    for (int t = issued + lane; t < end; t += 32) issue(t);
+    issued = max(issued, end);
+  };
+  // chunk q's b1, c3 and taps into prm[q & 1] by cp.async (one group)
+  auto fetch_params = [&](int q) {
+    const int c0 = (c_first + q) * 64;
+    float* dst = prm + (q & 1) * kDwmlpParams;
+    if (tid < 32) {
+      const float* src = tid < 16 ? b1 + c0 + 4 * tid : c3 + c0 + 4 * (tid - 16);
+      cp_async16(dst + 4 * tid, src, c0 + 4 * (tid & 15) < hid);
+    } else if (tid < 32 + 72) {
+      const int p = tid - 32;  // 8 of the chunk's 576 taps
+      cp_async16(dst + 128 + 4 * p, k3 + (long)c0 * 9 + 8 * p, (long)c0 * 9 + 8 * p < (long)hid * 9);
+    }
+    cp_async_commit();
+  };
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
   }
-}
+  __syncwarp();
+  if (warp == 0) refill(0);
+  fetch_params(0);
+  auto halo_row = [&](int e) -> long {  // pixel of halo row e, or -1
+    const int gy = ty0 - 1 + e / kE1, gx = tx0 - 1 + e % kE1;
+    return e < kEP1 && gy >= 0 && gy < H && gx >= 0 && gx < W ? ((long)b * H + gy) * W + gx
+                                                              : -1L;
+  };
+  if constexpr (NT == 3) {
+    ln_gather_sw128<2>(x, ln_w, ln_b, d, kHaloRows, halo_row, 8, As, nullptr, eps);
+  } else {
+    ln_gather_sw128<1>(x, ln_w, ln_b, d, kHaloRows, halo_row, 8, As, nullptr, eps);
+  }
+  fence_proxy_async();
+  cp_async_wait<0>();
+  __syncthreads();  // the barriers are initialised, As and chunk 0's parameters are written
 
-size_t dwmlp_smem(int d, int KC, int HC) {
-  return (size_t)kMP1 * ((KC + 8) * 2 + (HC + 4) * 4) + (size_t)kTP * ((HC + 8) * 2 + (d + 4) * 4);
-}
-
-
-// The largest hidden chunk HC (then K chunk KC) whose tiles fit one block of
-// K11 (smem = dwmlp_smem; d 320 stages its input in chunks of 64 channels).
-bool pick_chunks(size_t (*smem)(int, int, int), int d, int hid, int* KC, int* HC) {
-  for (int hc = 128; hc >= 16; hc /= 2) {
-    if (hid % hc || kThreads % hc) continue;
-    const int kcs[] = {d, 256, 128, 64, 32, 16};
-    for (int kc : kcs) {
-      if (kc > d || d % kc) continue;
-      if (smem(d, kc, hc) <= kSmemBlock) {
-        *KC = kc;
-        *HC = hc;
-        return true;
+  float acc[NT][32], hacc[32];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  const int wrow = 16 * (warp & 3) + (lane >> 2), wcol = 2 * (lane & 3);
+  auto wait_box = [&](int t) {
+    mbar_wait(full + t % stages, (t / stages) & 1);
+    return ring + (size_t)(t % stages) * kBox;
+  };
+  const int cl = tid & 63, rp = tid >> 6;  // stencil: channel, pair of output rows
+  // q = -1 only issues fc1 of chunk 0
+  for (int q = -1; q < nq; ++q) {
+    if (q >= 0) {
+      // this chunk's parameters (zeros past hid), fetched a chunk ahead
+      const float* pq = prm + (q & 1) * kDwmlpParams;
+      const bf16* tq = reinterpret_cast<const bf16*>(pq + 128) + 9 * cl;
+      float tap[9];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) tap[i] = to_f32(tq[i]);
+      const float cb = pq[64 + cl];
+      // fc1 of chunk q is complete: b1, zero outside the image, fp32 into
+      // h32 (its last reader, the stencil of chunk q - 1, ended before the
+      // last barrier)
+      fence_regs(hacc);
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int e = 64 * wg + wrow + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + wcol;
+        if (e >= kEP1) continue;
+        float2 v = make_float2(0.f, 0.f);
+        if (halo_row(e) >= 0) {
+          const float2 bb = *reinterpret_cast<const float2*>(pq + col);
+          v = make_float2(hacc[i] + bb.x, hacc[i + 1] + bb.y);
+        }
+        *reinterpret_cast<float2*>(h32 + e * kLdH + col) = v;
+      }
+      __syncthreads();  // h32 is written; fc1 of chunk q is done in both warpgroups
+      if (warp == 0) refill(st.w1(q) + nkd);
+      // the next chunk's parameters, into the buffer chunk q - 1 read
+      if (q + 1 < nq) fetch_params(q + 1);
+      // the GELU tile's buffer was last read by the fc2 of chunk q - 2,
+      // which both warpgroups waited for before the previous chunk's second
+      // barrier
+      bf16* G = Gs + (q & 1) * kTP * 64;
+      float a0[kT], a1[kT];
+#pragma unroll
+      for (int px = 0; px < kT; ++px) a0[px] = a1[px] = cb;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // halo row 2 rp + r feeds output rows 2 rp and 2 rp + 1
+        const float* row = h32 + (2 * rp + r) * kE1 * kLdH + cl;
+        float v[kE1];
+#pragma unroll
+        for (int xx = 0; xx < kE1; ++xx) v[xx] = row[xx * kLdH];
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          if (r < 3) {
+#pragma unroll
+            for (int px = 0; px < kT; ++px) a0[px] = fmaf(tap[r * 3 + kx], v[px + kx], a0[px]);
+          }
+          if (r > 0) {
+#pragma unroll
+            for (int px = 0; px < kT; ++px)
+              a1[px] = fmaf(tap[(r - 1) * 3 + kx], v[px + kx], a1[px]);
+          }
+        }
+      }
+#pragma unroll
+      for (int px = 0; px < kT; ++px) {
+        G[sw128_offset(16 * rp + px, cl, kTP)] = __float2bfloat16_rn(gelu_exact(a0[px]));
+        G[sw128_offset(16 * rp + 8 + px, cl, kTP)] = __float2bfloat16_rn(gelu_exact(a1[px]));
+      }
+      wgmma_wait<0>();  // fc2 of chunk q - 1, run under this chunk's epilogue and stencil
+      fence_proxy_async();
+      cp_async_wait<0>();
+      __syncthreads();  // the GELU tile and the next parameters are written; fc2 of chunk
+                        // q - 1 is done everywhere
+      if (warp == 0) refill(st.w1(q) + (q == 0 ? nkd : group));
+    }
+    if (q + 1 < nq) {  // fc1 of chunk q + 1: hacc = As[rows of this warpgroup] w1[chunk]^T
+      const int t0 = st.w1(q + 1);
+      for (int u = 0; u < nkd; ++u) {
+        const bf16* tile = wait_box(t0 + u);
+        fence_regs(hacc);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n64k16(hacc,
+                          wgmma_desc_sw128(As + (size_t)u * kHaloRows * 64 + wg * kBox + 16 * s),
+                          wgmma_desc_sw128(tile + 16 * s), u > 0 || s > 0);
+      }
+      wgmma_commit();
+    }
+    if (q >= 0) {  // fc2 of chunk q: acc[j] += G w2[output tile NT wg + j, chunk]^T
+      const int t0 = st.w2(q);
+      const bf16* G = Gs + (q & 1) * kTP * 64;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int box = NT * wg + j;
+        if (box >= nkd) continue;  // past d: warpgroup 1's last tile at odd nkd
+        const bf16* tile = wait_box(t0 + box);
+        fence_regs(acc[j]);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n64k16(acc[j], wgmma_desc_sw128(G + 16 * s), wgmma_desc_sw128(tile + 16 * s),
+                          1);
+      }
+    }
+    wgmma_commit();  // (an empty group where q < 0 or this warpgroup has no tile)
+    if (q + 1 < nq) wgmma_wait<1>();  // fc1 of chunk q + 1; fc2 of chunk q stays in flight
+  }
+  wgmma_wait<0>();
+  float* part_s = part ? part + (long)blockIdx.z * gridDim.y * H * W * d : nullptr;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    fence_regs(acc[j]);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int p = wrow + 8 * ((i >> 1) & 1);
+      const int gy = ty0 + p / kT, gx = tx0 + p % kT;
+      const int col = 64 * (wg * NT + j) + 8 * (i >> 2) + wcol;
+      if (gy >= H || gx >= W || col >= d) continue;
+      const long o = (((long)b * H + gy) * W + gx) * d + col;
+      if (part_s) {
+        *reinterpret_cast<float2*>(part_s + o) = make_float2(acc[j][i], acc[j][i + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(out + o) =
+            __floats2bfloat162_rn(acc[j][i] + b2[col], acc[j][i + 1] + b2[col + 1]);
       }
     }
   }
-  return false;
 }
+
+#define TRAMBA_DWMLP_DISPATCH(NT, ...)                              \
+  switch (NT) {                                                     \
+    case 1: { constexpr int kNT = 1; __VA_ARGS__; } break;          \
+    case 2: { constexpr int kNT = 2; __VA_ARGS__; } break;          \
+    case 3: { constexpr int kNT = 3; __VA_ARGS__; } break;          \
+    default: return (int)cudaErrorInvalidValue;                     \
+  }
 
 // Splits of the hidden chunks for a grid of `blocks` blocks when the kernel
 // holds `smem` bytes of shared memory per block: the wave-quantised time of
@@ -671,11 +910,7 @@ bool plan_mlp(long M, int d, int hid, MlpPlan* p) {
     default: return (int)cudaErrorInvalidValue;                                          \
   }
 
-// Splits of the hidden chunks over blocks for K6: s splits take
-// ceil(blocks s / slots) waves of 1 / s of a block's products (taken at
-// ~2.5 TFLOP/s an SM) and move 8 M d s bytes of fp32 partial sums (at ~2.5
-// TB/s); the cheapest s up to 16 and `nchunks`, rounded to whole chunks
-// per split.
+// K6's splits (cheapest_splits), slots from the kernel's occupancy.
 int pick_mlp_splits(const MlpPlan& p, long M, int d, int hid, int* splits) {
   int per_sm = 0, dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -687,21 +922,45 @@ int pick_mlp_splits(const MlpPlan& p, long M, int d, int hid, int* splits) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 128 * kNW, p.smem);
   });
   if (e != cudaSuccess) return (int)e;
-  const long slots = std::max(1L, (long)per_sm * sms), blocks = p.rows * p.groups;
   const double block_s = 2.0 * kTileRows * hid * (((d + 63) & ~63) + 64.0 * p.NT * p.NW) / 2.5e12;
-  int best = 1;
-  double best_cost = 0;
-  for (int s = 1; s <= std::min(16, p.nchunks); ++s) {
-    const double cost = (double)((blocks * s + slots - 1) / slots) * block_s / s +
-                        (s > 1 ? 8.0 * M * d * s / 2.5e12 : 0.0);
-    if (s == 1 || cost < best_cost) {
-      best = s;
-      best_cost = cost;
-    }
-  }
-  const int cps = (p.nchunks + best - 1) / best;
-  *splits = (p.nchunks + cps - 1) / cps;
+  *splits = cheapest_splits(p.rows * p.groups, (long)per_sm * sms, p.nchunks, block_s, M, d);
   return 0;
+}
+
+// K7's launches: the front writes h = LN(x) w1^T + b1 (fp32, unrounded)
+// and `taps` merged into the scratch after it, then dwms_tile_kernel runs
+// the stencil, GELU and fc2 (and finish_split where `splits` is above 1).
+// K7 and K11's wide route.  h: B H W hid + kTapChunk ceil(hid / 64) fp32.
+int dwms_route(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w1,
+               const float* b1, MergedTaps taps, const bf16* w2, const float* b2, bf16* out,
+               float* h, float* part, int B, int H, int W, int d, int hid, int splits, float eps,
+               cudaStream_t s) {
+  const long M = (long)B * H * W;
+  int NW, NT;
+  FrontPlan fp;
+  if (splits < 1 || !plan_dwms(d, hid, &NW, &NT) || !plan_front(M, d, hid, false, &fp))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_w1, map_h, map_w2;
+  if (!weight_map(&map_w1, w1, hid, d) || !weight_map(&map_w2, w2, d, hid) ||
+      !halo_map(&map_h, h, B, H, W, hid, kE7))
+    return (int)cudaErrorInvalidValue;
+  taps.out = h + M * hid;
+  int rc = front_launch<kFrontK7>(fp, map_w1, map_w1, map_w1, x, ln_w, ln_b, b1, h, nullptr,
+                                  nullptr, nullptr, nullptr, nullptr, M, d, hid, taps, s,
+                                  QkvOut{}, eps);
+  if (rc) return rc;
+  const int tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);
+  const int nchunks = (hid + 63) / 64, cps = (nchunks + splits - 1) / splits;
+  const int S = (nchunks + cps - 1) / cps;
+  TRAMBA_DWMS_DISPATCH(NW, NT, {
+    auto kern = dwms_tile_kernel<kNW, kNT>;
+    cudaError_t e = allow_smem(kern, dwms_smem<kNW, kNT>());
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3(tiles, B, S), 256, dwms_smem<kNW, kNT>(), s>>>(
+        map_h, map_w2, taps.out, b2, out, S > 1 ? part : nullptr, H, W, d, hid, cps);
+  });
+  TRAMBA_CHECK_LAUNCH();
+  return S > 1 ? finish_split(part, b2, out, M * d, d, S, s) : 0;
 }
 
 }  // namespace
@@ -778,63 +1037,82 @@ int ln_dwms_mlp_launch(const bf16* x, const float* ln_w, const float* ln_b, cons
                        const float* c5, const bf16* k7, const float* c7, const bf16* w2,
                        const float* b2, bf16* out, float* h, float* part, int B, int H, int W,
                        int d, int hid, int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long M = (long)B * H * W;
-  int NW, NT;
-  FrontPlan fp;
-  if (splits < 1 || !plan_dwms(d, hid, &NW, &NT) || !plan_front(M, d, hid, false, &fp))
+  return dwms_route(x, ln_w, ln_b, w1, b1, MergedTaps{k3, k5, k7, c3, c5, c7, nullptr}, w2, b2,
+                    out, h, part, B, H, W, d, hid, splits, 1e-5f,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The plan of a K11 call: plan[0..7] = NT, stages, blocks an SM, shared
+// bytes, tiles an image, hidden chunks, splits, and 1 on the wide route.
+// dwmlp_tile_kernel's (plan_dwmlp, pick_dwmlp_splits) up to d 384; beyond,
+// dwms_tile_kernel's (fc2's output tiles a warpgroup, its ring slots,
+// occupancy and shared bytes; ln_dwms_mlp_splits' rule).
+int ln_dwmlp_plan(int B, int H, int W, int d, int hid, int* plan) {
+  DwmlpPlan p;
+  int dev = 0, sms = 0, NW, NT;
+  const bool tile = plan_dwmlp(H, W, d, hid, &p);
+  if (B < 1 || H < 1 || W < 1 || (!tile && !plan_dwms(d, hid, &NW, &NT)))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap map_w1, map_h, map_w2;
-  if (!weight_map(&map_w1, w1, hid, d) || !weight_map(&map_w2, w2, d, hid) ||
-      !halo_map(&map_h, h, B, H, W, hid, kE7))
-    return (int)cudaErrorInvalidValue;
-  float* mtaps = h + M * hid;
-  int rc = front_launch<kFrontK7>(fp, map_w1, map_w1, map_w1, x, ln_w, ln_b, b1, h, nullptr,
-                                  nullptr, nullptr, nullptr, nullptr, M, d, hid,
-                               MergedTaps{k3, k5, k7, c3, c5, c7, mtaps}, s);
-  if (rc) return rc;
-  const int tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);
-  const int nchunks = (hid + 63) / 64, cps = (nchunks + splits - 1) / splits;
-  const int S = (nchunks + cps - 1) / cps;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (tile) {
+    const int v[8] = {p.NT, p.stages, p.per_sm, (int)p.smem, p.tiles, p.nchunks,
+                      pick_dwmlp_splits(p, B, H, W, d, sms), 0};
+    std::copy(v, v + 8, plan);
+    return 0;
+  }
+  const int tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT), nchunks = (hid + 63) / 64;
+  int per_sm = 0, splits = 0;
   TRAMBA_DWMS_DISPATCH(NW, NT, {
     auto kern = dwms_tile_kernel<kNW, kNT>;
-    cudaError_t e = allow_smem(kern, dwms_smem<kNW, kNT>());
+    e = allow_smem(kern, dwms_smem<kNW, kNT>());
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 256, dwms_smem<kNW, kNT>());
     if (e != cudaSuccess) return (int)e;
-    kern<<<dim3(tiles, B, S), 256, dwms_smem<kNW, kNT>(), s>>>(
-        map_h, map_w2, mtaps, b2, out, S > 1 ? part : nullptr, H, W, d, hid, cps);
+    const int rc = pick_splits(kern, dwms_smem<kNW, kNT>(), (long)tiles * B, nchunks, &splits,
+                               true);
+    if (rc) return rc;
+    const int v[8] = {NT, dwms_stages<kNW, kNT>(), per_sm, (int)dwms_smem<kNW, kNT>(), tiles,
+                      nchunks, splits, 1};
+    std::copy(v, v + 8, plan);
   });
-  TRAMBA_CHECK_LAUNCH();
-  return S > 1 ? finish_split(part, b2, out, M * d, d, S, s) : 0;
+  return 0;
 }
 
-// Splits of the hidden dimension that ln_dwmlp_launch should use.
-int ln_dwmlp_splits(int B, int H, int W, int d, int hid, int* splits) {
-  int KC, HC;
-  if (d % 16 || hid % 16 || !pick_chunks(dwmlp_smem, d, hid, &KC, &HC))
-    return (int)cudaErrorInvalidValue;
-  const long tiles = (long)((H + kT - 1) / kT) * ((W + kT - 1) / kT);
-  return pick_splits(ln_dwmlp_kernel, dwmlp_smem(d, KC, HC), tiles * B, hid / HC, splits);
-}
-
-// K11.  y (B, H, W, d) bf16, already LN'd (eps 1e-6); w1 (hid, d) bf16;
-// b1 (hid) fp32; k3 (hid, 3*3) bf16; c3 (hid) fp32; w2 (d, hid) bf16; b2 (d)
-// fp32; out (B, H, W, d) bf16; `splits` from ln_dwmlp_splits, with scratch
-// part (splits, B, H, W, d) fp32 when it is above 1.  d, hid multiples of 16.
-int ln_dwmlp_launch(const bf16* y, const bf16* w1, const float* b1, const bf16* k3,
-                    const float* c3, const bf16* w2, const float* b2, bf16* out, float* part,
-                    int B, int H, int W, int d, int hid, int splits, void* stream) {
+// K11.  x (B, H, W, d) bf16; ln_w, ln_b (d) fp32 (LayerNorm with eps,
+// folded in); w1 (hid, d) bf16; b1 (hid) fp32; k3 (hid, 3*3) bf16; c3 (hid)
+// fp32; w2 (d, hid) bf16; b2 (d) fp32; out (B, H, W, d) bf16; `splits`
+// (plan[6] of ln_dwmlp_plan), with scratch part (splits, B, H, W, d) fp32
+// when it is above 1; on the wide route (plan[7]) scratch h as K7's:
+// B H W hid + 50 * 64 * ceil(hid / 64) fp32, else unused.  d, hid multiples
+// of 16, d <= 512.
+int ln_dwmlp_launch(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w1,
+                    const float* b1, const bf16* k3, const float* c3, const bf16* w2,
+                    const float* b2, bf16* out, float* part, float* h, int B, int H, int W,
+                    int d, int hid, int splits, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int KC, HC;
-  if (d % 16 || hid % 16 || splits < 1 || !pick_chunks(dwmlp_smem, d, hid, &KC, &HC))
+  DwmlpPlan p;
+  if (B < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (!plan_dwmlp(H, W, d, hid, &p)) {
+    MergedTaps taps{k3, nullptr, nullptr, c3, nullptr, nullptr, nullptr};
+    taps.identity = false;
+    return dwms_route(x, ln_w, ln_b, w1, b1, taps, w2, b2, out, h, part, B, H, W, d, hid,
+                      splits, eps, s);
+  }
+  CUtensorMap map_w1, map_w2;
+  if (!weight_map(&map_w1, w1, hid, d) || !weight_map(&map_w2, w2, d, hid))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = dwmlp_smem(d, KC, HC);
-  cudaError_t e = allow_smem(ln_dwmlp_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);
-  const int nchunks = hid / HC, cps = (nchunks + splits - 1) / splits;
-  const int S = (nchunks + cps - 1) / cps;
-  ln_dwmlp_kernel<<<dim3(tiles, B, S), kThreads, smem, s>>>(
-      y, w1, b1, k3, c3, w2, b2, out, S > 1 ? part : nullptr, H, W, d, hid, KC, HC, cps);
+  const int cps = (p.nchunks + splits - 1) / splits;
+  const int S = (p.nchunks + cps - 1) / cps;
+  TRAMBA_DWMLP_DISPATCH(p.NT, {
+    auto kern = dwmlp_tile_kernel<kNT>;
+    cudaError_t e = allow_smem(kern, p.smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3(p.tiles, B, S), 256, p.smem, s>>>(map_w1, map_w2, x, ln_w, ln_b, b1, k3, c3, b2,
+                                                   out, S > 1 ? part : nullptr, H, W, d, hid,
+                                                   cps, p.stages, eps);
+  });
   TRAMBA_CHECK_LAUNCH();
   return S > 1 ? finish_split(part, b2, out, (long)B * H * W * d, d, S, s) : 0;
 }

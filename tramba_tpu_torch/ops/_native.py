@@ -53,15 +53,16 @@ _SIGNATURES = {
     "ln_mlp_launch": [_P] * 9 + [_L, _I, _I, _I, _P],
     "ln_dwms_mlp_splits": [_I] * 5 + [_IP],
     "ln_dwms_mlp_launch": [_P] * 16 + [_I] * 6 + [_P],
-    "ln_dwmlp_splits": [_I] * 5 + [_IP],
-    "ln_dwmlp_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "ln_dwmlp_plan": [_I] * 5 + [_IP],
+    "ln_dwmlp_launch": [_P] * 12 + [_I] * 6 + [_F, _P],
     "mlp_bwd_scratch": [_I] * 6 + [_LP],
     "mlp_bwd_column_groups": [_I] * 3,
     "ln_mlp_bwd_launch": [_P] * 15 + [_I] * 3 + [_P],
     "ln_dwms_mlp_bwd_launch": [_P] * 27 + [_I] * 5 + [_P],
     "attn_proj_in_launch": [_P] * 4 + [_L, _I, _I, _I, _F, _P],
     "sra_attn_launch": [_P] * 6 + [_I] * 6 + [_P],
-    "window_attn_launch": [_P] * 6 + [_I] * 6 + [_P],
+    "window_attn_plan": [_I] * 7 + [_IP],
+    "window_attn_launch": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "linear_scan_launch": [_P] * 3 + [_I] * 4 + [_P],
 }
 

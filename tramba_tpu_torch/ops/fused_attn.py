@@ -31,6 +31,7 @@ versions (no gradient for the mask).  Weights are in torch layout: Linear
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,7 +40,8 @@ from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_c
 from tramba_tpu_torch.ops.fused_mlp import _linear, _ln_rounded, layer_norm_bf16
 
 __all__ = ["sra", "sra_ref", "sra_fusable", "window_attn", "window_attn_ref",
-           "window_attn_fusable", "attn_plan", "Sra", "WindowAttn"]
+           "window_attn_fusable", "attn_plan", "check_window_attn_shape", "window_attn_plan",
+           "window_smem", "WINDOW_HEAD_WIDTHS", "WINDOW_PLAN_FIELDS", "Sra", "WindowAttn"]
 
 
 def sra_fusable(N: int, C: int, nh: int, Lk: int, dtype) -> bool:
@@ -55,10 +57,19 @@ def window_attn_fusable(H: int, W: int, C: int, nh: int, w: int, dtype) -> bool:
     """Where the JAX package runs ``_wattn_pallas`` on a TPU
     (``window_attn_fusable``, fused_attn.py:187-201, whose VMEM budgets hold
     at every Swin-B width): bf16, whole windows, head width and window size
-    multiples of 8 (so w*w is a multiple of 16).  K13 takes every such shape,
-    its heads padded where needed (:func:`attn_plan`)."""
-    return (dtype == torch.bfloat16 and C % nh == 0 and (C // nh) % 8 == 0
-            and (w * w) % 8 == 0 and H % w == 0 and W % w == 0)
+    multiples of 8 (so w*w is a multiple of 16); and where K13's attention
+    launch holds a window's scores in registers and its rows' merged outputs
+    and two heads' operands in one block's shared memory: at most 144
+    tokens a window (Swin's 12 x 12), heads at most 64 wide (Swin-B's are
+    32) and :func:`window_smem` within 227 KB (Swin-B's stages 1-3, the ones
+    that run; not its C 1024 stage 4).  K13 takes every such shape, its
+    heads padded where needed (:func:`check_window_attn_shape`)."""
+    if not (dtype == torch.bfloat16 and C % nh == 0 and (C // nh) % 8 == 0
+            and C // nh <= 64 and (w * w) % 8 == 0 and w * w <= 144 and H % w == 0
+            and W % w == 0):
+        return False
+    hd16, Cq, _ = attn_plan(C, nh, w * w)
+    return window_smem(Cq, hd16, w * w) <= _SMEM_BLOCK
 
 
 def _scale(hd: int) -> float:
@@ -211,26 +222,82 @@ def _sra_operands(y, wq, bq, k, v, wp, bp, nh):
     return (y, wq, bq, k, v, wp, bp), Cq, Lk16
 
 
-def _window_operands(y, wqkv, bqkv, bias, mask, wp, bp, nh):
-    """K13's operands as the kernels take them, from the LayerNorm's output y
-    (B, H, W, C): (y, wqkv, bqkv, wp, bp) with zero-padded heads where
-    needed, and Cq; raises on shapes K13 cannot take.  Launches nothing."""
-    B, H, W, C = y.shape
+# head widths K13's attention kernel is built for (window_attn_kernel<HD>)
+WINDOW_HEAD_WIDTHS = (16, 32, 48, 64)
+# the plan window_attn_plan reports: the qkv front's (plan_front in
+# csrc/common.cuh) row tiles, hidden groups, chunks a group, ring stages and
+# shared bytes; the attention launch's blocks a window and shared bytes
+WINDOW_PLAN_FIELDS = ("rows", "groups", "cps", "stages", "front_smem", "row_groups", "smem")
+
+
+_SMEM_BLOCK = 227 * 1024  # shared memory one block may use
+
+
+def window_smem(Cq: int, hd16: int, N: int) -> int:
+    """Shared bytes of K13's attention launch (``win_layout`` in
+    ``csrc/attn.cu``): the merged outputs of 48 query rows, two heads'
+    staged q, k, v and bias rows, the mask rows, the halves' exchange, or
+    the projection's ring, whichever is more."""
+    x = -(-Cq // 64) * 48 * 128 + 16 * 128
+    stage = (48 + 2 * N) * (hd16 + 8) * 2 + 48 * (N + 4) * 4
+    heads = 2 * stage + 48 * (N + 4) * 4 + 2 * 4 * 2 * 16 * 4 + 3 * 16 * (hd16 + 8) * 4
+    return 1024 + x + max(heads, 3 * 2 * 64 * 64 * 2)
+
+
+def check_window_attn_shape(B: int, H: int, W: int, C: int, nh: int, w: int) -> tuple:
+    """(hd16, Cq) of a K13 call, or ValueError where the kernels do not take
+    the shape: whole w x w windows of at most 144 tokens, a multiple of 16;
+    C a multiple of 8 (the LayerNorm's rows, 16-byte groups); heads padded
+    to hd16 in :data:`WINDOW_HEAD_WIDTHS` (:func:`attn_plan`); the
+    attention launch's :func:`window_smem` within 227 KB.  No launch."""
+    N = w * w
+    hd16, Cq, N16 = attn_plan(C, nh, N)
+    if (min(B, H, W, w) < 1 or H % w or W % w or N16 != N or N > 144 or C % 8
+            or hd16 not in WINDOW_HEAD_WIDTHS or window_smem(Cq, hd16, N) > _SMEM_BLOCK):
+        raise ValueError(f"window_attn: B={B}, {H}x{W} map of {w}x{w} windows, C={C}, "
+                         f"{nh} heads: whole windows of a multiple of 16 tokens up to 144, C a "
+                         f"multiple of 8, head width padded to one of {WINDOW_HEAD_WIDTHS}, "
+                         "its tiles within one block's shared memory")
+    return hd16, Cq
+
+
+@functools.lru_cache(maxsize=None)
+def _window_plan(device: int, *shape) -> tuple:
+    out = (ctypes.c_int * len(WINDOW_PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        _native.launch("window_attn_plan", *shape, out)
+    return tuple(out)
+
+
+def window_attn_plan(B: int, H: int, W: int, C: int, nh: int, w: int, device: int = 0) -> dict:
+    """The plan the built library makes for a K13 call on CUDA device
+    ``device`` ({field: value} over :data:`WINDOW_PLAN_FIELDS`);
+    ``ops/encoder_stages.window_plan`` is its plain mirror.  No launch."""
+    _, Cq = check_window_attn_shape(B, H, W, C, nh, w)
+    return dict(zip(WINDOW_PLAN_FIELDS, _window_plan(device, B, H, W, C, Cq, nh, w)))
+
+
+def _window_operands(x, wqkv, bqkv, bias, mask, wp, bp, nh):
+    """K13's weights as the kernels take them for x (B, H, W, C): (wqkv,
+    bqkv, wp, bp) with each head's rows zero-padded where needed (wqkv
+    (3 Cq, C): the LayerNorm runs on x's own C columns), Cq and the window
+    side; raises on shapes K13 cannot take.  Launches nothing."""
+    B, H, W, C = x.shape
     N = bias.shape[-1]
     w = int(round(N ** 0.5))
-    hd16, Cq, N16 = attn_plan(C, nh, N)
+    if w * w != N:
+        raise ValueError(f"window_attn: {N} tokens are no square window")
+    hd16, Cq = check_window_attn_shape(B, H, W, C, nh, w)
     nW = (H // w) * (W // w)
-    if (w * w != N or N16 != N or H % w or W % w or tuple(bias.shape) != (nh, N, N)
-            or tuple(wqkv.shape) != (3 * C, C) or bqkv.numel() != 3 * C
-            or tuple(wp.shape) != (C, C) or bp.numel() != C
+    if (tuple(bias.shape) != (nh, N, N) or tuple(wqkv.shape) != (3 * C, C)
+            or bqkv.numel() != 3 * C or tuple(wp.shape) != (C, C) or bp.numel() != C
             or (mask is not None and tuple(mask.shape) != (nW, N, N))):
-        raise ValueError("window_attn: x (B, H, W, C) in whole w x w windows of a multiple of "
-                         "16 tokens, bias (nh, N, N), mask (nW, N, N), wqkv (3C, C), bqkv (3C), "
-                         "wp (C, C), bp (C)")
+        raise ValueError("window_attn: bias (nh, N, N), mask (nW, N, N), wqkv (3C, C), "
+                         "bqkv (3C), wp (C, C), bp (C)")
     if Cq != C:  # zero-padded heads
-        y, wqkv, bqkv = _pad_proj_in(y, wqkv, bqkv, nh, hd16, 3)
+        wqkv, bqkv = _pad_heads(wqkv, nh, hd16, 3).contiguous(), _pad_heads(bqkv, nh, hd16, 3)
         wp, bp = _pad_out_proj(wp, bp, nh, hd16)
-    return (y, wqkv, bqkv, wp, bp), Cq
+    return (wqkv, bqkv.contiguous(), wp, bp), Cq, w
 
 
 def _sra_launch(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps):
@@ -271,13 +338,16 @@ def _window_attn_launch(x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp, nh, eps):
                bqkv=(bqkv, F32), bias=(bias, F32), wp=(wp, BF16), bp=(bp, F32),
                **({} if mask is None else {"mask": (mask, F32)}))
     B, H, W, C = x.shape
-    (y, wqkv, bqkv, wp, bp), Cq = _window_operands(
-        layer_norm_bf16(x, ln_w, ln_b, eps), wqkv, bqkv, bias, mask, wp, bp, nh)
-    qkv = _proj_in(y, wqkv, bqkv, Cq, _scale(C // nh))
+    if ln_w.numel() != C or ln_b.numel() != C:
+        raise ValueError(f"window_attn: LN parameters must have {C} elements")
+    (wqkv, bqkv, wp, bp), Cq, w = _window_operands(x, wqkv, bqkv, bias, mask, wp, bp, nh)
+    qkv = torch.empty(B * H * W, 3 * Cq, device=x.device, dtype=torch.bfloat16)
     out = torch.empty(B, H, W, Cq, device=x.device, dtype=x.dtype)
-    _native.launch("window_attn_launch", qkv.data_ptr(), bias.data_ptr(),
+    _native.launch("window_attn_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                   wqkv.data_ptr(), bqkv.data_ptr(), bias.data_ptr(),
                    None if mask is None else mask.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-                   out.data_ptr(), B, H, W, Cq, nh, int(round(bias.shape[-1] ** 0.5)),
+                   qkv.data_ptr(), out.data_ptr(), B, H, W, C, Cq, nh, w,
+                   ctypes.c_float(_scale(C // nh)), ctypes.c_float(eps),
                    _native.stream_handle(x))
     window_attn.launches += 1
     return out if Cq == C else out[..., :C].contiguous()

@@ -16,7 +16,8 @@ pre-norm into the FFN and keep the wide hidden tensor out of device memory
 * K11 ``ln_dwmlp``: LN (eps 1e-6) -> fc1 -> dw3(h) -> GELU -> fc2 (PVTv2's
   DWConvMlp; the conv replaces h, no identity term).  Its backward is the VJP
   of the plain version (:class:`LnDwMlp`), as ``_dwmlp_bwd`` (:902)
-  differentiates the composed version.
+  differentiates the composed version.  Above d 384 it runs K7's launches
+  with K11's eps and taps (the wide route, ``csrc/mlp.cu``).
 
 The kernels take bf16 activations, and weights cast to x's dtype at the
 call (the modules hand over the fp32 parameters, as flax does); LayerNorm
@@ -52,7 +53,7 @@ from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_c
 
 __all__ = ["layer_norm_bf16", "ln_mlp", "ln_mlp_ref", "check_ln_mlp_shape", "ln_dwms_mlp",
            "ln_dwms_mlp_ref", "check_ln_dwms_mlp_shape", "ln_dwmlp", "ln_dwmlp_ref",
-           "dwmlp_fusable", "ln_mlp_bwd", "ln_mlp_bwd_ref", "check_ln_mlp_bwd_shape",
+           "dwmlp_fusable", "check_ln_dwmlp_shape", "dwmlp_plan", "DWMLP_PLAN_FIELDS", "ln_mlp_bwd", "ln_mlp_bwd_ref", "check_ln_mlp_bwd_shape",
            "mlp_bwd_column_groups",
            "ln_dwms_mlp_bwd", "ln_dwms_mlp_bwd_ref", "LnMlp", "LnDwmsMlp", "LnDwMlp"]
 
@@ -93,8 +94,8 @@ def _split_scratch(x, name: str, *shape):
 
 def layer_norm_bf16(x, ln_w, ln_b, eps=1e-5):
     """bf16 LayerNorm of a CUDA bf16 tensor over its last axis (fp32
-    statistics): the launch that kernels K11-K13 start with (K5, K6, K7, K9
-    and K10 normalise their own rows)."""
+    statistics): the launch that kernel K12 starts with (every other kernel
+    normalises its own rows)."""
     d = x.shape[-1]
     check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
     if ln_w.numel() != d or ln_b.numel() != d:
@@ -154,10 +155,23 @@ def dwmlp_fusable(H: int, W: int, d: int, hid: int, dtype) -> bool:
     """Where the JAX package runs ``_dwmlp_pallas`` on a TPU (``dwmlp_fusable``,
     fused_mlp.py:796-803, whose VMEM budgets hold at every PVTv2-b4 width):
     bf16, W % 8 == 0 (PVT stages 1-3 at 384 px; the 12 px stage 4 runs the
-    composed FFN), d % 8 == 0, hid % 128 == 0 and an even H.  K11 takes every
-    such shape with d % 16 == 0."""
-    return (dtype == torch.bfloat16 and W % 8 == 0 and H % 2 == 0 and d % 8 == 0
-            and hid % 128 == 0)
+    composed FFN; at 512 px stage 4 is 16 px and fused), hid % 128 == 0 and an
+    even H; within those, the widths K11 takes (:func:`check_ln_dwmlp_shape`):
+    d % 16 == 0 and d <= 512, where JAX takes d % 8 == 0 within its weight
+    budget.  Every PVTv2 width (64, 128, 320, 512) is one of them."""
+    return (dtype == torch.bfloat16 and W % 8 == 0 and H % 2 == 0 and d % 16 == 0
+            and 16 <= d <= 512 and hid % 128 == 0)
+
+
+def check_ln_dwmlp_shape(B: int, H: int, W: int, d: int, hid: int) -> None:
+    """Raise ValueError unless K11 takes a (B, H, W, d) map with hidden width
+    hid: d and hid multiples of 16, d from 16 to 512 (up to 384 one launch
+    whose block holds the LN'd halo rows and a chunk's weight boxes; beyond,
+    the wide route of K7's two launches; ``ops/encoder_stages.dwmlp_plan``
+    is the plan).  No launch."""
+    if min(B, H, W) < 1 or d % 16 or hid % 16 or not 16 <= d <= 512 or hid < 16:
+        raise ValueError(f"ln_dwmlp: B={B}, H={H}, W={W} must be positive, d={d} and "
+                         f"hid={hid} multiples of 16, d from 16 to 512")
 
 
 # ---------------------------------------------------------------------------
@@ -363,21 +377,50 @@ def ln_dwmlp(x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps=1e-6):
     return _ln_dwmlp_launch(*args, eps) if on_card(x) else ln_dwmlp_ref(*args, eps)
 
 
+# the plan ln_dwmlp_plan reports (csrc/mlp.cu plan_dwmlp, pick_dwmlp_splits;
+# "wide": 1 where the call runs K7's launches, d above 384)
+DWMLP_PLAN_FIELDS = ("NT", "stages", "per_sm", "smem", "tiles", "nchunks", "splits", "wide")
+
+
+@functools.lru_cache(maxsize=None)
+def _dwmlp_plan(device: int, *shape) -> tuple:
+    out = (ctypes.c_int * len(DWMLP_PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        _native.launch("ln_dwmlp_plan", *shape, out)
+    return tuple(out)
+
+
+def dwmlp_plan(B: int, H: int, W: int, d: int, hid: int, device: int = 0) -> dict:
+    """The plan the built library makes for a K11 call on CUDA device
+    ``device`` ({field: value} over :data:`DWMLP_PLAN_FIELDS`: fc2's output
+    tiles a warpgroup, ring slots, blocks an SM, shared bytes, 8x8 tiles an
+    image, hidden chunks of 64, splits of the chunks, the wide route);
+    ``ops/encoder_stages.dwmlp_plan`` is its plain mirror.  No launch."""
+    check_ln_dwmlp_shape(B, H, W, d, hid)
+    return dict(zip(DWMLP_PLAN_FIELDS, _dwmlp_plan(device, B, H, W, d, hid)))
+
+
 def _ln_dwmlp_launch(x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps):
     cd = x.dtype
     w1, k3, w2 = w1.to(cd), k3.to(cd), w2.to(cd)
-    check_args(x=(x, BF16), w1=(w1, BF16), b1=(b1, F32), k3=(k3, BF16), c3=(c3, F32),
-               w2=(w2, BF16), b2=(b2, F32))
+    check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32), w1=(w1, BF16), b1=(b1, F32),
+               k3=(k3, BF16), c3=(c3, F32), w2=(w2, BF16), b2=(b2, F32))
     d, hid = _mlp_shapes("ln_dwmlp", x, w1, b1, w2, b2)
     if x.dim() != 4 or tuple(k3.shape) != (hid, 1, 3, 3) or c3.numel() != hid:
         raise ValueError("ln_dwmlp: x (B, H, W, d), k3 (hid, 1, 3, 3), c3 (hid)")
+    if ln_w.numel() != d or ln_b.numel() != d:
+        raise ValueError(f"ln_dwmlp: LN parameters must have {d} elements")
     B, H, W, _ = x.shape
-    y = layer_norm_bf16(x, ln_w, ln_b, eps)
+    plan = dwmlp_plan(B, H, W, d, hid, x.device.index)
+    splits = plan["splits"]
     out = torch.empty_like(x)
-    splits, part = _split_scratch(x, "ln_dwmlp_splits", B, H, W, d, hid)
-    _native.launch("ln_dwmlp_launch", y.data_ptr(), w1.data_ptr(), b1.data_ptr(), k3.data_ptr(),
-                   c3.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), part.data_ptr(),
-                   B, H, W, d, hid, splits, _native.stream_handle(x))
+    part = _f32(*((splits, *x.shape) if splits > 1 else (0,)), like=x)
+    # the wide route's fc1 map and merged taps, as K7's
+    h = _f32(B * H * W * hid + 50 * 64 * -(-hid // 64) if plan["wide"] else 0, like=x)
+    _native.launch("ln_dwmlp_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                   w1.data_ptr(), b1.data_ptr(), k3.data_ptr(), c3.data_ptr(), w2.data_ptr(),
+                   b2.data_ptr(), out.data_ptr(), part.data_ptr(), h.data_ptr(), B, H, W, d,
+                   hid, splits, ctypes.c_float(eps), _native.stream_handle(x))
     ln_dwmlp.launches += 1
     return out
 
