@@ -31,7 +31,13 @@ short call; ``--k11-k13`` likewise runs only its checks of K11 ``ln_dwmlp``, K12
 K13 ``window_attn`` (``check_encoder_kernels``), then the same snippet in every tree: the
 three at every shape of Tramba-P's and -S's encoders at B16, with their plain versions, and
 both models' bf16 B16 forward (ms, and the device time by kernel group with each tree's
-own groups). Exits with the first failing run's code.
+own groups); ``--k12-k14`` runs only its checks of K12 ``sra`` (``check_sra``, where the
+tree has it) and K14 ``linear_scan`` (``check_linear_scan``), then the same code in every
+tree: K12 at Tramba-P's shapes at B2 and B16 beside its plain version and PyTorch's own
+chain (LN + cuBLAS + SDPA + cuBLAS), K14 at phase 3's shapes forward and reversed,
+Tramba-P's bf16 B16 forward with its profile, and phase 10's parallel backends (the
+full-width Tramba-V forward at B2 on each, in turns with the default route, and one fp32
+train step of each dry-run phase). Exits with the first failing run's code.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ TIMES = (re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
 # phase 3's line of a tabulated kernel: name, tag, shape, ..., kernel ms, plain
 # ms, bound ms (bound by), and gemm ms where printed
 KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|expand_ln|final_head|prologue|ln_mlp|"
-                     r"ln_dwms_mlp|ln_mlp_bwd|ln_dwms_mlp_bwd|ln_dwmlp|sra|window_attn)"
+                     r"ln_dwms_mlp|ln_mlp_bwd|ln_dwms_mlp_bwd|ln_dwmlp|sra|window_attn|"
+                     r"linear_scan)"
                      r"\s+((?:fp32|bf16)(?: train)?)\s+"
                      r"(\S.*?)\s+max_abs_err .* kernel ([\d.]+) ms plain ([\d.]+) ms "
                      r"bound ([\d.]+) ms \(\w+\)(?: gemm ([\d.]+) ms)?")
@@ -75,7 +82,8 @@ def kernel_times(stdout: str) -> dict:
             out[m[1], m[2], m[3]] = (float(m[4]), float(m[6]),
                                      float(m[7]) if m[7] else float("nan"), float(m[5]))
         elif m := B16.match(line):
-            out[m[1], m[2], m[3]] = (float(m[4]), float("nan"), float("nan"), float(m[5]))
+            out[m[1], m[2], m[3]] = (float(m[4]), float("nan"), float("nan"),
+                                     float(m[5]) if m[5] else float("nan"))
     return out
 
 
@@ -184,10 +192,103 @@ K11_K13 = ("import time, torch, chip_smoke as cs\n"
            "f'{method} bf16 B{B}')\n"
            "    del model, xb\n"
            "    torch.cuda.empty_cache()\n")
-# a line of the K3_K4 or K11_K13 snippet's B16 timing: name, dtype, shape, ms,
-# plain ms
-B16 = re.compile(r"^b16 (expand_ln|final_head|ln_dwmlp|sra|window_attn) (fp32|bf16) (.*?): "
-                 r"([\d.]+) ms, plain ([\d.]+) ms")
+# the phase 3 checks of K12 and K14 alone (--k12-k14; a tree without
+# ``check_sra`` checks K14 only), then the same code in every tree: each
+# tree's ``sra`` at every shape of Tramba-P's encoder at B2 and B16 beside its
+# plain version and PyTorch's own chain (:data:`SRA_LIB`), its
+# ``linear_scan`` at every shape of phase 3, forward and reversed, Tramba-P's
+# bf16 B16 forward with its profile by kernel group (each tree's own groups),
+# and phase 10's parallel backends on an NCCL world of one process: the
+# full-width Tramba-V forward at B2 on each backend in turns with the default
+# route (fp32, bf16), and one fp32 train step at B2 of each dry-run phase
+SRA_LIB = ("def sra_lib(x, g, b, wq, bq, k, v, wp, bp, nh, eps=1e-6):\n"
+           "    F = torch.nn.functional\n"
+           "    B, N, C = x.shape\n"
+           "    y = F.layer_norm(x, (C,), g.to(bf), b.to(bf), eps)\n"
+           "    q = F.linear(y, wq, bq.to(bf)).reshape(B, N, nh, C // nh).transpose(1, 2)\n"
+           "    o = F.scaled_dot_product_attention(q, k, v)\n"
+           "    return F.linear(o.transpose(1, 2).reshape(B, N, C), wp, bp.to(bf))\n")
+K12_K14 = ("import tempfile, time, torch, chip_smoke as cs\n"
+           "import torch.distributed as dist\n"
+           "from tramba_tpu_torch import dryrun\n"
+           "from tramba_tpu_torch.models.registry import build\n"
+           "from tramba_tpu_torch.ops import fused_attn as ta, selective_scan as ts\n"
+           "from tramba_tpu_torch.parallel.mesh import make_grid\n"
+           "from tramba_tpu_torch.parallel.seq_scan import use_sequence_group\n"
+           "from tramba_tpu_torch.parallel.tp import use_tensor_group\n"
+           "torch.backends.cuda.matmul.allow_tf32 = False\n"
+           "torch.backends.cudnn.allow_tf32 = False\n"
+           "checks, gen, dev = cs.Checks(), torch.Generator().manual_seed(0), torch.device('cuda')\n"
+           "if hasattr(cs, 'check_sra'):\n"
+           "    cs.check_sra(checks, dev, gen)\n"
+           "cs.check_linear_scan(checks, dev, gen)\n"
+           "card, bf = cs.card_line(), torch.bfloat16\n"
+           "def rnd(*shape, scale=1.0, shift=0.0):\n"
+           "    return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)\n"
+           + SRA_LIB +
+           "for B in (2, 16):\n"
+           "    for H, C, nh in cs.K12_SHAPES:\n"
+           "        args = (rnd(B, H * H, C, scale=2.0).to(bf), rnd(C, scale=0.1, shift=1.0), "
+           "rnd(C, scale=0.1), rnd(C, C, scale=C ** -0.5).to(bf), rnd(C, scale=0.1), "
+           "rnd(B, nh, 144, C // nh).to(bf), rnd(B, nh, 144, C // nh).to(bf), "
+           "rnd(C, C, scale=C ** -0.5).to(bf), rnd(C, scale=0.1))\n"
+           "        ms = cs.cuda_ms(lambda: ta.sra(*args, nh), 20, warmup=2)\n"
+           "        pms = cs.cuda_ms(lambda: ta.sra_ref(*args, nh), 3, warmup=1)\n"
+           "        lms = cs.cuda_ms(lambda: sra_lib(*args, nh), 20, warmup=2)\n"
+           "        print(f'time sra bf16 {H}px B{B} C{C} nh{nh}: {ms:.4f} ms, plain {pms:.4f} ms, '\n"
+           "              f'lib {lms:.4f} ms [{card}]', flush=True)\n"
+           "del args\n"
+           "for label, R, L, C in cs.LINEAR_SCAN_SHAPES:\n"
+           "    a, b = cs.scan_inputs(gen, R, L, C, dev)\n"
+           "    for rev in (False, True):\n"
+           "        ms = cs.cuda_ms(lambda: ts.linear_scan(a, b, rev), 20, warmup=2)\n"
+           "        print(f'time linear_scan fp32 {label} B4 {\"rev\" if rev else \"fwd\"}: '\n"
+           "              f'{ms:.4f} ms [{card}]', flush=True)\n"
+           "    del a, b\n"
+           "model = build('Tramba-P-TSOD', 384, device=dev, seed=0, dtype=bf)\n"
+           "xb = torch.randn(16, 384, 384, 3, generator=gen).to(dev)\n"
+           "with torch.no_grad():\n"
+           "    ms = cs.cuda_ms(lambda: model(xb), 5, warmup=2)\n"
+           "    print(f'Tramba-P-TSOD 384px bf16 B16: {ms:.2f} ms/forward [{card}]', flush=True)\n"
+           "    t0 = time.perf_counter()\n"
+           "    for _ in range(3):\n"
+           "        model(xb)\n"
+           "    torch.cuda.synchronize()\n"
+           "cs.profile_breakdown(lambda: model(xb), (time.perf_counter() - t0) / 3 * 1e3, "
+           "'Tramba-P-TSOD bf16 B16')\n"
+           "del model, xb\n"
+           "torch.cuda.empty_cache()\n"
+           "x2 = torch.randn(2, 384, 384, 3, generator=gen).to(dev)\n"
+           "with tempfile.TemporaryDirectory() as tmp:\n"
+           "    dist.init_process_group('nccl', init_method=f'file://{tmp}/rv', world_size=1, "
+           "rank=0)\n"
+           "    grid = make_grid(1, 1)\n"
+           "    with torch.no_grad(), use_tensor_group(grid.model), use_sequence_group(grid.seq):\n"
+           "        for dt in (torch.float32, bf):\n"
+           "            default = build('Tramba-V-TSOD', 384, device=dev, seed=0, dtype=dt)\n"
+           "            for backend in cs.BACKENDS:\n"
+           "                m = build('Tramba-V-TSOD', 384, device=dev, seed=None, dtype=dt, "
+           "ssm_backend=backend)\n"
+           "                m.load_state_dict(default.state_dict())\n"
+           "                ms = [cs.cuda_ms(lambda: f(x2), 3) for f in (default, m, m, default)]\n"
+           "                print(f'Tramba-V-TSOD 384px {cs.NAMES[dt]} B2 forward: {backend} '\n"
+           "                      f'{ms[1]:.2f} / {ms[2]:.2f} ms, default route {ms[0]:.2f} / '\n"
+           "                      f'{ms[3]:.2f} ms [{card}]', flush=True)\n"
+           "                del m\n"
+           "            del default\n"
+           "            torch.cuda.empty_cache()\n"
+           "    def on_step(name, model, step):\n"
+           "        step()\n"
+           "        ms = cs.cuda_ms(step, reps=3)\n"
+           "        print(f'dry-run phase {name}: fp32 train step B2 {ms:.2f} ms/step [{card}]', "
+           "flush=True)\n"
+           "    dryrun.run_phases(dev, img_size=384, batch=2, min_l=4096, model_kw={}, "
+           "on_step=on_step)\n"
+           "    dist.destroy_process_group()\n")
+# a line of the K3_K4, K11_K13 or K12_K14 snippet's timing: name, dtype, shape,
+# ms, plain ms
+B16 = re.compile(r"^(?:b16|time) (expand_ln|final_head|ln_dwmlp|sra|window_attn|linear_scan) "
+                 r"(fp32|bf16) (.*?): ([\d.]+) ms(?:, plain ([\d.]+) ms)?")
 
 
 def main(argv=None) -> int:
@@ -204,6 +305,10 @@ def main(argv=None) -> int:
     short.add_argument("--k11-k13", action="store_true",
                        help="run only phase 3's K11-K13 checks of each tree, time them at "
                             "B16, and time and profile Tramba-P's and -S's bf16 B16 forwards")
+    short.add_argument("--k12-k14", action="store_true",
+                       help="run only phase 3's K12 / K14 checks of each tree, time them at "
+                            "B2 and B16, time and profile Tramba-P's bf16 B16 forward and "
+                            "time phase 10's parallel backends")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -215,7 +320,7 @@ def main(argv=None) -> int:
         root = os.path.abspath(tree)
         cmd = (["-c", FFN_BWD] if args.ffn_bwd else ["-c", K5_K10] if args.k5_k10
                else ["-c", K3_K4] if args.k3_k4 else ["-c", K11_K13] if args.k11_k13
-               else [os.path.join(root, "chip_smoke.py")])
+               else ["-c", K12_K14] if args.k12_k14 else [os.path.join(root, "chip_smoke.py")])
         res = subprocess.run([sys.executable, *cmd], cwd=root, capture_output=True, text=True,
                              timeout=1500)
         if args.logs:

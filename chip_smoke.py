@@ -15,16 +15,19 @@ Phases, each of which must pass (any failure exits non-zero):
                bias and output bias 0, each shape also holding its plain
                version with a planted fault (K11 centre tap only; K12
                uniform softmax; K13 no bias, uniform softmax, no mask) to
-               the same check, which it must fail; K11 and K13 also
+               the same check, which it must fail; K11, K12 and K13 also
                launched twice and compared bit for bit, with their native
                launches a call (K11 1, or 2 where its plan splits the
-               hidden chunks; K13 2, no LayerNorm launch), the library's
-               plans equal to ops/encoder_stages.py's, whose mirrors of
-               their splits pass the check at B2 and fail it with each
-               planted fault that bears (K11: h not zero outside the image,
-               the halo cut at the tile edge, no last chunk, no last split;
-               K13: window 0's mask on every window, every row group's
-               queries from row 0, heads swapped in the merged row), each
+               hidden chunks; K12 1 and K13 2, no LayerNorm launch), the
+               library's plans equal to ops/encoder_stages.py's, whose
+               mirrors of their splits pass the check at B2 and fail it
+               with each planted fault that bears (K11: h not zero outside
+               the image, the halo cut at the tile edge, no last chunk, no
+               last split; K12: head slices swapped in the merged row, row
+               tiles from row 0, padded keys not masked, no second key
+               pass; K13: window 0's mask on every window, every row
+               group's queries from row 0, heads swapped in the merged
+               row), K12 also at PVT stage 3's 512 px shape (256 keys), each
                timed beside the same function as PyTorch's own calls
                ("lib": a yardstick the port never calls); K1-K4 (fp32,
                bf16) and K5-K7 at Tramba-P's decoder widths 320/128/64 and
@@ -40,9 +43,16 @@ Phases, each of which must pass (any failure exits non-zero):
                the largest magnitude of each output); K14 linear_scan in fp32,
                forward and reversed, at the shapes the parallel layer
                launches (the tensor-parallel core at 96/48/24/12 px, the
-               decoder's K = 8 line core, an SS2D of d_state 16), each with
-               L > 256 also holding the plain version with the carry dropped
-               between 256-row chunks, which must fail; K1 at B1 and K8 at
+               decoder's K = 8 line core, an SS2D of d_state 16) and at a
+               ragged shape (L and C no multiple of the segment and of the
+               block's channels), each launched twice and compared bit for
+               bit, with one native launch a call and the library's plan
+               equal to ops/scan_segments.py's, whose mirror at the
+               kernel's segments passes the check; each with L > 256 also
+               holding the plain version with the carry dropped between
+               256-row chunks, and the mirror with the carry dropped
+               between segments or the running product of a taken over a
+               walker's whole rows, which must fail; K1 at B1 and K8 at
                B4 (the forward's and the train step's batches) at the
                96 px raster and line SS2Ds, fp32 and bf16, each launched
                twice and compared bit for bit, with the segment mirror
@@ -1131,7 +1141,7 @@ def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
     the kernels' split passes the check and, with each planted fault that
     bears on the shape, fails it; each printed beside its function as
     PyTorch's own calls ("lib": :func:`dwmlp_lib`, :func:`window_attn_lib`,
-    a yardstick the port never calls)."""
+    a yardstick the port never calls).  K12: :func:`check_sra`."""
     from tramba_tpu_torch.models.swin import shift_attn_mask
     from tramba_tpu_torch.ops import encoder_stages as es
     from tramba_tpu_torch.ops import fused_attn as ta
@@ -1187,20 +1197,6 @@ def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
                                for f in es.dwmlp_faults(plan)})
             checks.planted("ln_dwmlp", label, want, faults)
             del want
-        for H, C, nh in K12_SHAPES:
-            Lk, M = 144, B * H * H
-            k, v = (rnd(B, nh, Lk, C // nh).to(bf) for _ in range(2))
-            x, (g, b), wq, bq, wp = rnd(B, H * H, C, scale=2.0).to(bf), ln(C), dense(C, C), \
-                rnd(C, scale=0.1), dense(C, C)
-            args = (x, g, b, wq, bq, k, v, wp, zeros(C))
-            label = f"{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}"
-            checks.compare("sra", bf, label, lambda: ta.sra(*args, nh),
-                           lambda: ta.sra_ref(*args, nh), reps=10, inputs=args,
-                           flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C,
-                                     6 * M * nh * Lk + 10 * M * C))
-            checks.planted("sra", label, ta.sra_ref(*args, nh), {  # q = 0: uniform over the keys
-                "uniform softmax": lambda: ta.sra_ref(x, g, b, zeros(C, C, dtype=bf), zeros(C),
-                                                      k, v, wp, zeros(C), nh)})
         for H, C, nh in K13_SHAPES:
             N, M, nW = 144, B * H * H, (H // 12) ** 2
             bias = rnd(nh, N, N)
@@ -1248,6 +1244,80 @@ def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
                 checks.planted("window_attn", label, want, faults)
                 del want
         torch.cuda.empty_cache()
+    check_sra(checks, dev, gen, batches)
+
+
+def sra_lib(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps=1e-6):
+    """K12's function as PyTorch's own bf16 calls (a yardstick only):
+    F.layer_norm, a cuBLAS linear, SDPA over the heads, a linear."""
+    F, bf = torch.nn.functional, torch.bfloat16
+    B, N, C = x.shape
+    y = F.layer_norm(x, (C,), ln_w.to(bf), ln_b.to(bf), eps)
+    q = F.linear(y, wq, bq.to(bf)).reshape(B, N, nh, C // nh).transpose(1, 2)
+    o = F.scaled_dot_product_attention(q, k, v)
+    return F.linear(o.transpose(1, 2).reshape(B, N, C), wp, bp.to(bf))
+
+
+# K12 beyond the 384 px shapes: PVT stage 3 at 512 px (its 32 px map over 256
+# reduced keys: the one-pass route's widest key count), at B2
+K12_SHAPES_512 = ((32, 320, 5, 256),)
+
+
+def check_sra(checks, dev, gen, batches=(2, 16)):
+    """K12 sra against its plain version in bf16 at every shape of
+    :data:`K12_SHAPES` (144 keys) at each batch of ``batches``, and at
+    :data:`K12_SHAPES_512` at the first: weights at fan-in scale, output
+    bias 0; timed beside :func:`sra_lib` ("lib", PyTorch's own LN + cuBLAS
+    + SDPA + cuBLAS, a yardstick the port never calls); two launches give
+    the same bits; one native launch a call (no LayerNorm launch); the
+    library's plan is ops/encoder_stages.sra_plan's; the plain version with
+    q = 0 (uniform softmax) must fail the check, and at the first batch the
+    mirror of the kernel's tiling (``sra_tiled_ref``) passes it and, with
+    each planted fault that bears on the shape, fails it."""
+    from tramba_tpu_torch.ops import encoder_stages as es
+    from tramba_tpu_torch.ops import fused_attn as ta
+
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+
+    shapes = [(B, H, C, nh, 144) for B in batches for H, C, nh in K12_SHAPES]
+    shapes += [(batches[0], H, C, nh, Lk) for H, C, nh, Lk in K12_SHAPES_512]
+    for B, H, C, nh, Lk in shapes:
+        M = B * H * H
+        k, v = (rnd(B, nh, Lk, C // nh).to(bf) for _ in range(2))
+        x, g, b = rnd(B, H * H, C, scale=2.0).to(bf), rnd(C, scale=0.1, shift=1.0), rnd(
+            C, scale=0.1)
+        wq, bq, wp = rnd(C, C, scale=C ** -0.5).to(bf), rnd(C, scale=0.1), rnd(
+            C, C, scale=C ** -0.5).to(bf)
+        zero = torch.zeros(C, device=dev)
+        args = (x, g, b, wq, bq, k, v, wp, zero)
+        label = f"{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}"
+        checks.compare("sra", bf, label, lambda: ta.sra(*args, nh),
+                       lambda: ta.sra_ref(*args, nh), reps=10, inputs=args,
+                       flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C, 6 * M * nh * Lk + 10 * M * C),
+                       lib=lambda: sra_lib(*args, nh))
+        if not torch.equal(ta.sra(*args, nh), ta.sra(*args, nh)):
+            raise AssertionError(f"sra {label}: two launches differ")
+        n = native_launches(lambda: ta.sra(*args, nh))
+        plan = ta.sra_plan(B, H * H, C, nh, Lk, x.device.index)
+        print(f"sra             {label}: {n:g} native launches a call; {plan}", flush=True)
+        if n != 1:
+            raise AssertionError(f"sra {label}: {n} native launches a call, not 1")
+        if plan != es.sra_plan(B, H * H, C, nh, Lk):
+            raise AssertionError(f"sra {label}: the library's plan {plan} is not the mirror's")
+        want = ta.sra_ref(*args, nh)
+        faults = {"uniform softmax": lambda: ta.sra_ref(  # q = 0: uniform over the keys
+            x, g, b, torch.zeros_like(wq), zero, k, v, wp, zero, nh)}
+        if B == batches[0]:
+            tiled = functools.partial(es.sra_tiled_ref, *args, nh, plan=plan)
+            torch.testing.assert_close(tiled().float(), want.float(), **KERNEL_TOL_BF16)
+            faults.update({f: functools.partial(tiled, fault=f)
+                           for f in es.sra_faults(plan, H * H, nh, Lk)})
+        checks.planted("sra", label, want, faults)
+        del want, args, x, k, v
+    torch.cuda.empty_cache()
 
 
 # K14 at the shapes the parallel layer launches, (label, R = B x K, L, C) at
@@ -1269,28 +1339,59 @@ def scan_inputs(gen, R, L, C, dev):
     return torch.exp(-delta).to(dev), b.to(dev)
 
 
+# K14 at a ragged shape: L no multiple of the 256-row segment, C none of the
+# block's 32 channels (nor of 4: the copies of one element)
+LINEAR_SCAN_RAGGED = ("ragged", 3, 1000, 203)
+
+
 def check_linear_scan(checks, dev, gen):
-    """K14 against linear_scan_ref at every shape, fp32, forward and
-    reversed; where L > 256 the plain version with the carry dropped between
-    256-row chunks (the chunking of JAX's ``_linear_scan_pallas``) must fail
-    the same check."""
+    """K14 against linear_scan_ref at every shape of :data:`LINEAR_SCAN_SHAPES`
+    and :data:`LINEAR_SCAN_RAGGED`, fp32, forward and reversed: two launches
+    give the same bits; one native launch a call; the plan the library
+    reports is ops/scan_segments.linear_scan_plan's, and the mirror of its
+    segments (``linear_scan_segmented``) passes the same check.  Where L >
+    256 the plain version with the carry dropped between 256-row chunks (the
+    chunking of JAX's ``_linear_scan_pallas``) must fail the check, and so
+    must the mirror with each of its planted faults that bears on the shape
+    (the carry dropped between the kernel's segments; the running product
+    of a taken over a walker's whole rows)."""
+    from tramba_tpu_torch.ops import scan_segments as sm
     from tramba_tpu_torch.ops import selective_scan as ts
 
     def no_carry(a, b, rev):
         return torch.cat([ts.linear_scan_ref(a[:, t:t + 256], b[:, t:t + 256], rev)
                           for t in range(0, a.shape[1], 256)], dim=1)
 
-    for label, R, L, C in LINEAR_SCAN_SHAPES:
+    for label, R, L, C in (*LINEAR_SCAN_SHAPES, LINEAR_SCAN_RAGGED):
         a, b = scan_inputs(gen, R, L, C, dev)
+        plan = ts.linear_scan_plan(R, L, C, a.device.index)
+        if plan != sm.linear_scan_plan(R, L, C):
+            raise AssertionError(f"linear_scan {label}: the library's plan {plan} is not the "
+                                 "mirror's")
         for rev in (False, True):
             tag = f"{label} B4 {'rev' if rev else 'fwd'} ({R}, {L}, {C})"
             checks.compare("linear_scan", torch.float32, tag,
                            lambda: ts.linear_scan(a, b, rev), lambda: ts.linear_scan_ref(a, b, rev),
                            reps=5, inputs=(a, b), flops=ops(torch.float32, 0, 2 * a.numel()),
                            plain_warmup=0)
+            if not torch.equal(ts.linear_scan(a, b, rev), ts.linear_scan(a, b, rev)):
+                raise AssertionError(f"linear_scan {tag}: two launches differ")
+            n = native_launches(lambda: ts.linear_scan(a, b, rev))
+            if n != 1:
+                raise AssertionError(f"linear_scan {tag}: {n} native launches a call, not 1")
+            want = ts.linear_scan_ref(a, b, rev)
+            mirror = functools.partial(sm.linear_scan_segmented, a, b, rev, plan["seg"],
+                                       plan["parts"])
+            torch.testing.assert_close(mirror(), want, **KERNEL_TOL)
+            print(f"linear_scan     {tag}: 1 native launch a call; {plan}; the segment mirror "
+                  "passes", flush=True)
+            faults = {f: functools.partial(mirror, fault=f)
+                      for f in sm.linear_scan_faults(L, plan["seg"], plan["parts"])}
             if L > 256:
-                checks.planted("linear_scan", tag, ts.linear_scan_ref(a, b, rev),
-                               {"no chunk carry": lambda: no_carry(a, b, rev)}, tol=KERNEL_TOL)
+                faults["no chunk carry"] = lambda: no_carry(a, b, rev)
+            if faults:
+                checks.planted("linear_scan", tag, want, faults, tol=KERNEL_TOL)
+            del want
         del a, b
 
 
@@ -1425,9 +1526,7 @@ GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
           ("dwmlp_tile_kernel", "K11 ln_dwmlp"),
           ("ln_fc_kernel<3>", "K13 window_attn, (i) LN and qkv projection"),
           ("window_attn_kernel", "K13 window_attn, (ii) attention and out projection"),
-          ("proj_in_kernel", "K12 sra, (1) q projection"),
-          ("attn_kernel", "K12 sra, (2) attention and out projection"),
-          ("ln_rows_kernel", "LayerNorm launch of K12"),
+          ("sra_kernel", "K12 sra"),
           ("finish_split_kernel", "split sums of K6/K7/K11"),
           ("layer_norm", "LayerNorm (torch)"), ("softmax", "softmax (torch)"),
           ("dgrad", "conv backward (cuDNN)"), ("wgrad", "conv backward (cuDNN)"),
@@ -1695,7 +1794,8 @@ def run_graft_entry_point(tmp, method):
     pre = os.path.join(tmp, "pretrained")
     os.makedirs(pre)
     path = os.path.join(pre, run._PRETRAINED[method.split("-")[1]])
-    torch.save(upstream_encoder_state_dict(build(method, 384, seed=7, **cut)), path)
+    torch.save(upstream_encoder_state_dict(build(method, 384, device="cpu", seed=7, **cut)),
+               path)
     data = os.path.join(tmp, "data")
     write_tsod(data, {"Train": 8}, seed=5)
     flags = ["--method", method, "--data_root", data, "--batch_size", "4", "--save_model",

@@ -205,7 +205,8 @@ def test_gate_admitted_shapes_pass_the_kernel_shape_checks():
     """Walk the shapes ``sra_fusable`` / ``window_attn_fusable`` admit (C,
     head width and keys multiples of 8) through the wrappers' operand
     preparation, which launches nothing: none raises, and each hands the
-    kernels multiples of 16."""
+    kernels heads padded to their widths (K12: multiples of 64, the keys as
+    they are; K13: multiples of 16)."""
     bf = torch.bfloat16
     seen = 0
     for C in range(8, 161, 8):
@@ -216,12 +217,11 @@ def test_gate_admitted_shapes_pass_the_kernel_shape_checks():
                     continue
                 y = torch.zeros(1, 16, C)
                 k = torch.zeros(1, nh, Lk, hd)
-                (y2, wq, bq, k2, v2, wp, bp), Cq, Lk16 = ta._sra_operands(
+                (wq, bq, k2, v2, wp, bp), Cq = ta._sra_operands(
                     y, torch.zeros(C, C), torch.zeros(C), k, k.clone(), torch.zeros(C, C),
                     torch.zeros(C), nh)
-                assert Cq % 16 == 0 and Cq >= C and Lk16 % 16 == 0 and Lk16 >= Lk
-                assert y2.shape[-1] % 16 == 0 and k2.shape[-1] % 16 == 0 and tuple(wp.shape) == (
-                    Cq, Cq)
+                assert Cq % 64 == 0 and Cq >= C and tuple(k2.shape) == (1, nh, Lk, Cq // nh)
+                assert tuple(wq.shape) == (Cq, C) and tuple(wp.shape) == (C, Cq)
                 seen += 1
             for w in (4, 8, 12):
                 if not ta.window_attn_fusable(2 * w, 2 * w, C, nh, w, bf):
@@ -249,8 +249,10 @@ def _heads_fp32(q, k, v, nh, add=None):
 
 def test_padded_operands_compute_the_plain_function():
     """At C = 40, head width 8 and 24 keys, the padded operands, run through
-    the kernels' arithmetic in fp32 (keys from 24 on masked), give the plain
-    versions' outputs: the zero heads and masked keys change nothing."""
+    the kernels' arithmetic in fp32 (K12: heads padded to 64, the keys to a
+    tile of 64 with zeros masked from 24 on; K13: heads padded to 16), give
+    the plain versions' outputs: the zero heads and masked keys change
+    nothing."""
     rng = np.random.default_rng(12)
     C, nh, Lk, N = 40, 5, 24, 48
     f = np.float32
@@ -261,14 +263,16 @@ def test_padded_operands_compute_the_plain_function():
     k, v = (_t(rng.normal(size=(2, nh, Lk, C // nh)).astype(f)) for _ in range(2))
     want = ta.sra_ref(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh)
     y = torch.nn.functional.layer_norm(x, (C,), ln_w, ln_b, 1e-6)
-    (y2, wq2, bq2, k2, v2, wp2, bp2), Cq, Lk16 = ta._sra_operands(y, wq, bq, k, v, wp, bp, nh)
-    assert (Cq, Lk16) == (80, 32)
-    q = (y2 @ wq2.t() + bq2) * (C // nh) ** -0.5
-    mask = torch.zeros(Lk16)
+    (wq2, bq2, k2, v2, wp2, bp2), Cq = ta._sra_operands(y, wq, bq, k, v, wp, bp, nh)
+    Lk64 = 64  # the kernel's key tile: zero keys past Lk, masked
+    assert (Cq, tuple(k2.shape)) == (320, (2, nh, Lk, 64))
+    q = (y @ wq2.t() + bq2) * (C // nh) ** -0.5
+    mask = torch.zeros(Lk64)
     mask[Lk:] = float("-inf")
-    merge = (lambda t: t.transpose(1, 2).reshape(2, Lk16, Cq))
+    merge = (lambda t: torch.nn.functional.pad(t, (0, 0, 0, Lk64 - Lk)).transpose(1, 2).reshape(
+        2, Lk64, Cq))
     o = _heads_fp32(q, merge(k2), merge(v2), nh, mask)
-    torch.testing.assert_close((o @ wp2.t() + bp2)[..., :C], want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(o @ wp2.t() + bp2, want, rtol=1e-5, atol=1e-5)
 
     w, H = 4, 8
     xw = _t(rng.normal(size=(2, H, H, C)).astype(f))

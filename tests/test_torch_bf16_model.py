@@ -41,7 +41,7 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def tiny_bf16():
-    return build("Tramba-V-TSOD", IMG, seed=0, dtype=torch.bfloat16, **TINY)
+    return build("Tramba-V-TSOD", IMG, device="cpu", seed=0, dtype=torch.bfloat16, **TINY)
 
 
 def _image():
@@ -69,7 +69,7 @@ def test_bf16_model_keeps_fp32_parameters(tiny_bf16):
     """Parameters stay fp32, as flax keeps them: one state dict serves both
     dtypes, and the fp32 and bf16 builds from one seed hold the same weights."""
     assert all(p.dtype == torch.float32 for p in tiny_bf16.parameters())
-    fp32 = build("Tramba-V-TSOD", IMG, seed=0, **TINY).state_dict()
+    fp32 = build("Tramba-V-TSOD", IMG, device="cpu", seed=0, **TINY).state_dict()
     bf16 = tiny_bf16.state_dict()
     assert fp32.keys() == bf16.keys()
     assert all(torch.equal(fp32[k], bf16[k]) for k in fp32)
@@ -93,7 +93,7 @@ def test_new_wrappers_run_at_every_site_in_bf16_only(monkeypatch, dtype, factor)
     spy(fused_prologue, "prologue")
     spy(fused_mlp, "ln_mlp")
     spy(fused_mlp, "ln_dwms_mlp")
-    model = build("Tramba-V-TSOD", IMG, seed=0, dtype=dtype, **TINY)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=0, dtype=dtype, **TINY)
     with torch.no_grad():
         outs = model(torch.from_numpy(_image()))
     assert all(o.dtype == dtype for o in outs)
@@ -102,4 +102,4 @@ def test_new_wrappers_run_at_every_site_in_bf16_only(monkeypatch, dtype, factor)
 
 def test_build_refuses_other_dtypes():
     with pytest.raises(ValueError, match="compute dtype"):
-        build("Tramba-V-TSOD", IMG, seed=0, dtype=torch.float16, **TINY)
+        build("Tramba-V-TSOD", IMG, device="cpu", seed=0, dtype=torch.float16, **TINY)

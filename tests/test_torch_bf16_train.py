@@ -59,7 +59,7 @@ def test_tiny_bf16_model_loss_and_grads_match_jax():
     pass), depths 1, 64 px, eval mode (no stochastic depth, as
     deterministic=True): the port's plain bf16 autograd against
     jax.value_and_grad of TrambaV(dtype=bfloat16, ssm_backend="pallas")."""
-    model = build("Tramba-V-TSOD", IMG, seed=0, dtype=torch.bfloat16, **TINY)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=0, dtype=torch.bfloat16, **TINY)
     params = convert_tramba_v(state_dict_to_numpy(model.state_dict()),
                               enc_depths=TINY["enc_depths"], dec_depths=TINY["dec_depths"])
     rng = np.random.default_rng(0)

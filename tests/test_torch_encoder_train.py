@@ -79,7 +79,7 @@ def test_init_model_grafts_the_upstream_encoder(enc, tmp_path):
     """The encoder of an upstream checkpoint lands on the port's names and
     nothing else moves; a checkpoint of another width is fatal unless
     --allow_random_init."""
-    src = build(METHOD[enc], IMG, seed=3, enc_config=CUT[enc], dec_depths=DEC)
+    src = build(METHOD[enc], IMG, device="cpu", seed=3, enc_config=CUT[enc], dec_depths=DEC)
     torch.save(upstream_encoder_state_dict(src), tmp_path / "enc.pth")
     model = _tiny(enc, torch.float32)
     dec_before = model.state_dict()["decoder.seg_layers.0.weight"].clone()
@@ -93,7 +93,7 @@ def test_init_model_grafts_the_upstream_encoder(enc, tmp_path):
     assert torch.equal(got["decoder.seg_layers.0.weight"], dec_before)
     wide = {"swin": dict(CUT["swin"], embed_dim=96),
             "pvt": dict(CUT["pvt"], embed_dims=(64, 64, 128, 192))}[enc]
-    other = build(METHOD[enc], IMG, seed=0, enc_config=wide, dec_depths=DEC)
+    other = build(METHOD[enc], IMG, device="cpu", seed=0, enc_config=wide, dec_depths=DEC)
     with pytest.raises(RuntimeError, match="allow_random_init"):
         init_model(args, other)
     args.allow_random_init = True

@@ -89,7 +89,7 @@ def _image(seed=0):
 
 
 def _tiny(enc, dtype):
-    return build(METHOD[enc], IMG, seed=0, dtype=dtype, enc_config=CUT[enc], dec_depths=DEC)
+    return build(METHOD[enc], IMG, device="cpu", seed=0, dtype=dtype, enc_config=CUT[enc], dec_depths=DEC)
 
 
 @pytest.mark.parametrize("enc", ["swin", "pvt"])
@@ -127,7 +127,7 @@ def test_weights_round_trip_and_strict_load(enc):
     assert got.keys() == want.keys()
     for k in want:
         assert got[k].shape == want[k].shape and np.array_equal(got[k], want[k]), k
-    model = build(METHOD[enc], IMG, seed=None, enc_config=CUT[enc], dec_depths=DEC)
+    model = build(METHOD[enc], IMG, device="cpu", seed=None, enc_config=CUT[enc], dec_depths=DEC)
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)
 
@@ -140,7 +140,7 @@ def test_full_width_state_dict_round_trips_through_convert_tramba_enc(enc):
     built without the seeded draws (``seed=None``) and each parameter filled
     with distinct values by position, which any transposed or swapped leaf
     would change."""
-    model = build(METHOD[enc], 384, seed=None)
+    model = build(METHOD[enc], 384, device="cpu", seed=None)
     with torch.no_grad():
         for i, p in enumerate(model.parameters()):
             p.copy_(torch.arange(p.numel(), dtype=torch.float32).view_as(p) * 1e-6 + i)
@@ -164,13 +164,13 @@ def test_load_checkpoint_drops_what_the_converter_ignores(tmp_path):
     sd["encoder.layers.0.blocks.0.attn.relative_position_index"] = torch.zeros(16, 16)
     sd["encoder.layers.3.blocks.0.mlp.fc1.weight"] = torch.zeros(4, 4)
     torch.save(sd, tmp_path / "ref.pth")
-    model = build("Tramba-S-TSOD", IMG, seed=None, enc_config=CUT["swin"], dec_depths=DEC)
+    model = build("Tramba-S-TSOD", IMG, device="cpu", seed=None, enc_config=CUT["swin"], dec_depths=DEC)
     load_checkpoint(model, str(tmp_path / "ref.pth"))
     assert all(torch.equal(model.state_dict()[k], v) for k, v in tiny.state_dict().items())
     torch.save({**sd, "encoder.norm.weight": torch.zeros(4)}, tmp_path / "extra.pth")
     with pytest.raises(RuntimeError, match="encoder.norm.weight"):
         load_checkpoint(model, str(tmp_path / "extra.pth"))
-    pvt = build("Tramba-P-TSOD", IMG, seed=None, enc_config=CUT["pvt"], dec_depths=DEC)
+    pvt = build("Tramba-P-TSOD", IMG, device="cpu", seed=None, enc_config=CUT["pvt"], dec_depths=DEC)
     torch.save({**_tiny("pvt", torch.float32).state_dict(),
                 "encoder.layers.3.blocks.0.mlp.fc1.weight": torch.zeros(4)}, tmp_path / "p.pth")
     with pytest.raises(RuntimeError, match="layers.3.blocks"):
@@ -186,8 +186,8 @@ def test_registry_builds_the_encoder_variants(method):
 
     enc = "swin" if "-S-" in method else "pvt"
     assert method in METHODS
-    fp32 = build(method, IMG, seed=0, enc_config=CUT[enc], dec_depths=DEC)
-    bf16 = build(method, IMG, seed=0, dtype=torch.bfloat16, enc_config=CUT[enc],
+    fp32 = build(method, IMG, device="cpu", seed=0, enc_config=CUT[enc], dec_depths=DEC)
+    bf16 = build(method, IMG, device="cpu", seed=0, dtype=torch.bfloat16, enc_config=CUT[enc],
                  dec_depths=DEC)
     assert all(p.dtype == torch.float32 for p in bf16.parameters())
     a, b = fp32.state_dict(), bf16.state_dict()
@@ -203,7 +203,7 @@ def test_seeded_init_draws_the_encoders_own_parameters(enc):
     from tramba_tpu_torch.models.swin import WindowAttention
     from tramba_tpu_torch.nn.layers import LecunConv2d
 
-    model = build(METHOD[enc], IMG, seed=0, enc_config=CUT[enc], dec_depths=DEC)
+    model = build(METHOD[enc], IMG, device="cpu", seed=0, enc_config=CUT[enc], dec_depths=DEC)
     convs = [m for m in model.modules() if isinstance(m, LecunConv2d)]
     tables = [m.relative_position_bias_table.detach() for m in model.modules()
               if isinstance(m, WindowAttention)]
@@ -250,7 +250,7 @@ def test_full_width_model_matches_jax_trambaenc(enc, img):
     12 px windows need a map of 48 px at stage 1): heads at atol 1e-4."""
     from tramba_tpu.models.tramba import TrambaEnc as JTrambaEnc
 
-    model = build(METHOD[enc], img, seed=0)
+    model = build(METHOD[enc], img, device="cpu", seed=0)
     p = convert_tramba_enc(state_dict_to_numpy(model.state_dict()), enc)
     x = np.random.default_rng(4).normal(size=(1, img, img, 3)).astype(np.float32)
     want = jax.jit(JTrambaEnc(enc_type=enc, img_size=img).apply)(p, jnp.asarray(x))

@@ -133,7 +133,7 @@ def _vmamba_checkpoint(depths, seed):
     """An upstream-VMamba-style classification checkpoint: the encoder of a
     tiny model, downsamples under layers.{i}.downsample, optional biases on
     some Linears, a classifier and a weightless buffer."""
-    model = build("Tramba-V-TSOD", 64, seed=seed, dims=16, enc_depths=depths,
+    model = build("Tramba-V-TSOD", 64, device="cpu", seed=seed, dims=16, enc_depths=depths,
                   dec_depths=(1, 1, 1, 1))
     sd = {}
     for k, v in model.state_dict().items():

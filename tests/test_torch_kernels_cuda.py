@@ -759,11 +759,21 @@ def _attn_weights(gen, C, nqkv):
 
 @pytest.mark.parametrize("B,N,C,nh,Lk", [(2, 100, 64, 1, 16), (1, 576, 320, 5, 144),
                                          (2, 144, 512, 8, 144), (1, 1024, 128, 2, 64),
-                                         (2, 96, 40, 5, 24)])
+                                         (2, 96, 40, 5, 24), (2, 1024, 320, 5, 256),
+                                         (1, 400, 64, 1, 400), (2, 256, 256, 2, 200),
+                                         (16, 144, 512, 8, 144), (1, 200, 96, 3, 20)])
 def test_sra_matches_plain(dev, B, N, C, nh, Lk):
-    """Ragged query chunks (N = 100); the PVT stage 3 and 4 widths; C = 40,
-    head width 8 and 24 keys, which the gate admits and the wrapper pads to
-    16 (heads with zeros, keys masked)."""
+    """Ragged row tiles (N = 100, 200, 400); the PVT stage 3 and 4 widths, at
+    B16 in clusters of 8 blocks; C = 40, head width 8, and C 96 over 3 heads
+    (32 wide, a cluster of 3), heads padded to 64 in the wrapper, with 24
+    and 20 keys (the key tile masked past them); PVT stage 3 at 512 px (256
+    keys: four key tiles in one pass); 400 keys (PVT stage 1 at 640 px: two
+    passes); heads 128 wide (two 64-column chunks a head, two passes over
+    200 keys).  One native launch a call, two launches give the same bits,
+    and the plan is the mirror's (ops/encoder_stages.py)."""
+    from tramba_tpu_torch.ops import _native
+    from tramba_tpu_torch.ops import encoder_stages as es
+
     gen = torch.Generator().manual_seed(C + N)
     x = _rand(gen, B, N, C, scale=2.0).to(torch.bfloat16)
     ln_w, ln_b, wq, bq, wp, bp = _attn_weights(gen, C, 1)
@@ -771,9 +781,14 @@ def test_sra_matches_plain(dev, B, N, C, nh, Lk):
     args = (x, ln_w, ln_b, wq, bq, k, v, wp, bp)
     want = ta.sra_ref(*args, nh)
     n = ta.sra.launches
-    got = ta.sra(*(t.to(dev) for t in args), nh)
+    card = [t.to(dev) for t in args]
+    n0 = _native.native_launch_count()
+    got = ta.sra(*card, nh)
+    assert _native.native_launch_count() - n0 == 1
+    assert ta.sra_plan(B, N, C, nh, Lk) == es.sra_plan(B, N, C, nh, Lk)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and ta.sra.launches == n + 1
+    assert torch.equal(got, ta.sra(*card, nh))
     torch.testing.assert_close(got.cpu().float(), want.float(), **TOL_BF16)
 
 
@@ -846,19 +861,30 @@ def test_encoder_kernels_carry_gradients(dev):
 
 @pytest.mark.parametrize("R,L,C,reverse", [(3, 300, 130, False), (3, 300, 130, True),
                                            (2, 9, 1, False), (5, 1000, 33, True),
-                                           (1, 2, 4096, False), (4, 513, 256, True)])
+                                           (1, 2, 4096, False), (4, 513, 256, True),
+                                           (2, 9216, 64, True), (1, 5000, 7, False)])
 def test_linear_scan_matches_plain(dev, R, L, C, reverse):
-    """Any L and C: no multiple of 16, 128 or 256 asked for; a decay near 1
-    so a carry lost anywhere shows.  fp32 at TOL (the kernel's fmaf against
-    the plain version's multiply-add)."""
+    """Any L and C: no multiple of 16, 128 or 256 asked for (L over one
+    segment of 256 rows and under, C no multiple of the block's 32 channels
+    nor of 4); a decay near 1 so a carry lost anywhere shows.  fp32 at TOL
+    (the kernel's fmaf and its segments' summaries against the plain
+    version's multiply-add).  One native launch a call, two give the same
+    bits, and the plan is the mirror's (ops/scan_segments.py)."""
+    from tramba_tpu_torch.ops import _native
+    from tramba_tpu_torch.ops import scan_segments as sm
+
     gen = torch.Generator().manual_seed(R * L + C)
     a = torch.exp(-torch.rand(R, L, C, generator=gen) * 0.02)
     b = _rand(gen, R, L, C)
     want = ts.linear_scan_ref(a, b, reverse)
     n = ts.linear_scan.launches
+    n0 = _native.native_launch_count()
     got = ts.linear_scan(a.to(dev), b.to(dev), reverse)
+    assert _native.native_launch_count() - n0 == 1
+    assert ts.linear_scan_plan(R, L, C) == sm.linear_scan_plan(R, L, C)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and ts.linear_scan.launches == n + 1
+    assert torch.equal(got, ts.linear_scan(a.to(dev), b.to(dev), reverse))
     torch.testing.assert_close(got.cpu(), want, **TOL)
 
 

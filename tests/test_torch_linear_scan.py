@@ -257,9 +257,9 @@ def test_registry_threads_ssm_backend(method):
            if method.startswith("Tramba-V") else
            dict(enc_config=dict(embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 1, 1, 1)),
                 dec_depths=(1, 1, 1, 1)))
-    ref = build(method, 64, seed=0, **cut).state_dict()
+    ref = build(method, 64, device="cpu", seed=0, **cut).state_dict()
     for backend in tssm.BACKENDS:
-        model = build(method, 64, seed=0, ssm_backend=backend, **cut)
+        model = build(method, 64, device="cpu", seed=0, ssm_backend=backend, **cut)
         ss2ds = [m for m in model.modules() if isinstance(m, SS2D)]
         assert ss2ds and all(m.backend == backend for m in ss2ds)
         sd = model.state_dict()

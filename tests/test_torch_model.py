@@ -26,7 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def tiny():
-    return build("Tramba-V-TSOD", IMG, seed=0, **TINY)
+    return build("Tramba-V-TSOD", IMG, device="cpu", seed=0, **TINY)
 
 
 def test_tiny_trambav_matches_jax(tiny):
@@ -58,7 +58,7 @@ def test_weights_round_trip_and_strict_load():
     assert got.keys() == want.keys()
     for k in want:
         assert got[k].shape == want[k].shape and np.array_equal(got[k], want[k]), k
-    model = build("Tramba-V-TSOD", IMG, seed=None, **TINY)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=None, **TINY)
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)
     assert torch.equal(model.state_dict()["decoder.seg_layers.3.weight"],
@@ -73,7 +73,7 @@ def test_load_checkpoint_reads_reference_pth(tiny, tmp_path):
     sd = dict(tiny.state_dict())
     sd["decoder.guide_layers.0.attn.DCT2D.weight"] = torch.zeros(4, 4)
     torch.save(sd, tmp_path / "ref.pth")
-    model = build("Tramba-V-TSOD", IMG, seed=None, **TINY)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=None, **TINY)
     load_checkpoint(model, str(tmp_path / "ref.pth"))
     got = model.state_dict()
     assert all(torch.equal(got[k], v) for k, v in tiny.state_dict().items())

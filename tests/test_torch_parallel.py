@@ -144,7 +144,7 @@ def _tiny_inputs():
     30% foreground: at 50% the head biases' gradients (sums of
     sigmoid(logit) - mask over every pixel) cancel to ~1e-4 of their terms,
     and fp32 summation noise alone then reaches 1e-4 of their norm."""
-    sd = build("Tramba-V-TSOD", cases.IMG, seed=0, **cases.TINY).state_dict()
+    sd = build("Tramba-V-TSOD", cases.IMG, device="cpu", seed=0, **cases.TINY).state_dict()
     rng = np.random.default_rng(0)
     x = rng.normal(size=(4, cases.IMG, cases.IMG, 3)).astype(np.float32)
     gt = (rng.random((4, cases.IMG, cases.IMG, 1)) > 0.7).astype(np.float32)
@@ -174,7 +174,7 @@ def _resnet_inputs():
     sent to a process, each tensor of a state dict this long would pass the
     fork server one file descriptor, past its limit."""
     sd = {k: v.numpy() for k, v in
-          build("Tramba-R-TSOD", cases.IMG_R, seed=0, **cases.TINY_R).state_dict().items()}
+          build("Tramba-R-TSOD", cases.IMG_R, device="cpu", seed=0, **cases.TINY_R).state_dict().items()}
     rng = np.random.default_rng(1)
     x = rng.normal(size=(4, cases.IMG_R, cases.IMG_R, 3)).astype(np.float32)
     gt = (rng.random((4, cases.IMG_R, cases.IMG_R, 1)) > 0.7).astype(np.float32)
@@ -188,7 +188,7 @@ def _resnet_step(x, gt, sd):
     does."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    model = build("Tramba-R-TSOD", cases.IMG_R, seed=None, **cases.TINY_R).train()
+    model = build("Tramba-R-TSOD", cases.IMG_R, device="cpu", seed=None, **cases.TINY_R).train()
     model.load_state_dict({k: _t(v) for k, v in sd.items()})
     loss = deep_supervision_loss(model(x), gt)
     loss.backward()

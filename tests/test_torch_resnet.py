@@ -72,7 +72,7 @@ class JTrambaR(fnn.Module):
 
 
 def tiny(dtype=torch.float32, seed=0):
-    return build("Tramba-R-TSOD", IMG, seed=seed, dtype=dtype, enc_config={"layers": LAYERS},
+    return build("Tramba-R-TSOD", IMG, device="cpu", seed=seed, dtype=dtype, enc_config={"layers": LAYERS},
                  dec_depths=DEC, dec_drop_path=0.0)
 
 
@@ -181,7 +181,7 @@ def test_params_from_jax_round_trips_convert_tramba_enc_exactly():
     included, is what convert_tramba_enc(..., "resnet") reads (its strict
     leftover check passes), and params_from_jax inverts it leaf for leaf,
     batch_stats included.  Each entry is filled with distinct values."""
-    model = build("Tramba-R-TSOD", 384, seed=None)
+    model = build("Tramba-R-TSOD", 384, device="cpu", seed=None)
     with torch.no_grad():
         for i, t in enumerate(model.state_dict().values()):
             t.copy_(torch.arange(t.numel(), dtype=torch.float32).view_as(t) * 1e-6 + i)
@@ -216,7 +216,7 @@ def test_init_model_grafts_torchvision_resnet_with_running_stats(tmp_path):
         graft_resnet_encoder({k: v for k, v in ref.items() if k != "bn1.running_var"}, LAYERS)
     with pytest.raises(ValueError, match="unconsumed"):
         graft_resnet_encoder({**ref, "layer5.0.conv1.weight": torch.zeros(2)}, LAYERS)
-    deeper = build("Tramba-R-TSOD", IMG, seed=0, enc_config={"layers": (1, 2, 1, 1)},
+    deeper = build("Tramba-R-TSOD", IMG, device="cpu", seed=0, enc_config={"layers": (1, 2, 1, 1)},
                    dec_depths=DEC)
     with pytest.raises(RuntimeError, match="allow_random_init"):
         init_model(args, deeper)
@@ -275,7 +275,7 @@ def test_registry_and_dump_build_tramba_r(tmp_path):
     from tramba_tpu_torch.eval.dump import dump_saliency_maps
 
     assert {"Tramba-R-TSOD", "Tramba-R-SOD"} <= set(METHODS)
-    full = build("Tramba-R-SOD", 384, seed=None)
+    full = build("Tramba-R-SOD", 384, device="cpu", seed=None)
     assert sum(p.numel() for p in full.parameters()) == 46_991_427
     model = tiny(torch.bfloat16)
     for m in model.modules():

@@ -199,7 +199,7 @@ def test_drop_path_rates_match_jax():
     blocks 0.2 -> 0 by running index, guides 0."""
     depths, dec = (2, 2, 15, 2), (2, 2, 2, 2)
     want = _jax_drop_rates(depths, dec)
-    model = build("Tramba-V-TSOD", IMG, seed=None, dims=16, enc_depths=depths, dec_depths=dec)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=None, dims=16, enc_depths=depths, dec_depths=dec)
     got = {}
     for name, m in model.named_modules():
         if isinstance(m, DropPath):
@@ -241,7 +241,7 @@ def test_tiny_model_loss_and_grads_match_jax():
     and mask: the deep-supervision loss (rtol 1e-5) and every parameter's
     gradient against jax.value_and_grad through the flax model
     (deterministic), per leaf ||port - jax|| <= 1e-4 ||jax||."""
-    model = build("Tramba-V-TSOD", IMG, seed=0, **TINY)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=0, **TINY)
     params = convert_tramba_v(state_dict_to_numpy(model.state_dict()),
                               enc_depths=TINY["enc_depths"], dec_depths=TINY["dec_depths"])
     rng = np.random.default_rng(0)
@@ -269,7 +269,7 @@ def test_tiny_model_loss_and_grads_match_jax():
 
 
 def test_train_step_updates_and_eval_step_maps():
-    model = build("Tramba-V-TSOD", IMG, seed=0, **TINY)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=0, **TINY)
     set_drop_path_generator(model, torch.Generator().manual_seed(0))
     opt = toptim.make_optimizer(model.named_parameters(), 1e-3, [60], [0.2], 1)
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -290,7 +290,7 @@ def test_train_step_updates_and_eval_step_maps():
 def test_checkpoint_round_trip(tmp_path):
     """Weights and the resume dict (weights, both Adam moments, counters,
     epoch) come back exactly; the best-MAE name parses back to its epoch."""
-    model = build("Tramba-V-TSOD", IMG, seed=0, **TINY)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=0, **TINY)
     opt = toptim.make_optimizer(model.named_parameters(), 1e-3, [60], [0.2], 1,
                                 mu_dtype=torch.bfloat16)
     loss = tloss.deep_supervision_loss(model(torch.randn(1, IMG, IMG, 3)),
@@ -301,12 +301,12 @@ def test_checkpoint_round_trip(tmp_path):
     assert os.path.basename(path) == "Tramba-V-TSOD_MAE_0.1235_7.pth"
     assert ckpt.epoch_from_filename(path) == 7
     ckpt.save_params(path, model)
-    other = build("Tramba-V-TSOD", IMG, seed=1, **TINY)
+    other = build("Tramba-V-TSOD", IMG, device="cpu", seed=1, **TINY)
     ckpt.load_checkpoint(other, path)
     assert all(torch.equal(a, b) for a, b in zip(other.state_dict().values(),
                                                  model.state_dict().values()))
     ckpt.save_resume(str(tmp_path / "r.pth"), model, opt, 4)
-    other = build("Tramba-V-TSOD", IMG, seed=1, **TINY)
+    other = build("Tramba-V-TSOD", IMG, device="cpu", seed=1, **TINY)
     opt2 = toptim.make_optimizer(other.named_parameters(), 1e-3, [60], [0.2], 1,
                                  mu_dtype=torch.bfloat16)
     assert ckpt.load_resume(str(tmp_path / "r.pth"), other, opt2) == 5
@@ -337,9 +337,9 @@ def test_init_model_grafts_vmamba_encoder(tmp_path):
     """The encoder of a VMamba checkpoint lands on the port's names through
     the shared converter; a checkpoint that does not fit is fatal unless
     --allow_random_init."""
-    src = build("Tramba-V-TSOD", IMG, seed=3, **TINY)
+    src = build("Tramba-V-TSOD", IMG, device="cpu", seed=3, **TINY)
     torch.save(_vmamba_checkpoint(src), tmp_path / "vmamba.pth")
-    model = build("Tramba-V-TSOD", IMG, seed=0, **TINY)
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=0, **TINY)
     dec_before = model.state_dict()["decoder.seg_layers.0.weight"].clone()
     args = type("A", (), dict(pretrained_path=str(tmp_path / "vmamba.pth"),
                               allow_random_init=False, method="Tramba-V-TSOD"))()
@@ -348,7 +348,7 @@ def test_init_model_grafts_vmamba_encoder(tmp_path):
         if k.startswith("vssm_encoder."):
             assert torch.equal(model.state_dict()[k], v), k
     assert torch.equal(model.state_dict()["decoder.seg_layers.0.weight"], dec_before)
-    big = build("Tramba-V-TSOD", IMG, seed=0, dims=32, enc_depths=(1, 1, 1, 1),
+    big = build("Tramba-V-TSOD", IMG, device="cpu", seed=0, dims=32, enc_depths=(1, 1, 1, 1),
                 dec_depths=(1, 1, 1, 1))
     with pytest.raises(RuntimeError, match="allow_random_init"):
         init_model(args, big)
@@ -421,7 +421,7 @@ VARIANTS = {
 
 
 def _graft_file(method, seed, **cut):
-    return upstream_encoder_state_dict(build(method, IMG, seed=seed, **cut))
+    return upstream_encoder_state_dict(build(method, IMG, device="cpu", seed=seed, **cut))
 
 
 @pytest.mark.parametrize("letter", ["S", "P", "R"])

@@ -219,6 +219,6 @@ def test_bf16_training_raises():
     (dx,) = torch.autograd.grad(out.float().sum(), x)
     assert out.dtype == dx.dtype == torch.bfloat16 and torch.isfinite(dx.float()).all()
     with pytest.raises(ValueError, match="not supported"):
-        build("Tramba-V-TSOD", 64, dtype=torch.float16, dims=16)
+        build("Tramba-V-TSOD", 64, device="cpu", dtype=torch.float16, dims=16)
     with pytest.raises(SystemExit):
         run.main(["--method", "Tramba-V-TSOD", "--dtype", "float16"], device="cpu")

@@ -66,7 +66,7 @@ def tiny_model(backend, sd, x, gt, grid_shape):
     the data group.  Returns the heads, the global mean loss and every
     parameter's gradient."""
     grid = make_grid(*grid_shape)
-    model = build("Tramba-V-TSOD", IMG, seed=None, ssm_backend=backend, **TINY).eval()
+    model = build("Tramba-V-TSOD", IMG, device="cpu", seed=None, ssm_backend=backend, **TINY).eval()
     model.load_state_dict(sd)
     ddp = torch.nn.parallel.DistributedDataParallel(model, process_group=grid.data.group)
     xs, gs = batch_slice(x, grid.data), batch_slice(gt, grid.data)
@@ -87,7 +87,7 @@ def resnet_steps(x, gt, sd):
     mean losses of both, every parameter's gradient after the first and the
     BatchNorms' running statistics after it.  ``sd`` holds numpy arrays."""
     data = make_grid().data
-    model = build("Tramba-R-TSOD", IMG_R, seed=None, **TINY_R).train()
+    model = build("Tramba-R-TSOD", IMG_R, device="cpu", seed=None, **TINY_R).train()
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     sync_batch_norms(model, data)
     ddp = torch.nn.parallel.DistributedDataParallel(model, process_group=data.group)

@@ -16,23 +16,34 @@
 // window partition and reverse by index arithmetic; the cyclic shift, the
 // gather of the relative-position bias and the residual stay outside.
 //
-// K12 runs two launches after the bf16 LayerNorm launch of csrc/mlp.cu:
-//   (1) proj_in_kernel: the input projection of the LN'd rows, with the bias
-//       and the q scale in fp32 and one rounding to bf16: q (B*N, C).  Every
-//       rounding point of the TPU kernel comes after a bf16 cast of q, so
-//       writing it in bf16 to device memory changes no number.
-//   (2) attn_kernel: one block per (image, chunk of QM query rows):
-//       for each head it stages q_h, k_h and v_h in shared memory, computes
-//       the fp32 scores (bf16 wmma tiles, fp32 accumulation), takes the
-//       softmax in fp32 with one warp per row, rounds p, multiplies by v_h
-//       and rounds the head's output into the merged bf16 row tile; then the
-//       output projection (wp from L2), bp, one rounding.
-// What bounds K12 on an H100: the products (2*C*C per row for each of the q
-// and output projections, 4*Lk*C per row for scores and p v) on the bf16
-// tensor cores, against the bytes of x and out; at these widths both are far
-// below the card's rates, and the kernel is latency-bound by its many small
-// tiles and the syncs between the per-head phases.
-//
+// K12 is one launch (sra_kernel, below): each block normalises its own rows
+// (no LayerNorm launch, no round trip of the LN'd rows or of q) and runs the
+// q projection, the scores, p v and the output projection on wgmma, the
+// scores and probabilities in registers.  What bounds it on an H100: at the
+// 96 px and 48 px stages its bytes (x read and out written once: 4 C bytes
+// a row, against 4 C^2 + 4 Lk C operations), at 24 px and 12 px the
+// products on the bf16 tensor cores; both bounds are microseconds at B16, so
+// what decides its time is latency: the chain of each head's four products
+// and its softmax inside a block, and how many blocks run at once.  The
+// design's answers:
+//   * rows a block by stage: 128 (two warpgroups) up to C 192, so that the
+//     image's k and v boxes (144 keys x 64 = 18 KB each a head) are staged
+//     once for twice the rows; 64 above, where the LN'd rows and the merged
+//     heads of 128 rows would not fit;
+//   * filling 132 SMs at 48, 24 and 12 px (288, 144 and 36 row tiles at
+//     B16): a thread block cluster per row tile whose blocks split the
+//     heads (2, 5 and 8 blocks at those stages); each
+//     then reads the others' merged head outputs through distributed shared
+//     memory and writes its own slice of the output projection's columns;
+//     the cluster size comes from a cost in whole waves (plan_sra);
+//   * keys beyond what registers hold: up to 4 key tiles of 64 (256 keys)
+//     in one pass; more take two passes over key chunks inside the launch,
+//     so every key count runs;
+//   * registers: the scores of 3-4 key tiles, q's and p's fragments and the
+//     head's output are live at once, so a thread gets 232 (__maxnreg__),
+//     and a block has no producer warp (a ninth warp would put three warps
+//     on one SM sub-partition, over its 16K registers): thread 0 refills
+//     the ring as the warps release its slots.
 // K13 is two launches, and no LayerNorm launch:
 //   (i) ln_fc_kernel<kFrontQKV> (common.cuh, the front K7, K9 and K10 use):
 //       each block normalises its 64 rows itself into a swizzled tile and
@@ -56,224 +67,691 @@
 
 #include "common.cuh"
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr size_t kSmemMax = 227 * 1024;
 
-__device__ __forceinline__ float warp_max(float v) {
+// ---- K12: one launch ----------------------------------------------------------
+//
+// One block per (image, tile of R = 64 nwg query rows, head group); the
+// blocks of one row tile that split its heads form a thread block cluster
+// (plan_sra: `cluster` blocks, a divisor of nh up to 8, chosen so that the
+// grid fills the SMs in whole waves).  nwg warpgroups of 64 rows each; the
+// block's first thread also issues every TMA copy: first the block's rows
+// of x into As (64 x 64 boxes in the 128-byte swizzle, zeros past C and
+// past the last row), then every other operand box through one ring of
+// `stages` 8 KB slots (full / empty mbarriers; a slot is refilled as soon
+// as every warp has released it), in the order the warps take them:
+//   per own head h: the head's rows of wq (NQ 64-row boxes a K-block of x),
+//   [in two passes: every key tile of k_h], then key chunk by key chunk the
+//   chunk's tiles of k_h and of v_h (3-D boxes of 64 keys x 64 head columns,
+//   zeros past Lk); then the output projection's boxes of wp (the block's
+//   own 64-column output chunks, a box a K-block of the merged heads).
+// Shared memory (1024-aligned after the mbarriers):
+//   As [Cp / 64][R][64] the block's rows of x, normalised in place (two
+//      threads a row, fp32 statistics, one rounding), 128-byte swizzle: the
+//      q projection's A;
+//   Os [Cq / 64][R][64] the merged head outputs, the same layout: the output
+//      projection's A (head h at K-blocks h NQ .. h NQ + NQ - 1).  Where a
+//      block has one head and Cq = Cp, Os is As: its q is computed before
+//      any head output is written;
+//   ring `stages` boxes.
+// A warpgroup's chain for its 64 rows, per own head, all of it on wgmma:
+//   q_h = As wq_h^T (m64n64k16, A and B in shared memory), then + bq, x the
+//   scale, one rounding, packed straight into A fragments (qf: the
+//   accumulator layout of a 64 x 64 tile is that of four k16 A fragments);
+//   S = q_h k_h^T with A from registers (KT key tiles of 64 in registers,
+//   keys from Lk on -inf); the softmax on the accumulator fragments (a row's
+//   64 KT scores lie in the four lanes of a quad: two shuffles), p =
+//   bf16(e / sum) packed as A fragments; O_h = P v_h with A from registers
+//   and v_h's box as the N-major B; one rounding of O_h into Os.
+// Keys beyond the KT tiles a thread holds (Lk > 64 KT) take two passes over
+// key chunks of KT tiles: the first finds each row's max and sum (rescaled
+// from chunk to chunk), the second recomputes the scores and rounds p =
+// bf16(exp(s - max) / sum) as the one-pass route does.
+// With a cluster, after its heads each block reads the other blocks' head
+// outputs of its rows from their Os through distributed shared memory; then
+// out = Os wp^T + bp for its own output chunks, one rounding, stored from
+// the accumulators.
+constexpr int kSraRing = 8;  // most ring slots
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// d (+)= A B, m64n64k16, A from registers (a: this warp's m16n8k16 A
+// fragment of 16 rows, packed bf16 pairs) and B from shared memory
+// (descriptor b: K-major, or N-major with TRANS_B), d as wgmma_m64n64k16's.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigned (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// Keeps the compiler from changing registers that an asynchronous wgmma
+// reads (its A fragments) before the wgmma has completed.
+template <int N>
+__device__ __forceinline__ void fence_uregs(unsigned (&r)[N]) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// C = A * B over all 16x16 tiles of an (Mt*16) x (Nt*16) output, with B
-// row-major (B[k * ldb + n]): p v, where v's rows are the keys.  A, B in
-// shared memory (32-byte aligned tiles, lda, ldb % 8 == 0), C fp32 in shared
-// memory (ldc % 4 == 0).  The caller synchronises around the call.
-__device__ __forceinline__ void mma_tiles_rowb(const bf16* A, int lda, const bf16* B, int ldb,
-                                               float* C, int ldc, int Mt, int Nt, int K) {
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int t = warp; t < Mt * Nt; t += nwarps) {
-    const int mt = t / Nt, nt = t % Nt;
-    wm::fragment<wm::accumulator, 16, 16, 16, float> c;
-    wm::fill_fragment(c, 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-      wm::load_matrix_sync(a, A + mt * 16 * lda + k, lda);
-      wm::load_matrix_sync(b, B + k * ldb + nt * 16, ldb);
-      wm::mma_sync(c, a, b, c);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(s) : "memory");
+}
+
+// TMA: the box at (c0, c1, c2) of the 3-D tensor map `map` into shared
+// memory, counted on `bar`; elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* smem, const void* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(s),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(b)
+      : "memory");
+}
+
+// Barrier `id` (1-15) over `threads` threads of the block.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Tensor map of k or v (B nh, Lk, hdp) bf16 as 64 keys x 64 head columns of
+// one head, 128-byte swizzle, zeros past Lk.
+static inline bool kv_map(CUtensorMap* map, const bf16* t, int hdp, int Lk, long heads) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)hdp, (cuuint64_t)Lk, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)hdp * 2, (cuuint64_t)Lk * hdp * 2};
+  const cuuint32_t box[3] = {64, 64, 1}, elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(t), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Tiling of one K12 launch.
+struct SraPlan {
+  int nq;       // head width in 64-column chunks (hd padded to 64 nq)
+  int nwg;      // consumer warpgroups a block (64 query rows each)
+  int rows;     // query rows a block: 64 nwg
+  int cluster;  // blocks a row tile (its heads split over them)
+  int tiles;    // row tiles an image
+  int kt;       // key tiles of 64 a thread holds in registers
+  int chunks;   // key chunks of kt tiles: 1 = one pass, else two
+  int stages;   // ring slots
+  int alias;    // 1 where Os is As
+  int per_sm;   // blocks an SM
+  size_t smem;
+  long blocks;
+};
+
+constexpr size_t kSmemHalf = 113 * 1024;  // two blocks an SM below this
+
+// Shared bytes of a K12 block without its ring: the mbarriers and
+// alignment, As, and Os unless it is As.
+static size_t sra_fixed(int rows, int Cp, int Cq, bool alias) {
+  return 1024 + (size_t)2 * rows * (Cp + (alias ? 0 : Cq));
+}
+
+static bool plan_sra(int B, int N, int C, int nh, int Lk, int sms, SraPlan* p) {
+  if (B < 1 || N < 1 || nh < 1 || Lk < 1 || C < 8 || C % nh || C % 8 || C > 768 || sms < 1)
+    return false;
+  const int hdp = (C / nh + 63) / 64 * 64;
+  p->nq = hdp / 64;
+  if (p->nq > 2) return false;
+  const int Cp = (C + 63) / 64 * 64, Cq = nh * hdp, ktiles = (Lk + 63) / 64;
+  const size_t slot = (size_t)kBox * 2;
+  const int least = std::max(2, p->nq + 1);  // ring slots: a key tile's boxes and one more
+  // two warpgroups (128 rows, one block an SM) up to C 192 with 64-wide
+  // heads where their tiles fit; else one (two blocks an SM where they fit)
+  p->nwg = C <= 192 && p->nq == 1 && sra_fixed(128, Cp, Cq, false) + least * slot <= kSmemMax
+               ? 2 : 1;
+  p->rows = 64 * p->nwg;
+  p->tiles = (N + p->rows - 1) / p->rows;
+  const int kt_max = std::min(ktiles, p->nq == 1 ? 4 : 2);
+  // per cluster size d (a divisor of nh up to 8): its blocks an SM, and the
+  // waves of blocks per unit of work, ceil(tiles d / (sms per_sm)) / d; the
+  // cheapest, the smallest such d
+  bool found = false;
+  double best = 0.0;
+  for (int d = 1; d <= 8 && d <= nh; ++d) {
+    if (nh % d) continue;
+    const bool alias = d == nh && Cq == Cp;
+    const size_t fixed = sra_fixed(p->rows, Cp, Cq, alias);
+    if (fixed + least * slot > kSmemMax) continue;
+    const bool two = p->nwg == 1 && fixed + (size_t)(kt_max * p->nq + 1) * slot <= kSmemHalf;
+    const size_t budget = two ? kSmemHalf : kSmemMax;
+    const int per_sm = two ? 2 : 1;
+    const long slots = (long)sms * per_sm, blocks = (long)B * p->tiles * d;
+    const double cost = (double)((blocks + slots - 1) / slots) / d;
+    if (found && cost >= best) continue;
+    found = true;
+    best = cost;
+    p->cluster = d;
+    p->alias = alias;
+    p->per_sm = per_sm;
+    p->stages = (int)std::min<size_t>(kSraRing, (budget - fixed) / slot);
+    p->smem = fixed + (size_t)p->stages * slot;
+  }
+  if (!found) return false;
+  p->kt = kt_max;
+  while (p->kt > 1 && p->stages < p->kt * p->nq + 1) --p->kt;
+  p->chunks = (ktiles + p->kt - 1) / p->kt;
+  p->blocks = (long)B * p->tiles * p->cluster;
+  return p->blocks <= 0x7fffffffL;
+}
+
+// Every thread of every block of the cluster arrives, then waits: the
+// shared-memory writes before it are seen by the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The ring of operand boxes: box i of the block's schedule sits in slot i %
+// stages.  The schedule, in the order the warps take the boxes: per own
+// head h (rank, rank + cluster, ...), its rows of wq (nq 64-row boxes a
+// K-block of x), [with two passes: every key tile of k_h], then key chunk by
+// key chunk its tiles of k_h and of v_h; then wp's boxes of the block's
+// output chunks.  Thread 0 issues the first `stages` boxes, then box i +
+// stages as soon as every warp has released box i.
+struct SraRing {
+  bf16* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages;
+  const CUtensorMap *wq, *k, *v, *wp;
+  int nq, kt, nh, cluster, rank, b, nkc, nkq, ntiles, chunks, head_boxes, own_heads, total;
+
+  __device__ __forceinline__ const bf16* box(int i) const {
+    return base + (size_t)(i % stages) * kBox;
+  }
+  __device__ __forceinline__ void wait(int i) const {
+    mbar_wait(full + i % stages, (i / stages) & 1);
+  }
+  __device__ __forceinline__ void issue(int i) const {
+    bf16* dst = base + (size_t)(i % stages) * kBox;
+    uint64_t* bar = full + i % stages;
+    mbar_expect_tx(bar, kBox * 2);
+    if (i >= own_heads * head_boxes) {  // wp
+      const int w = i - own_heads * head_boxes;
+      tma_load_2d(dst, wp, 64 * (w % nkq), 64 * (rank + w / nkq * cluster), bar);
+      return;
     }
-    wm::store_matrix_sync(C + mt * 16 * ldc + nt * 16, c, ldc, wm::mem_row_major);
+    const int h = rank + i / head_boxes * cluster, bh = b * nh + h;
+    int r = i % head_boxes;
+    if (r < nq * nkc) {
+      tma_load_2d(dst, wq, 64 * (r % nkc), 64 * (h * nq + r / nkc), bar);
+      return;
+    }
+    r -= nq * nkc;
+    if (chunks > 1) {
+      if (r < ntiles * nq) {
+        tma_load_3d(dst, k, 64 * (r % nq), 64 * (r / nq), bh, bar);
+        return;
+      }
+      r -= ntiles * nq;
+    }
+    const int ch = r / (2 * kt * nq), nt = min(kt, ntiles - ch * kt);
+    r -= ch * 2 * kt * nq;
+    const bool is_v = r >= nt * nq;
+    if (is_v) r -= nt * nq;
+    tma_load_3d(dst, is_v ? v : k, 64 * (r % nq), 64 * (ch * kt + r / nq), bh, bar);
+  }
+  // after the warp's wgmmas that read box i have completed
+  __device__ __forceinline__ void release(int i, int lane) const {
+    if (lane == 0) mbar_arrive(empty + i % stages);
+    if (threadIdx.x == 0 && i + stages < total) {
+      mbar_wait(empty + i % stages, (i / stages) & 1);
+      issue(i + stages);
+    }
+  }
+};
+
+// acc = A B^T over nk K-blocks: A this warpgroup's 64 rows of a [nk][R][64]
+// tile (rows 64 wg ..), B the ring's boxes t .. t + nk - 1.
+__device__ __forceinline__ void sra_ring_product(float (&acc)[32], const SraRing& rg, int& t,
+                                                 const bf16* A, int nk, int R, int wg, int lane) {
+  for (int kb = 0; kb < nk; ++kb) {
+    rg.wait(t);
+    const bf16* tl = rg.box(t);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_m64n64k16(acc, wgmma_desc_sw128(A + (size_t)kb * R * 64 + wg * kBox + 16 * s),
+                      wgmma_desc_sw128(tl + 16 * s), kb > 0 || s > 0);
+    wgmma_commit();
+    if (kb > 0) {
+      wgmma_wait<1>();
+      rg.release(t - 1, lane);
+    }
+    ++t;
+  }
+  wgmma_wait<0>();
+  rg.release(t - 1, lane);
+  fence_regs(acc);
+}
+
+// S = q_h k^T over key tiles j0 .. j0 + nt (nt <= KT) from the ring's next
+// nt NQ boxes (tile j, head columns 64 c: box t + j NQ + c); keys from Lk on
+// get -inf.  Returns nt.
+template <int NQ, int KT>
+__device__ __forceinline__ int sra_scores(float (&S)[KT][32], unsigned (&qf)[NQ][4][4],
+                                          const SraRing& rg, int& t, int j0, int ntiles, int Lk,
+                                          int t4, int lane) {
+  const int nt = min(KT, ntiles - j0);
+  for (int i = 0; i < nt * NQ; ++i) rg.wait(t + i);
+#pragma unroll
+  for (int j = 0; j < KT; ++j) fence_regs(S[j]);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j >= nt) continue;
+#pragma unroll
+    for (int c = 0; c < NQ; ++c)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        wgmma_m64n64k16_rs<0>(S[j], qf[c][s], wgmma_desc_sw128(rg.box(t + j * NQ + c) + 16 * s),
+                              c > 0 || s > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < KT; ++j) fence_regs(S[j]);
+#pragma unroll
+  for (int c = 0; c < NQ; ++c)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) fence_uregs(qf[c][s]);
+  for (int i = 0; i < nt * NQ; ++i) rg.release(t + i, lane);
+  t += nt * NQ;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j >= nt || 64 * (j0 + j + 1) <= Lk) continue;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (64 * (j0 + j) + 8 * (i >> 2) + 2 * t4 + (i & 1) >= Lk) S[j][i] = -INFINITY;
+  }
+  return nt;
+}
+
+// The running max and sum of this thread's two rows (g, g + 8) over the
+// chunk's scores S (nt of KT tiles; exp'd in place where `keep`).
+template <int KT>
+__device__ __forceinline__ void sra_row_stats(float (&S)[KT][32], int nt, bool keep, float& m0,
+                                              float& m1, float& l0, float& l1) {
+  float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j >= nt) continue;
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      c0 = fmaxf(c0, fmaxf(S[j][i], S[j][i + 1]));
+      c1 = fmaxf(c1, fmaxf(S[j][i + 2], S[j][i + 3]));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, o));
+    c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, o));
+  }
+  const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j >= nt) continue;
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      const float e0 = expf(S[j][i] - n0), e1 = expf(S[j][i + 1] - n0);
+      const float e2 = expf(S[j][i + 2] - n1), e3 = expf(S[j][i + 3] - n1);
+      s0 += e0 + e1;
+      s1 += e2 + e3;
+      if (keep) {
+        S[j][i] = e0;
+        S[j][i + 1] = e1;
+        S[j][i + 2] = e2;
+        S[j][i + 3] = e3;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  l0 = l0 * expf(m0 - n0) + s0;  // exp(-inf) = 0 before the first chunk
+  l1 = l1 * expf(m1 - n1) + s1;
+  m0 = n0;
+  m1 = n1;
+}
+
+// y = bf16((x - mean) rstd ln_w + ln_b) of the 8 values of one 16-byte group
+// (columns 8 j ..), in place.
+__device__ __forceinline__ void ln_group(uint4& raw, int j, float mean, float rstd,
+                                         const float* __restrict__ ln_w,
+                                         const float* __restrict__ ln_b) {
+  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
+  const float4 w0 = __ldg(reinterpret_cast<const float4*>(ln_w) + 2 * j);
+  const float4 w1 = __ldg(reinterpret_cast<const float4*>(ln_w) + 2 * j + 1);
+  const float4 b0 = __ldg(reinterpret_cast<const float4*>(ln_b) + 2 * j);
+  const float4 b1 = __ldg(reinterpret_cast<const float4*>(ln_b) + 2 * j + 1);
+  const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(v[e]);
+    v[e] = __floats2bfloat162_rn((f.x - mean) * rstd * w[2 * e] + bb[2 * e],
+                                 (f.y - mean) * rstd * w[2 * e + 1] + bb[2 * e + 1]);
   }
 }
 
-// ---- (1) input projection ---------------------------------------------------
-
-// One block per (BM rows, NC output columns).  Shared: ys [BM][K+8] bf16,
-// acc [BM][NC+4] fp32.  out[m, j] = bf16((y[m] . w[j] + b[j]) * s_j), s_j =
-// scale for j < nscale, else 1.
-__global__ void proj_in_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w,
-                               const float* __restrict__ b, bf16* __restrict__ out, long M, int K,
-                               int Nout, int nscale, float scale, int BM, int NC) {
-  extern __shared__ float4 smem4[];
-  const int ldy = K + 8, ldacc = NC + 4;
-  bf16* ys = reinterpret_cast<bf16*>(smem4);
-  float* acc = reinterpret_cast<float*>(ys + BM * ldy);
-  const long m0 = (long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * NC;
-  const int vn = K / 8;
-  for (int i = threadIdx.x; i < BM * vn; i += blockDim.x) {
-    const int p = i / vn, v = i - p * vn;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + p < M) val = __ldg(reinterpret_cast<const uint4*>(y + (m0 + p) * K) + v);
-    *reinterpret_cast<uint4*>(ys + p * ldy + v * 8) = val;
+// The sum of the 8 values of a 16-byte group, and with `mean` given the sum
+// of their squared deviations from it.
+__device__ __forceinline__ float group_sum(const uint4& raw) {
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(v[e]);
+    s += f.x + f.y;
   }
-  __syncthreads();
-  mma_tiles(ys, ldy, w + (long)n0 * K, K, acc, ldacc, BM / 16, NC / 16, K, false);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * NC; i += blockDim.x) {
-    const int p = i / NC, j = i - p * NC;
-    if (m0 + p >= M) continue;
-    float v = acc[p * ldacc + j] + b[n0 + j];
-    if (n0 + j < nscale) v *= scale;
-    out[(m0 + p) * Nout + n0 + j] = __float2bfloat16_rn(v);
-  }
-}
-
-size_t proj_smem(int BM, int K, int NC) { return (size_t)BM * ((K + 8) * 2 + (NC + 4) * 4); }
-
-// ---- (2) attention + output projection --------------------------------------
-
-struct AttnArgs {
-  const bf16* q;   // (B*N, C)
-  const bf16* k;   // (B, nh, Lk, hd)
-  const bf16* v;   // (B, nh, Lk, hd)
-  const bf16* wp;  // (C, C)
-  const float* bp; // (C)
-  bf16* out;       // (B*N, C)
-  int C, nh, hd, Nq, Lk, QM;
-  int Lkv;  // keys that take part: those from Lkv on are padding (-inf)
-};
-
-// Byte offsets of the shared buffers of attn_kernel, each 128-byte aligned:
-// os [QM][C+8] bf16 (merged head outputs), then either the per-head tiles
-// qs [QM][hd+8], ks and vs [Lk][hd+8] bf16, S [QM][Lk+4] fp32, P [QM][Lk+8]
-// bf16, Oh [QM][hd+4] fp32, or, after the heads, out32 [QM][C+4] fp32.
-struct AttnSmem {
-  size_t qs, ks, vs, S, P, Oh, out32, total;
-};
-
-__host__ __device__ inline size_t al128(size_t n) { return (n + 127) / 128 * 128; }
-
-__host__ __device__ inline AttnSmem attn_layout(int QM, int C, int hd, int Lk) {
-  AttnSmem s;
-  const size_t os = al128((size_t)QM * (C + 8) * 2);
-  s.qs = os;
-  s.ks = s.qs + al128((size_t)QM * (hd + 8) * 2);
-  s.vs = s.ks + al128((size_t)Lk * (hd + 8) * 2);
-  s.S = s.vs + al128((size_t)Lk * (hd + 8) * 2);
-  s.P = s.S + al128((size_t)QM * (Lk + 4) * 4);
-  s.Oh = s.P + al128((size_t)QM * (Lk + 8) * 2);
-  const size_t heads_end = s.Oh + al128((size_t)QM * (hd + 4) * 4);
-  s.out32 = os;
-  const size_t out_end = os + al128((size_t)QM * (C + 4) * 4);
-  s.total = heads_end > out_end ? heads_end : out_end;
   return s;
 }
+__device__ __forceinline__ float group_sq(const uint4& raw, float mean) {
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  float q = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(v[e]);
+    q = fmaf(f.x - mean, f.x - mean, q);
+    q = fmaf(f.y - mean, f.y - mean, q);
+  }
+  return q;
+}
 
-__global__ void attn_kernel(AttnArgs a) {
+// bf16(LN(x) ln_w + ln_b) in place of the block's R rows of x in As (fp32
+// statistics in two passes over shared memory, eps): two threads a row, each
+// every other 16-byte group of it; columns past C stay zero.
+__device__ __forceinline__ void sra_ln_in_place(bf16* As, int R, int C,
+                                                const float* __restrict__ ln_w,
+                                                const float* __restrict__ ln_b, float eps) {
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1, groups = C / 8;
+  if (r >= R) return;
+  auto group = [&](int j) { return reinterpret_cast<uint4*>(As + sw128_offset(r, 8 * j, R)); };
+  float s = 0.f;
+  for (int j = half; j < groups; j += 2) s += group_sum(*group(j));
+  const float mean = (s + __shfl_xor_sync(0xffffffffu, s, 1)) / C;
+  float q = 0.f;
+  for (int j = half; j < groups; j += 2) q += group_sq(*group(j), mean);
+  const float rstd = rsqrtf((q + __shfl_xor_sync(0xffffffffu, q, 1)) / C + eps);
+  for (int j = half; j < groups; j += 2) {
+    uint4 raw = *group(j);
+    ln_group(raw, j, mean, rstd, ln_w, ln_b);
+    *group(j) = raw;
+  }
+}
+
+// The consumer warpgroups' part of sra_kernel (see there).
+template <int NQ, int KT, int NWG>
+__device__ __forceinline__ void sra_consumer(bf16* As, bf16* Os, const SraRing rg,
+                                             uint64_t* xfull, const float* __restrict__ ln_w,
+                                             const float* __restrict__ ln_b,
+                                             const float* __restrict__ bq,
+                                             const float* __restrict__ bp, bf16* __restrict__ out,
+                                             int N, int C, int nh, int Lk, int cluster,
+                                             int chunks, float scale, float eps, int rank, int b,
+                                             long q0, int n_wp) {
+  constexpr int HDP = 64 * NQ, R = 64 * NWG;
+  const int Cp = (C + 63) & ~63, nkc = Cp / 64, nkq = nh * NQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (Lk + 63) / 64;
+
+  // the block's rows of x, normalised in place
+  mbar_wait(xfull, 0);
+  sra_ln_in_place(As, R, C, ln_w, ln_b, eps);
+  fence_proxy_async();
+  named_sync(1, 128 * NWG);
+
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int wrow = 16 * (warp & 3) + g;  // rows wrow, wrow + 8 of the warpgroup's 64
+  int t = 0;  // the ring's box counter, in the schedule's order
+  float acc[32];
+  for (int h = rank; h < nh; h += cluster) {
+    // q_h, rounded once, as A fragments: qf[c][s] covers head columns 64 c + 16 s
+    unsigned qf[NQ][4][4];
+#pragma unroll
+    for (int c = 0; c < NQ; ++c) {
+      sra_ring_product(acc, rg, t, As, nkc, R, wg, lane);
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 8 * s + 2 * e, col = h * HDP + 64 * c + 8 * (i >> 2) + 2 * t4;
+          qf[c][s][e] =
+              pack_bf16((acc[i] + bq[col]) * scale, (acc[i + 1] + bq[col + 1]) * scale);
+        }
+    }
+    float S[KT][32];
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    int nt = 0;
+    for (int ch = 0; ch < chunks; ++ch) {  // pass 1: each row's max and sum
+      nt = sra_scores<NQ, KT>(S, qf, rg, t, ch * KT, ntiles, Lk, t4, lane);
+      sra_row_stats<KT>(S, nt, chunks == 1, m0, m1, l0, l1);
+    }
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    float O[NQ][32];
+    for (int ch = 0; ch < chunks; ++ch) {  // pass 2 (one pass: S holds e already)
+      if (chunks > 1) {
+        nt = sra_scores<NQ, KT>(S, qf, rg, t, ch * KT, ntiles, Lk, t4, lane);
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+          for (int i = 0; i < 32; i += 4) {
+            S[j][i] = expf(S[j][i] - m0);
+            S[j][i + 1] = expf(S[j][i + 1] - m0);
+            S[j][i + 2] = expf(S[j][i + 2] - m1);
+            S[j][i + 3] = expf(S[j][i + 3] - m1);
+          }
+      }
+      // p = bf16(e / sum) as A fragments (P[j][s]: keys 64 (j0 + j) + 16 s),
+      // packed a key tile at a time just before its products, each tile's
+      // fragments kept until its products are done (one tile in flight)
+      for (int i = 0; i < nt * NQ; ++i) rg.wait(t + i);
+      unsigned P[KT][4][4];
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        if (j >= nt) continue;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          P[j][s][0] = pack_bf16(S[j][8 * s] * inv0, S[j][8 * s + 1] * inv0);
+          P[j][s][1] = pack_bf16(S[j][8 * s + 2] * inv1, S[j][8 * s + 3] * inv1);
+          P[j][s][2] = pack_bf16(S[j][8 * s + 4] * inv0, S[j][8 * s + 5] * inv0);
+          P[j][s][3] = pack_bf16(S[j][8 * s + 6] * inv1, S[j][8 * s + 7] * inv1);
+        }
+#pragma unroll
+        for (int c = 0; c < NQ; ++c) fence_regs(O[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int c = 0; c < NQ; ++c)
+            wgmma_m64n64k16_rs<1>(O[c], P[j][s],
+                                  wgmma_desc_sw128(rg.box(t + j * NQ + c) + 1024 * s),
+                                  ch > 0 || j > 0 || s > 0);
+        wgmma_commit();
+        if (j > 0) {
+          wgmma_wait<1>();
+#pragma unroll
+          for (int s = 0; s < 4; ++s) fence_uregs(P[j - 1][s]);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) fence_regs(O[c]);
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+        if (j == nt - 1)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) fence_uregs(P[j][s]);
+      for (int i = 0; i < nt * NQ; ++i) rg.release(t + i, lane);
+      t += nt * NQ;
+    }
+    // the head's output, rounded once, into its columns of the merged rows
+#pragma unroll
+    for (int c = 0; c < NQ; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = 64 * wg + wrow + 8 * ((i >> 1) & 1);
+        const int col = h * HDP + 64 * c + 8 * (i >> 2) + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(Os + sw128_offset(row, col, R)) =
+            __floats2bfloat162_rn(O[c][i], O[c][i + 1]);
+      }
+  }
+
+  if (cluster > 1) {  // the other blocks' heads of this warpgroup's rows
+    cluster_sync_all();
+    cg::cluster_group cl = cg::this_cluster();
+    for (int h = 0; h < nh; ++h) {
+      if (h % cluster == rank) continue;
+      const bf16* src = cl.map_shared_rank(Os, h % cluster);
+      for (int c = 0; c < NQ; ++c) {  // the 64 x 64 box, all its loads in flight at once
+        const size_t off = (size_t)(h * NQ + c) * R * 64 + wg * kBox;
+        uint4 v[kBox / 8 / 128];
+#pragma unroll
+        for (int k = 0; k < kBox / 8 / 128; ++k)
+          v[k] = reinterpret_cast<const uint4*>(src + off)[(tid & 127) + 128 * k];
+#pragma unroll
+        for (int k = 0; k < kBox / 8 / 128; ++k)
+          reinterpret_cast<uint4*>(Os + off)[(tid & 127) + 128 * k] = v[k];
+      }
+    }
+  }
+  fence_proxy_async();
+  named_sync(2 + wg, 128);
+
+  // out = Os wp^T + bp for the block's output chunks, one rounding, stored
+  // from the accumulators
+  for (int i = 0; i < n_wp / nkq; ++i) {
+    const int oc = rank + i * cluster;
+    sra_ring_product(acc, rg, t, Os, nkq, R, wg, lane);
+#pragma unroll
+    for (int k = 0; k < 32; k += 2) {
+      const long row = q0 + 64 * wg + wrow + 8 * ((k >> 1) & 1);
+      const int col = 64 * oc + 8 * (k >> 2) + 2 * t4;
+      if (row < N && col < C)
+        *reinterpret_cast<__nv_bfloat162*>(out + ((long)b * N + row) * C + col) =
+            __floats2bfloat162_rn(acc[k] + bp[col], acc[k + 1] + bp[col + 1]);
+    }
+  }
+  if (cluster > 1) cluster_sync_all();  // no block leaves while another reads its Os
+}
+
+// The block: every thread computes; thread 0 also issues the copies
+// (SraRing), the block's rows of x into As first.  232 registers a thread:
+// two warps an SM sub-partition (one block of two warpgroups, or two blocks
+// of one, an SM).
+template <int NQ, int KT, int NWG>
+__global__ void __maxnreg__(232)
+    sra_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_wq,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_wp, const float* __restrict__ ln_w,
+               const float* __restrict__ ln_b, const float* __restrict__ bq,
+               const float* __restrict__ bp, bf16* __restrict__ out, int N, int C, int nh, int Lk,
+               int cluster, int stages, int chunks, int alias, float scale, float eps) {
+  constexpr int R = 64 * NWG;
   extern __shared__ float4 smem4[];
-  char* base = reinterpret_cast<char*>(smem4);
-  const AttnSmem L = attn_layout(a.QM, a.C, a.hd, a.Lk);
-  const int C = a.C, hd = a.hd, Lk = a.Lk, QM = a.QM, Nq = a.Nq;
-  const int ldo = C + 8, ldh = hd + 8, ldS = Lk + 4, ldP = Lk + 8, ldOh = hd + 4, ldout = C + 4;
-  bf16* os = reinterpret_cast<bf16*>(base);
-  bf16* qs = reinterpret_cast<bf16*>(base + L.qs);
-  bf16* ks = reinterpret_cast<bf16*>(base + L.ks);
-  bf16* vs = reinterpret_cast<bf16*>(base + L.vs);
-  float* S = reinterpret_cast<float*>(base + L.S);
-  bf16* P = reinterpret_cast<bf16*>(base + L.P);
-  float* Oh = reinterpret_cast<float*>(base + L.Oh);
-  float* out32 = reinterpret_cast<float*>(base + L.out32);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-
-  const int b = blockIdx.y, q0 = blockIdx.x * QM;  // image, first query row
-  auto row_of = [&](int t) -> long { return (long)b * Nq + t; };
-  const long q_ld = C;
-  const int vpr = hd / 8;  // 16-byte vectors per head row
-
-  for (int h = 0; h < a.nh; ++h) {
-    for (int i = threadIdx.x; i < QM * vpr; i += blockDim.x) {
-      const int p = i / vpr, c = i - p * vpr, t = q0 + p;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (t < Nq)
-        val = __ldg(reinterpret_cast<const uint4*>(a.q + row_of(t) * q_ld + h * hd) + c);
-      *reinterpret_cast<uint4*>(qs + p * ldh + c * 8) = val;
+  const int Cp = (C + 63) & ~63, nkc = Cp / 64, nkq = nh * NQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);
+  uint64_t* empty = full + kSraRing;
+  uint64_t* xfull = empty + kSraRing;
+  bf16* As = tiles_start(smem4, (2 * kSraRing + 1) * 8);
+  bf16* Os = alias ? As : As + (size_t)R * Cp;
+  bf16* ring = (alias ? As + (size_t)R * Cp : Os + (size_t)R * nkq * 64);
+  const int rank = blockIdx.x % cluster, b = blockIdx.y;
+  const long q0 = (long)(blockIdx.x / cluster) * R;  // the tile's first query row in the image
+  const int ntiles = (Lk + 63) / 64, noc = (C + 63) / 64;
+  const int n_wp = (noc - rank + cluster - 1) / cluster * nkq;  // wp boxes of this block
+  const int head_boxes = NQ * nkc + (chunks > 1 ? ntiles * NQ : 0) + 2 * ntiles * NQ;
+  const int own_heads = nh / cluster;
+  const SraRing rg{ring, full, empty, stages, &map_wq, &map_k, &map_v, &map_wp, NQ, KT, nh,
+                   cluster, rank, b, nkc, nkq, ntiles, chunks, head_boxes, own_heads,
+                   own_heads * head_boxes + n_wp};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 4 * NWG);
     }
-    for (int i = threadIdx.x; i < Lk * vpr; i += blockDim.x) {
-      const int j = i / vpr, c = i - j * vpr;
-      const long r = (((long)b * a.nh + h) * Lk + j) * hd;
-      const bf16 *kp = a.k + r, *vp = a.v + r;
-      *reinterpret_cast<uint4*>(ks + j * ldh + c * 8) =
-          __ldg(reinterpret_cast<const uint4*>(kp) + c);
-      *reinterpret_cast<uint4*>(vs + j * ldh + c * 8) =
-          __ldg(reinterpret_cast<const uint4*>(vp) + c);
-    }
-    __syncthreads();
-    // scores: S = q_h k_h^T (ks rows are B's "weight rows")
-    mma_tiles(qs, ldh, ks, ldh, S, ldS, QM / 16, Lk / 16, hd, false);
-    __syncthreads();
-    // softmax in fp32, p rounded to bf16
-    for (int p = warp; p < QM; p += nwarps) {
-      float* srow = S + p * ldS;
-      bf16* prow = P + p * ldP;
-      const int t = q0 + p;
-      if (t >= Nq) {
-        for (int j = lane; j < Lk; j += 32) prow[j] = __float2bfloat16_rn(0.f);
-        continue;
-      }
-      float mx = -INFINITY;
-      for (int j = lane; j < Lk; j += 32) {
-        float s = srow[j];
-        if (j >= a.Lkv) s = -INFINITY;
-        srow[j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < Lk; j += 32) {
-        const float e = expf(srow[j] - mx);
-        srow[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int j = lane; j < Lk; j += 32) prow[j] = __float2bfloat16_rn(srow[j] / sum);
-    }
-    __syncthreads();
-    mma_tiles_rowb(P, ldP, vs, ldh, Oh, ldOh, QM / 16, hd / 16, Lk);
-    __syncthreads();
-    for (int i = threadIdx.x; i < QM * hd; i += blockDim.x) {
-      const int p = i / hd, d = i - p * hd;
-      os[p * ldo + h * hd + d] = __float2bfloat16_rn(Oh[p * ldOh + d]);
-    }
-    __syncthreads();
+    mbar_init(xfull, 1);
+    mbar_init_fence();
+    mbar_expect_tx(xfull, nkc * NWG * kBox * 2);  // x's rows (zeros past the last)
+    for (int kb = 0; kb < nkc; ++kb)
+      for (int w = 0; w < NWG; ++w)
+        tma_load_2d(As + (size_t)kb * R * 64 + w * kBox, &map_x, 64 * kb,
+                    (int)((long)b * N + q0 + 64 * w), xfull);
+    for (int i = 0; i < min(stages, rg.total); ++i) rg.issue(i);
   }
-  // output projection of the merged heads
-  mma_tiles(os, ldo, a.wp, C, out32, ldout, QM / 16, C / 16, C, false);
   __syncthreads();
-  for (int i = threadIdx.x; i < QM * C; i += blockDim.x) {
-    const int p = i / C, j = i - p * C, t = q0 + p;
-    if (t >= Nq) continue;
-    a.out[row_of(t) * C + j] = __float2bfloat16_rn(out32[p * ldout + j] + a.bp[j]);
-  }
+  sra_consumer<NQ, KT, NWG>(As, Os, rg, xfull, ln_w, ln_b, bq, bp, out, N, C, nh, Lk, cluster,
+                            chunks, scale, eps, rank, b, q0, n_wp);
 }
 
-// Query rows per block: the largest of 64, 48, 32, 16 whose tiles fit one
-// block and, except for 16, divide Nq, that still gives two blocks per SM;
-// else 16.  0 when not even 16 rows fit.
-int pick_qm(long groups, int Nq, int C, int hd, int Lk) {
-  const int cands[] = {64, 48, 32, 16};
-  for (int qm : cands) {
-    if (attn_layout(qm, C, hd, Lk).total > kSmemMax) continue;
-    if (qm != 16 && Nq % qm) continue;
-    if (qm == 16 || groups * ((Nq + qm - 1) / qm) >= 2L * 132) return qm;
-  }
-  return 0;
-}
-
-int launch_attn(AttnArgs a, long groups, cudaStream_t s) {
-  if (a.C % 16 || a.hd % 16 || a.Lk % 16 || a.nh * a.hd != a.C) return (int)cudaErrorInvalidValue;
-  a.QM = pick_qm(groups, a.Nq, a.C, a.hd, a.Lk);
-  if (a.QM == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = attn_layout(a.QM, a.C, a.hd, a.Lk).total;
-  cudaError_t e = allow_smem(attn_kernel, smem);
+// One launch of K12's kernel for NQ, KT and NWG with plan p (a cluster of
+// p.cluster blocks along x).
+template <int NQ, int KT, int NWG>
+static int launch_sra(const SraPlan& p, const CUtensorMap& map_x, const CUtensorMap& map_wq,
+                      const CUtensorMap& map_k, const CUtensorMap& map_v,
+                      const CUtensorMap& map_wp, const float* ln_w, const float* ln_b,
+                      const float* bq, const float* bp, bf16* out, int B, int N, int C, int nh,
+                      int Lk, float scale, float eps, cudaStream_t s) {
+  auto kern = sra_kernel<NQ, KT, NWG>;
+  cudaError_t e = allow_smem(kern, p.smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((a.Nq + a.QM - 1) / a.QM), (unsigned)groups);
-  attn_kernel<<<grid, kThreads, smem, s>>>(a);
-  TRAMBA_CHECK_LAUNCH();
-  return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.tiles * p.cluster), (unsigned)B, 1);
+  cfg.blockDim = dim3(128 * NWG, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, map_x, map_wq, map_k, map_v, map_wp, ln_w, ln_b, bq, bp,
+                         out, N, C, nh, Lk, p.cluster, p.stages, p.chunks, p.alias, scale, eps);
+  return (int)e;
+}
+
+static bool sm_count(int* sms) {
+  static int n = 0;
+  int dev = 0;
+  if (n == 0 && (cudaGetDevice(&dev) != cudaSuccess ||
+                 cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess))
+    return false;
+  *sms = n;
+  return true;
 }
 
 // ---- K13 (ii): window attention + output projection --------------------------
@@ -329,11 +807,6 @@ __host__ __device__ inline WinLayout win_layout(int Cq, int hd, int N) {
   const size_t ring = (size_t)kWinRing * 2 * kBox * 2;
   l.total = 1024 + l.x + (heads > ring ? heads : ring);
   return l;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 template <int HD>
@@ -609,50 +1082,63 @@ __global__ void __launch_bounds__(256, 1)
 
 extern "C" {
 
-// (1) out (M, Nout) bf16 = the projection of y (M, K) bf16 (already LN'd) by
-// w (Nout, K) bf16 and b (Nout) fp32, columns below nscale times scale.
-// K, Nout multiples of 16.
-int attn_proj_in_launch(const bf16* y, const bf16* w, const float* b, bf16* out, long M, int K,
-                        int Nout, int nscale, float scale, void* stream) {
-  if (K % 16 || Nout % 16) return (int)cudaErrorInvalidValue;
-  int NC = 128;
-  while (Nout % NC) NC /= 2;
-  const int ncols = Nout / NC;
-  int BM = 64;
-  while (BM > 16 && ((M + BM - 1) / BM) * ncols < 2L * 132) BM /= 2;
-  while (BM > 16 && proj_smem(BM, K, NC) > kSmemMax) BM /= 2;
-  const size_t smem = proj_smem(BM, K, NC);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(proj_in_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)ncols);
-  proj_in_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      y, w, b, out, M, K, Nout, nscale, scale, BM, NC);
-  TRAMBA_CHECK_LAUNCH();
+// The plan of a K12 call: plan[0..11] = head-width chunks of 64, warpgroups
+// a block, query rows a block, blocks a row tile (the cluster), row tiles an
+// image, key tiles held in registers, key chunks (two passes where > 1),
+// ring slots, whether the merged heads share the LayerNorm's tile, blocks an
+// SM, shared bytes, blocks.
+int sra_plan(int B, int N, int C, int nh, int Lk, int* plan) {
+  SraPlan p;
+  int sms = 0;
+  if (!sm_count(&sms) || !plan_sra(B, N, C, nh, Lk, sms, &p)) return (int)cudaErrorInvalidValue;
+  const int v[12] = {p.nq, p.nwg, p.rows, p.cluster, p.tiles, p.kt, p.chunks, p.stages, p.alias,
+                     p.per_sm, (int)p.smem, (int)p.blocks};
+  std::copy(v, v + 12, plan);
   return 0;
 }
 
-// K12 (2).  q (B, N, C) bf16 from (1); k, v (B, nh, Lk, hd) bf16; wp (C, C)
-// bf16; bp (C) fp32; out (B, N, C) bf16.  C, hd, Lk multiples of 16; the keys
-// from Lk_valid on are padding and take no part (-inf scores).
-int sra_attn_launch(const bf16* q, const bf16* k, const bf16* v, const bf16* wp,
-                    const float* bp, bf16* out, int B, int N, int C, int nh, int Lk,
-                    int Lk_valid, void* stream) {
-  if (Lk_valid < 1 || Lk_valid > Lk) return (int)cudaErrorInvalidValue;
-  AttnArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.wp = wp;
-  a.bp = bp;
-  a.out = out;
-  a.C = C;
-  a.nh = nh;
-  a.hd = nh > 0 ? C / nh : 0;
-  a.Nq = N;
-  a.Lk = Lk;
-  a.Lkv = Lk_valid;
-  return launch_attn(a, B, static_cast<cudaStream_t>(stream));
+// K12: one launch (sra_kernel).  x (B, N, C) bf16; ln_w, ln_b (C) fp32
+// (LayerNorm with eps); wq (Cq, C) bf16 and bq (Cq) fp32, each head's rows
+// padded with zeros to hdp = hd rounded up to 64 (Cq = nh hdp); k, v (B, nh,
+// Lk, hdp) bf16; wp (C, Cq) bf16, each head's input columns padded to hdp;
+// bp (C) fp32; out (B, N, C) bf16 = bf16(bf16(concat_h bf16(softmax(q_h
+// k_h^T)) v_h) wp^T + bp), q = bf16((bf16(LN(x)) wq^T + bq) scale).  C a
+// multiple of 8 up to 768, hd up to 128 (plan_sra).
+int sra_launch(const bf16* x, const float* ln_w, const float* ln_b, const bf16* wq,
+               const float* bq, const bf16* k, const bf16* v, const bf16* wp, const float* bp,
+               bf16* out, int B, int N, int C, int nh, int Lk, float scale, float eps,
+               void* stream) {
+  SraPlan p;
+  int sms = 0;
+  if (!sm_count(&sms) || !plan_sra(B, N, C, nh, Lk, sms, &p)) return (int)cudaErrorInvalidValue;
+  const int hdp = 64 * p.nq, Cq = nh * hdp;
+  CUtensorMap map_x, map_wq, map_k, map_v, map_wp;
+  if (!weight_map(&map_x, x, (long)B * N, C) || !weight_map(&map_wq, wq, Cq, C) ||
+      !kv_map(&map_k, k, hdp, Lk, (long)B * nh) || !kv_map(&map_v, v, hdp, Lk, (long)B * nh) ||
+      !weight_map(&map_wp, wp, C, Cq))
+    return (int)cudaErrorInvalidValue;
+  // the instantiations: one or two 64-column chunks a head, key tiles held
+  // in registers, consumer warpgroups (two only with 64-wide heads)
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = (int)cudaErrorInvalidValue;
+#define TRAMBA_SRA_CASE(NQ_, KT_, NWG_)                                                      \
+  if (p.nq == NQ_ && p.kt == KT_ && p.nwg == NWG_)                                           \
+  rc = launch_sra<NQ_, KT_, NWG_>(p, map_x, map_wq, map_k, map_v, map_wp, ln_w, ln_b, bq, bp, \
+                                  out, B, N, C, nh, Lk, scale, eps, s)
+  TRAMBA_SRA_CASE(1, 1, 2);
+  TRAMBA_SRA_CASE(1, 2, 2);
+  TRAMBA_SRA_CASE(1, 3, 2);
+  TRAMBA_SRA_CASE(1, 4, 2);
+  TRAMBA_SRA_CASE(1, 1, 1);
+  TRAMBA_SRA_CASE(1, 2, 1);
+  TRAMBA_SRA_CASE(1, 3, 1);
+  TRAMBA_SRA_CASE(1, 4, 1);
+  TRAMBA_SRA_CASE(2, 1, 1);
+  TRAMBA_SRA_CASE(2, 2, 1);
+#undef TRAMBA_SRA_CASE
+  if (rc) return rc;
+  TRAMBA_CHECK_LAUNCH();
+  return 0;
 }
 
 // The plan of a K13 call: plan[0..6] = the front's row tiles, hidden groups,

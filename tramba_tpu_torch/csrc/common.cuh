@@ -5,16 +5,12 @@
 // arithmetic is always fp32, and a bf16 result is rounded once, to nearest
 // even (`__float2bfloat16_rn`, as jnp's astype), where the TPU kernel rounds.
 //
-// Three patterns for matrix products inside the kernels:
+// Two patterns for matrix products inside the kernels:
 // * "row blocks" (K1's projection): a block stages P activation rows in
 //   shared memory as fp32, and each thread owns one output column j, reading
 //   row j of the weight 16 bytes at a time and keeping P accumulators in
 //   registers.  Plain SIMT FMA work (no tensor cores, no TMA).
-// * "wmma tiles" (K12, bf16 only): bf16 operands in 16x16x16
-//   tensor-core fragments (nvcuda::wmma) with fp32 accumulation; A from
-//   shared memory, B straight from the weight in global memory (L2-resident)
-//   and shared by up to four m-tiles, C through a shared fp32 tile.
-// * "staged tiles" (K2-K7, K9-K11, K13): the weight streams through a ring of
+// * "staged tiles" (K2-K7, K9-K13): the weight streams through a ring of
 //   shared-memory stages filled several stages ahead of use, and the product
 //   runs from shared memory.  K2: 16-byte cp.async copies (zero-filled past
 //   the edges) into padded rows; bf16 as mma.sync m16n8k16 fragments loaded
@@ -22,14 +18,16 @@
 //   boxes (zeros past the edges) completing on mbarriers, in the 128-byte
 //   swizzled layout (sw128_offset) that warpgroup wgmma m64n64k16 reads
 //   through shared-memory descriptors, the fp32 sums in registers; K5-K7
-//   and K9-K11 share the LayerNorm of gathered rows into that layout
+//   and K9-K12 share the LayerNorm of gathered rows into that layout
 //   (ln_gather_sw128: K5's and K11's rows are their tiles' halo pixels), K7,
 //   K9, K10 and K13 the front kernel (ln_fc_kernel below), K7 and K10 stage
 //   their hidden maps' halos by 4-D TMA boxes, K9 / K10's (c) runs in thread
 //   block clusters, and their weight gradients are mma.sync products of
 //   transposed operands (ldmatrix_x4_trans) from a cp.async ring; K13's
 //   attention runs mma.sync on ldmatrix fragments of cp.async-staged q, k,
-//   v and its output projection wgmma on TMA boxes of wp.  K3 and
+//   v and its output projection wgmma on TMA boxes of wp; K12 (attn.cu)
+//   runs every product on wgmma from one TMA ring, the scores and the
+//   probabilities as register A operands.  K3 and
 //   K4 (expand.cu): in bf16 x and the weight as TMA boxes, wgmma up to
 //   m64n256k16 (wgmma_m64nk16) with the LayerNorm and the head computed from
 //   the accumulators; in fp32 register micro-tiles of SIMT FMAs from a
@@ -43,7 +41,6 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
-#include <mma.h>
 
 #include <algorithm>
 #include <cstdint>
@@ -350,63 +347,6 @@ template <typename Kern>
 static inline cudaError_t allow_smem(Kern kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// ---------------------------------------------------------------------------
-// wmma tiles (bf16 in, fp32 accumulate)
-// ---------------------------------------------------------------------------
-
-namespace wm = nvcuda::wmma;
-
-constexpr int kMmaGroup = 4;  // m-tiles that share one B fragment per k-step
-
-// C (+)= A * B^T over all 16x16 tiles of an (Mt*16) x (Nt*16) output.  Work
-// item t is one n-tile and a group of up to kMmaGroup m-tiles, whose
-// accumulators a warp keeps in registers, so each B fragment is loaded once
-// per k-step for the whole group; items go to warp t % nwarps, so a warp meets
-// the same tiles on every call with the same Mt, Nt.
-//   A: bf16, shared memory, row-major, lda % 8 == 0, 32-byte aligned rows;
-//   B: bf16 weight rows B[n * ldb + k] in global memory (32-byte aligned);
-//   C: fp32, shared memory, row-major, ldc % 4 == 0; read first when
-//      `accumulate`, else the tiles start from 0.
-// K % 16 == 0.  The caller synchronises the block around the call.
-__device__ __forceinline__ void mma_tiles(const bf16* A, int lda, const bf16* __restrict__ B,
-                                          long ldb, float* C, int ldc, int Mt, int Nt, int K,
-                                          bool accumulate) {
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int groups = (Mt + kMmaGroup - 1) / kMmaGroup;
-  for (int t = warp; t < Nt * groups; t += nwarps) {
-    const int nt = t % Nt, m0 = (t / Nt) * kMmaGroup;
-    const int mn = min(kMmaGroup, Mt - m0);
-    wm::fragment<wm::accumulator, 16, 16, 16, float> c[kMmaGroup];
-#pragma unroll
-    for (int i = 0; i < kMmaGroup; ++i) {
-      if (i >= mn) break;
-      float* cp = C + (m0 + i) * 16 * ldc + nt * 16;
-      if (accumulate) {
-        wm::load_matrix_sync(c[i], cp, ldc, wm::mem_row_major);
-      } else {
-        wm::fill_fragment(c[i], 0.f);
-      }
-    }
-    const bf16* bp = B + (long)nt * 16 * ldb;
-    for (int k = 0; k < K; k += 16) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> b;
-      wm::load_matrix_sync(b, bp + k, (unsigned)ldb);
-#pragma unroll
-      for (int i = 0; i < kMmaGroup; ++i) {
-        if (i >= mn) break;
-        wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-        wm::load_matrix_sync(a, A + (m0 + i) * 16 * lda + k, lda);
-        wm::mma_sync(c[i], a, b, c[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMmaGroup; ++i) {
-      if (i >= mn) break;
-      wm::store_matrix_sync(C + (m0 + i) * 16 * ldc + nt * 16, c[i], ldc, wm::mem_row_major);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------

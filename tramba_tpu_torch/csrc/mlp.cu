@@ -1,5 +1,5 @@
 // K6 ln_mlp, K7 ln_dwms_mlp and K11 ln_dwmlp: the block FFNs of the bf16
-// inference path, and the bf16 LayerNorm launch that K12 starts with.
+// inference path.
 //
 // K6 replaces _mlp_pallas (tramba_tpu/ops/fused_mlp.py:130, kernel :115):
 //   y = bf16(LN(x)); h = bf16(GELU(y @ w1^T + b1)); out = bf16(h @ w2^T + b2).
@@ -55,29 +55,6 @@
 #include "common.cuh"
 
 namespace {
-
-// y[m, :] = bf16(LN(x[m, :]) * ln_w + ln_b), fp32 statistics; one warp per
-// row.
-__global__ void ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
-                               const float* __restrict__ ln_b, bf16* __restrict__ y, long M,
-                               int d, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long m = (long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (m >= M) return;
-  const bf16* xr = x + m * d;
-  float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += to_f32(xr[i]);
-  const float mean = warp_sum(s) / d;
-  float q = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float v = to_f32(xr[i]) - mean;
-    q = fmaf(v, v, q);
-  }
-  const float rstd = rsqrtf(warp_sum(q) / d + eps);
-  bf16* yr = y + m * d;
-  for (int i = lane; i < d; i += 32)
-    yr[i] = __float2bfloat16_rn((to_f32(xr[i]) - mean) * rstd * ln_w[i] + ln_b[i]);
-}
 
 constexpr int kThreads = 256;
 
@@ -966,16 +943,6 @@ int dwms_route(const bf16* x, const float* ln_w, const float* ln_b, const bf16* 
 }  // namespace
 
 extern "C" {
-
-// bf16 LayerNorm of the rows of x (M, d) into y (M, d); ln_w, ln_b (d) fp32.
-int layer_norm_bf16_launch(const bf16* x, const float* ln_w, const float* ln_b, bf16* y, long M,
-                           int d, float eps, void* stream) {
-  const int rows = kThreads / 32;
-  ln_rows_kernel<<<(unsigned)((M + rows - 1) / rows), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(x, ln_w, ln_b, y, M, d, eps);
-  TRAMBA_CHECK_LAUNCH();
-  return 0;
-}
 
 // Splits of the hidden dimension that ln_mlp_launch should use for these
 // shapes (see pick_mlp_splits).

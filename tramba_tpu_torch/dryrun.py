@@ -68,7 +68,7 @@ def run_phases(device, img_size: int = 64, batch: Optional[int] = None, min_l: i
     gen = torch.Generator().manual_seed(0)
     images = torch.randn(batch, img_size, img_size, 3, generator=gen).to(device)
     gts = torch.zeros(batch, img_size, img_size, 1, device=device)
-    state = build("Tramba-V-TSOD", img_size, seed=0, **model_kw).state_dict()
+    state = build("Tramba-V-TSOD", img_size, device="cpu", seed=0, **model_kw).state_dict()
     out = []
     for (name, backend), (n_model, n_seq) in zip(PHASES, phase_grids(world)):
         grid = make_grid(n_model, n_seq)

@@ -46,7 +46,7 @@ def main(argv=None) -> None:
 
     for ckpt in args.ckpt or [None]:
         print(ckpt or "no checkpoint: random weights from seed 0", flush=True)
-        model = build(args.method, args.img_size, seed=None if ckpt else 0,
+        model = build(args.method, args.img_size, device=device, seed=None if ckpt else 0,
                       dtype=getattr(torch, args.dtype))
         if ckpt:
             load_checkpoint(model, ckpt)

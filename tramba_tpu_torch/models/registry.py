@@ -25,10 +25,11 @@ _ENC_BY_LETTER = {"S": "swin", "P": "pvt", "R": "resnet"}
 _NOT_PORTED = {"BaseUMamba-SOD": "ROADMAP.md Queue 1 item 9 (BaseUMamba)"}
 
 
-def build(method: str, img_size: int = 384, *, device="cpu", seed: Optional[int] = 0,
+def build(method: str, img_size: int = 384, *, device="cuda", seed: Optional[int] = 0,
           dtype: torch.dtype = torch.float32, ssm_backend: Optional[str] = None,
           **overrides) -> nn.Module:
-    """Build ``method`` in eval mode on ``device``, computing in ``dtype``
+    """Build ``method`` in eval mode on ``device`` (the card unless the
+    caller asks for ``"cpu"``; raises where there is no card), computing in ``dtype``
     (``torch.float32``, or ``torch.bfloat16``: JAX ``build(...,
     dtype=jnp.bfloat16)``, the forward ``bench.py`` times).  Parameters are
     fp32 in both, so one state dict serves both.  The weights are drawn on

@@ -46,7 +46,6 @@ _SIGNATURES = {
     "expand_ln_plan": [_I] * 6 + [_IP],
     "final_head_launch": [_P] * 7 + [_L, _I, _I, _P],
     "final_head_plan": [_L, _I, _I, _IP],
-    "layer_norm_bf16_launch": [_P] * 4 + [_L, _I, _F, _P],
     "prologue_launch": [_P] * 6 + [_I] * 5 + [_P],
     "prologue_plan": [_I] * 5 + [_IP],
     "ln_mlp_splits": [_L, _I, _I, _IP],
@@ -59,11 +58,12 @@ _SIGNATURES = {
     "mlp_bwd_column_groups": [_I] * 3,
     "ln_mlp_bwd_launch": [_P] * 15 + [_I] * 3 + [_P],
     "ln_dwms_mlp_bwd_launch": [_P] * 27 + [_I] * 5 + [_P],
-    "attn_proj_in_launch": [_P] * 4 + [_L, _I, _I, _I, _F, _P],
-    "sra_attn_launch": [_P] * 6 + [_I] * 6 + [_P],
+    "sra_plan": [_I] * 5 + [_IP],
+    "sra_launch": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     "window_attn_plan": [_I] * 7 + [_IP],
     "window_attn_launch": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
-    "linear_scan_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "linear_scan_plan": [_L, _I, _I, _IP],
+    "linear_scan_launch": [_P] * 3 + [_L, _I, _I, _I] + [_P] * 3,
 }
 
 # dtypes a kernel argument may take (see check_args)

@@ -1,6 +1,7 @@
-"""Plain mirror of how the redesigned K11 ``ln_dwmlp`` (``csrc/mlp.cu``) and
-K13 ``window_attn`` (``csrc/attn.cu``, ``csrc/common.cuh``) split their work,
-beside :func:`tramba_tpu_torch.ops.fused_mlp.ln_dwmlp_ref` and
+"""Plain mirror of how the redesigned K11 ``ln_dwmlp`` (``csrc/mlp.cu``), K12
+``sra`` and K13 ``window_attn`` (``csrc/attn.cu``, ``csrc/common.cuh``) split
+their work, beside :func:`tramba_tpu_torch.ops.fused_mlp.ln_dwmlp_ref`,
+:func:`tramba_tpu_torch.ops.fused_attn.sra_ref` and
 :func:`tramba_tpu_torch.ops.fused_attn.window_attn_ref`, which follow the TPU
 kernels' own order.
 
@@ -13,6 +14,17 @@ kernels' own order.
   outputs (LN'd and projected per halo pixel, zero outside the image), the
   3x3 stencil and GELU per tile, fc2 summed chunk by chunk of 64 hidden
   channels within a split, then b2 and the splits' partial sums in order.
+* :func:`sra_plan`: ``plan_sra`` (the card reports it through
+  ``fused_attn.sra_plan``): head-width chunks of 64, warpgroups and query
+  rows a block, blocks a row tile (the cluster that splits the heads), row
+  tiles, key tiles held in registers, key chunks, ring slots, whether the
+  merged heads share the LayerNorm's tile, blocks an SM, shared bytes.
+* :func:`sra_tiled_ref`: per row tile of the plan's rows, per head of the
+  cluster's blocks in turn: the LayerNorm of the tile's rows, q rounded, the
+  scores over key tiles of 64 (zero keys past Lk, masked), each row's max
+  and sum (over key chunks, rescaled, where there are two passes), p
+  rounded, p v rounded into the merged row; then the output projection and
+  one rounding.
 * :func:`front_plan`, :func:`window_plan`: K13's two launches (``plan_front``
   for the LN + qkv front; the attention launch's blocks a window, its
   shared bytes from ``fused_attn.window_smem``).
@@ -32,12 +44,14 @@ import torch
 import torch.nn.functional as F
 
 from tramba_tpu_torch.ops.fused_attn import (_pad_heads, _pad_out_proj, _scale, attn_plan,
+                                             check_sra_shape, sra_least_slots, sra_smem,
                                              window_smem)
 from tramba_tpu_torch.ops.fused_mlp import _ln_rounded
 
 __all__ = ["DWMLP_FAULTS", "WINDOW_FAULTS", "cheapest_splits", "dwmlp_faults", "dwmlp_plan",
            "dwmlp_tiled_ref", "wave_splits",
-           "front_plan", "window_faults", "window_plan", "window_tiled_ref"]
+           "front_plan", "window_faults", "window_plan", "window_tiled_ref", "SRA_FAULTS",
+           "sra_faults", "sra_plan", "sra_tiled_ref"]
 
 # "h not zero outside": the halo pixels past the image keep fc1's bias (LN of
 # a zero row is zero, so h = b1 there); "halo cut at the tile edge": each
@@ -52,6 +66,16 @@ DWMLP_FAULTS = ("h not zero outside", "halo cut at the tile edge", "no last chun
 # h's output at head nh - 1 - h's columns
 WINDOW_FAULTS = ("mask of window 0 everywhere", "row groups from row 0",
                  "heads swapped in the merged row")
+
+# "head slices swapped in the merged row": each block of a cluster writes its
+# heads at the next block's heads' columns (without a cluster, head h at
+# head nh - 1 - h's); "row tiles from row 0": each row tile's queries read
+# from the image's first rows (the rows it stores are right); "padded keys
+# not masked": the zero keys of the last key tile take part in the softmax;
+# "no second key pass": on the two-pass route each key chunk's p normalised
+# by that chunk's own max and sum
+SRA_FAULTS = ("head slices swapped in the merged row", "row tiles from row 0",
+              "padded keys not masked", "no second key pass")
 
 SMS = 132                 # SMs of an H100
 SMEM_BLOCK = 227 * 1024   # shared memory one block may use
@@ -274,3 +298,110 @@ def window_tiled_ref(x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp, nh, eps=1e-5
     out = os @ wpq.to(cd).float().t() + bpq.float()
     out = out.reshape(B, nWh, nWw, w, w, Cq).permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, Cq)
     return out[..., :C].to(cd)
+
+
+_SRA_RING = 8                    # K12: most ring slots
+
+
+def sra_plan(B: int, N: int, C: int, nh: int, Lk: int, sms: int = SMS) -> dict:
+    """``plan_sra`` of ``csrc/attn.cu``: {"nq", "nwg", "rows", "cluster",
+    "tiles", "kt", "chunks", "stages", "alias", "per_sm", "smem", "blocks"}
+    (``fused_attn.SRA_PLAN_FIELDS``).  Raises for shapes K12 does not take
+    (as ``fused_attn.check_sra_shape``).  Two warpgroups (128 rows a block,
+    one block an SM) up to C 192 with 64-wide heads, else one (two blocks an
+    SM where 113 KB hold them); the cluster size d, a divisor of nh up to
+    8, with the fewest waves per unit of work, ceil(tiles d / (sms per_sm))
+    / d, the smallest such; the merged heads in the LayerNorm's tile where
+    each block takes one head and Cq = C rounded up to 64."""
+    if min(B, N) < 1:
+        raise ValueError(f"sra: no plan for B={B}, N={N}")
+    hdp, Cq = check_sra_shape(C, nh, Lk)
+    nq, Cp, ktiles = hdp // 64, _up(C, 64), -(-Lk // 64)
+    least = sra_least_slots(hdp)
+    nwg = 2 if C <= 192 and nq == 1 and sra_smem(C, Cq, 128, least) <= SMEM_BLOCK else 1
+    rows = 64 * nwg
+    tiles = -(-N // rows)
+    kt_max = min(ktiles, 4 if nq == 1 else 2)
+    best = None
+    for d in range(1, min(8, nh) + 1):
+        if nh % d:
+            continue
+        alias = d == nh and Cq == Cp
+        fixed = sra_smem(C, Cq, rows, 0, alias)
+        if fixed + least * _BOX > SMEM_BLOCK:
+            continue
+        two = nwg == 1 and fixed + (kt_max * nq + 1) * _BOX <= HALF_SM
+        per_sm = 2 if two else 1
+        cost = -(-(B * tiles * d) // (sms * per_sm)) / d
+        if best is not None and cost >= best[0]:
+            continue
+        stages = min(_SRA_RING, ((HALF_SM if two else SMEM_BLOCK) - fixed) // _BOX)
+        best = (cost, d, int(alias), per_sm, stages, fixed + stages * _BOX)
+    _, cluster, alias, per_sm, stages, smem = best
+    kt = kt_max
+    while kt > 1 and stages < kt * nq + 1:
+        kt -= 1
+    return dict(nq=nq, nwg=nwg, rows=rows, cluster=cluster, tiles=tiles, kt=kt,
+                chunks=-(-ktiles // kt), stages=stages, alias=alias, per_sm=per_sm, smem=smem,
+                blocks=B * tiles * cluster)
+
+
+def sra_faults(plan: dict, N: int, nh: int, Lk: int) -> tuple:
+    """The faults of :data:`SRA_FAULTS` that bear on a K12 call with ``plan``."""
+    bears = {"head slices swapped in the merged row": nh > 1,
+             "row tiles from row 0": N > plan["rows"], "padded keys not masked": Lk % 64 != 0,
+             "no second key pass": plan["chunks"] > 1}
+    return tuple(f for f in SRA_FAULTS if bears[f])
+
+
+def sra_tiled_ref(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps=1e-6, plan=None, fault=None):
+    """K12's tiling in plain PyTorch: the arguments of ``fused_attn.sra`` and
+    its plan (:func:`sra_plan` of the call's shape unless given).  Returns
+    (B, N, C) in x's dtype."""
+    if fault is not None and fault not in SRA_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    cd = x.dtype
+    B, N, C = x.shape
+    Lk, hd = k.shape[2], C // nh
+    plan = plan or sra_plan(B, N, C, nh, Lk)
+    rows, cluster, kt, chunks = plan["rows"], plan["cluster"], plan["kt"], plan["chunks"]
+    hdp = 64 * plan["nq"]
+    # the tile's rows normalised; a row tile's queries (faulty: the image's
+    # first rows)
+    y = _ln_rounded(x, ln_w, ln_b, eps)
+    src = torch.arange(N, device=x.device)
+    if fault == "row tiles from row 0":
+        src = (src % rows).clamp_max(N - 1)
+    y = y[:, src]
+    wqp, bqp = _pad_heads(wq, nh, hdp).to(cd).float(), _pad_heads(bq, nh, hdp).float()
+    pad = (0, hdp - hd, 0, -(-Lk // 64) * 64 - Lk)  # zero head columns, zero keys to a tile
+    kp, vp = (torch.nn.functional.pad(t.to(cd).float(), pad) for t in (k, v))
+    valid = torch.arange(kp.shape[2], device=x.device) < Lk
+    if fault == "padded keys not masked":
+        valid = torch.ones_like(valid)
+    os = y.new_zeros(B, N, nh * hdp)
+    # each block of a cluster its heads in turn (rank r: heads r, r + cluster, ...)
+    for h in sorted(range(nh), key=lambda h: (h % cluster, h)):
+        q = ((y @ wqp[h * hdp:(h + 1) * hdp].t() + bqp[h * hdp:(h + 1) * hdp]) * _scale(hd))
+        s = q.to(cd).float() @ kp[:, h].transpose(-1, -2)
+        s = s.masked_fill(~valid, float("-inf"))
+        ck = 64 * kt  # keys a chunk
+        if chunks == 1:
+            p = torch.softmax(s, -1)
+        elif fault == "no second key pass":  # each chunk by its own statistics
+            p = torch.cat([torch.softmax(s[..., c:c + ck], -1) for c in range(0, s.shape[-1], ck)],
+                          -1)
+        else:  # pass 1: the rescaled running max and sum over the chunks
+            m = torch.full_like(s[..., 0], float("-inf"))
+            sm = torch.zeros_like(m)
+            for c in range(0, s.shape[-1], ck):
+                n = torch.maximum(m, s[..., c:c + ck].amax(-1))
+                sm = sm * torch.exp(m - n) + torch.exp(s[..., c:c + ck] - n[..., None]).sum(-1)
+                m = n
+            p = torch.exp(s - m[..., None]) / sm[..., None]
+        col = h
+        if fault == "head slices swapped in the merged row":
+            col = ((h % cluster + 1) % cluster + h - h % cluster if cluster > 1 else nh - 1 - h)
+        os[..., col * hdp:(col + 1) * hdp] = (p.to(cd).float() @ vp[:, h]).to(cd).float()
+    wpp = _pad_heads(wp.t(), nh, hdp).t().to(cd).float()
+    return (os @ wpp.t() + bp.float()).to(cd)

@@ -13,8 +13,9 @@ Port of ``tramba_tpu/ops/fused_attn.py``:
   the (B, H, W, C) map, partition and reverse inside.  The cyclic shift and
   the gather of the relative-position bias stay outside, as in JAX.
 
-Both run in ``csrc/attn.cu`` after the bf16 LayerNorm launch of
-``csrc/mlp.cu``.  They round where the TPU kernels round: the LN output; q
+Both run in ``csrc/attn.cu``: K12 as one launch with its LayerNorm folded
+in (its plan: :func:`sra_plan`), K13 as two (an LN + qkv front, then the
+attention).  They round where the TPU kernels round: the LN output; q
 after its bias and scale, k and v (K13: after their bias); the softmax
 probabilities; the merged head outputs; the result.  The plain versions
 (``*_ref``) do fp32 math on operands rounded to ``x``'s dtype at the same
@@ -37,9 +38,11 @@ import torch
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_card
-from tramba_tpu_torch.ops.fused_mlp import _linear, _ln_rounded, layer_norm_bf16
+from tramba_tpu_torch.ops.fused_mlp import _linear, _ln_rounded
 
-__all__ = ["sra", "sra_ref", "sra_fusable", "window_attn", "window_attn_ref",
+__all__ = ["sra", "sra_ref", "sra_fusable", "check_sra_shape", "sra_plan", "sra_smem",
+           "sra_least_slots",
+           "SRA_PLAN_FIELDS", "SRA_MAX_C", "window_attn", "window_attn_ref",
            "window_attn_fusable", "attn_plan", "check_window_attn_shape", "window_attn_plan",
            "window_smem", "WINDOW_HEAD_WIDTHS", "WINDOW_PLAN_FIELDS", "Sra", "WindowAttn"]
 
@@ -47,10 +50,19 @@ __all__ = ["sra", "sra_ref", "sra_fusable", "window_attn", "window_attn_ref",
 def sra_fusable(N: int, C: int, nh: int, Lk: int, dtype) -> bool:
     """Where the JAX package runs ``_sra_pallas`` on a TPU (``sra_fusable``,
     fused_attn.py:34-45, whose VMEM budgets hold at every PVTv2-b4 width):
-    bf16, N, Lk and the head width multiples of 8.  K12 takes every such
-    shape, padded where needed (:func:`attn_plan`)."""
-    return (dtype == torch.bfloat16 and N % 8 == 0 and C % nh == 0 and (C // nh) % 8 == 0
-            and Lk % 8 == 0)
+    bf16, N, Lk and the head width multiples of 8; and where K12's block
+    holds its rows' LayerNorm and merged heads (:func:`check_sra_shape`: C up
+    to 768, heads up to 128 wide; every PVTv2 width, at any image size).  K12
+    takes every such shape, its heads padded where needed, any number of
+    keys."""
+    if not (dtype == torch.bfloat16 and N % 8 == 0 and nh >= 1 and C % nh == 0
+            and (C // nh) % 8 == 0 and Lk % 8 == 0):
+        return False
+    try:
+        check_sra_shape(C, nh, Lk)
+    except ValueError:
+        return False
+    return True
 
 
 def window_attn_fusable(H: int, W: int, C: int, nh: int, w: int, dtype) -> bool:
@@ -145,29 +157,21 @@ def sra(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps=1e-6):
     return _sra_launch(*args, nh, eps) if on_card(x) else sra_ref(*args, nh, eps)
 
 
-def _proj_in(y, w, b, nscale, scale):
-    """Launch (1) of K12 / K13: bf16((y @ w^T + b) * s), s = scale on the
-    first ``nscale`` columns."""
-    M, K = y.numel() // y.shape[-1], y.shape[-1]
-    out = torch.empty(*y.shape[:-1], w.shape[0], device=y.device, dtype=torch.bfloat16)
-    _native.launch("attn_proj_in_launch", y.data_ptr(), w.data_ptr(), b.data_ptr(),
-                   out.data_ptr(), M, K, w.shape[0], nscale, ctypes.c_float(scale),
-                   _native.stream_handle(y))
-    return out
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def _up16(n: int) -> int:
-    return -(-n // 16) * 16
+    return _up(n, 16)
 
 
 def attn_plan(C: int, nh: int, n: int) -> tuple:
-    """How K12 / K13 take a shape that their gates admit: (hd16, Cq, n16).
-    The kernels work in multiples of 16, so the wrappers zero-pad each head's
-    width hd = C / nh to hd16 (q k^T and p v are unchanged by zero columns),
-    run the heads and the output projection at Cq = nh * hd16 and keep the
-    first C output channels, and pad K12's n keys to n16 with keys the kernel
-    masks out (-inf scores).  Raises where no padding makes the shape one the
-    kernels take."""
+    """How K13 takes a shape that its gate admits: (hd16, Cq, n16).  The
+    kernels work in multiples of 16, so the wrapper zero-pads each head's
+    width hd = C / nh to hd16 (q k^T and p v are unchanged by zero columns)
+    and runs the heads and the output projection at Cq = nh * hd16, keeping
+    the first C output channels; n16 is the window's tokens rounded up to
+    16.  Raises where no padding makes the shape one the kernels take."""
     if nh < 1 or C % nh or n < 1:
         raise ValueError(f"attention: C={C} over {nh} heads with {n} keys")
     hd16 = _up16(C // nh)
@@ -182,16 +186,6 @@ def _pad_heads(w: torch.Tensor, nh: int, hd16: int, groups: int = 1) -> torch.Te
     return torch.nn.functional.pad(rows, pad).reshape(groups * nh * hd16, *w.shape[1:])
 
 
-def _pad_proj_in(y, w, b, nh, hd16, groups):
-    """Launch (1)'s operands for a padded plan: y (M, C) -> (M, C16) zero
-    columns; w (groups C, C) -> (groups Cq, C16), b -> (groups Cq)."""
-    C = y.shape[-1]
-    pad = _up16(C) - C
-    y = torch.nn.functional.pad(y, (0, pad)).contiguous()
-    w = torch.nn.functional.pad(_pad_heads(w, nh, hd16, groups), (0, pad))
-    return y, w.contiguous(), _pad_heads(b, nh, hd16, groups).contiguous()
-
-
 def _pad_out_proj(wp, bp, nh, hd16):
     """wp (C, C) -> (Cq, Cq): its input columns per head padded to hd16, its
     output rows padded with zeros to Cq; bp (C) -> (Cq)."""
@@ -201,25 +195,86 @@ def _pad_out_proj(wp, bp, nh, hd16):
     return wp, torch.nn.functional.pad(bp, (0, Cq - bp.numel())).contiguous()
 
 
-def _sra_operands(y, wq, bq, k, v, wp, bp, nh):
-    """K12's operands as the kernels take them (:func:`attn_plan`), from the
-    LayerNorm's output y (B, N, C): (y, wq, bq, k, v, wp, bp) padded where
-    needed, Cq and the padded key count; raises on shapes K12 cannot take.
+
+# K12's launch (``sra_launch`` in csrc/attn.cu): C a multiple of 8 up to
+# SRA_MAX_C, heads padded with zeros to a multiple of 64 up to SRA_MAX_HEAD
+SRA_MAX_C, SRA_MAX_HEAD = 768, 128
+# the plan sra_plan reports (``plan_sra`` in csrc/attn.cu): head-width chunks
+# of 64, warpgroups a block, query rows a block, blocks a row tile (the
+# cluster), row tiles an image, key tiles of 64 held in registers, key
+# chunks (two passes where > 1), ring slots, whether the merged heads share
+# the LayerNorm's tile, blocks an SM, shared bytes, blocks
+SRA_PLAN_FIELDS = ("nq", "nwg", "rows", "cluster", "tiles", "kt", "chunks", "stages", "alias",
+                   "per_sm", "smem", "blocks")
+
+
+def sra_smem(C: int, Cq: int, rows: int, stages: int, alias: bool = False) -> int:
+    """Shared bytes of a K12 block: its rows' LayerNorm (C rounded up to 64),
+    its merged heads (Cq; none where they share the LayerNorm's tile),
+    ``stages`` 8 KB ring slots, 1 KB for the mbarriers and alignment."""
+    return 1024 + 2 * rows * (-(-C // 64) * 64 + (0 if alias else Cq)) + stages * 64 * 64 * 2
+
+
+def sra_least_slots(hdp: int) -> int:
+    """Ring slots a K12 block needs: two, and one more than a key tile's
+    boxes (hdp / 64)."""
+    return max(2, hdp // 64 + 1)
+
+
+def check_sra_shape(C: int, nh: int, Lk: int) -> tuple:
+    """(hdp, Cq) of a K12 call, or ValueError where the kernel does not take
+    the shape: C a multiple of 8 up to :data:`SRA_MAX_C` over nh heads, each
+    padded to hdp (a multiple of 64 up to :data:`SRA_MAX_HEAD`), Cq = nh hdp,
+    a block of 64 rows within 227 KB (its merged heads in the LayerNorm's
+    tile where each block of a cluster of nh <= 8 takes one head of 64);
+    any Lk >= 1.  No launch."""
+    if nh < 1 or C < 8 or C % nh or C % 8 or C > SRA_MAX_C or Lk < 1:
+        raise ValueError(f"sra: C={C} over {nh} heads with {Lk} keys: C a multiple of 8 up to "
+                         f"{SRA_MAX_C}, whole heads")
+    hdp = _up(C // nh, 64)
+    Cq = nh * hdp
+    alias = nh <= 8 and Cq == _up(C, 64)
+    if hdp > SRA_MAX_HEAD or sra_smem(C, Cq, 64, sra_least_slots(hdp), alias) > _SMEM_BLOCK:
+        raise ValueError(f"sra: C={C} over {nh} heads: heads up to {SRA_MAX_HEAD} wide, its "
+                         "tiles within one block's shared memory")
+    return hdp, Cq
+
+
+@functools.lru_cache(maxsize=None)
+def _sra_plan(device: int, *shape) -> tuple:
+    out = (ctypes.c_int * len(SRA_PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        _native.launch("sra_plan", *shape, out)
+    return tuple(out)
+
+
+def sra_plan(B: int, N: int, C: int, nh: int, Lk: int, device: int = 0) -> dict:
+    """The plan the built library makes for a K12 call on CUDA device
+    ``device`` ({field: value} over :data:`SRA_PLAN_FIELDS`);
+    ``ops/encoder_stages.sra_plan`` is its plain mirror.  No launch."""
+    check_sra_shape(C, nh, Lk)
+    return dict(zip(SRA_PLAN_FIELDS, _sra_plan(device, B, N, C, nh, Lk)))
+
+
+def _sra_operands(x, wq, bq, k, v, wp, bp, nh):
+    """K12's operands as its launch takes them, for x (B, N, C): (wq (Cq,
+    C), bq (Cq), k and v (B, nh, Lk, hdp), wp (C, Cq), bp (C)), each head's
+    width zero-padded to hdp (:func:`check_sra_shape`; q k^T and p v are
+    unchanged by zero columns), and Cq; the keys are not padded (the kernel
+    masks its last key tile past Lk).  Raises on shapes K12 cannot take.
     Launches nothing."""
-    B, N, C = y.shape
-    Lk = k.shape[2]
-    hd16, Cq, Lk16 = attn_plan(C, nh, Lk)
-    hd = C // nh
+    B, N, C = x.shape
+    Lk, hd = k.shape[2], C // nh
+    hdp, Cq = check_sra_shape(C, nh, Lk)
     if (tuple(k.shape) != (B, nh, Lk, hd) or v.shape != k.shape or tuple(wq.shape) != (C, C)
             or bq.numel() != C or tuple(wp.shape) != (C, C) or bp.numel() != C):
         raise ValueError("sra: x (B, N, C), k and v (B, nh, Lk, C / nh), wq and wp (C, C), "
                          "bq and bp (C)")
-    if (Cq, Lk16) != (C, Lk):  # zero-padded heads, masked keys
-        y, wq, bq = _pad_proj_in(y, wq, bq, nh, hd16, 1)
-        k, v = (torch.nn.functional.pad(t, (0, hd16 - hd, 0, Lk16 - Lk)).contiguous()
-                for t in (k, v))
-        wp, bp = _pad_out_proj(wp, bp, nh, hd16)
-    return (y, wq, bq, k, v, wp, bp), Cq, Lk16
+    if hdp != hd:  # zero-padded heads
+        wq, bq = _pad_heads(wq, nh, hdp), _pad_heads(bq, nh, hdp)
+        k, v = (torch.nn.functional.pad(t, (0, hdp - hd)) for t in (k, v))
+        wp = _pad_heads(wp.t(), nh, hdp).t()
+    return tuple(t.contiguous() for t in (wq, bq, k, v, wp, bp)), Cq
 
 
 # head widths K13's attention kernel is built for (window_attn_kernel<HD>)
@@ -302,20 +357,20 @@ def _window_operands(x, wqkv, bqkv, bias, mask, wp, bp, nh):
 
 def _sra_launch(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps):
     cd = x.dtype
-    wq, wp, k, v = wq.to(cd), wp.to(cd), k.to(cd).contiguous(), v.to(cd).contiguous()
+    B, N, C = x.shape
+    (wq, bq, k, v, wp, bp), Cq = _sra_operands(x, wq.to(cd), bq, k.to(cd), v.to(cd), wp.to(cd),
+                                               bp, nh)
     check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32), wq=(wq, BF16), bq=(bq, F32),
                k=(k, BF16), v=(v, BF16), wp=(wp, BF16), bp=(bp, F32))
-    B, N, C = x.shape
-    Lk = k.shape[2]
-    (y, wq, bq, k, v, wp, bp), Cq, Lk16 = _sra_operands(
-        layer_norm_bf16(x, ln_w, ln_b, eps), wq, bq, k, v, wp, bp, nh)
-    q = _proj_in(y, wq, bq, Cq, _scale(C // nh))
-    out = torch.empty(B, N, Cq, device=x.device, dtype=x.dtype)
-    _native.launch("sra_attn_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(), wp.data_ptr(),
-                   bp.data_ptr(), out.data_ptr(), B, N, Cq, nh, Lk16, Lk,
-                   _native.stream_handle(x))
+    if ln_w.numel() != C or ln_b.numel() != C:
+        raise ValueError(f"sra: LN parameters must have {C} elements")
+    out = torch.empty(B, N, C, device=x.device, dtype=x.dtype)
+    _native.launch("sra_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
+                   bq.data_ptr(), k.data_ptr(), v.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+                   out.data_ptr(), B, N, C, nh, k.shape[2], ctypes.c_float(_scale(C // nh)),
+                   ctypes.c_float(eps), _native.stream_handle(x))
     sra.launches += 1
-    return out if Cq == C else out[..., :C].contiguous()
+    return out
 
 
 sra.launches = 0

@@ -51,7 +51,7 @@ from torch.profiler import record_function
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_card
 
-__all__ = ["layer_norm_bf16", "ln_mlp", "ln_mlp_ref", "check_ln_mlp_shape", "ln_dwms_mlp",
+__all__ = ["ln_mlp", "ln_mlp_ref", "check_ln_mlp_shape", "ln_dwms_mlp",
            "ln_dwms_mlp_ref", "check_ln_dwms_mlp_shape", "ln_dwmlp", "ln_dwmlp_ref",
            "dwmlp_fusable", "check_ln_dwmlp_shape", "dwmlp_plan", "DWMLP_PLAN_FIELDS", "ln_mlp_bwd", "ln_mlp_bwd_ref", "check_ln_mlp_bwd_shape",
            "mlp_bwd_column_groups",
@@ -90,21 +90,6 @@ def _split_scratch(x, name: str, *shape):
     splits = _splits(name, x.device.index, *shape)
     size = (splits, *x.shape) if splits > 1 else (0,)
     return splits, torch.empty(size, device=x.device, dtype=torch.float32)
-
-
-def layer_norm_bf16(x, ln_w, ln_b, eps=1e-5):
-    """bf16 LayerNorm of a CUDA bf16 tensor over its last axis (fp32
-    statistics): the launch that kernel K12 starts with (every other kernel
-    normalises its own rows)."""
-    d = x.shape[-1]
-    check_args(x=(x, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
-    if ln_w.numel() != d or ln_b.numel() != d:
-        raise ValueError(f"layer_norm_bf16: LN parameters must have {d} elements")
-    y = torch.empty_like(x)
-    _native.launch("layer_norm_bf16_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                   y.data_ptr(), x.numel() // d, d, ctypes.c_float(eps),
-                   _native.stream_handle(x))
-    return y
 
 
 # ---------------------------------------------------------------------------

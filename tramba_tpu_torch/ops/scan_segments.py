@@ -1,4 +1,5 @@
-"""Plain mirror of the segmented scans of K1 ``ss2d_scan`` and K8 ``ss2d_scan_bwd``.
+"""Plain mirror of the segmented scans of K1 ``ss2d_scan``, K8 ``ss2d_scan_bwd``
+and K14 ``linear_scan``.
 
 The kernels (``csrc/ss2d.cu``, ``csrc/ss2d_bwd.cu``) cut each direction's L
 steps into segments that run at once and join them by a carry pass.  The
@@ -29,6 +30,19 @@ Everything is fp32; a bf16 ``x`` or ``g_y`` is read as its rounded values,
 as the kernels read it.  ``seg`` is the segment length in steps (the
 kernels' :func:`~tramba_tpu_torch.ops.fused_ss2d.scan_segment_steps`; any
 length here), ``chunk`` the carries' stride.
+
+K14 (``csrc/scan.cu``) runs h_t = a_t h_{t-1} + b_t in one pass
+(or, on its column route, one thread a column: ``seg`` = L, ``parts`` = 1):
+:func:`linear_scan_plan` is its plan (``linear_scan_plan`` of the library,
+reported by ``selective_scan.linear_scan_plan``), and
+:func:`linear_scan_segmented` its decomposition: segments of the plan's
+length, each cut into eight walkers' parts run from a zero state (local
+state and running product of a), the parts' summaries joined into the
+segment's, the carry entering each segment from the earlier segments'
+summaries (the look-back), then h = local state + running product x the
+state entering the part.  It takes ``fault``, a named mistake planted in
+it (:data:`LINEAR_SCAN_FAULTS`), so that a check can show it would see a
+kernel making it.
 """
 
 from __future__ import annotations
@@ -41,7 +55,8 @@ from tramba_tpu_torch.ops.fused_ss2d import (SCAN_CHUNK, _decay_terms, _in_scan_
 
 __all__ = ["scan_terms", "scan_summaries", "carry_in", "scan_from", "scan_outputs",
            "ss2d_scan_segmented", "adjoint_terms", "adjoint_summaries", "carry_back",
-           "adjoint_from", "adjoint_outputs", "ss2d_scan_bwd_segmented"]
+           "adjoint_from", "adjoint_outputs", "ss2d_scan_bwd_segmented", "LINEAR_SCAN_FAULTS",
+           "linear_scan_faults", "linear_scan_plan", "linear_scan_segmented"]
 
 
 def _split(t, seg):
@@ -201,3 +216,90 @@ def ss2d_scan_bwd_segmented(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b
     la, c = terms[0], terms[1]
     lam = adjoint_from(la, c, carry_back(*adjoint_summaries(la, c, seg)), seg)
     return adjoint_outputs(lam, terms, inv, carries, x.dtype, x_proj_w, dt_w, Ds, chunk)
+
+
+# K14's tiling (csrc/scan.cu): most rows a segment, channels a block,
+# walkers a channel; from COLUMNS_MIN columns (R C) one thread a column,
+# COLUMN_THREADS columns a block
+SCAN_SEG, SCAN_CHANNELS, SCAN_PARTS = 256, 32, 8
+COLUMNS_MIN, COLUMN_THREADS = 16384, 128
+# "carry dropped between segments": every segment starts from h = 0; "prod a
+# over the whole segment": the carry is scaled by the product of a over the
+# walker's whole share of the segment instead of up to row t
+LINEAR_SCAN_FAULTS = ("carry dropped between segments", "prod a over the whole segment")
+
+
+def linear_scan_plan(R: int, L: int, C: int) -> dict:
+    """``linear_scan_plan`` of ``csrc/scan.cu`` for (R, L, C) tensors: {"route",
+    "seg", "segments", "channels", "parts", "blocks", "smem"}
+    (``selective_scan.SCAN_PLAN_FIELDS``): segments of up to 256 rows, or,
+    from :data:`COLUMNS_MIN` columns, one thread a column (route 1: one
+    segment of L rows, one walker).  Raises where K14 has no plan."""
+    if min(R, L, C) < 1:
+        raise ValueError(f"linear_scan: no plan for R={R}, L={L}, C={C}")
+    if R * C >= COLUMNS_MIN:
+        route, seg, channels, parts, smem = 1, L, COLUMN_THREADS, 1, 0
+    else:
+        route, seg, channels, parts = 0, min(L, SCAN_SEG), SCAN_CHANNELS, SCAN_PARTS
+        smem = 2 * seg * SCAN_CHANNELS * 4
+    segments = -(-L // seg)
+    blocks = R * -(-C // channels) * segments
+    if blocks > 2 ** 31 - 1:
+        raise ValueError(f"linear_scan: R={R}, L={L}, C={C} makes more than 2^31 blocks")
+    return dict(route=route, seg=seg, segments=segments, channels=channels, parts=parts,
+                blocks=blocks, smem=smem)
+
+
+def linear_scan_faults(L: int, seg: int = None, parts: int = SCAN_PARTS) -> tuple:
+    """The faults of :data:`LINEAR_SCAN_FAULTS` that bear on L steps in
+    segments of ``seg`` (the plan's by default) over ``parts`` walkers: the
+    carry between segments where there are two, the running product where a
+    walker holds more than one row and enters with a carry."""
+    seg = seg or min(L, SCAN_SEG)
+    rows = -(-min(L, seg) // parts)  # rows a walker
+    bears = {"carry dropped between segments": L > seg,
+             "prod a over the whole segment": rows > 1 and (parts > 1 or L > seg)}
+    return tuple(f for f in LINEAR_SCAN_FAULTS if bears[f])
+
+
+def linear_scan_segmented(a, b, reverse=False, seg=None, parts=SCAN_PARTS, fault=None):
+    """K14's decomposition of h over axis -2 of (..., L, C) tensors (``reverse``:
+    from the last row back), in fp32; ``seg`` the segment length (the
+    plan's by default).  Returns h (..., L, C)."""
+    if fault is not None and fault not in LINEAR_SCAN_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    if a.shape != b.shape:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
+    shape = a.shape
+    L, C = shape[-2], shape[-1]
+    seg = seg or min(L, SCAN_SEG)
+    a3, b3 = a.float().reshape(-1, L, C), b.float().reshape(-1, L, C)
+    if reverse:  # logical step t is row L - 1 - t
+        a3, b3 = a3.flip(1), b3.flip(1)
+    out, carry = [], torch.zeros_like(a3[:, 0])
+    for t0 in range(0, L, seg):
+        n = min(seg, L - t0)
+        rp = -(-n // parts)
+        pad = parts * rp - n  # padded steps: a = 1, b = 0 leave a state as it is
+        sa = F.pad(a3[:, t0:t0 + n], (0, 0, 0, pad), value=1.0).reshape(-1, parts, rp, C)
+        sb = F.pad(b3[:, t0:t0 + n], (0, 0, 0, pad)).reshape(-1, parts, rp, C)
+        st, pa = torch.zeros_like(sa[:, :, 0]), torch.ones_like(sa[:, :, 0])
+        local, prod = [], []
+        for i in range(rp):  # every walker's rows from a zero state
+            st = sa[:, :, i] * st + sb[:, :, i]
+            pa = pa * sa[:, :, i]
+            local.append(st)
+            prod.append(pa)
+        local, prod = torch.stack(local, 2), torch.stack(prod, 2)
+        if fault == "prod a over the whole segment":
+            prod = pa[:, :, None].expand_as(prod)
+        entry = carry if fault != "carry dropped between segments" else torch.zeros_like(carry)
+        entries = []
+        for p in range(parts):  # the state entering each part, then the segment's end
+            entries.append(entry)
+            entry = pa[:, p] * entry + st[:, p]
+        h = local + prod * torch.stack(entries, 1)[:, :, None]
+        out.append(h.reshape(-1, parts * rp, C)[:, :n])
+        carry = entry
+    h = torch.cat(out, 1)
+    return (h.flip(1) if reverse else h).reshape(shape)

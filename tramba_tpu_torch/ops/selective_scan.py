@@ -8,7 +8,10 @@ Port of ``tramba_tpu/ops/selective_scan.py:617-789``:
   It is also the oracle inside K1's plain version
   (``ops/fused_ss2d.ss2d_scan_ref``), which never reaches K14.
 * :func:`linear_scan` is ``linear_scan(backend=None)``: kernel K14
-  (``csrc/scan.cu``, replacing ``_linear_scan_pallas``, :642) on CUDA
+  (``csrc/scan.cu``, replacing ``_linear_scan_pallas``, :642: one pass over
+  segments of up to 256 rows joined by a decoupled look-back, or one thread
+  a column where the scan has many columns; its plan is
+  :func:`linear_scan_plan`, mirrored by ``ops/scan_segments.py``) on CUDA
   tensors, :func:`linear_scan_ref` on CPU tensors; a build or launch error
   raises.  Its gradient is :class:`LinearScan`, JAX's ``_linear_scan_bwd``
   (:726-736): lam = the reversed scan of (a shifted up by one row, g),
@@ -24,6 +27,8 @@ runs the scan inside kernel K1 instead.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Callable
 
 import torch
@@ -32,7 +37,8 @@ import torch.nn.functional as F
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, check_args, needs_grad, on_card
 
-__all__ = ["linear_scan", "linear_scan_ref", "LinearScan", "selective_scan"]
+__all__ = ["linear_scan", "linear_scan_ref", "linear_scan_plan", "SCAN_PLAN_FIELDS",
+           "LinearScan", "selective_scan"]
 
 
 def linear_scan_ref(a: torch.Tensor, b: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -63,11 +69,44 @@ def _scan(a: torch.Tensor, b: torch.Tensor, reverse: bool) -> torch.Tensor:
     a3 = a.float().reshape(-1, L, C).contiguous()
     b3 = b.float().reshape(-1, L, C).contiguous()
     check_args(a=(a3, F32), b=(b3, F32))
+    plan = linear_scan_plan(a3.shape[0], L, C, a3.device.index)
     h = torch.empty_like(a3)
+    iscratch = fscratch = None  # the column route needs none
+    if not plan["route"]:
+        # the ticket and the segments' flags (zeroed by the launcher), their
+        # summaries and inclusive end states
+        blocks = plan["blocks"]
+        iscratch = torch.empty(1 + blocks, device=a3.device, dtype=torch.int32)
+        fscratch = torch.empty(3 * _SCAN_CHANNELS * blocks, device=a3.device, dtype=torch.float32)
     _native.launch("linear_scan_launch", a3.data_ptr(), b3.data_ptr(), h.data_ptr(),
-                   a3.shape[0], L, C, int(reverse), _native.stream_handle(a3))
+                   a3.shape[0], L, C, int(reverse),
+                   None if iscratch is None else iscratch.data_ptr(),
+                   None if fscratch is None else fscratch.data_ptr(), _native.stream_handle(a3))
     linear_scan.launches += 1
     return h.reshape(shape)
+
+
+# the plan linear_scan_plan reports (``linear_scan_plan`` in csrc/scan.cu):
+# the route (0 segments, 1 one thread a column), rows a segment, segments a
+# column, channels a block, walkers a channel, blocks, shared bytes a block
+SCAN_PLAN_FIELDS = ("route", "seg", "segments", "channels", "parts", "blocks", "smem")
+_SCAN_CHANNELS = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_plan(device: int, R: int, L: int, C: int) -> tuple:
+    out = (ctypes.c_int * len(SCAN_PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        _native.launch("linear_scan_plan", R, L, C, out)
+    return tuple(out)
+
+
+def linear_scan_plan(R: int, L: int, C: int, device: int = 0) -> dict:
+    """The plan the built library makes for a K14 call on (R, L, C) tensors
+    on CUDA device ``device`` ({field: value} over
+    :data:`SCAN_PLAN_FIELDS`); ``ops/scan_segments.linear_scan_plan`` is its
+    plain mirror.  No launch."""
+    return dict(zip(SCAN_PLAN_FIELDS, _scan_plan(device, R, L, C)))
 
 
 def _shift(t: torch.Tensor, up: bool) -> torch.Tensor:

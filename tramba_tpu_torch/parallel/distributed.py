@@ -80,10 +80,10 @@ def _spawned(rank: int, fn: Callable, world: int, device: str, init_method: str,
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world: int, device: str = "cpu", *args) -> List:
+def spawn(fn: Callable, world: int, device: str = "cuda", *args) -> List:
     """Run ``fn(*args)`` in ``world`` new processes joined into one
     ``torch.distributed`` world (gloo on the CPU; NCCL on the card, process
-    r on card r).  Returns each rank's result, in rank order; a failing rank
+    r on card r; the card unless ``device`` is ``"cpu"``).  Returns each rank's result, in rank order; a failing rank
     raises.  ``fn`` must be importable by name (a module-level function)."""
     # a fork server that has imported torch and the port once starts each
     # process in about a second, where a fresh interpreter takes several

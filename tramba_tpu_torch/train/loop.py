@@ -247,7 +247,7 @@ def training(args, device="cuda"):
         except Exception:
             pass
     print(f"Starting train..... Model:{args.method}", flush=True)
-    model = init_model(args, build(args.method, args.img_size, seed=0,
+    model = init_model(args, build(args.method, args.img_size, device=device, seed=0,
                                    dtype=getattr(torch, getattr(args, "dtype", "float32"))))
     model = model.to(device)
     set_drop_path_generator(model, torch.Generator(device=device).manual_seed(SEED + data.rank))
