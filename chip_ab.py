@@ -196,12 +196,17 @@ K11_K13 = ("import time, torch, chip_smoke as cs\n"
 # ``check_sra`` checks K14 only), then the same code in every tree: each
 # tree's ``sra`` at every shape of Tramba-P's encoder at B2 and B16 beside its
 # plain version and PyTorch's own chain (:data:`SRA_LIB`), its
-# ``linear_scan`` at every shape of phase 3, forward and reversed, Tramba-P's
+# ``linear_scan`` at every shape of phase 3, forward and reversed (100 calls:
+# the short scans are bound by the host, whose time spreads), Tramba-P's
 # bf16 B16 forward with its profile by kernel group (each tree's own groups),
 # and phase 10's parallel backends on an NCCL world of one process: the
 # full-width Tramba-V forward at B2 on each backend in turns with the default
-# route (fp32, bf16), and one fp32 train step at B2 of each dry-run phase
-SRA_LIB = ("def sra_lib(x, g, b, wq, bq, k, v, wp, bp, nh, eps=1e-6):\n"
+# route (fp32, bf16), and one fp32 train step at B2 of each dry-run phase.
+# The chain is the tree's ``chip_smoke.sra_lib`` where it has one, else this
+# copy of it (a parent tree older than ``sra_lib``)
+SRA_LIB = ("sra_lib = getattr(cs, 'sra_lib', None)\n"
+           "if sra_lib is None:\n"
+           "  def sra_lib(x, g, b, wq, bq, k, v, wp, bp, nh, eps=1e-6):\n"
            "    F = torch.nn.functional\n"
            "    B, N, C = x.shape\n"
            "    y = F.layer_norm(x, (C,), g.to(bf), b.to(bf), eps)\n"
@@ -241,7 +246,7 @@ K12_K14 = ("import tempfile, time, torch, chip_smoke as cs\n"
            "for label, R, L, C in cs.LINEAR_SCAN_SHAPES:\n"
            "    a, b = cs.scan_inputs(gen, R, L, C, dev)\n"
            "    for rev in (False, True):\n"
-           "        ms = cs.cuda_ms(lambda: ts.linear_scan(a, b, rev), 20, warmup=2)\n"
+           "        ms = cs.cuda_ms(lambda: ts.linear_scan(a, b, rev), 100, warmup=5)\n"
            "        print(f'time linear_scan fp32 {label} B4 {\"rev\" if rev else \"fwd\"}: '\n"
            "              f'{ms:.4f} ms [{card}]', flush=True)\n"
            "    del a, b\n"

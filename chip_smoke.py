@@ -1261,15 +1261,20 @@ def sra_lib(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps=1e-6):
 # K12 beyond the 384 px shapes: PVT stage 3 at 512 px (its 32 px map over 256
 # reduced keys: the one-pass route's widest key count), at B2
 K12_SHAPES_512 = ((32, 320, 5, 256),)
+# K12's wide route (three launches), at widths no PVTv2 model has: C 1024
+# over 16 heads (a block would not hold its rows' LayerNorm and merged
+# heads), and 32 heads of 8 (padded to 64, they would overflow it), at B2
+K12_SHAPES_WIDE = ((12, 1024, 16, 144), (12, 256, 32, 144))
 
 
 def check_sra(checks, dev, gen, batches=(2, 16)):
     """K12 sra against its plain version in bf16 at every shape of
     :data:`K12_SHAPES` (144 keys) at each batch of ``batches``, and at
-    :data:`K12_SHAPES_512` at the first: weights at fan-in scale, output
-    bias 0; timed beside :func:`sra_lib` ("lib", PyTorch's own LN + cuBLAS
-    + SDPA + cuBLAS, a yardstick the port never calls); two launches give
-    the same bits; one native launch a call (no LayerNorm launch); the
+    :data:`K12_SHAPES_512` and :data:`K12_SHAPES_WIDE` at the first: weights
+    at fan-in scale, output bias 0; timed beside :func:`sra_lib` ("lib",
+    PyTorch's own LN + cuBLAS + SDPA + cuBLAS, a yardstick the port never
+    calls); two launches give the same bits; one native launch a call (no
+    LayerNorm launch; three on the wide route); the
     library's plan is ops/encoder_stages.sra_plan's; the plain version with
     q = 0 (uniform softmax) must fail the check, and at the first batch the
     mirror of the kernel's tiling (``sra_tiled_ref``) passes it and, with
@@ -1283,7 +1288,7 @@ def check_sra(checks, dev, gen, batches=(2, 16)):
         return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
 
     shapes = [(B, H, C, nh, 144) for B in batches for H, C, nh in K12_SHAPES]
-    shapes += [(batches[0], H, C, nh, Lk) for H, C, nh, Lk in K12_SHAPES_512]
+    shapes += [(batches[0], H, C, nh, Lk) for H, C, nh, Lk in K12_SHAPES_512 + K12_SHAPES_WIDE]
     for B, H, C, nh, Lk in shapes:
         M = B * H * H
         k, v = (rnd(B, nh, Lk, C // nh).to(bf) for _ in range(2))
@@ -1293,7 +1298,8 @@ def check_sra(checks, dev, gen, batches=(2, 16)):
             C, C, scale=C ** -0.5).to(bf)
         zero = torch.zeros(C, device=dev)
         args = (x, g, b, wq, bq, k, v, wp, zero)
-        label = f"{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}"
+        wide = (H, C, nh, Lk) in K12_SHAPES_WIDE
+        label = f"{'wide ' if wide else ''}{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}"
         checks.compare("sra", bf, label, lambda: ta.sra(*args, nh),
                        lambda: ta.sra_ref(*args, nh), reps=10, inputs=args,
                        flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C, 6 * M * nh * Lk + 10 * M * C),
@@ -1303,8 +1309,8 @@ def check_sra(checks, dev, gen, batches=(2, 16)):
         n = native_launches(lambda: ta.sra(*args, nh))
         plan = ta.sra_plan(B, H * H, C, nh, Lk, x.device.index)
         print(f"sra             {label}: {n:g} native launches a call; {plan}", flush=True)
-        if n != 1:
-            raise AssertionError(f"sra {label}: {n} native launches a call, not 1")
+        if n != 1 + 2 * wide or plan["wide"] != wide:
+            raise AssertionError(f"sra {label}: {n} native launches a call, not {1 + 2 * wide}")
         if plan != es.sra_plan(B, H * H, C, nh, Lk):
             raise AssertionError(f"sra {label}: the library's plan {plan} is not the mirror's")
         want = ta.sra_ref(*args, nh)
@@ -1494,7 +1500,8 @@ RANGES = ("ln_mlp_bwd", "ln_dwms_mlp_bwd")
 # kernel-name fragments (a tuple: all of them) -> group of the phase 7 / 8
 # breakdowns, first match wins; a kernel launched in a range of RANGES is
 # named "<kernel> @ <range>"
-GROUPS = (("linear_scan_kernel", "K14 linear_scan"),
+GROUPS = (("linear_scan_", "K14 linear_scan"),  # both routes' kernels
+          ("memset", "memsets (K14's flag reset among them)"),
           ("ln_fc_kernel<1>", "K9 ln_mlp_bwd, front: LN, h and g w2, GELU adjoint"),
           (("mlp_bwd_dx_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (c) dh w1 and LN adjoint"),
           (("mlp_bwd_wgrad_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (d) dW1, dW2 products"),

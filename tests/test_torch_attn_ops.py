@@ -206,7 +206,8 @@ def test_gate_admitted_shapes_pass_the_kernel_shape_checks():
     head width and keys multiples of 8) through the wrappers' operand
     preparation, which launches nothing: none raises, and each hands the
     kernels heads padded to their widths (K12: multiples of 64, the keys as
-    they are; K13: multiples of 16)."""
+    they are, or nothing padded where the shape takes its wide route; K13:
+    multiples of 16)."""
     bf = torch.bfloat16
     seen = 0
     for C in range(8, 161, 8):
@@ -220,7 +221,9 @@ def test_gate_admitted_shapes_pass_the_kernel_shape_checks():
                 (wq, bq, k2, v2, wp, bp), Cq = ta._sra_operands(
                     y, torch.zeros(C, C), torch.zeros(C), k, k.clone(), torch.zeros(C, C),
                     torch.zeros(C), nh)
-                assert Cq % 64 == 0 and Cq >= C and tuple(k2.shape) == (1, nh, Lk, Cq // nh)
+                wide = ta.check_sra_shape(C, nh, Lk)[2]
+                assert Cq == C if wide else Cq % 64 == 0 and Cq >= C
+                assert tuple(k2.shape) == (1, nh, Lk, Cq // nh)
                 assert tuple(wq.shape) == (Cq, C) and tuple(wp.shape) == (C, Cq)
                 seen += 1
             for w in (4, 8, 12):

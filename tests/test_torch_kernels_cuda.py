@@ -761,7 +761,10 @@ def _attn_weights(gen, C, nqkv):
                                          (2, 144, 512, 8, 144), (1, 1024, 128, 2, 64),
                                          (2, 96, 40, 5, 24), (2, 1024, 320, 5, 256),
                                          (1, 400, 64, 1, 400), (2, 256, 256, 2, 200),
-                                         (16, 144, 512, 8, 144), (1, 200, 96, 3, 20)])
+                                         (16, 144, 512, 8, 144), (1, 200, 96, 3, 20),
+                                         (2, 100, 1024, 16, 144), (1, 64, 256, 32, 24),
+                                         (2, 40, 256, 1, 200), (1, 48, 2048, 1, 8),
+                                         (1, 36, 3584, 28, 64)])
 def test_sra_matches_plain(dev, B, N, C, nh, Lk):
     """Ragged row tiles (N = 100, 200, 400); the PVT stage 3 and 4 widths, at
     B16 in clusters of 8 blocks; C = 40, head width 8, and C 96 over 3 heads
@@ -769,8 +772,11 @@ def test_sra_matches_plain(dev, B, N, C, nh, Lk):
     and 20 keys (the key tile masked past them); PVT stage 3 at 512 px (256
     keys: four key tiles in one pass); 400 keys (PVT stage 1 at 640 px: two
     passes); heads 128 wide (two 64-column chunks a head, two passes over
-    200 keys).  One native launch a call, two launches give the same bits,
-    and the plan is the mirror's (ops/encoder_stages.py)."""
+    200 keys).  The wide route (three launches): C 1024 over 16 heads, 32
+    heads of 8, a head 256 wide (four key chunks of 64), a head 2,048 wide
+    (chunks of 8 keys) and C 3,584 over 28 heads of 128.  One native launch
+    a call (three on the wide route), two launches give the same bits, and
+    the plan is the mirror's (ops/encoder_stages.py)."""
     from tramba_tpu_torch.ops import _native
     from tramba_tpu_torch.ops import encoder_stages as es
 
@@ -784,8 +790,10 @@ def test_sra_matches_plain(dev, B, N, C, nh, Lk):
     card = [t.to(dev) for t in args]
     n0 = _native.native_launch_count()
     got = ta.sra(*card, nh)
-    assert _native.native_launch_count() - n0 == 1
-    assert ta.sra_plan(B, N, C, nh, Lk) == es.sra_plan(B, N, C, nh, Lk)
+    plan = ta.sra_plan(B, N, C, nh, Lk)
+    assert plan == es.sra_plan(B, N, C, nh, Lk)
+    assert _native.native_launch_count() - n0 == 1 + 2 * plan["wide"]
+    assert plan["wide"] == (C > 768 or C // nh > 128 or nh == 32)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and ta.sra.launches == n + 1
     assert torch.equal(got, ta.sra(*card, nh))

@@ -68,9 +68,12 @@ def _sra_torch(a):
 
 # (B, N, C, nh, Lk): nh 1 / 2 / 5; head width 8 (padded to 64); 144, 256
 # and 400 keys over a small C (400: the two-pass route); clusters of 2 and
-# 5 blocks splitting the heads; ragged row tiles (N 200 over 128 rows)
+# 5 blocks splitting the heads; ragged row tiles (N 200 over 128 rows); the
+# wide route: 32 heads of 8 (padded, they would overflow the block), a head
+# 256 wide over 80 keys (two passes over chunks of 64), C 832 over 4 heads
 SRA_CASES = [(2, 200, 32, 1, 144), (1, 96, 64, 2, 256), (1, 64, 40, 5, 144),
-             (1, 128, 80, 5, 400), (2, 72, 128, 2, 144), (1, 64, 320, 5, 24)]
+             (1, 128, 80, 5, 400), (2, 72, 128, 2, 144), (1, 64, 320, 5, 24),
+             (1, 40, 256, 32, 24), (2, 24, 256, 1, 80), (1, 16, 832, 4, 16)]
 
 
 @pytest.mark.parametrize("B,N,C,nh,Lk", SRA_CASES)
@@ -90,10 +93,13 @@ def test_sra_mirror_matches_pallas_and_plain(B, N, C, nh, Lk):
 
 def test_sra_cases_cover_the_routes():
     """The cases above reach a cluster (of 2 and of 5), the two-pass route,
-    a padded head and a ragged last row tile."""
+    a padded head, a ragged last row tile and the wide route (with two key
+    passes on it too)."""
     plans = {c: es.sra_plan(c[0], c[1], c[2], c[3], c[4]) for c in SRA_CASES}
     assert {p["cluster"] for p in plans.values()} >= {1, 2, 5}
-    assert any(p["chunks"] > 1 for p in plans.values())
+    assert any(p["chunks"] > 1 and not p["wide"] for p in plans.values())
+    assert sum(p["wide"] for p in plans.values()) == 3
+    assert any(p["chunks"] > 1 and p["wide"] for p in plans.values())
     assert any(c[2] // c[3] % 64 for c in SRA_CASES)
     assert any(c[1] % p["rows"] for c, p in plans.items())
 
@@ -178,14 +184,61 @@ def test_sra_plans_at_the_384px_stages():
 
 
 def test_sra_gate_refuses_what_the_kernel_cannot_take():
-    """Wider than 768 channels, or heads wider than 128, or a head count
-    whose padded heads overflow the block: refused before any launch."""
+    """Wider than 768 channels, heads wider than 128, or padded heads that
+    would overflow the one-launch block take the wide route; refused before
+    any launch only where no route takes the shape: heads wider than the
+    wide route's block holds (2,064 columns), or not bf16."""
     assert ta.sra_fusable(64, 512, 8, 144, BF)
-    for C, nh in ((1024, 16), (256, 1), (512, 32)):
-        assert not ta.sra_fusable(64, C, nh, 144, BF)
-        with pytest.raises(ValueError):
-            es.sra_plan(2, 64, C, nh, 144)
+    assert not es.sra_plan(2, 64, 512, 8, 144)["wide"]
+    for C, nh in ((1024, 16), (256, 1), (512, 32), (2064, 1)):
+        assert ta.sra_fusable(64, C, nh, 144, BF)
+        assert es.sra_plan(2, 64, C, nh, 144)["wide"] == 1
+    assert not ta.sra_fusable(64, 2072, 1, 144, BF)
+    with pytest.raises(ValueError):
+        es.sra_plan(2, 64, 2072, 1, 144)
     assert not ta.sra_fusable(64, 64, 1, 144, torch.float32)
+
+
+def _earlier_k12_takes(C, nh, Lk):
+    """Whether the earlier three-launch K12 (a LayerNorm launch,
+    ``proj_in_kernel``, ``attn_kernel``) ran a shape its gate admitted: at
+    16 query rows a block its attention launch's shared tiles (the merged
+    heads, then either one head's q, k, v, scores, p and output, or the fp32
+    output rows; each 128-byte aligned, heads and keys padded to 16) and
+    its q projection's 16 rows within 227 KB."""
+    def al(n):
+        return -(-n // 128) * 128
+
+    hd, Lk16 = -(-(C // nh) // 16) * 16, -(-Lk // 16) * 16
+    Cq, QM = nh * hd, 16
+    heads = (al(QM * (Cq + 8) * 2) + al(QM * (hd + 8) * 2) + 2 * al(Lk16 * (hd + 8) * 2)
+             + al(QM * (Lk16 + 4) * 4) + al(QM * (Lk16 + 8) * 2) + al(QM * (hd + 4) * 4))
+    nc = next(n for n in (128, 64, 32, 16) if Cq % n == 0)
+    return (max(heads, al(QM * (Cq + 4) * 4)) <= es.SMEM_BLOCK
+            and QM * ((-(-C // 16) * 16 + 8) * 2 + (nc + 4) * 4) <= es.SMEM_BLOCK)
+
+
+def test_every_shape_the_earlier_kernel_took_is_admitted():
+    """Every shape the gate admits (head widths multiples of 8) that the
+    earlier three-launch K12 ran, over head widths 8-1,440, 1-256 heads up
+    to C 3,616 and 8-576 keys, is admitted by ``sra_fusable`` and planned at
+    B1 and B16 within one block's shared memory."""
+    taken = wide = 0
+    for hd in (8, 16, 24, 32, 48, 64, 72, 96, 128, 136, 192, 256, 320, 512, 1024, 1440):
+        for nh in range(1, 257):
+            C = hd * nh
+            if C > 3616:
+                break
+            for Lk in (8, 64, 144, 256, 400, 576):
+                if not _earlier_k12_takes(C, nh, Lk):
+                    continue
+                taken += 1
+                assert ta.sra_fusable(64, C, nh, Lk, BF), (C, nh, Lk)
+                for B in (1, 16):
+                    p = es.sra_plan(B, 64, C, nh, Lk)
+                    assert p["smem"] <= es.SMEM_BLOCK, (C, nh, Lk, p)
+                wide += p["wide"]
+    assert taken > 2000 and 0 < wide < taken
 
 
 # ---- K14 -------------------------------------------------------------------

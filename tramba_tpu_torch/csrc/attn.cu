@@ -39,6 +39,10 @@
 //   * keys beyond what registers hold: up to 4 key tiles of 64 (256 keys)
 //     in one pass; more take two passes over key chunks inside the launch,
 //     so every key count runs;
+//   * widths a block cannot hold (C above 768, heads above 128 wide, or
+//     padded heads over 227 KB; no PVTv2 model has one): the wide route
+//     (three SIMT launches, below), so K12 takes every shape its earlier
+//     three-launch version took;
 //   * registers: the scores of 3-4 key tiles, q's and p's fragments and the
 //     head's output are live at once, so a thread gets 232 (__maxnreg__),
 //     and a block has no producer warp (a ninth warp would put three warps
@@ -200,9 +204,11 @@ struct SraPlan {
   int chunks;   // key chunks of kt tiles: 1 = one pass, else two
   int stages;   // ring slots
   int alias;    // 1 where Os is As
-  int per_sm;   // blocks an SM
+  int per_sm;   // blocks an SM (0 on the wide route)
   size_t smem;
   long blocks;
+  int wide;     // 1: the wide route's three launches (below)
+  int keys;     // keys a chunk
 };
 
 constexpr size_t kSmemHalf = 113 * 1024;  // two blocks an SM below this
@@ -213,9 +219,8 @@ static size_t sra_fixed(int rows, int Cp, int Cq, bool alias) {
   return 1024 + (size_t)2 * rows * (Cp + (alias ? 0 : Cq));
 }
 
-static bool plan_sra(int B, int N, int C, int nh, int Lk, int sms, SraPlan* p) {
-  if (B < 1 || N < 1 || nh < 1 || Lk < 1 || C < 8 || C % nh || C % 8 || C > 768 || sms < 1)
-    return false;
+static bool plan_sra_fast(int B, int N, int C, int nh, int Lk, int sms, SraPlan* p) {
+  if (C > 768) return false;
   const int hdp = (C / nh + 63) / 64 * 64;
   p->nq = hdp / 64;
   if (p->nq > 2) return false;
@@ -258,6 +263,8 @@ static bool plan_sra(int B, int N, int C, int nh, int Lk, int sms, SraPlan* p) {
   while (p->kt > 1 && p->stages < p->kt * p->nq + 1) --p->kt;
   p->chunks = (ktiles + p->kt - 1) / p->kt;
   p->blocks = (long)B * p->tiles * p->cluster;
+  p->wide = 0;
+  p->keys = 64 * p->kt;
   return p->blocks <= 0x7fffffffL;
 }
 
@@ -754,6 +761,271 @@ static bool sm_count(int* sms) {
   return true;
 }
 
+// ---- K12's wide route ----------------------------------------------------------
+//
+// Shapes the one-launch kernel's block cannot hold (C above 768, heads
+// wider than 128, or padded heads whose merged tile overflows 227 KB; no
+// PVTv2 model has one) run three launches of plain SIMT code instead, with
+// the same rounding points:
+//   (w1) sra_wide_gemm_kernel<true>: q = bf16((bf16(LN(x)) wq^T + bq) scale)
+//        into a (B N, C) bf16 scratch;
+//   (w2) sra_wide_attn_kernel: per (16 query rows, head, image) the two key
+//        passes of the one-launch kernel over chunks of `keys` keys (the
+//        first: each row's running max and sum; the second: the scores
+//        again, p = bf16(exp(s - max) / sum), O_h += p v_h), then bf16(O_h)
+//        written over the block's own q_h in the scratch;
+//   (w3) sra_wide_gemm_kernel<false>: out = bf16(O wp^T + bp).
+// Heads keep their width (no padding); the keys a chunk are the most of 64,
+// 32, 16, 8 whose working set fits one block (sra_wide_smem).
+constexpr int kWideTile = 64;   // (w1) / (w3): a block's 64 x 64 output tile
+constexpr int kWideK = 32;      // and its K step
+constexpr int kWideRows = 16;   // (w2): query rows a block
+constexpr int kWideThreads = 256;
+
+// out[m, j] = bf16((sum_k A[m, k] w[j, k] + bias[j]) scale) for m < M, j <
+// Nout; A = bf16(LN(x)) (statistics in fp32, two passes) where LN, else x.
+// Each thread owns a 4 x 4 block of the tile.
+template <bool LN>
+__global__ void __launch_bounds__(kWideThreads)
+    sra_wide_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
+                         const float* __restrict__ ln_b, const bf16* __restrict__ w,
+                         const float* __restrict__ bias, bf16* __restrict__ out, long M, int K,
+                         int Nout, float scale, float eps) {
+  __shared__ float As[kWideK][kWideTile + 4], Ws[kWideK][kWideTile + 4];
+  __shared__ float s_mean[kWideTile], s_rstd[kWideTile];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long m0 = (long)blockIdx.x * kWideTile;
+  const int n0 = blockIdx.y * kWideTile;
+  if (LN) {  // four threads a row
+    const int r = tid >> 2, part = tid & 3;
+    const long m = m0 + r;
+    float s = 0.f, q = 0.f;
+    if (m < M)
+      for (int k = part; k < K; k += 4) s += __bfloat162float(x[m * K + k]);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mean = s / K;
+    if (m < M)
+      for (int k = part; k < K; k += 4) {
+        const float d = __bfloat162float(x[m * K + k]) - mean;
+        q = fmaf(d, d, q);
+      }
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
+    if (part == 0) {
+      s_mean[r] = mean;
+      s_rstd[r] = rsqrtf(q / K + eps);
+    }
+    __syncthreads();
+  }
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kWideK) {
+    for (int i = tid; i < kWideTile * kWideK; i += kWideThreads) {
+      const int r = i / kWideK, k = i % kWideK;
+      const long m = m0 + r;
+      const int j = n0 + r;
+      float v = 0.f;
+      if (m < M && k0 + k < K) {
+        v = __bfloat162float(x[m * K + k0 + k]);
+        if (LN)
+          v = __bfloat162float(__float2bfloat16_rn((v - s_mean[r]) * s_rstd[r] * ln_w[k0 + k] +
+                                                   ln_b[k0 + k]));
+      }
+      As[k][r] = v;
+      Ws[k][r] = j < Nout && k0 + k < K ? __bfloat162float(w[(long)j * K + k0 + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kWideK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
+      const float4 c = *reinterpret_cast<const float4*>(&Ws[k][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long m = m0 + 4 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * tx + j;
+      if (m < M && n < Nout) out[m * Nout + n] = __float2bfloat16_rn((acc[i][j] + bias[n]) * scale);
+    }
+  }
+}
+
+// Shared bytes of (w2) for heads hd wide and `keys` keys a chunk: O_h [16][hd]
+// fp32, the scores [16][keys] fp32, each row's max and sum, q_h [16][hd]
+// bf16, k_h or v_h's chunk [keys][hd + 2] bf16 (an odd number of words a row).
+__host__ __device__ inline size_t sra_wide_smem(int hd, int keys) {
+  return (size_t)kWideRows * hd * 4 + (size_t)kWideRows * keys * 4 + 2 * kWideRows * 4 +
+         (size_t)kWideRows * hd * 2 + (size_t)keys * (hd + 2) * 2;
+}
+
+// The keys a chunk of (w2) for heads hd wide: the most of 64, 32, 16, 8 whose
+// working set fits one block; 0 where none does.
+static int sra_wide_keys(int hd) {
+  for (int keys = 64; keys >= 8; keys /= 2)
+    if (sra_wide_smem(hd, keys) <= kSmemMax) return keys;
+  return 0;
+}
+
+// (w2): q, the (B N, C) scratch, holds bf16 q (head h at columns h hd ..);
+// k, v (B, nh, Lk, hd) bf16.  Block (x, h, b): query rows 16 x .. of image b,
+// head h.  Writes bf16(O_h) over its own q_h.
+__global__ void __launch_bounds__(kWideThreads)
+    sra_wide_attn_kernel(bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, int N, int C, int nh, int Lk, int keys) {
+  extern __shared__ float4 smem4[];
+  const int hd = C / nh, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int ldk = hd + 2;
+  float* O = reinterpret_cast<float*>(smem4);
+  float* S = O + kWideRows * hd;
+  float* s_max = S + kWideRows * keys;
+  float* s_sum = s_max + kWideRows;
+  bf16* qs = reinterpret_cast<bf16*>(s_sum + kWideRows);
+  bf16* kv = qs + kWideRows * hd;
+  const long r0 = (long)blockIdx.x * kWideRows;
+  const int nr = (int)min((long)kWideRows, N - r0);
+  bf16* qrow = q + ((long)b * N + r0) * C + (long)h * hd;
+  const bf16* kh = k + ((long)b * nh + h) * Lk * hd;
+  const bf16* vh = v + ((long)b * nh + h) * Lk * hd;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int i = tid; i < kWideRows * hd; i += kWideThreads) {
+    const int r = i / hd, d = i % hd;
+    qs[i] = r < nr ? qrow[(long)r * C + d] : zero;
+    O[i] = 0.f;
+  }
+  if (tid < kWideRows) {
+    s_max[tid] = -INFINITY;
+    s_sum[tid] = 0.f;
+  }
+  const int chunks = (Lk + keys - 1) / keys, warp = tid >> 5, lane = tid & 31;
+  // the scores of chunk c (nk keys) into S, from its k rows staged in kv
+  auto scores = [&](int c, int nk) {
+    __syncthreads();  // kv and S free
+    for (int i = tid; i < nk * hd; i += kWideThreads) {
+      const int j = i / hd, d = i % hd;
+      kv[j * ldk + d] = kh[((long)c * keys + j) * hd + d];
+    }
+    __syncthreads();
+    for (int i = tid; i < kWideRows * keys; i += kWideThreads) {
+      const int r = i / keys, j = i % keys;
+      float s = -INFINITY;
+      if (j < nk) {
+        const __nv_bfloat162* qa = reinterpret_cast<const __nv_bfloat162*>(qs + r * hd);
+        const __nv_bfloat162* ka = reinterpret_cast<const __nv_bfloat162*>(kv + j * ldk);
+        s = 0.f;
+        for (int d = 0; d < hd / 2; ++d) {
+          const float2 a = __bfloat1622float2(qa[d]), c2 = __bfloat1622float2(ka[d]);
+          s = fmaf(a.x, c2.x, s);
+          s = fmaf(a.y, c2.y, s);
+        }
+      }
+      S[i] = s;
+    }
+    __syncthreads();
+  };
+  // pass 1: each row's running max and sum, rescaled from chunk to chunk
+  for (int c = 0; c < chunks; ++c) {
+    const int nk = min(keys, Lk - c * keys);
+    scores(c, nk);
+    for (int r = warp; r < kWideRows; r += kWideThreads / 32) {
+      float m = -INFINITY;
+      for (int j = lane; j < nk; j += 32) m = fmaxf(m, S[r * keys + j]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const float mn = fmaxf(s_max[r], m);
+      float e = 0.f;
+      for (int j = lane; j < nk; j += 32) e += expf(S[r * keys + j] - mn);
+      e = warp_sum(e);
+      if (lane == 0) {
+        s_sum[r] = s_sum[r] * expf(s_max[r] - mn) + e;
+        s_max[r] = mn;
+      }
+    }
+  }
+  // pass 2: the scores again, p rounded once, O_h += p v_h
+  for (int c = 0; c < chunks; ++c) {
+    const int nk = min(keys, Lk - c * keys);
+    scores(c, nk);
+    for (int i = tid; i < kWideRows * keys; i += kWideThreads) {
+      const int r = i / keys, j = i % keys;
+      S[i] = j < nk ? __bfloat162float(__float2bfloat16_rn(expf(S[i] - s_max[r]) / s_sum[r]))
+                    : 0.f;
+    }
+    for (int i = tid; i < nk * hd; i += kWideThreads) {  // kv: v's chunk (k no longer read)
+      const int j = i / hd, d = i % hd;
+      kv[j * ldk + d] = vh[((long)c * keys + j) * hd + d];
+    }
+    __syncthreads();
+    for (int i = tid; i < kWideRows * hd; i += kWideThreads) {
+      const int r = i / hd, d = i % hd;
+      float o = O[i];
+      for (int j = 0; j < nk; ++j) o = fmaf(S[r * keys + j], __bfloat162float(kv[j * ldk + d]), o);
+      O[i] = o;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nr * hd; i += kWideThreads) {
+    const int r = i / hd, d = i % hd;
+    qrow[(long)r * C + d] = __float2bfloat16_rn(O[i]);
+  }
+}
+
+// The wide route's plan fields (see SraPlan): heads unpadded (nq 0), no
+// warpgroups, 16 query rows a block, `keys` keys a chunk, blocks of (w2).
+static bool plan_sra_wide(int B, int N, int C, int nh, int Lk, SraPlan* p) {
+  if (C % nh || (C / nh) % 8) return false;
+  const int hd = C / nh, keys = sra_wide_keys(hd);
+  if (keys == 0 || nh > 65535 || B > 65535) return false;
+  p->wide = 1;
+  p->keys = keys;
+  p->nq = p->nwg = p->kt = p->stages = p->alias = p->per_sm = 0;
+  p->rows = kWideRows;
+  p->cluster = 1;
+  p->tiles = (N + kWideRows - 1) / kWideRows;
+  p->chunks = (Lk + keys - 1) / keys;
+  p->smem = sra_wide_smem(hd, keys);
+  p->blocks = (long)B * p->tiles * nh;
+  return (long)B * N / kWideTile < 0x7fffffffL && p->tiles <= 0x7fffffff;
+}
+
+// The three launches of the wide route; scratch (B N, C) bf16.
+static int launch_sra_wide(const SraPlan& p, const bf16* x, const float* ln_w, const float* ln_b,
+                           const bf16* wq, const float* bq, const bf16* k, const bf16* v,
+                           const bf16* wp, const float* bp, bf16* out, bf16* scratch, int B,
+                           int N, int C, int nh, int Lk, float scale, float eps,
+                           cudaStream_t s) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const long M = (long)B * N;
+  const dim3 ggrid((unsigned)((M + kWideTile - 1) / kWideTile),
+                   (unsigned)((C + kWideTile - 1) / kWideTile));
+  sra_wide_gemm_kernel<true><<<ggrid, kWideThreads, 0, s>>>(x, ln_w, ln_b, wq, bq, scratch, M, C,
+                                                            C, scale, eps);
+  TRAMBA_CHECK_LAUNCH();
+  cudaError_t e = allow_smem(sra_wide_attn_kernel, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  sra_wide_attn_kernel<<<dim3((unsigned)p.tiles, (unsigned)nh, (unsigned)B), kWideThreads, p.smem,
+                         s>>>(scratch, k, v, N, C, nh, Lk, p.keys);
+  TRAMBA_CHECK_LAUNCH();
+  sra_wide_gemm_kernel<false><<<ggrid, kWideThreads, 0, s>>>(scratch, nullptr, nullptr, wp, bp,
+                                                             out, M, C, C, 1.f, 0.f);
+  TRAMBA_CHECK_LAUNCH();
+  return 0;
+}
+
+// The plan of a K12 call: the one-launch kernel where its block holds the
+// shape, else the wide route.
+static bool plan_sra(int B, int N, int C, int nh, int Lk, int sms, SraPlan* p) {
+  if (B < 1 || N < 1 || nh < 1 || Lk < 1 || C < 8 || C % nh || C % 8 || sms < 1) return false;
+  return plan_sra_fast(B, N, C, nh, Lk, sms, p) || plan_sra_wide(B, N, C, nh, Lk, p);
+}
+
 // ---- K13 (ii): window attention + output projection --------------------------
 //
 // One block of two warpgroups per (window, group of kWinRows query rows):
@@ -1082,18 +1354,19 @@ __global__ void __launch_bounds__(256, 1)
 
 extern "C" {
 
-// The plan of a K12 call: plan[0..11] = head-width chunks of 64, warpgroups
+// The plan of a K12 call: plan[0..13] = head-width chunks of 64, warpgroups
 // a block, query rows a block, blocks a row tile (the cluster), row tiles an
 // image, key tiles held in registers, key chunks (two passes where > 1),
 // ring slots, whether the merged heads share the LayerNorm's tile, blocks an
-// SM, shared bytes, blocks.
+// SM, shared bytes, blocks, whether the wide route runs, keys a chunk.
 int sra_plan(int B, int N, int C, int nh, int Lk, int* plan) {
   SraPlan p;
   int sms = 0;
   if (!sm_count(&sms) || !plan_sra(B, N, C, nh, Lk, sms, &p)) return (int)cudaErrorInvalidValue;
-  const int v[12] = {p.nq, p.nwg, p.rows, p.cluster, p.tiles, p.kt, p.chunks, p.stages, p.alias,
-                     p.per_sm, (int)p.smem, (int)p.blocks};
-  std::copy(v, v + 12, plan);
+  const int v[14] = {p.nq,     p.nwg,       p.rows,          p.cluster, p.tiles,
+                     p.kt,     p.chunks,    p.stages,        p.alias,   p.per_sm,
+                     (int)p.smem, (int)p.blocks, p.wide, p.keys};
+  std::copy(v, v + 14, plan);
   return 0;
 }
 
@@ -1103,14 +1376,19 @@ int sra_plan(int B, int N, int C, int nh, int Lk, int* plan) {
 // Lk, hdp) bf16; wp (C, Cq) bf16, each head's input columns padded to hdp;
 // bp (C) fp32; out (B, N, C) bf16 = bf16(bf16(concat_h bf16(softmax(q_h
 // k_h^T)) v_h) wp^T + bp), q = bf16((bf16(LN(x)) wq^T + bq) scale).  C a
-// multiple of 8 up to 768, hd up to 128 (plan_sra).
+// multiple of 8 up to 768, hd up to 128 (plan_sra).  Where the plan takes
+// the wide route, the operands are not padded (hdp = hd, Cq = C) and
+// scratch is (B N, C) bf16 (else unused): three launches.
 int sra_launch(const bf16* x, const float* ln_w, const float* ln_b, const bf16* wq,
                const float* bq, const bf16* k, const bf16* v, const bf16* wp, const float* bp,
-               bf16* out, int B, int N, int C, int nh, int Lk, float scale, float eps,
-               void* stream) {
+               bf16* out, bf16* scratch, int B, int N, int C, int nh, int Lk, float scale,
+               float eps, void* stream) {
   SraPlan p;
   int sms = 0;
   if (!sm_count(&sms) || !plan_sra(B, N, C, nh, Lk, sms, &p)) return (int)cudaErrorInvalidValue;
+  if (p.wide)
+    return launch_sra_wide(p, x, ln_w, ln_b, wq, bq, k, v, wp, bp, out, scratch, B, N, C, nh, Lk,
+                           scale, eps, static_cast<cudaStream_t>(stream));
   const int hdp = 64 * p.nq, Cq = nh * hdp;
   CUtensorMap map_x, map_wq, map_k, map_v, map_wp;
   if (!weight_map(&map_x, x, (long)B * N, C) || !weight_map(&map_wq, wq, Cq, C) ||

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "ln_mlp_bwd_launch": [_P] * 15 + [_I] * 3 + [_P],
     "ln_dwms_mlp_bwd_launch": [_P] * 27 + [_I] * 5 + [_P],
     "sra_plan": [_I] * 5 + [_IP],
-    "sra_launch": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    "sra_launch": [_P] * 11 + [_I] * 5 + [_F, _F, _P],
     "window_attn_plan": [_I] * 7 + [_IP],
     "window_attn_launch": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "linear_scan_plan": [_L, _I, _I, _IP],

@@ -18,13 +18,15 @@ kernels' own order.
   ``fused_attn.sra_plan``): head-width chunks of 64, warpgroups and query
   rows a block, blocks a row tile (the cluster that splits the heads), row
   tiles, key tiles held in registers, key chunks, ring slots, whether the
-  merged heads share the LayerNorm's tile, blocks an SM, shared bytes.
+  merged heads share the LayerNorm's tile, blocks an SM, shared bytes; or,
+  for shapes the one-launch block cannot hold, the wide route's (16 query
+  rows a block, unpadded heads, keys a chunk).
 * :func:`sra_tiled_ref`: per row tile of the plan's rows, per head of the
   cluster's blocks in turn: the LayerNorm of the tile's rows, q rounded, the
-  scores over key tiles of 64 (zero keys past Lk, masked), each row's max
-  and sum (over key chunks, rescaled, where there are two passes), p
-  rounded, p v rounded into the merged row; then the output projection and
-  one rounding.
+  scores over key tiles of 64 (the wide route: chunks of its keys; zero
+  keys past Lk, masked), each row's max and sum (over key chunks, rescaled,
+  where there are two passes), p rounded, p v rounded into the merged row;
+  then the output projection and one rounding.
 * :func:`front_plan`, :func:`window_plan`: K13's two launches (``plan_front``
   for the LN + qkv front; the attention launch's blocks a window, its
   shared bytes from ``fused_attn.window_smem``).
@@ -43,9 +45,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tramba_tpu_torch.ops.fused_attn import (_pad_heads, _pad_out_proj, _scale, attn_plan,
-                                             check_sra_shape, sra_least_slots, sra_smem,
-                                             window_smem)
+from tramba_tpu_torch.ops.fused_attn import (SRA_WIDE_ROWS, _pad_heads, _pad_out_proj, _scale,
+                                             attn_plan, check_sra_shape, sra_least_slots,
+                                             sra_smem, sra_wide_keys, sra_wide_smem, window_smem)
 from tramba_tpu_torch.ops.fused_mlp import _ln_rounded
 
 __all__ = ["DWMLP_FAULTS", "WINDOW_FAULTS", "cheapest_splits", "dwmlp_faults", "dwmlp_plan",
@@ -312,10 +314,18 @@ def sra_plan(B: int, N: int, C: int, nh: int, Lk: int, sms: int = SMS) -> dict:
     SM where 113 KB hold them); the cluster size d, a divisor of nh up to
     8, with the fewest waves per unit of work, ceil(tiles d / (sms per_sm))
     / d, the smallest such; the merged heads in the LayerNorm's tile where
-    each block takes one head and Cq = C rounded up to 64."""
+    each block takes one head and Cq = C rounded up to 64.  Where that block
+    cannot hold the shape, the wide route: 16 query rows a block and head,
+    the heads unpadded, the most keys a chunk that fit (``wide`` 1)."""
     if min(B, N) < 1:
         raise ValueError(f"sra: no plan for B={B}, N={N}")
-    hdp, Cq = check_sra_shape(C, nh, Lk)
+    hdp, Cq, wide = check_sra_shape(C, nh, Lk)
+    if wide:  # three launches; the fields of the attention launch
+        keys, rows = sra_wide_keys(hdp), SRA_WIDE_ROWS
+        tiles = -(-N // rows)
+        return dict(nq=0, nwg=0, rows=rows, cluster=1, tiles=tiles, kt=0,
+                    chunks=-(-Lk // keys), stages=0, alias=0, per_sm=0,
+                    smem=sra_wide_smem(hdp, keys), blocks=B * tiles * nh, wide=1, keys=keys)
     nq, Cp, ktiles = hdp // 64, _up(C, 64), -(-Lk // 64)
     least = sra_least_slots(hdp)
     nwg = 2 if C <= 192 and nq == 1 and sra_smem(C, Cq, 128, least) <= SMEM_BLOCK else 1
@@ -343,13 +353,14 @@ def sra_plan(B: int, N: int, C: int, nh: int, Lk: int, sms: int = SMS) -> dict:
         kt -= 1
     return dict(nq=nq, nwg=nwg, rows=rows, cluster=cluster, tiles=tiles, kt=kt,
                 chunks=-(-ktiles // kt), stages=stages, alias=alias, per_sm=per_sm, smem=smem,
-                blocks=B * tiles * cluster)
+                blocks=B * tiles * cluster, wide=0, keys=64 * kt)
 
 
 def sra_faults(plan: dict, N: int, nh: int, Lk: int) -> tuple:
     """The faults of :data:`SRA_FAULTS` that bear on a K12 call with ``plan``."""
+    unit = plan["keys"] if plan["wide"] else 64  # keys a tile
     bears = {"head slices swapped in the merged row": nh > 1,
-             "row tiles from row 0": N > plan["rows"], "padded keys not masked": Lk % 64 != 0,
+             "row tiles from row 0": N > plan["rows"], "padded keys not masked": Lk % unit != 0,
              "no second key pass": plan["chunks"] > 1}
     return tuple(f for f in SRA_FAULTS if bears[f])
 
@@ -364,8 +375,9 @@ def sra_tiled_ref(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps=1e-6, plan=None, 
     B, N, C = x.shape
     Lk, hd = k.shape[2], C // nh
     plan = plan or sra_plan(B, N, C, nh, Lk)
-    rows, cluster, kt, chunks = plan["rows"], plan["cluster"], plan["kt"], plan["chunks"]
-    hdp = 64 * plan["nq"]
+    rows, cluster, chunks, ck = plan["rows"], plan["cluster"], plan["chunks"], plan["keys"]
+    hdp = hd if plan["wide"] else 64 * plan["nq"]
+    unit = ck if plan["wide"] else 64  # keys a tile
     # the tile's rows normalised; a row tile's queries (faulty: the image's
     # first rows)
     y = _ln_rounded(x, ln_w, ln_b, eps)
@@ -374,7 +386,7 @@ def sra_tiled_ref(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps=1e-6, plan=None, 
         src = (src % rows).clamp_max(N - 1)
     y = y[:, src]
     wqp, bqp = _pad_heads(wq, nh, hdp).to(cd).float(), _pad_heads(bq, nh, hdp).float()
-    pad = (0, hdp - hd, 0, -(-Lk // 64) * 64 - Lk)  # zero head columns, zero keys to a tile
+    pad = (0, hdp - hd, 0, -(-Lk // unit) * unit - Lk)  # zero head columns, keys to a tile
     kp, vp = (torch.nn.functional.pad(t.to(cd).float(), pad) for t in (k, v))
     valid = torch.arange(kp.shape[2], device=x.device) < Lk
     if fault == "padded keys not masked":
@@ -385,7 +397,6 @@ def sra_tiled_ref(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps=1e-6, plan=None, 
         q = ((y @ wqp[h * hdp:(h + 1) * hdp].t() + bqp[h * hdp:(h + 1) * hdp]) * _scale(hd))
         s = q.to(cd).float() @ kp[:, h].transpose(-1, -2)
         s = s.masked_fill(~valid, float("-inf"))
-        ck = 64 * kt  # keys a chunk
         if chunks == 1:
             p = torch.softmax(s, -1)
         elif fault == "no second key pass":  # each chunk by its own statistics

@@ -14,8 +14,9 @@ Port of ``tramba_tpu/ops/fused_attn.py``:
   the gather of the relative-position bias stay outside, as in JAX.
 
 Both run in ``csrc/attn.cu``: K12 as one launch with its LayerNorm folded
-in (its plan: :func:`sra_plan`), K13 as two (an LN + qkv front, then the
-attention).  They round where the TPU kernels round: the LN output; q
+in (its plan: :func:`sra_plan`; widths its block cannot hold, which no
+PVTv2 model has, as three launches of its "wide route"), K13 as two (an LN
++ qkv front, then the attention).  They round where the TPU kernels round: the LN output; q
 after its bias and scale, k and v (K13: after their bias); the softmax
 probabilities; the merged head outputs; the result.  The plain versions
 (``*_ref``) do fp32 math on operands rounded to ``x``'s dtype at the same
@@ -41,7 +42,7 @@ from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_c
 from tramba_tpu_torch.ops.fused_mlp import _linear, _ln_rounded
 
 __all__ = ["sra", "sra_ref", "sra_fusable", "check_sra_shape", "sra_plan", "sra_smem",
-           "sra_least_slots",
+           "sra_least_slots", "sra_wide_smem", "sra_wide_keys",
            "SRA_PLAN_FIELDS", "SRA_MAX_C", "window_attn", "window_attn_ref",
            "window_attn_fusable", "attn_plan", "check_window_attn_shape", "window_attn_plan",
            "window_smem", "WINDOW_HEAD_WIDTHS", "WINDOW_PLAN_FIELDS", "Sra", "WindowAttn"]
@@ -50,11 +51,11 @@ __all__ = ["sra", "sra_ref", "sra_fusable", "check_sra_shape", "sra_plan", "sra_
 def sra_fusable(N: int, C: int, nh: int, Lk: int, dtype) -> bool:
     """Where the JAX package runs ``_sra_pallas`` on a TPU (``sra_fusable``,
     fused_attn.py:34-45, whose VMEM budgets hold at every PVTv2-b4 width):
-    bf16, N, Lk and the head width multiples of 8; and where K12's block
-    holds its rows' LayerNorm and merged heads (:func:`check_sra_shape`: C up
-    to 768, heads up to 128 wide; every PVTv2 width, at any image size).  K12
-    takes every such shape, its heads padded where needed, any number of
-    keys."""
+    bf16, N, Lk and the head width multiples of 8; and where K12 has a route
+    for the shape (:func:`check_sra_shape`: the one-launch kernel up to C 768
+    and heads 128 wide, every PVTv2 width at any image size; the wide route
+    beyond, for heads up to about 2,000 wide).  K12 takes every such shape,
+    any number of keys."""
     if not (dtype == torch.bfloat16 and N % 8 == 0 and nh >= 1 and C % nh == 0
             and (C // nh) % 8 == 0 and Lk % 8 == 0):
         return False
@@ -196,16 +197,21 @@ def _pad_out_proj(wp, bp, nh, hd16):
 
 
 
-# K12's launch (``sra_launch`` in csrc/attn.cu): C a multiple of 8 up to
-# SRA_MAX_C, heads padded with zeros to a multiple of 64 up to SRA_MAX_HEAD
+# K12's one-launch kernel (``sra_launch`` in csrc/attn.cu): C a multiple of 8
+# up to SRA_MAX_C, heads padded with zeros to a multiple of 64 up to
+# SRA_MAX_HEAD
 SRA_MAX_C, SRA_MAX_HEAD = 768, 128
 # the plan sra_plan reports (``plan_sra`` in csrc/attn.cu): head-width chunks
 # of 64, warpgroups a block, query rows a block, blocks a row tile (the
 # cluster), row tiles an image, key tiles of 64 held in registers, key
 # chunks (two passes where > 1), ring slots, whether the merged heads share
-# the LayerNorm's tile, blocks an SM, shared bytes, blocks
+# the LayerNorm's tile, blocks an SM, shared bytes, blocks, whether the wide
+# route runs, keys a chunk
 SRA_PLAN_FIELDS = ("nq", "nwg", "rows", "cluster", "tiles", "kt", "chunks", "stages", "alias",
-                   "per_sm", "smem", "blocks")
+                   "per_sm", "smem", "blocks", "wide", "keys")
+# the wide route's attention launch (``sra_wide_attn_kernel``): query rows a
+# block, and the keys a chunk it may take
+SRA_WIDE_ROWS, SRA_WIDE_KEYS = 16, (64, 32, 16, 8)
 
 
 def sra_smem(C: int, Cq: int, rows: int, stages: int, alias: bool = False) -> int:
@@ -221,23 +227,46 @@ def sra_least_slots(hdp: int) -> int:
     return max(2, hdp // 64 + 1)
 
 
+def sra_wide_smem(hd: int, keys: int) -> int:
+    """Shared bytes of the wide route's attention block (``sra_wide_smem`` in
+    csrc/attn.cu): 16 rows of O_h in fp32, of scores over ``keys`` keys, each
+    row's max and sum, q_h in bf16, and a chunk of k_h or v_h in bf16 rows of
+    hd + 2."""
+    r = SRA_WIDE_ROWS
+    return r * hd * 4 + r * keys * 4 + 2 * r * 4 + r * hd * 2 + keys * (hd + 2) * 2
+
+
+def sra_wide_keys(hd: int) -> int:
+    """Keys a chunk of the wide route for heads ``hd`` wide: the most of
+    :data:`SRA_WIDE_KEYS` whose working set fits one block; 0 where none
+    does."""
+    return next((n for n in SRA_WIDE_KEYS if sra_wide_smem(hd, n) <= _SMEM_BLOCK), 0)
+
+
 def check_sra_shape(C: int, nh: int, Lk: int) -> tuple:
-    """(hdp, Cq) of a K12 call, or ValueError where the kernel does not take
-    the shape: C a multiple of 8 up to :data:`SRA_MAX_C` over nh heads, each
-    padded to hdp (a multiple of 64 up to :data:`SRA_MAX_HEAD`), Cq = nh hdp,
-    a block of 64 rows within 227 KB (its merged heads in the LayerNorm's
-    tile where each block of a cluster of nh <= 8 takes one head of 64);
-    any Lk >= 1.  No launch."""
-    if nh < 1 or C < 8 or C % nh or C % 8 or C > SRA_MAX_C or Lk < 1:
-        raise ValueError(f"sra: C={C} over {nh} heads with {Lk} keys: C a multiple of 8 up to "
-                         f"{SRA_MAX_C}, whole heads")
-    hdp = _up(C // nh, 64)
+    """(hdp, Cq, wide) of a K12 call, or ValueError where K12 does not take
+    the shape.  C a multiple of 8 over nh whole heads, any Lk >= 1; then
+    either the one-launch kernel (wide False): C up to :data:`SRA_MAX_C`,
+    each head padded to hdp (a multiple of 64 up to :data:`SRA_MAX_HEAD`),
+    Cq = nh hdp, a block of 64 rows within 227 KB (its merged heads in the
+    LayerNorm's tile where each block of a cluster of nh <= 8 takes one head
+    of 64); or else the wide route (wide True: hdp = hd, Cq = C), heads a
+    multiple of 8 whose attention block holds 8 keys a chunk
+    (:func:`sra_wide_keys`).  No launch."""
+    if nh < 1 or C < 8 or C % nh or C % 8 or Lk < 1:
+        raise ValueError(f"sra: C={C} over {nh} heads with {Lk} keys: C a multiple of 8, whole "
+                         "heads")
+    hd = C // nh
+    hdp = _up(hd, 64)
     Cq = nh * hdp
     alias = nh <= 8 and Cq == _up(C, 64)
-    if hdp > SRA_MAX_HEAD or sra_smem(C, Cq, 64, sra_least_slots(hdp), alias) > _SMEM_BLOCK:
-        raise ValueError(f"sra: C={C} over {nh} heads: heads up to {SRA_MAX_HEAD} wide, its "
-                         "tiles within one block's shared memory")
-    return hdp, Cq
+    if (C <= SRA_MAX_C and hdp <= SRA_MAX_HEAD
+            and sra_smem(C, Cq, 64, sra_least_slots(hdp), alias) <= _SMEM_BLOCK):
+        return hdp, Cq, False
+    if hd % 8 == 0 and sra_wide_keys(hd):
+        return hd, C, True
+    raise ValueError(f"sra: C={C} over {nh} heads: heads a multiple of 8 whose wide-route "
+                     "attention block fits one block's shared memory")
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,12 +289,12 @@ def _sra_operands(x, wq, bq, k, v, wp, bp, nh):
     """K12's operands as its launch takes them, for x (B, N, C): (wq (Cq,
     C), bq (Cq), k and v (B, nh, Lk, hdp), wp (C, Cq), bp (C)), each head's
     width zero-padded to hdp (:func:`check_sra_shape`; q k^T and p v are
-    unchanged by zero columns), and Cq; the keys are not padded (the kernel
-    masks its last key tile past Lk).  Raises on shapes K12 cannot take.
-    Launches nothing."""
+    unchanged by zero columns; the wide route pads nothing), and Cq; the
+    keys are not padded (the kernel masks its last key tile past Lk).
+    Raises on shapes K12 cannot take.  Launches nothing."""
     B, N, C = x.shape
     Lk, hd = k.shape[2], C // nh
-    hdp, Cq = check_sra_shape(C, nh, Lk)
+    hdp, Cq, _ = check_sra_shape(C, nh, Lk)
     if (tuple(k.shape) != (B, nh, Lk, hd) or v.shape != k.shape or tuple(wq.shape) != (C, C)
             or bq.numel() != C or tuple(wp.shape) != (C, C) or bp.numel() != C):
         raise ValueError("sra: x (B, N, C), k and v (B, nh, Lk, C / nh), wq and wp (C, C), "
@@ -365,10 +394,13 @@ def _sra_launch(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps):
     if ln_w.numel() != C or ln_b.numel() != C:
         raise ValueError(f"sra: LN parameters must have {C} elements")
     out = torch.empty(B, N, C, device=x.device, dtype=x.dtype)
+    # the wide route's q, then its merged heads (:func:`check_sra_shape`)
+    scratch = torch.empty_like(out) if check_sra_shape(C, nh, k.shape[2])[2] else None
     _native.launch("sra_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
                    bq.data_ptr(), k.data_ptr(), v.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-                   out.data_ptr(), B, N, C, nh, k.shape[2], ctypes.c_float(_scale(C // nh)),
-                   ctypes.c_float(eps), _native.stream_handle(x))
+                   out.data_ptr(), None if scratch is None else scratch.data_ptr(), B, N, C, nh,
+                   k.shape[2], ctypes.c_float(_scale(C // nh)), ctypes.c_float(eps),
+                   _native.stream_handle(x))
     sra.launches += 1
     return out
 

@@ -69,19 +69,15 @@ def _scan(a: torch.Tensor, b: torch.Tensor, reverse: bool) -> torch.Tensor:
     a3 = a.float().reshape(-1, L, C).contiguous()
     b3 = b.float().reshape(-1, L, C).contiguous()
     check_args(a=(a3, F32), b=(b3, F32))
-    plan = linear_scan_plan(a3.shape[0], L, C, a3.device.index)
     h = torch.empty_like(a3)
-    iscratch = fscratch = None  # the column route needs none
-    if not plan["route"]:
-        # the ticket and the segments' flags (zeroed by the launcher), their
-        # summaries and inclusive end states
-        blocks = plan["blocks"]
-        iscratch = torch.empty(1 + blocks, device=a3.device, dtype=torch.int32)
-        fscratch = torch.empty(3 * _SCAN_CHANNELS * blocks, device=a3.device, dtype=torch.float32)
+    ints, head = _scan_scratch(a3.device.index, a3.shape[0], L, C)
+    iptr = fptr = None  # the column route needs no scratch
+    if ints:
+        scratch = torch.empty(ints, device=a3.device, dtype=torch.int32)
+        iptr = scratch.data_ptr()
+        fptr = iptr + 4 * head
     _native.launch("linear_scan_launch", a3.data_ptr(), b3.data_ptr(), h.data_ptr(),
-                   a3.shape[0], L, C, int(reverse),
-                   None if iscratch is None else iscratch.data_ptr(),
-                   None if fscratch is None else fscratch.data_ptr(), _native.stream_handle(a3))
+                   a3.shape[0], L, C, int(reverse), iptr, fptr, _native.stream_handle(a3))
     linear_scan.launches += 1
     return h.reshape(shape)
 
@@ -90,7 +86,6 @@ def _scan(a: torch.Tensor, b: torch.Tensor, reverse: bool) -> torch.Tensor:
 # the route (0 segments, 1 one thread a column), rows a segment, segments a
 # column, channels a block, walkers a channel, blocks, shared bytes a block
 SCAN_PLAN_FIELDS = ("route", "seg", "segments", "channels", "parts", "blocks", "smem")
-_SCAN_CHANNELS = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,6 +102,19 @@ def linear_scan_plan(R: int, L: int, C: int, device: int = 0) -> dict:
     :data:`SCAN_PLAN_FIELDS`); ``ops/scan_segments.linear_scan_plan`` is its
     plain mirror.  No launch."""
     return dict(zip(SCAN_PLAN_FIELDS, _scan_plan(device, R, L, C)))
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_scratch(device: int, R: int, L: int, C: int) -> tuple:
+    """(ints, head) of the one int32 scratch buffer a K14 call takes: none on
+    the column route; on the segment route the ticket and the segments'
+    flags (``head`` = 1 + blocks ints, zeroed by the launcher), then their
+    summaries and inclusive end states (3 channels blocks floats)."""
+    plan = linear_scan_plan(R, L, C, device)
+    if plan["route"]:
+        return 0, 0
+    head = 1 + plan["blocks"]
+    return head + 3 * plan["channels"] * plan["blocks"], head
 
 
 def _shift(t: torch.Tensor, up: bool) -> torch.Tensor:
