@@ -98,9 +98,15 @@ Phases, each of which must pass (any failure exits non-zero):
                launches, read around three calls that must agree; errors,
                times, and each kernel's bound (bytes over the HBM rate or,
                per type of operation, its count over that type's peak
-               rate: the largest)
-  4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD, Tramba-S-TSOD and
-               Tramba-R-TSOD at
+               rate: the largest); last, K1 and K2 over each of the other
+               scan orders (line4, spiral, spiral8, hilbert, diagonal,
+               diagonal8, ab1, ab2) at 48 px, d_model 256, fp32 and bf16,
+               where the K1 check must also reject the plain version
+               reading its last direction's table backwards and K2's
+               planted faults fail as above, and K1's and K2's train
+               variants and K8 over spiral8 (K = 8) in both dtypes
+  4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD, Tramba-S-TSOD,
+               Tramba-R-TSOD and BaseUMamba-SOD at
                384px, seeded weights, batch 2 on the card, each in fp32
                (TF32 off) and in bf16: head shapes, finite values, launches
                per forward as the model's modules give them (Tramba-V fp32
@@ -108,24 +114,32 @@ Phases, each of which must pass (any failure exits non-zero):
                6; Tramba-P and -S: K1 12, K2 12, K3 9, K4 1, bf16 also K5 12,
                K7 6, and K6 3, K12 41, K11 38 (Tramba-P) or K6 25, K13 22
                (Tramba-S); Tramba-R (its ResNet-50 in cuDNN, three heads):
-               K1 8, K2 8, K3 6, K4 1, bf16 also K5 8, K6 2, K7 4; no
-               K11-K13 in fp32); the same weights and image
+               K1 8, K2 8, K3 6, K4 1, bf16 also K5 8, K6 2, K7 4;
+               BaseUMamba: K1 27, K2 27, K3 3, K4 1, bf16 also K5 27, K6
+               27; no K11-K13 in fp32); the same weights and image
                on the CPU (plain versions, batch 1) agree with mean abs
                difference <= 1e-3 (fp32) per head, and in bf16 <= 2e-2 or,
                where bf16's own noise is larger, <= 1.25 x the CPU's bf16-vs-
-               fp32 difference on that head
+               fp32 difference on that head; and the analytic FLOP count
+               (``utils/profiling.analytic_model_flops``, the CPU run's
+               plain versions) of Tramba-V and BaseUMamba at batch 1
   5. dump      ``python -m tramba_tpu_torch.dump --measure_fps`` on synthetic
                TSOD10K-style images writes one map per image at its original
                size, then runs the 200-iteration FPS loop; then the same dump
-               with ``--dtype bfloat16``, for Tramba-V, -P, -S and -R
+               with ``--dtype bfloat16``, for Tramba-V, -P, -S and -R; then
+               ``python -m tramba_tpu_torch.dump_sod`` (BaseUMamba, fp32 and
+               ``--dtype bfloat16``) over two datasets into the one folder
+               ``<image_save_path>/<method>/SOD`` at the images' sizes, and
+               ``python -m tramba_tpu_torch.evaluate_sod`` / ``evaluate_tsod``
+               on the fp32 maps: results rows of finite metrics, PR curves
   6. timing    ms per forward: bf16 at batch 1, 8 and 16 and fp32 at 1 for
                each model, Tramba-V's fp32 also at 8; then Tramba-P's and
                -S's bf16 B1 in turns with a copy whose encoder weights are
                cast to bf16 once (the cost of the per-call casts)
   7. profile   device time of the bf16 forward by kernel group (torch.profiler)
                and the device's idle share, at B1 and B16 for each model
-  8. train     fp32, then bf16 training of Tramba-V, -S, -P and -R at full
-               width, batch 4: one train
+  8. train     fp32, then bf16 training of Tramba-V, -S, -P, -R and
+               BaseUMamba at full width, batch 4: one train
                step launches exactly the kernels the model's modules give
                (Tramba-V fp32: K1 33, K2 33, K8 33, K3 9, K4 1 and no K5-K7,
                K9, K10; bf16 also K5 33, K6 24, K9 24, K7 6, K10 6), and
@@ -133,7 +147,8 @@ Phases, each of which must pass (any failure exits non-zero):
                parameters none: that stage feeds no head); the loss falls
                over 10 steps on one batch; ms per step, peak memory and the
                device time by kernel group; a reduced-depth step (Tramba-V
-               dims 128, depths (1, 1, 2, 1), 96 px; Tramba-S depths 2 per
+               and BaseUMamba dims 128, depths (1, 1, 2, 1), 96 px; Tramba-S
+               depths 2 per
                stage, 96 px; Tramba-P depth 1 per stage, 128 px; Tramba-R one
                bottleneck per stage, 64 px, in train() with drop path 0 so
                that BatchNorm takes batch statistics) against the CPU's
@@ -220,16 +235,22 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 # the models of phases 4-7, and what phase 6 times: (dtype, ((batch, reps), ...))
-MODELS = ("Tramba-V-TSOD", "Tramba-P-TSOD", "Tramba-S-TSOD", "Tramba-R-TSOD")
+MODELS = ("Tramba-V-TSOD", "Tramba-P-TSOD", "Tramba-S-TSOD", "Tramba-R-TSOD", "BaseUMamba-SOD")
 _BF16_TIMED = (torch.bfloat16, ((1, 20), (8, 5), (16, 5)))
 TIMED = {"Tramba-V-TSOD": ((torch.float32, ((1, 20), (8, 5))), _BF16_TIMED),
          "Tramba-P-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED),
          "Tramba-S-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED),
-         "Tramba-R-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED)}
+         "Tramba-R-TSOD": ((torch.float32, ((1, 20),)), _BF16_TIMED),
+         "BaseUMamba-SOD": ((torch.float32, ((1, 20),)), _BF16_TIMED)}
+# the models whose analytic FLOP count (fvcore's accounting) phase 4 prints
+FLOP_COUNTED = ("Tramba-V-TSOD", "BaseUMamba-SOD")
+
+
+_START = time.perf_counter()
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.0f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -473,6 +494,11 @@ SS2D_SHAPES_P = (("line", 24, 320, 0), ("line", 48, 128, 0), ("line", 96, 64, 0)
 # 48 / 96 px maps (d_inner 1024 / 512, dt_rank 32 / 16)
 SS2D_SHAPES_R = (("line", 48, 512, 0), ("line", 96, 256, 0), ("window", 48, 512, 12),
                  ("window", 96, 256, 16), ("dilation", 48, 512, 4), ("dilation", 96, 256, 4))
+# the scan orders of Queue 1 item 11 (no model at 384 px runs them; BaseUMamba's
+# VSSMDecoderBlock takes any): each at one decoder shape, 48 px with d_model
+# 256, where SS2D_SHAPES has raster and line
+NEW_ORDER_SHAPES = tuple((kind, 48, 256, 0) for kind in (
+    "line4", "spiral", "spiral8", "hilbert", "diagonal", "diagonal8", "ab1", "ab2"))
 # (map size, C, factor): PatchExpand (f=2) and FreqExpand2D (f=4) inputs
 EXPAND_SHAPES = ((12, 1024, 2), (24, 512, 2), (48, 256, 2), (12, 512, 4), (24, 256, 4),
                  (48, 128, 4))
@@ -485,9 +511,9 @@ def ss2d_case(dev, gen, dt, kind, H, d_model, param, B):
     """A seeded SS2D of one main-path shape and an input for its core."""
     from tramba_tpu_torch.nn.init import init_weights
     from tramba_tpu_torch.nn.ssm import SS2D
-    from tramba_tpu_torch.ops.scan_orders import order_tables
+    from tramba_tpu_torch.ops.scan_orders import get_order, order_tables
 
-    m = init_weights(SS2D(d_model, k_group=8 if kind == "line" else 4, scan_kind=kind,
+    m = init_weights(SS2D(d_model, k_group=get_order(kind, H, H, param).K, scan_kind=kind,
                           scan_param=param), gen).to(dev)
     K, D = m.k_group, m.d_inner
     x = torch.nn.functional.silu(torch.randn(B, H * H, D, generator=gen)).to(dev, dt)
@@ -833,9 +859,11 @@ def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
 
 
 def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shapes=EXPAND_SHAPES,
-                      head_c=128, B=2):
+                      head_c=128, B=2, table_fault=False):
     """K1-K4 at every shape of the main path (by default Tramba-V's), in
-    dtype ``dt``, at batch ``B``."""
+    dtype ``dt``, at batch ``B`` (K4 unless ``head_c`` is None).  With
+    ``table_fault`` the K1 check must also reject the plain version reading
+    its last direction's table backwards (a wrong gather)."""
     from tramba_tpu_torch.nn.init import init_weights
     from tramba_tpu_torch.nn.layers import _Expand
     from tramba_tpu_torch.ops import fused_ss2d as tf
@@ -845,6 +873,12 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
         checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
                        lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5, inputs=(x, idx, *core),
                        flops=scan_ops(x, core), plain_warmup=0)
+        if table_fault:
+            flipped = idx.clone()
+            flipped[-1] = idx[-1].flip(0)
+            checks.planted("ss2d_scan", label, tf.ss2d_scan_ref(x, idx, *core), {
+                "last table backwards": lambda: tf.ss2d_scan_ref(x, flipped, *core)},
+                tol=KERNEL_TOL)
         tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data.to(dt))
         check_merge(checks, dt, label, (B, idx.shape[0], H * H, x.shape[-1]), inv, tail)
     for H, C, f in expand_shapes:
@@ -854,6 +888,8 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
         out_c = args[1].shape[0]  # Dense C -> f C (pixel shuffle), LN over C / f
         check_expand(checks, dt, f"f{f} {H}px B{B} C{C}", args,
                      ops(dt, 2 * B * H * H * C * out_c, 8 * B * H * H * out_c))
+    if head_c is None:
+        return
     C = head_c
     args = head_inputs(dev, gen, dt, C, B)
     M = B * 96 * 96
@@ -1436,6 +1472,13 @@ def run_model(dev, dtype, x, cpu_fp32_heads=None, method="Tramba-V-TSOD"):
         cpu_outs = cpu_model(x[:1])
     print(f"CPU {method} {NAMES[dtype]} forward (plain versions) "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if dtype == torch.float32 and method in FLOP_COUNTED:
+        from tramba_tpu_torch.utils.profiling import analytic_model_flops
+
+        t0 = time.perf_counter()
+        flops = analytic_model_flops(cpu_model, x[:1])
+        print(f"analytic_model_flops {method} 384px B1: {json.dumps(flops)} (the plain "
+              f"versions on the CPU, {time.perf_counter() - t0:.1f} s)", flush=True)
     for i, (g, c) in enumerate(zip(outs, cpu_outs)):
         c = c.float()
         d = (g[:1].float().cpu() - c).abs()
@@ -1492,6 +1535,87 @@ def run_dump_entry_point(tmp, method, *flags):
                 raise AssertionError(f"{name}: map {im.size} {im.mode}, expected {size} L")
     print(f"dump --method {method} {' '.join(flags)} wrote {len(sizes)} maps at their original "
           "sizes", flush=True)
+
+
+def _results_rows(out, method, datasets):
+    """The results rows that a scoring CLI printed for ``method`` and each of
+    ``datasets``; each must hold eight finite metrics."""
+    rows = {}
+    for ln in out.splitlines():
+        for ds in datasets:
+            if ln.startswith(f"model: {method} | dataset: {ds} || "):
+                vals = [float(v) for v in ln.split("|| ", 1)[1].split(" & ")]
+                if len(vals) != 8 or not all(np.isfinite(vals)):
+                    raise AssertionError(f"results row without 8 finite metrics: {ln}")
+                rows[ds] = ln
+    if set(rows) != set(datasets):
+        raise AssertionError(f"results rows for {sorted(rows)}, expected {datasets}:\n{out}")
+    return rows
+
+
+def run_sod_entry_points(tmp, method, *flags, score=True):
+    """Phase 5: ``python -m tramba_tpu_torch.dump_sod`` for ``method`` over two
+    datasets of synthetic images of odd sizes, whose maps must land in the
+    one folder ``<image_save_path>/<method>/SOD`` at their original sizes;
+    then, with ``score``, ``python -m tramba_tpu_torch.evaluate_sod`` (both
+    datasets, each against its own masks) and ``evaluate_tsod`` (the SOD
+    folder as its dataset, against the first dataset's masks) on those
+    maps: each exits 0, prints a results row of finite metrics per dataset
+    and writes the PR curves."""
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    sizes = {"A": {"a_1": (301, 217), "a_2": (97, 155)}, "B": {"b_1": (640, 360)}}  # (W, H)
+    for ds, imgs in sizes.items():
+        for sub in ("image", "mask"):
+            os.makedirs(os.path.join(tmp, ds, "Test", sub))
+        for name, (w, h) in imgs.items():
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), "RGB").save(
+                os.path.join(tmp, ds, "Test", "image", name + ".jpg"))
+            mask = (rng.random((h, w)) > 0.5).astype(np.uint8) * 255
+            Image.fromarray(mask, "L").save(os.path.join(tmp, ds, "Test", "mask", name + ".png"))
+    out, here = os.path.join(tmp, "out"), os.path.dirname(os.path.abspath(__file__))
+
+    def cli(module, *args):
+        res = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+                             text=True, timeout=600, cwd=here)
+        if res.returncode != 0:
+            raise AssertionError(f"{module} exited {res.returncode}:\n{res.stdout[-2000:]}\n"
+                                 f"{res.stderr[-3000:]}")
+        return res.stdout
+
+    cli("tramba_tpu_torch.dump_sod", "--method", method, "--image_save_path", out,
+        "--batch_size", "2", "--datasets", *(f"{ds}={os.path.join(tmp, ds)}" for ds in sizes),
+        *flags)
+    sod = os.path.join(out, method, "SOD")
+    want = {f"{n}.png": size for imgs in sizes.values() for n, size in imgs.items()}
+    if sorted(os.listdir(sod)) != sorted(want):
+        raise AssertionError(f"{sod} holds {sorted(os.listdir(sod))}, expected {sorted(want)}")
+    for f, size in want.items():
+        with Image.open(os.path.join(sod, f)) as im:
+            if im.size != size or im.mode != "L":
+                raise AssertionError(f"{f}: map {im.size} {im.mode}, expected {size} L")
+    print(f"dump_sod --method {method} {' '.join(flags)} wrote {len(want)} maps of "
+          f"{len(sizes)} datasets to <image_save_path>/{method}/SOD at their original sizes",
+          flush=True)
+    if not score:
+        return
+    masks = {ds: os.path.join(tmp, ds, "Test", "mask") for ds in sizes}
+    runs = (("tramba_tpu_torch.evaluate_sod", list(sizes),
+             ["--test_datasets", *(f"{ds}={m}" for ds, m in masks.items())]),
+            ("tramba_tpu_torch.evaluate_tsod", ["SOD"],
+             ["--test_datasets", "SOD", "--gt_root", masks["A"]]))
+    for module, datasets, args in runs:
+        for f in ("precision.npy", "recall.npy"):
+            if os.path.exists(os.path.join(out, method, f)):
+                os.remove(os.path.join(out, method, f))
+        rows = _results_rows(cli(module, "--dataset_path", out, "--models", method,
+                                 "--workers", "1", *args), method, datasets)
+        curves = [np.load(os.path.join(out, method, f)) for f in ("precision.npy", "recall.npy")]
+        if any(c.shape != (256,) or not np.isfinite(c).all() for c in curves):
+            raise AssertionError(f"{module}: PR curves {[c.shape for c in curves]}")
+        for row in rows.values():
+            print(f"{module.rsplit('.', 1)[1]}: {row}", flush=True)
 
 
 # the wrappers' record_function ranges (ops/fused_mlp.py) whose launches the
@@ -1578,8 +1702,10 @@ def train_batch(B, size, seed):
 
 # the trained models of phase 8, and the reduced-depth step each is held to
 # the CPU with: (image size, build overrides)
-TRAINED = ("Tramba-V-TSOD", "Tramba-S-TSOD", "Tramba-P-TSOD", "Tramba-R-TSOD")
+TRAINED = ("Tramba-V-TSOD", "Tramba-S-TSOD", "Tramba-P-TSOD", "Tramba-R-TSOD", "BaseUMamba-SOD")
 REDUCED = {"Tramba-V-TSOD": (96, dict(dims=128, enc_depths=(1, 1, 2, 1), dec_depths=(1, 1, 1, 1))),
+           "BaseUMamba-SOD": (96, dict(dims=128, enc_depths=(1, 1, 2, 1),
+                                       dec_depths=(1, 1, 1, 1))),
            "Tramba-S-TSOD": (96, dict(enc_config=dict(depths=(2, 2, 2, 2)),
                                       dec_depths=(1, 1, 1, 1))),
            "Tramba-P-TSOD": (128, dict(enc_config=dict(depths=(1, 1, 1, 1)),
@@ -1778,7 +1904,7 @@ def run_train_entry_point(tmp, dtype):
 
 
 # phase 9's encoder variants and the depth they train at: the reduced steps'
-GRAFTED = {m: REDUCED[m][1] for m in TRAINED[1:]}
+GRAFTED = {m: REDUCED[m][1] for m in ("Tramba-S-TSOD", "Tramba-P-TSOD", "Tramba-R-TSOD")}
 
 
 def run_graft_entry_point(tmp, method):
@@ -1973,6 +2099,11 @@ def main() -> int:
         check_mlp_bwd(checks, dev, gen, shapes)
     check_linear_scan(checks, dev, gen)
     check_segmented_scans(checks, dev, gen)
+    # K1 / K2 over the other scan orders; the train variants and K8 over a K=8 one
+    for dtype in (torch.float32, torch.bfloat16):
+        check_ss2d_expand(checks, dev, gen, dtype, NEW_ORDER_SHAPES, (), head_c=None,
+                          table_fault=True)
+        check_train_kernels(checks, dev, gen, dtype, NEW_ORDER_SHAPES[2:3])
     torch.cuda.empty_cache()
 
     phase("4 model")
@@ -2005,6 +2136,9 @@ def main() -> int:
                           ("Tramba-R-TSOD", ("--dtype", "bfloat16"))):
         with tempfile.TemporaryDirectory() as tmp:
             run_dump_entry_point(tmp, method, *flags)
+    for flags in ((), ("--dtype", "bfloat16")):  # the scoring CLIs on the fp32 maps
+        with tempfile.TemporaryDirectory() as tmp:
+            run_sod_entry_points(tmp, "BaseUMamba-SOD", *flags, score=not flags)
 
     phase("6 timing")
     with torch.no_grad():

@@ -46,11 +46,17 @@ PARALLEL = {"tramba_tpu_torch.parallel.mesh", "tramba_tpu_torch.parallel.distrib
             "tramba_tpu_torch.dryrun"}
 ENCODERS = {"tramba_tpu_torch.models.vssm_encoder", "tramba_tpu_torch.models.swin",
             "tramba_tpu_torch.models.pvt", "tramba_tpu_torch.models.resnet"}
+# the SOD dump, the scoring entry points and the library modules of the last
+# slice of Queue 1 (items 6b, 11)
+ENTRY_AND_LIBRARY = {"tramba_tpu_torch.dump_sod", "tramba_tpu_torch.evaluate_sod",
+                     "tramba_tpu_torch.evaluate_tsod", "tramba_tpu_torch.utils.debug",
+                     "tramba_tpu_torch.utils.profiling", "tramba_tpu_torch.data.freq"}
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of tramba_tpu_torch (the parallel layer, the dry run and
-    the ResNet-50 encoder included), and chip_smoke, imported in a fresh
+    """Every module of tramba_tpu_torch (the parallel layer, the dry run,
+    the ResNet-50 encoder, the SOD dump and scoring entry points included),
+    and chip_smoke, imported in a fresh
     interpreter: no jax and no tramba_tpu module is loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT, env=env,
@@ -59,7 +65,7 @@ def test_port_and_chip_smoke_import_no_jax():
     *_, names, last = res.stdout.strip().splitlines()
     count, bad = last.split(" ", 1)
     assert int(count) > 30 and bad == "[]", res.stdout
-    assert PARALLEL | ENCODERS <= set(names.split(",")), names
+    assert PARALLEL | ENCODERS | ENTRY_AND_LIBRARY <= set(names.split(",")), names
 
 
 _LAYERS = """

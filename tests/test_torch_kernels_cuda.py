@@ -52,7 +52,7 @@ def _ss2d_params(gen, K, D, R, dm):
 
 @pytest.mark.parametrize("kind,K,H,param,D,R", [
     ("raster", 4, 9, 0, 64, 5), ("line", 8, 10, 0, 64, 3), ("window", 4, 12, 4, 96, 2),
-    ("dilation", 4, 8, 4, 32, 1)])
+    ("dilation", 4, 8, 4, 32, 1), ("spiral8", 8, 10, 0, 64, 3), ("hilbert", 4, 9, 0, 64, 5)])
 def test_scan_and_merge_match_plain(dev, kind, K, H, param, D, R):
     gen = torch.Generator().manual_seed(H)
     x = _rand(gen, 2, H * H, D)
@@ -114,7 +114,8 @@ def _bf(t, dev):
 
 
 @pytest.mark.parametrize("kind,K,H,param,D,R", [
-    ("raster", 4, 9, 0, 64, 5), ("line", 8, 10, 0, 64, 3), ("window", 4, 12, 4, 96, 2)])
+    ("raster", 4, 9, 0, 64, 5), ("line", 8, 10, 0, 64, 3), ("window", 4, 12, 4, 96, 2),
+    ("diagonal8", 8, 12, 0, 64, 4), ("ab2", 4, 7, 0, 32, 2)])
 def test_scan_and_merge_bf16_match_plain(dev, kind, K, H, param, D, R):
     """K1 on a bf16 x (fp32 ys: the fp32 tolerance holds); K2 with a bf16
     w_out (bf16 out)."""
@@ -362,11 +363,13 @@ def _core_inputs(gen, kind, K, H, param, D, R, B=2, dm=40):
 
 
 # (order, map, window/rate, D, R): L = 144 and L < 64, a line order (pixels in
-# several slots of one direction), R = 64 at D = 2048 (the 12 px encoder)
+# several slots of one direction), R = 64 at D = 2048 (the 12 px encoder), and
+# two of the spiral / Hilbert orders (K = 8 and K = 4)
 TRAIN_SHAPES = [("raster", 4, 12, 0, 64, 5), ("raster", 4, 7, 0, 32, 3),
                 ("raster", 4, 3, 0, 2048, 64), ("line", 8, 10, 0, 64, 3),
                 ("window", 4, 12, 4, 96, 2), ("dilation", 4, 8, 4, 32, 1),
-                ("line", 8, 12, 0, 256, 16)]
+                ("line", 8, 12, 0, 256, 16), ("spiral8", 8, 12, 0, 64, 4),
+                ("hilbert", 4, 9, 0, 32, 2)]
 
 
 @pytest.mark.parametrize("kind,K,H,param,D,R", TRAIN_SHAPES)

@@ -140,18 +140,24 @@ def test_every_module_imports_without_jax():
 
 
 def test_unported_methods_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build("BaseUMamba-SOD")
+    """Every registry name builds (BaseUMamba-SOD since Queue 1 item 9: a
+    decoder without guides); an unknown one raises."""
+    model = build("BaseUMamba-SOD", IMG, device="cpu", dims=16, enc_depths=(1, 1, 1, 1),
+                  dec_depths=(1, 1, 1, 1))
+    assert not hasattr(model.decoder, "guide_layers")
+    assert not any(".guide_layers." in k for k in model.state_dict())
     with pytest.raises(ValueError):
         build("Tramba-X")
 
 
 def test_card_only_entry_points_refuse_the_cpu(monkeypatch):
-    from tramba_tpu_torch import dump
+    from tramba_tpu_torch import dump, dump_sod
     from tramba_tpu_torch.utils.profiling import measure_inference_speed
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         dump.main(["--data_root", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dump_sod.main(["--datasets", "A=unused"])
     with pytest.raises(RuntimeError, match="CUDA"):
         measure_inference_speed(lambda a: a, (torch.zeros(1),))

@@ -1,13 +1,17 @@
-"""flax Tramba-V / -S / -P / -R variables -> reference PyTorch state dict.
+"""flax Tramba-V / -S / -P / -R and BaseUMamba variables -> reference
+PyTorch state dict.
 
-The exact inverse of ``tramba_tpu/compat/torch_weights.convert_tramba_v``
-and, for Swin-B, PVTv2-b4 and ResNet-50, of ``convert_tramba_enc`` (its
+The exact inverse of ``tramba_tpu/compat/torch_weights.convert_tramba_v``,
+of ``convert_base_umamba`` (no ``guide_*`` entries; its decoder blocks
+``stage_{s}_block_{d}`` hold a plain ``mlp``) and, for Swin-B, PVTv2-b4 and
+ResNet-50, of ``convert_tramba_enc`` (its
 ``convert_swin_encoder`` :350, ``convert_pvt_encoder`` :320 and
 ``convert_resnet_encoder`` :298, whose ``batch_stats`` become the
 BatchNorms' running statistics; numpy only, importable without jax):
 ``convert_tramba_v(params_from_jax(p))`` and
-``convert_tramba_enc(params_from_jax(p), enc)`` give ``p`` back leaf for
-leaf.  The result loads into the port's ``TrambaV`` / ``TrambaEnc`` with
+``convert_tramba_enc(params_from_jax(p), enc)`` (and
+``convert_base_umamba``) give ``p`` back leaf for leaf.  The result loads
+into the port's ``TrambaV`` / ``TrambaEnc`` / ``BaseUMamba`` with
 ``strict=True``, so both packages can run the same weights.
 
 Layout rules (inverse of torch_weights.py:7-13): Dense kernel (in, out) ->
@@ -230,7 +234,7 @@ def resnet_encoder_from_jax(enc: Mapping, stats: Mapping) -> Dict[str, torch.Ten
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax Tramba-V, Tramba-S, Tramba-P or Tramba-R variables ({"params":
+    """flax Tramba-V, Tramba-S, Tramba-P, Tramba-R or BaseUMamba variables ({"params":
     {...}[, "batch_stats": {...}]} or the params tree itself), leaves as
     numpy arrays -> reference state dict of fp32 CPU tensors.  Tramba-R's
     running statistics come from ``batch_stats``."""

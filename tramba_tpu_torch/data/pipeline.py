@@ -1,7 +1,7 @@
 """Dataset listing + threaded prefetching batch loader.
 
 The port's own copy of ``tramba_tpu/data/pipeline.py`` (numpy and PIL only),
-without its frequency-feature samples, which Tramba-V does not read.
+with its frequency-feature samples (``freq_stats``, ``data/freq.py``).
 Reference semantics: ``data/dataloader.py`` (RGB_Dataset: {root}/{set}/image +
 /mask pairs, natural sort, size-mismatch filtering; samples carry name and
 original shape).  The torch DataLoader worker-process model is replaced with
@@ -26,7 +26,9 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 from PIL import Image
 
-from tramba_tpu_torch.data.transforms import eval_transform, train_transform
+from tramba_tpu_torch.data.freq import FreqStats, block_dct_features, freq_decompose
+from tramba_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD, eval_transform,
+                                              train_transform)
 
 Image.MAX_IMAGE_PIXELS = None
 
@@ -49,12 +51,21 @@ def _list_images(d: str) -> List[str]:
 
 
 class SODDataset:
-    """Image/mask pair dataset: {root}/{set}/image + {root}/{set}/mask."""
+    """Image/mask pair dataset: {root}/{set}/image + {root}/{set}/mask.
+
+    With ``freq_stats`` set (a FreqStats or a path to a stats pickle), each
+    sample also carries 'high'/'low' 96-channel JPEG-style frequency features
+    at 1/8 resolution (the reference's alternative freq_dataloader path,
+    data/freq_dataloader.py:85-106).
+    """
 
     def __init__(self, root: str, sets: Sequence[str], img_size: int, mode: str = "train",
-                 check_sizes: bool = True):
+                 check_sizes: bool = True, freq_stats=None):
         self.img_size = img_size
         self.mode = mode
+        if isinstance(freq_stats, str):
+            freq_stats = FreqStats.load(freq_stats)
+        self.freq_stats = freq_stats
         self.images: List[str] = []
         self.gts: List[str] = []
         for s in sets:
@@ -90,6 +101,10 @@ class SODDataset:
             sample = train_transform(sample, self.img_size, rng or np.random.default_rng())
         else:
             sample = eval_transform(sample, self.img_size)
+        if self.freq_stats is not None:
+            raw = (sample["image"] * IMAGENET_STD + IMAGENET_MEAN) * 255.0
+            high, low = freq_decompose(block_dct_features(raw))
+            sample["high"], sample["low"] = self.freq_stats.normalize(high, low)
         return sample
 
 
@@ -97,7 +112,8 @@ class BatchLoader:
     """Threaded prefetching batch iterator over a SODDataset.
 
     Yields dicts with stacked 'image' (B,H,W,3) / 'gt' (B,H,W,1) float32
-    arrays plus per-sample 'name' and 'shape' lists.
+    arrays (and 'high' / 'low' where the dataset has frequency features)
+    plus per-sample 'name' and 'shape' lists.
     """
 
     def __init__(self, dataset: SODDataset, batch_size: int, shuffle: bool = False,
@@ -160,6 +176,9 @@ class BatchLoader:
                 "name": [s["name"] for s in samples],
                 "shape": [s["shape"] for s in samples],
             }
+            for key in ("high", "low"):
+                if key in samples[0]:
+                    out[key] = np.stack([s[key] for s in samples])
             return out
 
         def producer():

@@ -23,6 +23,29 @@ from tramba_tpu_torch.train.checkpoint import load_checkpoint
 from tramba_tpu_torch.utils.profiling import measure_inference_speed
 
 
+def card_device(entry: str) -> torch.device:
+    """The CUDA device for the entry point ``entry``, with TF32 off in
+    matmuls and cuDNN convolutions (fp32 at "highest", as test_TSOD.py:15);
+    raises where there is no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{entry} runs on a CUDA device; none is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def load_model(method: str, img_size: int, device, ckpt=None, dtype: str = "float32"):
+    """``method`` in eval mode on ``device`` computing in ``dtype``, with the
+    reference ``.pth`` ``ckpt`` loaded (strict), or seed-0 weights without
+    one."""
+    print(ckpt or "no checkpoint: random weights from seed 0", flush=True)
+    model = build(method, img_size, device=device, seed=None if ckpt else 0,
+                  dtype=getattr(torch, dtype))
+    if ckpt:
+        load_checkpoint(model, ckpt)
+    return model.to(device).eval()
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--img_size", default=384, type=int)
@@ -37,20 +60,9 @@ def main(argv=None) -> None:
                         help="compute dtype (bfloat16: kernels K5-K7 and bf16 K1-K4)")
     args = parser.parse_args(argv)
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("tramba_tpu_torch.dump runs on a CUDA device; none is available")
-    # fp32 at "highest", as test_TSOD.py:15: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda")
-
+    device = card_device("tramba_tpu_torch.dump")
     for ckpt in args.ckpt or [None]:
-        print(ckpt or "no checkpoint: random weights from seed 0", flush=True)
-        model = build(args.method, args.img_size, device=device, seed=None if ckpt else 0,
-                      dtype=getattr(torch, args.dtype))
-        if ckpt:
-            load_checkpoint(model, ckpt)
-        model = model.to(device).eval()
+        model = load_model(args.method, args.img_size, device, ckpt, args.dtype)
         save_path = os.path.join(args.save_root, args.method, "TSOD")
         n = dump_saliency_maps(model, args.data_root, save_path, img_size=args.img_size,
                                batch_size=args.batch_size, device=device)

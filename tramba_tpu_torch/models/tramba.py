@@ -1,21 +1,25 @@
-"""Tramba-V / -S / -P / -R: an encoder + the DFVSS decoder, channels-last.
+"""Tramba-V / -S / -P / -R and BaseUMamba: an encoder + a U-shaped decoder,
+channels-last.
 
-Port of ``tramba_tpu/models/tramba.py:78-253`` (reference ``Trambav6.py``,
-``Trambav6_enc.py``): Tramba-V's VSSM encoder, and ``TrambaEnc``'s Swin-B
-(Tramba-S), PVTv2-b4 (Tramba-P) and ResNet-50 (Tramba-R) encoders with their
-skip assembly.
+Port of ``tramba_tpu/models/tramba.py:78-289`` (reference ``Trambav6.py``,
+``Trambav6_enc.py``, ``BaseUMamba.py``): Tramba-V's VSSM encoder, and
+``TrambaEnc``'s Swin-B (Tramba-S), PVTv2-b4 (Tramba-P) and ResNet-50
+(Tramba-R) encoders with their skip assembly; BaseUMamba, the ablation
+baseline, is the VSSM encoder with a decoder of neither guides nor DWMS FFNs.
 Each decoder stage upsamples the deep feature (PatchExpand), gates the skip
-through a FreqBlock guide, reduces the concat with a split dense, and runs
-MultiScaleDecoderBlocks; deep supervision emits a logit map per stage and
+through a FreqBlock guide (BaseUMamba: the skip as it is), reduces the
+concat with a split dense, and runs MultiScaleDecoderBlocks (BaseUMamba:
+VSSMDecoderBlocks); deep supervision emits a logit map per stage and
 the full-resolution one: 4 maps at 1/16, 1/8, 1/4 and 1/1, Tramba-R's
 three-stage decoder 3 at 1/8, 1/4 and 1/1.  The last head is kernel K4
 (FinalPatchExpandX4).
 ``dtype`` (fp32 or bf16) is the compute dtype: the input is cast to it, the
 modules run in it and the heads come back in it; parameters stay fp32.
 Module names follow the reference state dict (``decoder.expand_layers.{s}``,
-``guide_layers``, ``concat_back_dim``, ``stage_layers.{s}.blocks.{d}``,
-``seg_layers``).  Stochastic depth: encoder 0 -> 0.6, decoder blocks
-0.2 -> 0 (``tramba.py:100-134``), guides 0; active in ``train()`` mode only.
+``guide_layers`` (none in BaseUMamba), ``concat_back_dim``,
+``stage_layers.{s}.blocks.{d}``, ``seg_layers``).  Stochastic depth: encoder
+0 -> 0.6, decoder blocks 0.2 -> 0 (``tramba.py:100-134``), guides 0; active
+in ``train()`` mode only.
 ``ssm_backend`` goes to every SS2D (``tramba.py:92-250``): None (the default
 kernels) or a backend of ``nn/ssm.BACKENDS``; the parameters are the same.
 """
@@ -33,11 +37,11 @@ from tramba_tpu_torch.models.pvt import PVTv2Encoder, pvt_v2_b4_config
 from tramba_tpu_torch.models.resnet import ResNetEncoder, resnet50_config
 from tramba_tpu_torch.models.swin import SwinEncoder, swin_b_384_config
 from tramba_tpu_torch.models.vssm_encoder import VSSMEncoder, _Stage
-from tramba_tpu_torch.nn.blocks import MultiScaleDecoderBlock
+from tramba_tpu_torch.nn.blocks import MultiScaleDecoderBlock, VSSMDecoderBlock
 from tramba_tpu_torch.nn.freq import FreqBlock
 from tramba_tpu_torch.nn.layers import FinalPatchExpandX4, PatchExpand, check_dtype
 
-__all__ = ["TrambaDecoder", "TrambaV", "TrambaEnc", "window_for_resolution"]
+__all__ = ["TrambaDecoder", "TrambaV", "TrambaEnc", "BaseUMamba", "window_for_resolution"]
 
 # high-frequency window size per resolution (csms6s.py:107-111)
 _WINDOW_BY_RES = {12: 4, 24: 8, 48: 12, 96: 16}
@@ -56,12 +60,19 @@ class TrambaDecoder(nn.Module):
     """``features_per_stage``: encoder widths, shallow -> deep.  Each stage's
     concat-dense takes the upsampled deep map (half its width) beside the
     guided skip: 2C -> C for Tramba-V and -S, 256 + 320 -> 320 (and 160 + 128,
-    64 + 64) for Tramba-P."""
+    64 + 64) for Tramba-P.  ``use_guides=False`` builds no ``guide_layers``
+    and feeds each skip straight to the concat-dense; ``block_type`` is
+    ``"ms"`` (MultiScaleDecoderBlock) or ``"plain"`` (VSSMDecoderBlock)
+    (``tramba_tpu/models/tramba.py:90-91``: BaseUMamba's decoder is both)."""
 
     def __init__(self, features_per_stage: Sequence[int], depths: Sequence[int],
                  img_size: int = 384, dtype: torch.dtype = torch.float32,
-                 drop_path_rate: float = 0.2, ssm_backend: Optional[str] = None):
+                 drop_path_rate: float = 0.2, ssm_backend: Optional[str] = None,
+                 use_guides: bool = True, block_type: str = "ms"):
         super().__init__()
+        blocks = {"ms": MultiScaleDecoderBlock, "plain": VSSMDecoderBlock}
+        if block_type not in blocks:
+            raise ValueError(f"unknown decoder block type {block_type!r}; use 'ms' or 'plain'")
         chans = list(features_per_stage)
         n = len(chans)
         base_res = img_size // 2 ** n
@@ -73,17 +84,19 @@ class TrambaDecoder(nn.Module):
 
         self.expand_layers = nn.ModuleList(
             [PatchExpand(chans[-(s + 1)]) for s in range(n - 1)] + [FinalPatchExpandX4(chans[0])])
-        self.guide_layers = nn.ModuleList(
-            FreqBlock(chans[-(s + 2)], window_for_resolution(base_res * 2 ** s), 4, dtype=dtype,
-                      ssm_backend=ssm_backend)
-            for s in range(n - 1))
+        self.use_guides = use_guides
+        if use_guides:
+            self.guide_layers = nn.ModuleList(
+                FreqBlock(chans[-(s + 2)], window_for_resolution(base_res * 2 ** s), 4,
+                          dtype=dtype, ssm_backend=ssm_backend)
+                for s in range(n - 1))
         self.concat_back_dim = nn.ModuleList(
             nn.Linear(chans[-(s + 1)] // 2 + chans[-(s + 2)], chans[-(s + 2)])
             for s in range(n - 1))
         self.stage_layers = nn.ModuleList(
-            _Stage([MultiScaleDecoderBlock(chans[-(s + 2)], dtype=dtype,
-                                           drop_path=rate(sum(depths[:s]) + d),
-                                           ssm_backend=ssm_backend)
+            _Stage([blocks[block_type](chans[-(s + 2)], dtype=dtype,
+                                       drop_path=rate(sum(depths[:s]) + d),
+                                       ssm_backend=ssm_backend)
                     for d in range(depths[s])])
             for s in range(n - 1))
         self.seg_layers = nn.ModuleList(
@@ -92,9 +105,11 @@ class TrambaDecoder(nn.Module):
     def forward(self, skips: List[torch.Tensor]) -> List[torch.Tensor]:
         x = skips[-1]
         outs = []
-        for s in range(len(self.guide_layers)):
+        for s in range(len(self.stage_layers)):
             x = self.expand_layers[s](x)
-            mid = self.guide_layers[s](skips[-(s + 2)])
+            mid = skips[-(s + 2)]
+            if self.use_guides:
+                mid = self.guide_layers[s](mid)
             # concat + dense as two products on the weight's halves
             lin = self.concat_back_dim[s]
             up = x.shape[-1]
@@ -120,6 +135,30 @@ class TrambaV(nn.Module):
         self.vssm_encoder = VSSMEncoder(enc_depths, dims, dtype, enc_drop_path, ssm_backend)
         self.decoder = TrambaDecoder([dims * 2 ** i for i in range(len(enc_depths))],
                                      dec_depths, img_size, dtype, dec_drop_path, ssm_backend)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the
+        model dtype."""
+        return self.decoder(self.vssm_encoder(x.to(self.dtype)))
+
+
+class BaseUMamba(nn.Module):
+    """BaseUMamba, the ablation baseline (BaseUMamba.py:14-181,
+    ``tramba_tpu/models/tramba.py:256-289``): Tramba-V's VSSM encoder and a
+    decoder without guides, whose blocks are VSSMDecoderBlocks (K=8 line
+    SS2D + plain MLP)."""
+
+    def __init__(self, img_size: int = 384, dims: int = 128,
+                 enc_depths: Sequence[int] = (2, 2, 15, 2),
+                 dec_depths: Sequence[int] = (2, 2, 2, 2),
+                 dtype: torch.dtype = torch.float32, enc_drop_path: float = 0.6,
+                 dec_drop_path: float = 0.2, ssm_backend: Optional[str] = None):
+        super().__init__()
+        self.dtype = check_dtype(dtype)
+        self.vssm_encoder = VSSMEncoder(enc_depths, dims, dtype, enc_drop_path, ssm_backend)
+        self.decoder = TrambaDecoder([dims * 2 ** i for i in range(len(enc_depths))],
+                                     dec_depths, img_size, dtype, dec_drop_path, ssm_backend,
+                                     use_guides=False, block_type="plain")
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the

@@ -16,7 +16,12 @@ Routes, chosen as ``SS2D.__call__`` chooses them (:158-262):
   and SiLU, as ``_prologue_pallas`` and the front of ``_small_pallas`` do on
   a TPU; otherwise they are plain torch, as JAX runs them outside Pallas.
   Under autograd the same kernels run with their backwards (K5's recomputed
-  VJP, K8).
+  VJP, K8).  Every scan order takes this route through its gather and
+  inverse tables: JAX's TPU routing folds only raster / line / dilation /
+  window and sends the spiral, Hilbert, diagonal, ``line4`` and ablation
+  orders to ``fused_ss2d_core`` (ssm.py:256-291; Pallas ``_fused_pallas`` /
+  ``_seq_bwd_pallas``, ``fused_ss2d.py:101`` / ``:747``), whose cross scan,
+  core, cross merge, LayerNorm, GELU and projection are the same function.
 * composed (any other configuration, or ``backend="seq_parallel"``, :279-300):
   cross scan -> the composed core (d_state 1) or the selective scan (d_state
   > 1), whose recurrence is kernel K14 ``linear_scan`` on the card -> cross
@@ -30,7 +35,8 @@ Routes, chosen as ``SS2D.__call__`` chooses them (:158-262):
   divides over it, else the tensor-parallel one.
 
 JAX's ``"assoc"``, ``"seq"``, ``"fake"`` and ``"pallas"`` spellings choose a
-TPU or debugging implementation of the same function and are not ported.
+TPU or debugging implementation of the same function and have no meaning in
+the port (README, "What has no meaning in the port").
 """
 
 from __future__ import annotations
@@ -75,8 +81,9 @@ class SS2D(nn.Module):
                  conv_bias: bool = False, d_conv: int = 3, backend: Optional[str] = None):
         super().__init__()
         if backend not in BACKENDS:
-            raise ValueError(f"SS2D backend {backend!r} is not ported; use one of {BACKENDS} "
-                             "(ROADMAP.md Queue 1 item 8)")
+            raise ValueError(f"SS2D backend {backend!r} has no meaning in the port; use one "
+                             f"of {BACKENDS} (ROADMAP.md Queue 1 item 8; README.md, 'What has "
+                             "no meaning in the port')")
         if d_conv < 1 or d_conv % 2 == 0:
             raise ValueError(f"d_conv {d_conv}: the port takes odd depthwise conv sizes")
         self.dtype = check_dtype(dtype)

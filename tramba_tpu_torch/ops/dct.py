@@ -14,11 +14,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["dct_basis", "dct2d_quadrants"]
+__all__ = ["basis_np", "dct_basis", "dct2d_quadrants"]
 
 
 @functools.lru_cache(maxsize=None)
-def _basis_np(n: int) -> np.ndarray:
+def basis_np(n: int) -> np.ndarray:
     """Orthonormal DCT-II basis: B[v, j] = cos(pi*(0.5+j)*v/n)/sqrt(n) (*sqrt2, v>0)."""
     j = np.arange(n)[None, :]
     v = np.arange(n)[:, None]
@@ -29,7 +29,7 @@ def _basis_np(n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _basis_on(n: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(_basis_np(n)).to(device)
+    return torch.from_numpy(basis_np(n)).to(device)
 
 
 def dct_basis(n: int, device) -> torch.Tensor:

@@ -1,9 +1,14 @@
 """Scan orders of the SS2D directions: gather tables and their inverses.
 
-Port of ``tramba_tpu/ops/scan_orders.py`` for the four orders the Tramba-V
-inference path runs: ``raster`` (K=4), ``line`` (K=8: raster plus the Helix
-Bresenham lines), ``dilation`` and ``window`` (K=4 each).  The generators are
-the same numpy code, so the tables are byte-equal to the JAX package's.
+Port of ``tramba_tpu/ops/scan_orders.py``, every order of its ``get_order``:
+``raster`` (K=4), ``line`` (K=8: raster plus the Helix Bresenham lines),
+``line4`` (K=4, the lines alone), ``dilation`` and ``window`` (K=4 each), the
+spiral, Hilbert and wrap-around diagonal orders (``spiral``, ``hilbert``,
+``diagonal``, K=4; ``spiral8`` and ``diagonal8``, K=8, raster first) and the
+ablation orders ``ab1`` / ``ab2`` (one or two base directions repeated to
+K=4).  The generators are the same numpy code, so the tables are byte-equal
+to the JAX package's.  ``line``, ``line4``, ``window``, ``spiral`` and
+``spiral8`` take square maps only; the others any H x W.
 
 A direction k reads flat pixel ``idx[k, t]`` at sequence position t.  The
 merge is the scatter-add of the reference (``SpiralLine.py:109-133``), written
@@ -29,6 +34,10 @@ __all__ = [
     "line_tables",
     "dilation_tables",
     "window_tables",
+    "spiral_tables",
+    "hilbert_tables",
+    "diagonal_tables",
+    "ab_tables",
 ]
 
 
@@ -124,6 +133,103 @@ def window_tables(H: int, W: int, window: int) -> np.ndarray:
     return np.stack(tabs).astype(np.int32)
 
 
+def spiral_tables(H: int, W: int) -> np.ndarray:
+    """The clockwise inward spiral from the top-left corner, its transpose
+    (counter-clockwise) and both reversed (Spiral.py:3-86, ``CrossScan_Spiral``
+    csms6s.py:264-369).  Square maps only: the transpose is taken as ``j * W
+    + i``, which on an H != W map misses pixels (16x12) or overruns the map
+    (4x8)."""
+    if H != W:
+        raise ValueError(f"spiral scan orders are defined on square maps only (got {H}x{W})")
+    order = []
+    top, bottom, left, right = 0, H - 1, 0, W - 1
+    while top <= bottom and left <= right:
+        order.extend(top * W + j for j in range(left, right + 1))
+        order.extend(i * W + right for i in range(top + 1, bottom + 1))
+        if top < bottom:
+            order.extend(bottom * W + j for j in range(right - 1, left - 1, -1))
+        if left < right:
+            order.extend(i * W + left for i in range(bottom - 1, top, -1))
+        top, bottom, left, right = top + 1, bottom - 1, left + 1, right - 1
+    cw = np.asarray(order, dtype=np.int64)
+    assert cw.shape[0] == H * W
+    i, j = np.divmod(cw, W)
+    ccw = j * W + i
+    return np.stack([cw, ccw, cw[::-1], ccw[::-1]]).astype(np.int32)
+
+
+def _gilbert2d(width: int, height: int):
+    """The generalized Hilbert curve over a width x height rectangle (the
+    gilbert algorithm of Hilbert.py): (x, y) pairs, each cell once."""
+
+    def sgn(v):
+        return (v > 0) - (v < 0)
+
+    def generate(x, y, ax, ay, bx, by):
+        w, h = abs(ax + ay), abs(bx + by)
+        dax, day, dbx, dby = sgn(ax), sgn(ay), sgn(bx), sgn(by)
+        if h == 1:
+            for _ in range(w):
+                yield (x, y)
+                x, y = x + dax, y + day
+            return
+        if w == 1:
+            for _ in range(h):
+                yield (x, y)
+                x, y = x + dbx, y + dby
+            return
+        ax2, ay2, bx2, by2 = ax // 2, ay // 2, bx // 2, by // 2
+        w2, h2 = abs(ax2 + ay2), abs(bx2 + by2)
+        if 2 * w > 3 * h:
+            if (w2 % 2) and (w > 2):
+                ax2, ay2 = ax2 + dax, ay2 + day
+            yield from generate(x, y, ax2, ay2, bx, by)
+            yield from generate(x + ax2, y + ay2, ax - ax2, ay - ay2, bx, by)
+        else:
+            if (h2 % 2) and (h > 2):
+                bx2, by2 = bx2 + dbx, by2 + dby
+            yield from generate(x, y, bx2, by2, ax2, ay2)
+            yield from generate(x + bx2, y + by2, ax, ay, bx - bx2, by - by2)
+            yield from generate(x + (ax - dax) + (bx2 - dbx), y + (ay - day) + (by2 - dby),
+                                -bx2, -by2, -(ax - ax2), -(ay - ay2))
+
+    if width >= height:
+        yield from generate(0, 0, width, 0, 0, height)
+    else:
+        yield from generate(0, 0, 0, height, width, 0)
+
+
+def hilbert_tables(H: int, W: int) -> np.ndarray:
+    """The Hilbert curve, its vertical flip and both reversed
+    (``CrossScan_Hilbert`` csms6s.py:372-474, Hilbert.py:370-380)."""
+    pts = np.asarray(list(_gilbert2d(W, H)), dtype=np.int64)  # (L, 2) as (x, y)
+    flat = pts[:, 1] * W + pts[:, 0]
+    flipped = (H - 1 - pts[:, 1]) * W + pts[:, 0]
+    return np.stack([flat, flipped, flat[::-1], flipped[::-1]]).astype(np.int32)
+
+
+def diagonal_tables(H: int, W: int) -> np.ndarray:
+    """Wrap-around anti-diagonals (row r's columns shifted by r) and main
+    diagonals (shifted by -r), each read column by column, and both reversed
+    (csms6s.py:478-528)."""
+    rows = np.repeat(np.arange(H), W).reshape(H, W)
+    cols = np.tile(np.arange(W), H).reshape(H, W)
+    anti = (rows * W + (cols + rows) % W).T.reshape(-1)
+    diag = (rows * W + (cols - rows) % W).T.reshape(-1)
+    return np.stack([anti, diag, anti[::-1], diag[::-1]]).astype(np.int32)
+
+
+def ab_tables(H: int, W: int, ndir: int = 1) -> np.ndarray:
+    """The ablation orders (csms6s.py:678-737): row-major four times
+    (``ndir`` 1), or row-major and the transposed read, twice (``ndir`` 2)."""
+    L = H * W
+    k0 = np.arange(L, dtype=np.int32)
+    if ndir == 1:
+        return np.stack([k0, k0, k0, k0])
+    k1 = raster_tables(H, W)[1]
+    return np.stack([k0, k1, k0, k1]).astype(np.int32)
+
+
 class ScanOrder:
     """K directions with their gather table and multi-slot inverse table.
 
@@ -155,19 +261,34 @@ class ScanOrder:
 
 @functools.lru_cache(maxsize=None)
 def get_order(kind: str, H: int, W: int, param: int = 0) -> ScanOrder:
-    """``raster`` (K=4), ``line`` (K=8), ``dilation`` (K=4, param = rate,
-    default 4) or ``window`` (K=4, param = window size)."""
+    """``raster`` (K=4), ``line`` (K=8), ``line4`` (K=4), ``dilation`` (K=4,
+    param = rate, default 4), ``window`` (K=4, param = window size),
+    ``spiral``, ``hilbert``, ``diagonal``, ``ab1``, ``ab2`` (K=4), or
+    ``spiral8`` / ``diagonal8`` (K=8, raster first)."""
     if kind == "raster":
         t = raster_tables(H, W)
     elif kind == "line":
         t = np.concatenate([raster_tables(H, W), line_tables(H, W)], axis=0)
+    elif kind == "line4":
+        t = line_tables(H, W)
     elif kind == "dilation":
         t = dilation_tables(H, W, param or 4)
     elif kind == "window":
         t = window_tables(H, W, param)
+    elif kind == "spiral":
+        t = spiral_tables(H, W)
+    elif kind == "spiral8":
+        t = np.concatenate([raster_tables(H, W), spiral_tables(H, W)], axis=0)
+    elif kind == "hilbert":
+        t = hilbert_tables(H, W)
+    elif kind == "diagonal":
+        t = diagonal_tables(H, W)
+    elif kind == "diagonal8":
+        t = np.concatenate([raster_tables(H, W), diagonal_tables(H, W)], axis=0)
+    elif kind in ("ab1", "ab2"):
+        t = ab_tables(H, W, int(kind[2]))
     else:
-        raise NotImplementedError(
-            f"scan order {kind!r} is not ported yet (ROADMAP.md, Queue 1 item 11)")
+        raise ValueError(f"unknown scan order kind: {kind}")
     return ScanOrder(t)
 
 

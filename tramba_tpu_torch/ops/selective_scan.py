@@ -43,7 +43,9 @@ __all__ = ["linear_scan", "linear_scan_ref", "linear_scan_plan", "SCAN_PLAN_FIEL
 
 def linear_scan_ref(a: torch.Tensor, b: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """h over axis -2 of (..., L, C) tensors, in fp32; ``reverse`` runs from
-    the last row back (h_t = a_t * h_{t+1} + b_t)."""
+    the last row back (h_t = a_t * h_{t+1} + b_t).  Each step is one
+    ``addcmul``, which ``utils/profiling.analytic_model_flops`` counts as the
+    scan handle's 9 operations an element."""
     if a.shape != b.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
     L = a.shape[-2]

@@ -1,21 +1,88 @@
-"""Inference-speed harness (test_TSOD.py:71-108 semantics), timed on the card,
-and the device time of a forward by kernel.
+"""Accounting and timing: parameters, FLOPs, the inference-speed harness,
+device traces and the device time of a forward by kernel.
 
-Port of ``tramba_tpu/utils/profiling.py:134`` ``measure_inference_speed``.
-Time comes from CUDA events around the timed iterations; a call whose inputs
-are not on a CUDA device raises, since its number would not be the card's.
-``device_time_by_kernel`` sums the device time of each kernel name that
-``torch.profiler`` records over a few calls, telling apart the launches
-made inside the ``record_function`` ranges it is given.
+Port of ``tramba_tpu/utils/profiling.py``.  ``count_params`` and the
+reference's analytic FLOP model: ``selective_scan_flops`` (csms6s.py:772-793)
+and ``analytic_model_flops``, fvcore's accounting (2MNK for every matrix
+product and convolution) plus 9 operations per scanned state element, as
+the JAX package counts them from a jaxpr; here ``torch.utils.flop_counter``
+counts the products of a forward of the plain versions on the CPU, and the
+plain scan's one ``addcmul`` per step stands for the scan handle.
+``measure_inference_speed`` (:134, test_TSOD.py:71-108) times on the card
+with CUDA events; a call whose inputs are not on a CUDA device raises, since
+its number would not be the card's.  ``trace`` writes a ``torch.profiler``
+trace.  ``device_time_by_kernel`` sums the device time of each kernel name
+that ``torch.profiler`` records over a few calls, telling apart the launches
+made inside the ``record_function`` ranges it is given.  XLA's own cost
+model (``cost_analysis``) has no meaning here.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import Callable, Sequence
 
 import torch
 
-__all__ = ["measure_inference_speed", "device_time_by_kernel"]
+__all__ = ["count_params", "selective_scan_flops", "analytic_model_flops",
+           "measure_inference_speed", "trace", "device_time_by_kernel"]
+
+
+def count_params(model: torch.nn.Module) -> int:
+    """The number of parameter elements of ``model`` (buffers not counted,
+    as flax keeps BatchNorm statistics out of ``params``)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def selective_scan_flops(B: int, L: int, D: int, N: int = 1, with_D: bool = True,
+                         with_Z: bool = False) -> int:
+    """The reference's analytic scan FLOP model: 9*B*L*D*N (csms6s.py:772-793)."""
+    flops = 9 * B * L * D * N
+    if with_D:
+        flops += B * D * L
+    if with_Z:
+        flops += B * D * L * 3
+    return flops
+
+
+def _scan_step_flops(b_shape, a_shape, h_shape, *args, out_shape=None, **kwargs) -> int:
+    # one step of the plain recurrence h_t = a_t h_{t-1} + b_t: the
+    # reference's 9 operations per scanned state element
+    return 9 * math.prod(out_shape)
+
+
+def _mv_flops(a_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    # a matrix-vector product (torch's counter has no formula for it): the
+    # plain K4 head's per-slot sum over C, JAX's 1x1 convolution
+    return 2 * a_shape[0] * a_shape[1]
+
+
+@torch.no_grad()
+def analytic_model_flops(fn: Callable, *args) -> dict:
+    """fvcore-style required-FLOP count of ``fn(*args)``: 2MNK for every
+    matrix product and convolution (``matmul_conv_flops``) plus 9 operations
+    per scanned state element of every recurrence (``scan_handle_flops``;
+    9 B K L D N for an SS2D), as ``tramba_tpu/utils/profiling.py:115``
+    counts them.  ``fn`` runs once on the CPU, where every wrapper takes its
+    plain version, so no product hides in a native kernel and none is
+    launched: ``args`` and ``fn``'s parameters must be CPU tensors.
+    Elementwise work is not counted (fvcore's accounting), and neither are
+    gathers: the JAX package spells the line orders' gathers as one-hot
+    products and counts those too."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    if any(torch.is_tensor(a) and a.device.type != "cpu" for a in args):
+        raise ValueError("analytic_model_flops counts a forward of the plain versions: "
+                         "pass CPU tensors")
+    step = torch.ops.aten.addcmul
+    formulas = {step: _scan_step_flops, torch.ops.aten.mv: _mv_flops}
+    with FlopCounterMode(display=False, custom_mapping=formulas) as counter:
+        fn(*args)
+    counts = counter.get_flop_counts().get("Global", {})
+    scans = int(counts.get(step, 0))
+    dots = int(sum(counts.values())) - scans
+    return {"matmul_conv_flops": dots, "scan_handle_flops": scans, "total_flops": dots + scans}
 
 
 @torch.no_grad()
@@ -44,6 +111,34 @@ def measure_inference_speed(fn: Callable, args: Sequence[torch.Tensor], max_iter
     fps = batch * (max_iter - num_warmup) / (start.elapsed_time(mark) / 1e3)
     print(f"Overall fps: {fps:.1f} img / s, times per image: {1000 / fps:.2f} ms / img")
     return fps
+
+
+class trace:
+    """Context manager: a ``torch.profiler`` trace of the host and, where
+    there is one, the card, written to ``<logdir>/trace.json`` (Chrome trace
+    format) on exit."""
+
+    def __init__(self, logdir: str = "tramba_trace"):
+        self.logdir = logdir
+        self.profiler = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self.profiler = profile(activities=activities)
+        self.profiler.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.profiler.__exit__(*exc)
+        os.makedirs(self.logdir, exist_ok=True)
+        path = os.path.join(self.logdir, "trace.json")
+        self.profiler.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")
+        return False
 
 
 def device_time_by_kernel(fn: Callable, iters: int = 3, warmup: int = 2,
