@@ -4,7 +4,9 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. device    a CUDA card is present; prints its name and power limit
-  2. build     nvcc builds kernels K1-K14 from tramba_tpu_torch/csrc
+  2. build     nvcc builds kernels K1-K14 from tramba_tpu_torch/csrc, and
+               g++ the host-side preprocessing library of
+               tramba_tpu_torch/data/native.py; the seconds of each build
   3. kernels   each kernel vs its plain PyTorch version on the card, at the
                shapes of the 384px forwards: Tramba-V's K1-K4 in fp32
                (rtol 1e-3, atol 1e-4), then in bf16 K1-K4 and K5-K7, and K2
@@ -156,7 +158,18 @@ Phases, each of which must pass (any failure exits non-zero):
                (and Tramba-R's running statistic) relative norm <= 1e-3;
                bf16 both <= 2e-2 or 1.25 x the CPU's own bf16-vs-fp32 gap of
                that value, whichever is larger
-  9. run       ``tramba_tpu_torch.run`` (the training CLI) on a synthetic
+  8b. loader   16 seeded 1920x1080 frames with masks in the TSOD10K layout:
+               the native resizes byte-equal to PIL's on each (bilinear
+               image, nearest mask) and ``preprocess_eval_batch`` equal to
+               ``eval_transform`` (atol 1e-6); the median ms per B8 eval
+               batch to 384 px through ``BatchLoader`` (8 threads, two
+               batches an epoch) with ``static_resize`` on PIL and on the
+               native resizes, and with each batch decoded and then
+               preprocessed by ``preprocess_eval_batch`` in the same pool,
+               in turns; and the median ms of one frame's resize alone on
+               each route; beside the card's name and power limit and the
+               host's CPU model
+ 9. run       ``tramba_tpu_torch.run`` (the training CLI) on a synthetic
                TSOD10K-layout dataset (8 train, 4 test images), in fp32 and
                then ``--dtype bfloat16``: 2 epochs with the in-loop eval,
                record and best-MAE weights, exact launch counts; a
@@ -1833,8 +1846,9 @@ def compare_reduced_step(dev, dtype, method="Tramba-V-TSOD"):
                              f"{worst}, {len(bad)} values beyond their limits")
 
 
-def write_tsod(root, splits, seed):
-    """A TSOD10K-layout folder {root}/{split}/{image,mask} of seeded images."""
+def write_tsod(root, splits, seed, size=None):
+    """A TSOD10K-layout folder {root}/{split}/{image,mask} of seeded images,
+    each ``size`` (W, H) or of a random size."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -1842,7 +1856,7 @@ def write_tsod(root, splits, seed):
         for sub in ("image", "mask"):
             os.makedirs(os.path.join(root, split, sub))
         for i in range(n):
-            w, h = int(rng.integers(300, 640)), int(rng.integers(200, 480))
+            w, h = size or (int(rng.integers(300, 640)), int(rng.integers(200, 480)))
             mask = np.zeros((h, w), np.uint8)
             y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
             mask[y0:y0 + h // 3, x0:x0 + w // 3] = 255
@@ -1850,6 +1864,126 @@ def write_tsod(root, splits, seed):
             Image.fromarray(img.astype(np.uint8), "RGB").save(
                 os.path.join(root, split, "image", f"{split}_{i}.jpg"))
             Image.fromarray(mask, "L").save(os.path.join(root, split, "mask", f"{split}_{i}.png"))
+
+
+def host_cpu() -> str:
+    """The host's CPU model (its vendor, family and model numbers where the
+    name is hidden) and its count of logical CPUs."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            key, _, value = ln.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')} model "
+                f"{info.get('model', '?')}")
+    return f"{name}, {info.get('cpu MHz', '?')} MHz, {os.cpu_count()} CPUs"
+
+
+LOADER_FRAMES, LOADER_BATCH, LOADER_SIZE, LOADER_REPS = 16, 8, 384, 7
+
+
+def run_loader(tmp, card):
+    """Phase 8b: the eval loader on 1080p frames.  The native resizes and
+    ``preprocess_eval_batch`` against PIL's path on every frame (a mismatch
+    raises); then, in turns, the median ms per B8 batch of three routes and
+    the median ms of one frame's resize on two.  ``static_resize`` is the
+    module's own again when the phase ends."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from tramba_tpu_torch.data import native, transforms
+    from tramba_tpu_torch.data.pipeline import BatchLoader, SODDataset
+
+    write_tsod(tmp, {"Test": LOADER_FRAMES}, seed=5, size=(1920, 1080))
+    ds = SODDataset(tmp, ["Test"], LOADER_SIZE, mode="test")
+    S, mean, std = LOADER_SIZE, transforms.IMAGENET_MEAN, transforms.IMAGENET_STD
+
+    def decode(i):
+        return (np.asarray(Image.open(ds.images[i]).convert("RGB")),
+                np.asarray(Image.open(ds.gts[i]).convert("L")))
+
+    def pil_resize(sample, size):
+        sample["image"] = sample["image"].resize((size, size), Image.BILINEAR)
+        sample["gt"] = sample["gt"].resize((size, size), Image.NEAREST)
+        return sample
+
+    def native_resize(sample, size):
+        sample["image"] = Image.fromarray(
+            native.resize_bilinear(np.asarray(sample["image"]), size), "RGB")
+        sample["gt"] = Image.fromarray(native.resize_nearest(np.asarray(sample["gt"]), size), "L")
+        return sample
+
+    def sample(img, gt):
+        return {"image": Image.fromarray(img), "gt": Image.fromarray(gt)}
+
+    frames = [decode(i) for i in range(len(ds))]
+    for i, (img, gt) in enumerate(frames):
+        want = pil_resize(sample(img, gt), S)
+        for route, resize in (("static_resize", transforms.static_resize),
+                              ("the native resize", native_resize)):
+            got = resize(sample(img, gt), S)
+            for key in ("image", "gt"):
+                if not np.array_equal(np.asarray(got[key]), np.asarray(want[key])):
+                    raise AssertionError(f"loader frame {i} {key}: {route} differs from PIL's")
+    err = 0.0
+    for lo in range(0, len(frames), LOADER_BATCH):
+        chunk = frames[lo:lo + LOADER_BATCH]
+        out_img, out_mask = native.preprocess_eval_batch([f[0] for f in chunk],
+                                                         [f[1] for f in chunk], S, mean, std)
+        for j, (img, gt) in enumerate(chunk):
+            want = transforms.finalize(pil_resize(sample(img, gt), S))
+            err = max(err, float(np.abs(out_img[j] - want["image"]).max()),
+                      float(np.abs(out_mask[j] - want["gt"]).max()))
+    if err > 1e-6:
+        raise AssertionError(f"preprocess_eval_batch differs from the Python path by {err}")
+    print(f"loader: {len(frames)} 1920x1080 frames to {S}: native resizes byte-equal to PIL's, "
+          f"preprocess_eval_batch within {err:.1e} of eval_transform", flush=True)
+
+    def batched_epoch():
+        def load(batch):
+            imgs, gts = zip(*(decode(i) for i in batch))
+            return native.preprocess_eval_batch(list(imgs), list(gts), S, mean, std)
+
+        batches = [range(lo, min(lo + LOADER_BATCH, len(ds)))
+                   for lo in range(0, len(ds), LOADER_BATCH)]
+        with ThreadPoolExecutor(max_workers=loader.num_threads) as pool:
+            if sum(len(out[0]) for out in pool.map(load, batches)) != len(ds):
+                raise AssertionError("preprocess_eval_batch lost frames")
+
+    own = transforms.static_resize
+    loader = BatchLoader(ds, batch_size=LOADER_BATCH)  # its default threads
+    routes = {"PIL": pil_resize, "native": native_resize, "preprocess_eval_batch": None}
+    ms = {name: [] for name in routes}
+    try:
+        for rep in range(LOADER_REPS + 1):  # the first round warms up
+            for name, resize in routes.items():
+                transforms.static_resize = resize or own
+                t0 = time.perf_counter()
+                if resize is None:
+                    batched_epoch()
+                elif sum(len(b["name"]) for b in loader) != len(ds):
+                    raise AssertionError(f"BatchLoader ({name}) lost frames")
+                if rep:
+                    ms[name].append((time.perf_counter() - t0) * 1e3 / (len(ds) // LOADER_BATCH))
+    finally:
+        transforms.static_resize = own
+    one = {"PIL": [], "native": []}  # one frame's resize in this thread, in turns
+    for _ in range(3):
+        for name, resize in (("PIL", pil_resize), ("native", native_resize)):
+            for img, gt in frames[:8]:
+                frame = sample(img, gt)
+                t0 = time.perf_counter()
+                resize(frame, S)
+                one[name].append((time.perf_counter() - t0) * 1e3)
+    per_batch = ", ".join(f"{k} {np.median(v):.2f} ms (runs {', '.join(f'{t:.2f}' for t in v)})"
+                          for k, v in ms.items())
+    per_frame = ", ".join(f"{k} {np.median(v):.3f} ms" for k, v in one.items())
+    print(f"loader B{LOADER_BATCH} 1920x1080 -> {S} per batch, median of {LOADER_REPS}: "
+          f"{per_batch}; one frame's resize (image and mask), median of 24: {per_frame} "
+          f"[{card}] [{host_cpu()}]", flush=True)
 
 
 def run_train_entry_point(tmp, dtype):
@@ -2070,10 +2204,13 @@ def main() -> int:
     dev = torch.device("cuda")
 
     phase("2 build")
+    from tramba_tpu_torch.data import native
     from tramba_tpu_torch.ops import _native
 
     t0 = time.perf_counter()
     print(f"built {_native.build()} in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"built {native.build()} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("3 kernels vs plain versions")
     checks = Checks()
@@ -2185,6 +2322,10 @@ def main() -> int:
             run_training(dev, card, dtype, method)
             compare_reduced_step(dev, dtype, method)
             torch.cuda.empty_cache()
+
+    phase("8b loader")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_loader(tmp, card)
 
     phase("9 training entry point")
     train_launches = {}

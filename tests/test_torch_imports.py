@@ -47,10 +47,11 @@ PARALLEL = {"tramba_tpu_torch.parallel.mesh", "tramba_tpu_torch.parallel.distrib
 ENCODERS = {"tramba_tpu_torch.models.vssm_encoder", "tramba_tpu_torch.models.swin",
             "tramba_tpu_torch.models.pvt", "tramba_tpu_torch.models.resnet"}
 # the SOD dump, the scoring entry points and the library modules of the last
-# slice of Queue 1 (items 6b, 11)
+# slices of Queue 1 (items 6b, 11, 6c)
 ENTRY_AND_LIBRARY = {"tramba_tpu_torch.dump_sod", "tramba_tpu_torch.evaluate_sod",
                      "tramba_tpu_torch.evaluate_tsod", "tramba_tpu_torch.utils.debug",
-                     "tramba_tpu_torch.utils.profiling", "tramba_tpu_torch.data.freq"}
+                     "tramba_tpu_torch.utils.profiling", "tramba_tpu_torch.data.freq",
+                     "tramba_tpu_torch.data.native"}
 
 
 def test_port_and_chip_smoke_import_no_jax():

@@ -44,11 +44,12 @@ from tramba_tpu_torch.utils import profiling as tprof
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(dims=16, enc_depths=(1, 1, 1, 1), dec_depths=(1, 1, 1, 1))
-# dims 32 for the FLOP counts: every SS2D's dt rank (ceil(d_model / 16)) is
-# then 2 or more; torch's einsum does a dt projection of rank 1 as a product
-# of broadcast operands, which is no matrix product (JAX counts its
-# dot_general)
-FLOPS_CUT = dict(TINY, dims=32)
+# the FLOP counts at dims 16, where the first stage's SS2Ds have dt rank
+# (ceil(d_model / 16)) 1, and at dims 32, where every SS2D's is 2 or more:
+# the port spells the dt projection as a matrix product at every rank
+# (ops/selective_scan.dt_projection), which the counter sees as JAX's
+# dot_general
+FLOPS_DIMS = (16, 32)
 IMG = 64
 
 
@@ -105,15 +106,17 @@ def test_flops_refuse_card_tensors():
         tprof.analytic_model_flops(lambda a: a, torch.zeros(1, device="meta"))
 
 
-def test_flops_of_a_raster_vssm_encoder_equal_jax():
+@pytest.mark.parametrize("dims", FLOPS_DIMS)
+def test_flops_of_a_raster_vssm_encoder_equal_jax(dims):
     """A tiny VSSM encoder (raster orders only, no gathers spelled as
     products): the port's count equals JAX's on its composed route."""
     x = _rng(4).normal(size=(1, IMG, IMG, 3)).astype(np.float32)
-    jenc = JVSSMEncoder(depths=(1, 1, 1, 1), dims=32, ssm_backend="seq")
+    jenc = JVSSMEncoder(depths=(1, 1, 1, 1), dims=dims, ssm_backend="seq")
     p = jax.eval_shape(jenc.init, jax.random.key(0), jnp.asarray(x))
     p = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), p)
     want = jprof.analytic_model_flops(lambda p, a: jenc.apply(p, a), p, jnp.asarray(x))
-    got = tprof.analytic_model_flops(VSSMEncoder((1, 1, 1, 1), 32).eval(), torch.from_numpy(x))
+    got = tprof.analytic_model_flops(VSSMEncoder((1, 1, 1, 1), dims).eval(),
+                                     torch.from_numpy(x))
     assert got == want and got["scan_handle_flops"] > 0
 
 
@@ -136,14 +139,16 @@ def _line_selector_flops(model, B):
     return total
 
 
+@pytest.mark.parametrize("dims", FLOPS_DIMS)
 @pytest.mark.parametrize("method,jcls", [("BaseUMamba-SOD", JBaseUMamba),
                                          ("Tramba-V-TSOD", JTrambaV)])
-def test_flops_of_a_model_differ_by_jax_line_selectors(method, jcls):
+def test_flops_of_a_model_differ_by_jax_line_selectors(method, jcls, dims):
     """On a tiny BaseUMamba and Tramba-V the port counts JAX's products less
     the one-hot selectors of its line gathers, and the same scan handle."""
     x = _rng(5).normal(size=(1, IMG, IMG, 3)).astype(np.float32)
-    model = build(method, IMG, device="cpu", seed=0, **FLOPS_CUT)
-    jm = jcls(img_size=IMG, ssm_backend="seq", **FLOPS_CUT)
+    cut = dict(TINY, dims=dims)
+    model = build(method, IMG, device="cpu", seed=0, **cut)
+    jm = jcls(img_size=IMG, ssm_backend="seq", **cut)
     p = jax.eval_shape(jm.init, jax.random.key(0), jnp.asarray(x))
     p = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), p)
     want = jprof.analytic_model_flops(lambda p, a: jm.apply(p, a), p, jnp.asarray(x))

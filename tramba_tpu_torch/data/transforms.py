@@ -1,7 +1,9 @@
 """Image/mask transforms (PIL-based host-side augmentation).
 
-The port's own copy of ``tramba_tpu/data/transforms.py``; the resize is
-PIL's (the JAX package's optional native resize is bit-exact against it).
+The port's own copy of ``tramba_tpu/data/transforms.py``.  The static
+resize is PIL's.  The JAX package's goes through its C++ library instead,
+whose port (``data/native.py``) gives the same bytes; on the card's host
+that route is the slower one (ROADMAP Queue 3, kept difference #26).
 
 Reference semantics: ``data/custom_transforms.py`` + ``data/dataloader.py:22-39``.
 Train: static_resize -> random_scale_crop [0.75,1.25] -> random_flip(lr) ->

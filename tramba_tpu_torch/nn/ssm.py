@@ -52,7 +52,7 @@ from tramba_tpu_torch.nn.layers import LayerNorm, check_dtype, flax_conv, flax_d
 from tramba_tpu_torch.ops import fused_prologue
 from tramba_tpu_torch.ops.fused_ss2d import composed_ss2d_core, ss2d_full
 from tramba_tpu_torch.ops.scan_orders import cross_merge, cross_scan
-from tramba_tpu_torch.ops.selective_scan import linear_scan, selective_scan
+from tramba_tpu_torch.ops.selective_scan import dt_projection, linear_scan, selective_scan
 from tramba_tpu_torch.parallel import seq_scan
 from tramba_tpu_torch.parallel.tp import ss2d_tensor_parallel
 
@@ -191,7 +191,7 @@ class SS2D(nn.Module):
             R, N = self.dt_rank, self.d_state
             dbc = torch.einsum("bkld,kcd->bklc", xs.to(cd), wx.to(cd))
             dts, Bc, Cc = torch.split(dbc, [R, N, N], dim=-1)
-            dts = torch.einsum("bklr,kdr->bkld", dts, wdt.to(cd))
+            dts = dt_projection(dts, wdt.to(cd))
             ys = selective_scan(xs, dts, -torch.exp(A_logs.float()), Bc, Cc, Ds, dt_b, scan)
         y = cross_merge(ys, self.scan_kind, H, W, self.scan_param)
         y = F.layer_norm(y.float(), (D,), self.out_norm.weight, self.out_norm.bias, 1e-5)

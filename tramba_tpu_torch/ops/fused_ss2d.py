@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, on_card
 from tramba_tpu_torch.ops.scan_orders import order_tables
-from tramba_tpu_torch.ops.selective_scan import linear_scan, linear_scan_ref
+from tramba_tpu_torch.ops.selective_scan import dt_projection, linear_scan, linear_scan_ref
 
 __all__ = ["composed_ss2d_core", "ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref",
            "ss2d_scan_train_ref", "ss2d_merge", "ss2d_merge_ref", "ss2d_merge_train_ref",
@@ -95,7 +95,7 @@ def composed_ss2d_core(xs, x_proj_w, dt_w, dt_b, A_logs, Ds, scan=linear_scan):
     xf = xs.float()
     dbc = torch.einsum("bkld,kcd->bklc", xf, x_proj_w.float())
     dts, Bc, Cc = torch.split(dbc, [R, 1, 1], dim=-1)
-    dts = torch.einsum("bklr,kdr->bkld", dts, dt_w.float())
+    dts = dt_projection(dts, dt_w.float())
     delta = F.softplus(dts + dt_b.float()[None, :, None, :])
     A = -torch.exp(A_logs.float())[..., 0]
     h = scan(torch.exp(delta * A[None, :, None, :]), delta * xf * Bc)
@@ -126,7 +126,7 @@ def _decay_terms(dbcs, dt_w, dt_b, A_logs):
     A = -exp(A_logs), each (B, K, L, D) but A (K, 1, D)."""
     R = dt_w.shape[-1]
     K, D = dt_b.shape
-    v = torch.einsum("bklr,kdr->bkld", dbcs[..., :R], dt_w.float()) + dt_b.float()[:, None, :]
+    v = dt_projection(dbcs[..., :R], dt_w.float()) + dt_b.float()[:, None, :]
     delta = F.softplus(v)
     A = -torch.exp(A_logs.float()).reshape(K, 1, D)
     return v, delta, torch.exp(delta * A), A

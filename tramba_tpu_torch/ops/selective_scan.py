@@ -38,7 +38,7 @@ from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, check_args, needs_grad, on_card
 
 __all__ = ["linear_scan", "linear_scan_ref", "linear_scan_plan", "SCAN_PLAN_FIELDS",
-           "LinearScan", "selective_scan"]
+           "LinearScan", "dt_projection", "selective_scan"]
 
 
 def linear_scan_ref(a: torch.Tensor, b: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -157,6 +157,15 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, reverse: bool = False) -> torc
 
 
 linear_scan.launches = 0
+
+
+def dt_projection(dts: torch.Tensor, dt_w: torch.Tensor) -> torch.Tensor:
+    """Each direction's dt projection: dts (B, K, L, R) times dt_w (K, D, R)
+    over R, giving (B, K, L, D) in the operands' dtype.  A matrix product
+    at every rank: ``torch.einsum`` does rank 1 as a broadcast product,
+    which ``utils/profiling.analytic_model_flops`` would not count (JAX
+    counts its ``dot_general``)."""
+    return torch.matmul(dts, dt_w.transpose(1, 2))
 
 
 def selective_scan(u, dt, A, Bc, Cc, D, dt_bias=None,

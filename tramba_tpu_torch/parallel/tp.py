@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from tramba_tpu_torch.ops.scan_orders import cross_merge, cross_scan
-from tramba_tpu_torch.ops.selective_scan import linear_scan
+from tramba_tpu_torch.ops.selective_scan import dt_projection, linear_scan
 from tramba_tpu_torch.parallel.mesh import Axis, copy_to, reduce_from, reduce_shared, split
 
 __all__ = ["use_tensor_group", "current_tensor_group", "ss2d_tensor_parallel"]
@@ -95,7 +95,7 @@ def ss2d_tensor_parallel(x, ln, w_in, conv_w, x_proj_w, dt_w, dt_b, A_logs, Ds, 
     # Delta/B/C: a contraction over the sharded d_inner
     dbc = reduce_shared(torch.einsum("bkld,kcd->bklc", xf, x_proj_w.float()), axis)
     dts, Bc, Cc = torch.split(dbc, [R, 1, 1], dim=-1)
-    dts = torch.einsum("bklr,kdr->bkld", dts, dt_w.float())
+    dts = dt_projection(dts, dt_w.float())
     delta = F.softplus(dts + dt_b.float()[None, :, None, :])
     A = -torch.exp(A_logs.float())[..., 0]
     h = linear_scan(torch.exp(delta * A[None, :, None, :]), delta * xf * Bc)  # local
