@@ -37,7 +37,14 @@ tree: K12 at Tramba-P's shapes at B2 and B16 beside its plain version and PyTorc
 chain (LN + cuBLAS + SDPA + cuBLAS), K14 at phase 3's shapes forward and reversed,
 Tramba-P's bf16 B16 forward with its profile, and phase 10's parallel backends (the
 full-width Tramba-V forward at B2 on each, in turns with the default route, and one fp32
-train step of each dry-run phase). Exits with the first failing run's code.
+train step of each dry-run phase). ``--train-times`` runs phase 8's measurements that
+``chip_smoke.py`` makes of Tramba-V only: each other model's ``run_training`` in fp32 and bf16
+(its checks, then ms per step, peak memory and the device time by kernel group), and
+``--parallel-times`` phase 10 with its measurements (``run_parallel`` against phase 4's
+Tramba-V heads: each backend's forward in turns with the default route and its profile, each
+dry-run step's ms, peak memory and profile). Every run prints its wall seconds, and the
+seconds of each phase where the tree prints them (``phase seconds:``, else from the phases'
+start times), with the host CPU. Exits with the first failing run's code.
 """
 
 from __future__ import annotations
@@ -47,9 +54,12 @@ import os
 import re
 import subprocess
 import sys
+import time
 
-TIMES = (re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ B\d+): ([\d.]+) ms/forward"),
-         re.compile(r"^Tramba-(\w)-TSOD 384px (\w+ train) step (B\d+): ([\d.]+) ms/step"))
+TIMES = (re.compile(r"^(?:Tramba-(\w)-TSOD|(BaseUMamba)-SOD) 384px (\w+ B\d+): ([\d.]+) "
+                    r"ms/forward"),
+         re.compile(r"^(?:Tramba-(\w)-TSOD|(BaseUMamba)-SOD) 384px (\w+ train) step (B\d+): "
+                    r"([\d.]+) ms/step"))
 # phase 3's line of a tabulated kernel: name, tag, shape, ..., kernel ms, plain
 # ms, bound ms (bound by), and gemm ms where printed
 KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|expand_ln|final_head|prologue|ln_mlp|"
@@ -62,13 +72,13 @@ KERNELS = re.compile(r"^(ss2d_scan(?:_bwd)?|ss2d_merge|expand_ln|final_head|prol
 
 def times(stdout: str) -> dict:
     """{"V fp32 B1": ms, ..., "R bf16 train B4": ms} from a chip_smoke.py
-    output (V, S, P, R: the model)."""
+    output (V, S, P, R: the Tramba model; BaseUMamba)."""
     out = {}
     for line in stdout.splitlines():
         if m := TIMES[0].match(line):
-            out[f"{m[1]} {m[2]}"] = float(m[3])
+            out[f"{m[1] or m[2]} {m[3]}"] = float(m[4])
         elif m := TIMES[1].match(line):
-            out[f"{m[1]} {m[2]} {m[3]}"] = float(m[4])
+            out[f"{m[1] or m[2]} {m[3]} {m[4]}"] = float(m[5])
     return out
 
 
@@ -290,6 +300,75 @@ K12_K14 = ("import tempfile, time, torch, chip_smoke as cs\n"
            "    dryrun.run_phases(dev, img_size=384, batch=2, min_l=4096, model_kw={}, "
            "on_step=on_step)\n"
            "    dist.destroy_process_group()\n")
+# phase 8's measurements of the models other than Tramba-V (--train-times): each
+# tree's run_training, which times and profiles by default
+TRAIN_TIMES = ("import torch, chip_smoke as cs\n"
+               "torch.backends.cuda.matmul.allow_tf32 = False\n"
+               "torch.backends.cudnn.allow_tf32 = False\n"
+               "dev, card = torch.device('cuda'), cs.card_line()\n"
+               "for method in cs.TRAINED:\n"
+               "    if method in getattr(cs, 'TRAIN_TIMED', ()):\n"
+               "        continue\n"
+               "    for dt in (torch.float32, torch.bfloat16):\n"
+               "        cs.run_training(dev, card, dt, method)\n"
+               "        torch.cuda.empty_cache()\n"
+               "print(f'host [{cs.host_cpu()}]')\n")
+# phase 10 with its measurements (--parallel-times): phase 4's Tramba-V
+# forwards for the default route's heads and the CPU's bf16 noise, then each
+# tree's run_parallel, which times and profiles by default
+PARALLEL_TIMES = ("import torch, chip_smoke as cs\n"
+                  "torch.backends.cuda.matmul.allow_tf32 = False\n"
+                  "torch.backends.cudnn.allow_tf32 = False\n"
+                  "dev, card, fp, bf = torch.device('cuda'), cs.card_line(), torch.float32, "
+                  "torch.bfloat16\n"
+                  "x = torch.randn(2, 384, 384, 3, generator=torch.Generator().manual_seed(1))\n"
+                  "heads, cpu = {}, {}\n"
+                  "for dt in (fp, bf):\n"
+                  "    _, model, outs, cpu[dt] = cs.run_model(dev, dt, x, cpu.get(fp))\n"
+                  "    heads[dt] = [h.clone() for h in outs]\n"
+                  "    del model, outs\n"
+                  "noise = [(b - f).abs().mean().item() for b, f in zip(cpu[bf], cpu[fp])]\n"
+                  "cs.run_parallel(dev, card, x, heads, noise)\n"
+                  "print(f'host [{cs.host_cpu()}]')\n")
+# each narrow mode: its flag, the code it runs in each tree's root, its help
+MODES = {"--ffn-bwd": (FFN_BWD, "run only phase 3's K9 / K10 checks of each tree"),
+         "--k5-k10": (K5_K10, "run only phase 3's K5 / K10 checks of each tree"),
+         "--k3-k4": (K3_K4, "run only phase 3's K3 / K4 checks of each tree, and time both at "
+                            "Tramba-V's shapes at B16"),
+         "--k11-k13": (K11_K13, "run only phase 3's K11-K13 checks of each tree, time them at "
+                                "B16, and time and profile Tramba-P's and -S's bf16 B16 "
+                                "forwards"),
+         "--k12-k14": (K12_K14, "run only phase 3's K12 / K14 checks of each tree, time them at "
+                                "B2 and B16, time and profile Tramba-P's bf16 B16 forward and "
+                                "time phase 10's parallel backends"),
+         "--train-times": (TRAIN_TIMES, "run phase 8's steps of every model but Tramba-V with "
+                                        "their ms per step, peak memory and profiles"),
+         "--parallel-times": (PARALLEL_TIMES, "run phase 10 with each backend's ms per forward "
+                                              "and profile and each dry-run step's ms, peak "
+                                              "memory and profile")}
+# a phase's start ("== 8 train (at 501 s)"), the final tree's phase seconds,
+# and the host CPU printed in brackets ("[... 8 CPUs]")
+PHASE_START = re.compile(r"^== (.+) \(at (\d+) s\)$")
+PHASE_SECONDS = re.compile(r"^phase seconds: (.*); total ([\d.]+) s")
+HOST_CPU = re.compile(r"\[([^\]]* CPUs)\]")
+
+
+def phase_times(stdout: str, wall: float) -> dict:
+    """{phase name: seconds} of a chip_smoke.py run: from its ``phase seconds``
+    line where it prints one, else from the phases' start times, the last
+    phase ending at ``wall`` (the run's wall seconds, a few more than the
+    script's own clock, which starts after its imports)."""
+    starts = []
+    for line in stdout.splitlines():
+        if m := PHASE_SECONDS.match(line):
+            return {name: float(sec) for name, sec in
+                    (part.rsplit(" ", 1) for part in m[1].split("; "))}
+        if m := PHASE_START.match(line):
+            starts.append((m[1], float(m[2])))
+    ends = [at for _, at in starts[1:]] + [wall]
+    return {name: end - at for (name, at), end in zip(starts, ends)}
+
+
 # a line of the K3_K4, K11_K13 or K12_K14 snippet's timing: name, dtype, shape,
 # ms, plain ms
 B16 = re.compile(r"^(?:b16|time) (expand_ln|final_head|ln_dwmlp|sra|window_attn|linear_scan) "
@@ -300,34 +379,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--logs", default="", help="directory for each run's whole output")
     short = ap.add_mutually_exclusive_group()
-    short.add_argument("--ffn-bwd", action="store_true",
-                       help="run only phase 3's K9 / K10 checks of each tree")
-    short.add_argument("--k5-k10", action="store_true",
-                       help="run only phase 3's K5 / K10 checks of each tree")
-    short.add_argument("--k3-k4", action="store_true",
-                       help="run only phase 3's K3 / K4 checks of each tree, and time both "
-                            "at Tramba-V's shapes at B16")
-    short.add_argument("--k11-k13", action="store_true",
-                       help="run only phase 3's K11-K13 checks of each tree, time them at "
-                            "B16, and time and profile Tramba-P's and -S's bf16 B16 forwards")
-    short.add_argument("--k12-k14", action="store_true",
-                       help="run only phase 3's K12 / K14 checks of each tree, time them at "
-                            "B2 and B16, time and profile Tramba-P's bf16 B16 forward and "
-                            "time phase 10's parallel backends")
+    for flag, (_, text) in MODES.items():
+        short.add_argument(flag, action="store_true", help=text)
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     if args.logs:
         os.makedirs(args.logs, exist_ok=True)
-    runs = []
+    mode = next((flag for flag in MODES if getattr(args, flag[2:].replace("-", "_"))), None)
+    runs, phases = [], []
     for i, tree in enumerate(args.trees):
         root = os.path.abspath(tree)
-        cmd = (["-c", FFN_BWD] if args.ffn_bwd else ["-c", K5_K10] if args.k5_k10
-               else ["-c", K3_K4] if args.k3_k4 else ["-c", K11_K13] if args.k11_k13
-               else ["-c", K12_K14] if args.k12_k14 else [os.path.join(root, "chip_smoke.py")])
+        cmd = ["-c", MODES[mode][0]] if mode else [os.path.join(root, "chip_smoke.py")]
+        t0 = time.perf_counter()
         res = subprocess.run([sys.executable, *cmd], cwd=root, capture_output=True, text=True,
                              timeout=1500)
+        wall = time.perf_counter() - t0
         if args.logs:
             with open(os.path.join(args.logs, f"{i}_{os.path.basename(root)}.log"), "w") as f:
                 f.write(res.stdout + "\n--- stderr\n" + res.stderr)
@@ -336,7 +404,16 @@ def main(argv=None) -> int:
                   f"{res.stderr[-4000:]}", file=sys.stderr)
             return res.returncode
         runs.append((tree, times(res.stdout), kernel_times(res.stdout)))
-        print(f"run {i} {tree}: {runs[-1][1]}, {len(runs[-1][2])} kernel lines", flush=True)
+        host = HOST_CPU.search(res.stdout)
+        phases.append((tree, wall, phase_times(res.stdout, wall), host[1] if host else "?"))
+        print(f"run {i} {tree}: {wall:.1f} s wall [{phases[-1][3]}]; {runs[-1][1]}, "
+              f"{len(runs[-1][2])} kernel lines", flush=True)
+    print(f"seconds per phase, runs in order [{card}]")
+    for name in dict.fromkeys(n for _, _, p, _ in phases for n in p):
+        print(f"{name:24s} " + "  ".join(f"{tree}: {p.get(name, float('nan')):.1f}"
+                                         for tree, _, p, _ in phases))
+    print(f"{'wall':24s} " + "  ".join(f"{tree}: {wall:.1f} [{host}]"
+                                       for tree, wall, _, host in phases))
     print(f"ms per forward or step, runs in order [{card}]")
     for key in runs[0][1]:
         print(f"{key:14s} " + "  ".join(f"{tree}: {t.get(key, float('nan')):.2f}"

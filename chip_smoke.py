@@ -128,12 +128,14 @@ Phases, each of which must pass (any failure exits non-zero):
   5. dump      ``python -m tramba_tpu_torch.dump --measure_fps`` on synthetic
                TSOD10K-style images writes one map per image at its original
                size, then runs the 200-iteration FPS loop; then the same dump
-               with ``--dtype bfloat16``, for Tramba-V, -P, -S and -R; then
-               ``python -m tramba_tpu_torch.dump_sod`` (BaseUMamba, fp32 and
-               ``--dtype bfloat16``) over two datasets into the one folder
-               ``<image_save_path>/<method>/SOD`` at the images' sizes, and
-               ``python -m tramba_tpu_torch.evaluate_sod`` / ``evaluate_tsod``
-               on the fp32 maps: results rows of finite metrics, PR curves
+               with ``--dtype bfloat16``, for Tramba-V, -P, -S and -R, through
+               the module's ``main(argv)`` in this process; then ``python -m
+               tramba_tpu_torch.dump_sod`` (BaseUMamba, fp32; ``--dtype
+               bfloat16`` through its ``main(argv)``) over two datasets into
+               the one folder ``<image_save_path>/<method>/SOD`` at the
+               images' sizes, and ``python -m tramba_tpu_torch.evaluate_sod``
+               / ``evaluate_tsod`` on the fp32 maps: results rows of finite
+               metrics, PR curves
   6. timing    ms per forward: bf16 at batch 1, 8 and 16 and fp32 at 1 for
                each model, Tramba-V's fp32 also at 8; then Tramba-P's and
                -S's bf16 B1 in turns with a copy whose encoder weights are
@@ -147,8 +149,9 @@ Phases, each of which must pass (any failure exits non-zero):
                K9, K10; bf16 also K5 33, K6 24, K9 24, K7 6, K10 6), and
                leaves every parameter a finite gradient (Tramba-R's stage-4
                parameters none: that stage feeds no head); the loss falls
-               over 10 steps on one batch; ms per step, peak memory and the
-               device time by kernel group; a reduced-depth step (Tramba-V
+               over 10 steps on one batch; Tramba-V's ms per step, peak
+               memory and device time by kernel group (the other models':
+               ``chip_ab.py --train-times``); a reduced-depth step (Tramba-V
                and BaseUMamba dims 128, depths (1, 1, 2, 1), 96 px; Tramba-S
                depths 2 per
                stage, 96 px; Tramba-P depth 1 per stage, 128 px; Tramba-R one
@@ -175,7 +178,8 @@ Phases, each of which must pass (any failure exits non-zero):
                record and best-MAE weights, exact launch counts; a
                weights-only ``--resume <best-MAE file>`` to epoch 5, which
                writes the rolling resume dict (every 5 epochs); then
-               ``python -m tramba_tpu_torch.run --resume last`` to epoch 6;
+               ``python -m tramba_tpu_torch.run --resume last`` to epoch 6
+               (bf16: through ``run.main(argv)`` in this process);
                then Tramba-S, -P and -R at reduced depth in bf16 with
                ``--pretrained_path auto``, which finds the released file
                name under ``--pretrained_model``: there the phase writes a
@@ -187,18 +191,21 @@ Phases, each of which must pass (any failure exits non-zero):
                with exact launches (K14 once per SS2D), heads against the
                default route's of phase 4 (fp32 mean abs <= 1e-3, bf16
                phase 4's gate: max(2e-2, 1.25 x the CPU's bf16-vs-fp32
-               gap)), ms in turns with the default route; one fp32
-               train step at batch 2 in each of the dry run's four grids
-               (dp, dp x tp, dp x sp, dp x tp x sp) with exact launches (K14
-               33 forward + 33 reversed on the parallel backends), ms per
-               step, peak memory and a profile; then
-               ``python -m tramba_tpu_torch.dryrun --n 1``
+               gap)); one fp32 train step at batch 2 in each of the dry
+               run's four grids (dp, dp x tp, dp x sp, dp x tp x sp) with
+               exact launches (K14 33 forward + 33 reversed on the parallel
+               backends); then ``python -m tramba_tpu_torch.dryrun --n 1``
+               (the forwards' ms in turns with the default route and the
+               steps' ms, peak memory and profiles: ``chip_ab.py
+               --parallel-times``)
 
 Nothing is cut but where a phase says so (the reduced-depth steps of phase
 8 and phase 9's Tramba-S, -P and -R runs): every model runs at full depth
-and width.  The CPU comparisons of phase 4 run at batch 1.
-The last lines are the kernels' JSON summary, the card's
-``name, power.limit`` and ``{"ok": true, "device": {...}}``.
+and width.  The CPU comparisons of phase 4 run at batch 1.  Phase 3's
+"plain" time is that of the plain version's call the kernel is compared
+with (its only call).  The last lines are each phase's seconds with the
+card and the host CPU, the kernels' JSON summary, the card's ``name,
+power.limit`` and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -260,10 +267,20 @@ FLOP_COUNTED = ("Tramba-V-TSOD", "BaseUMamba-SOD")
 
 
 _START = time.perf_counter()
+_PHASES = []  # (name, seconds since the start when the phase began)
 
 
 def phase(name):
-    print(f"== {name} (at {time.perf_counter() - _START:.0f} s)", flush=True)
+    _PHASES.append((name, time.perf_counter() - _START))
+    print(f"== {name} (at {_PHASES[-1][1]:.0f} s)", flush=True)
+
+
+def phase_seconds() -> str:
+    """Each phase's seconds so far and the total, as one line's text."""
+    end = time.perf_counter() - _START
+    ends = [at for _, at in _PHASES[1:]] + [end]
+    return "; ".join(f"{name} {e - at:.1f}" for (name, at), e in zip(_PHASES, ends)) + \
+        f"; total {end:.1f} s"
 
 
 def card_line() -> str:
@@ -399,8 +416,8 @@ class Checks:
     def __init__(self):
         self.rows = {}
 
-    def compare(self, name, dt, label, kernel, plain, reps, inputs, flops, plain_warmup=1,
-                tag=None, rel_tol=None, gemm=None, lib=None):
+    def compare(self, name, dt, label, kernel, plain, reps, inputs, flops, tag=None,
+                rel_tol=None, gemm=None, lib=None):
         """``kernel`` and ``plain`` return a tensor or a tuple of tensors.  With
         ``rel_tol`` each output's max abs error must be <= rel_tol x its
         largest magnitude; else assert_close at the dtype's tolerance.
@@ -410,22 +427,19 @@ class Checks:
         reference for what the tensor cores give at that shape (the port
         never calls it).  ``lib``: the same function as a chain of PyTorch's
         own calls (cuBLAS, cuDNN, SDPA), timed beside it as a yardstick only
-        (printed as "lib")."""
+        (printed as "lib").  The plain version runs once: its time ("plain
+        ms") is that of the call the kernel is compared with.  Returns that
+        call's output, for the planted faults to be held against."""
         tag = tag or NAMES[dt]
         got = kernel()
-        plain_ms = None
-        if plain_warmup == 0:  # this first call is the plain version's timed one
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            want = plain()
-            end.record()
-            end.synchronize()
-            plain_ms = start.elapsed_time(end)
-        else:
-            want = plain()
-        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain_out = plain()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
         got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
+        want = plain_out if isinstance(plain_out, tuple) else (plain_out,)
         err = rel = 0.0
         for i, (g, w) in enumerate(zip(got, want)):
             tol = KERNEL_TOL_BF16 if g.dtype == torch.bfloat16 else KERNEL_TOL
@@ -445,8 +459,6 @@ class Checks:
         bound_ms, bound_by = bound((*inputs, *got), flops)
         del got, want
         ms = cuda_ms(kernel, reps)
-        if plain_ms is None:
-            plain_ms = cuda_ms(plain, 1, warmup=plain_warmup)
         gemm_ms = f" gemm {cuda_ms(gemm, reps):.4f} ms" if gemm is not None else ""
         if lib is not None:
             gemm_ms += f" lib {cuda_ms(lib, reps, warmup=2):.4f} ms"
@@ -456,6 +468,7 @@ class Checks:
         print(f"{name:15s} {tag:10s} {label:34s} max_abs_err {err:.3e} {what} {rel:.3e} "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
               f"({bound_by}){gemm_ms}", flush=True)
+        return plain_out
 
     @staticmethod
     def planted(name, label, want, faults, tol=KERNEL_TOL_BF16, rel_tol=None):
@@ -572,9 +585,10 @@ def check_merge(checks, dt, label, shape, inv, tail, emit=False, tag=None):
     tail = (tail[0], tail[1], w_out)
     a = torch.nn.functional.gelu(torch.nn.functional.layer_norm(
         tf._merge_sum(ys, inv), (D,), tail[0], tail[1], 1e-5)).to(w_out.dtype).reshape(B * L, D)
-    checks.compare("ss2d_merge", dt, label, lambda: tf.ss2d_merge(ys, inv, *tail, emit_ysum=emit),
-                   lambda: ref(ys, inv, *tail), reps=5, inputs=(ys, inv, *tail),
-                   flops=merge_ops(ys, w_out), tag=tag, gemm=lambda: a @ w_out.t())
+    want = checks.compare("ss2d_merge", dt, label,
+                          lambda: tf.ss2d_merge(ys, inv, *tail, emit_ysum=emit),
+                          lambda: ref(ys, inv, *tail), reps=5, inputs=(ys, inv, *tail),
+                          flops=merge_ops(ys, w_out), tag=tag, gemm=lambda: a @ w_out.t())
     del a
     first, second = ((o if emit else (o,)) for o in
                      (tf.ss2d_merge(ys, inv, *tail, emit_ysum=emit) for _ in range(2)))
@@ -586,7 +600,7 @@ def check_merge(checks, dt, label, shape, inv, tail, emit=False, tag=None):
     part = w_out.clone()
     part[:, D - 16:] = 0  # the last 16 channels out of the product
     tol = KERNEL_TOL_BF16 if w_out.dtype == torch.bfloat16 else KERNEL_TOL
-    checks.planted("ss2d_merge", label, ref(ys, inv, *tail), {
+    checks.planted("ss2d_merge", label, want, {
         "no last direction": lambda: ref(ys, no_dir, *tail),
         "no last 16 of D": lambda: ref(ys, inv, *tail[:2], part)}, tol=tol)
 
@@ -604,15 +618,15 @@ def check_ln_mlp(checks, label, args, flops):
     y = torch.nn.functional.layer_norm(x.float(), (d,), ln_w, ln_b, 1e-5).to(x.dtype)
     y = y.reshape(-1, d)
     h = torch.nn.functional.gelu((y.float() @ w1.float().t()) + b1).to(x.dtype)
-    checks.compare("ln_mlp", torch.bfloat16, label, lambda: tm.ln_mlp(*args),
-                   lambda: tm.ln_mlp_ref(*args), reps=10, inputs=args, flops=flops,
-                   gemm=lambda: (y @ w1.t(), h @ w2.t()))
+    want = checks.compare("ln_mlp", torch.bfloat16, label, lambda: tm.ln_mlp(*args),
+                          lambda: tm.ln_mlp_ref(*args), reps=10, inputs=args, flops=flops,
+                          gemm=lambda: (y @ w1.t(), h @ w2.t()))
     del y, h
     if not torch.equal(tm.ln_mlp(*args), tm.ln_mlp(*args)):
         raise AssertionError(f"ln_mlp {label}: two launches differ")
     short = w2.clone()
     short[:, hid - 64:] = 0
-    checks.planted("ln_mlp", label, tm.ln_mlp_ref(*args), {
+    checks.planted("ln_mlp", label, want, {
         "no last chunk": lambda: tm.ln_mlp_ref(x, ln_w, ln_b, w1, b1, short, b2)})
 
 
@@ -649,15 +663,15 @@ def check_ln_dwms_mlp(checks, label, args, flops):
     y = torch.nn.functional.layer_norm(x.float(), (d,), ln_w, ln_b, 1e-5).to(x.dtype)
     y = y.reshape(-1, d)
     h = torch.nn.functional.gelu(y.float() @ w1.float().t()).to(x.dtype)
-    checks.compare("ln_dwms_mlp", torch.bfloat16, label, lambda: tm.ln_dwms_mlp(*args),
-                   lambda: tm.ln_dwms_mlp_ref(*args), reps=10, inputs=args, flops=flops,
-                   gemm=lambda: (y @ w1.t(), h @ w2.t()))
+    want = checks.compare("ln_dwms_mlp", torch.bfloat16, label, lambda: tm.ln_dwms_mlp(*args),
+                          lambda: tm.ln_dwms_mlp_ref(*args), reps=10, inputs=args, flops=flops,
+                          gemm=lambda: (y @ w1.t(), h @ w2.t()))
     del y, h
     if not torch.equal(tm.ln_dwms_mlp(*args), tm.ln_dwms_mlp(*args)):
         raise AssertionError(f"ln_dwms_mlp {label}: two launches differ")
     n = native_launches(lambda: tm.ln_dwms_mlp(*args))
     print(f"ln_dwms_mlp     {label}: {n:g} native launches a call", flush=True)
-    checks.planted("ln_dwms_mlp", label, tm.ln_dwms_mlp_ref(*args),
+    checks.planted("ln_dwms_mlp", label, want,
                    {f: functools.partial(fs.dwms_merged_ref, *args, fault=f)
                     for f in fs.DWMS_FAULTS})
 
@@ -683,18 +697,18 @@ def check_train_kernels(checks, dev, gen, dt, shapes=SS2D_SHAPES):
     rel_tol = BWD_REL_TOL if dt == torch.float32 else BWD_REL_TOL_BF16
     for kind, H, d_model, param in shapes:
         m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
-        checks.compare("ss2d_scan", None, label,
-                       lambda: tf.ss2d_scan(x, idx, *core, emit=True),
-                       lambda: tf.ss2d_scan_train_ref(x, idx, *core, chunk), reps=5,
-                       inputs=(x, idx, *core), flops=scan_ops(x, core), plain_warmup=0, tag=tag)
-        ys, carries, dbc = tf.ss2d_scan_train_ref(x, idx, *core, chunk)
+        ys, carries, dbc = checks.compare("ss2d_scan", None, label,
+                                          lambda: tf.ss2d_scan(x, idx, *core, emit=True),
+                                          lambda: tf.ss2d_scan_train_ref(x, idx, *core, chunk),
+                                          reps=5, inputs=(x, idx, *core), flops=scan_ops(x, core),
+                                          tag=tag)
         tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data.to(dt))
         check_merge(checks, None, label, ys.shape, inv, tail, emit=True, tag=tag)
         g_y = torch.randn(x.shape, generator=gen).to(dev, dt)
         args = (x, idx, inv, g_y, carries, dbc, *core)
         checks.compare("ss2d_scan_bwd", None, label, lambda: tf.ss2d_scan_bwd(*args),
                        lambda: tf.ss2d_scan_bwd_ref(*args, chunk), reps=3, inputs=args,
-                       flops=scan_bwd_ops(x, core), plain_warmup=0, tag=tag, rel_tol=rel_tol)
+                       flops=scan_bwd_ops(x, core), tag=tag, rel_tol=rel_tol)
         del ys, carries, dbc, g_y, args
 
 
@@ -722,12 +736,11 @@ def check_segmented_scans(checks, dev, gen):
             seg = tf.scan_segment_steps(B, L, D, K)
             print(f"ss2d_scan {NAMES[dt]} {label}: {-(-L // seg)} segments of {seg} steps, "
                   f"{(D // 32) * -(-L // seg) * K * B} warps", flush=True)
-            checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
-                           lambda: tf.ss2d_scan_ref(x, idx, *core), reps=10,
-                           inputs=(x, idx, *core), flops=scan_ops(x, core), plain_warmup=0)
+            want = checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
+                                  lambda: tf.ss2d_scan_ref(x, idx, *core), reps=10,
+                                  inputs=(x, idx, *core), flops=scan_ops(x, core))
             if not torch.equal(tf.ss2d_scan(x, idx, *core), tf.ss2d_scan(x, idx, *core)):
                 raise AssertionError(f"ss2d_scan {label}: two launches differ")
-            want = tf.ss2d_scan_ref(x, idx, *core)
             la, b, xs, dbcs, _ = sm.scan_terms(x, idx, *core)
             entries = sm.carry_in(*sm.scan_summaries(la, b, seg))
             torch.testing.assert_close(
@@ -744,15 +757,14 @@ def check_segmented_scans(checks, dev, gen):
             _, carries, dbc = tf.ss2d_scan(x, idx, *core, emit=True)
             g_y = torch.randn(x.shape, generator=gen).to(dev, dt)
             args = (x, idx, inv, g_y, carries, dbc, *core)
-            checks.compare("ss2d_scan_bwd", None, label, lambda: tf.ss2d_scan_bwd(*args),
-                           lambda: tf.ss2d_scan_bwd_ref(*args, tf.scan_chunk()), reps=3,
-                           inputs=args, flops=scan_bwd_ops(x, core), plain_warmup=0,
-                           tag=f"{NAMES[dt]} train", rel_tol=rel_tol[dt])
+            want = checks.compare("ss2d_scan_bwd", None, label, lambda: tf.ss2d_scan_bwd(*args),
+                                  lambda: tf.ss2d_scan_bwd_ref(*args, tf.scan_chunk()), reps=3,
+                                  inputs=args, flops=scan_bwd_ops(x, core),
+                                  tag=f"{NAMES[dt]} train", rel_tol=rel_tol[dt])
             r1, r2 = tf.ss2d_scan_bwd(*args), tf.ss2d_scan_bwd(*args)
             if not all(torch.equal(p, q) for p, q in zip(r1, r2)):
                 raise AssertionError(f"ss2d_scan_bwd {label}: two launches differ")
             del r1, r2
-            want = tf.ss2d_scan_bwd_ref(*args, tf.scan_chunk())
             terms = sm.adjoint_terms(x, idx, g_y, dbc, *core[1:4])
             E = sm.carry_back(*sm.adjoint_summaries(terms[0], terms[1], seg))
 
@@ -848,9 +860,9 @@ def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
         else:
             name, kernel, plain = "ln_mlp_bwd", tm.ln_mlp_bwd, tm.ln_mlp_bwd_ref
             flops = ops(bf, 10 * M * d * hid, 20 * M * hid)
-        checks.compare(name, None, label, lambda: kernel(x, g, *params),
-                       lambda: plain(x, g, *params), reps=5, inputs=inputs, flops=flops, tag=tag,
-                       rel_tol=BWD_REL_TOL_BF16, gemm=gemm)
+        want = checks.compare(name, None, label, lambda: kernel(x, g, *params),
+                              lambda: plain(x, g, *params), reps=5, inputs=inputs, flops=flops,
+                              tag=tag, rel_tol=BWD_REL_TOL_BF16, gemm=gemm)
         del xf, g2, hg, gemm
         a, b = kernel(x, g, *params), kernel(x, g, *params)
         if not all(torch.equal(u, v) for u, v in zip(a, b)):
@@ -868,7 +880,7 @@ def check_mlp_bwd(checks, dev, gen, shapes=MLP_BWD_SHAPES):
         else:
             faults = {f: functools.partial(fs.mlp_bwd_split_ref, x, g, *params, groups=G, fault=f)
                       for f in fs.MLP_BWD_FAULTS if f != "no last group's row sums" or G > 1}
-        checks.planted(name, label, plain(x, g, *params), faults, rel_tol=BWD_REL_TOL_BF16)
+        checks.planted(name, label, want, faults, rel_tol=BWD_REL_TOL_BF16)
 
 
 def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shapes=EXPAND_SHAPES,
@@ -883,13 +895,13 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
 
     for kind, H, d_model, param in ss2d_shapes:
         m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
-        checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
-                       lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5, inputs=(x, idx, *core),
-                       flops=scan_ops(x, core), plain_warmup=0)
+        want = checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
+                              lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5,
+                              inputs=(x, idx, *core), flops=scan_ops(x, core))
         if table_fault:
             flipped = idx.clone()
             flipped[-1] = idx[-1].flip(0)
-            checks.planted("ss2d_scan", label, tf.ss2d_scan_ref(x, idx, *core), {
+            checks.planted("ss2d_scan", label, want, {
                 "last table backwards": lambda: tf.ss2d_scan_ref(x, flipped, *core)},
                 tol=KERNEL_TOL)
         tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data.to(dt))
@@ -949,9 +961,9 @@ def check_expand(checks, dt, label, args, flops):
     B, H, W, C = x.shape
     co = w.shape[0] // 4
     x2 = x.reshape(-1, C)
-    checks.compare("expand_ln", dt, label, lambda: te.expand_ln(*args),
-                   lambda: te.expand_ln_ref(*args), reps=10, inputs=args, flops=flops,
-                   gemm=lambda: x2 @ w.t())
+    want = checks.compare("expand_ln", dt, label, lambda: te.expand_ln(*args),
+                          lambda: te.expand_ln_ref(*args), reps=10, inputs=args, flops=flops,
+                          gemm=lambda: x2 @ w.t())
     if not torch.equal(te.expand_ln(*args), te.expand_ln(*args)):
         raise AssertionError(f"expand_ln {label}: two launches differ")
     n = native_launches(lambda: te.expand_ln(*args))
@@ -962,7 +974,6 @@ def check_expand(checks, dt, label, args, flops):
         raise AssertionError(f"expand_ln {label}: {n} native launches a call, not 1")
     if plan != es.expand_plan(B * H * W, C, co, dt):
         raise AssertionError(f"expand_ln {label}: the library's plan {plan} is not the mirror's")
-    want = te.expand_ln_ref(*args)
     tol = KERNEL_TOL_BF16 if dt == torch.bfloat16 else KERNEL_TOL
     torch.testing.assert_close(es.expand_tiled_ref(*args).float(), want.float(), **tol)
     checks.planted("expand_ln", label, want,
@@ -981,9 +992,9 @@ def check_head(checks, dt, label, args, flops):
     C = x.shape[-1]
     M = x.numel() // C
     x2 = x.reshape(M, C)
-    checks.compare("final_head", dt, label, lambda: te.final_head(*args),
-                   lambda: te.final_head_ref(*args), reps=10, inputs=args, flops=flops,
-                   gemm=lambda: x2 @ w1.t())
+    want = checks.compare("final_head", dt, label, lambda: te.final_head(*args),
+                          lambda: te.final_head_ref(*args), reps=10, inputs=args, flops=flops,
+                          gemm=lambda: x2 @ w1.t())
     if not torch.equal(te.final_head(*args), te.final_head(*args)):
         raise AssertionError(f"final_head {label}: two launches differ")
     n = native_launches(lambda: te.final_head(*args))
@@ -994,7 +1005,6 @@ def check_head(checks, dt, label, args, flops):
         raise AssertionError(f"final_head {label}: {n} native launches a call, not 1")
     if plan != es.head_plan(M, C, dt):
         raise AssertionError(f"final_head {label}: the library's plan {plan} is not the mirror's")
-    want = te.final_head_ref(*args)
     tol = KERNEL_TOL_BF16 if dt == torch.bfloat16 else KERNEL_TOL
     torch.testing.assert_close(es.head_tiled_ref(*args).float(), want.float(), **tol)
     checks.planted("final_head", label, want,
@@ -1080,10 +1090,10 @@ def check_prologue(checks, label, args):
     y = x if ln_w is None else torch.nn.functional.layer_norm(x.float(), (dm,), ln_w, ln_b,
                                                                1e-5).to(x.dtype)
     y = y.reshape(M, dm)
-    checks.compare("prologue", torch.bfloat16, label, lambda: tp.prologue(*args),
-                   lambda: tp.prologue_ref(*args), reps=10, inputs=args,
-                   flops=ops(torch.bfloat16, 2 * M * dm * D, 2 * 9 * M * D + 10 * M * D),
-                   gemm=lambda: y @ w_in.t())
+    want = checks.compare("prologue", torch.bfloat16, label, lambda: tp.prologue(*args),
+                          lambda: tp.prologue_ref(*args), reps=10, inputs=args,
+                          flops=ops(torch.bfloat16, 2 * M * dm * D, 2 * 9 * M * D + 10 * M * D),
+                          gemm=lambda: y @ w_in.t())
     del y
     if not torch.equal(tp.prologue(*args), tp.prologue(*args)):
         raise AssertionError(f"prologue {label}: two launches differ")
@@ -1094,7 +1104,6 @@ def check_prologue(checks, label, args):
           f"{plan['groups']} channel group(s)", flush=True)
     if n != 1:
         raise AssertionError(f"prologue {label}: {n} native launches a call, not 1")
-    want = tp.prologue_ref(*args)
     torch.testing.assert_close(ps.prologue_tiled_ref(*args).float(), want.float(),
                                **KERNEL_TOL_BF16)
     checks.planted("prologue", label, want,
@@ -1220,10 +1229,10 @@ def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
             w1, b1, c3, w2 = dense(hid, d), rnd(hid, scale=0.1), rnd(hid, scale=0.1), dense(d, hid)
             args = (x, g, b, w1, b1, k3, c3, w2, zeros(d))
             label, M = f"{H}px B{B} d{d} hid{hid}", B * H * H
-            checks.compare("ln_dwmlp", bf, label, lambda: tm.ln_dwmlp(*args),
-                           lambda: tm.ln_dwmlp_ref(*args), reps=10, inputs=args,
-                           flops=ops(bf, 4 * M * d * hid, (2 * 9 + 10) * M * hid),
-                           lib=lambda: dwmlp_lib(*args))
+            want = checks.compare("ln_dwmlp", bf, label, lambda: tm.ln_dwmlp(*args),
+                                  lambda: tm.ln_dwmlp_ref(*args), reps=10, inputs=args,
+                                  flops=ops(bf, 4 * M * d * hid, (2 * 9 + 10) * M * hid),
+                                  lib=lambda: dwmlp_lib(*args))
             same_bits("ln_dwmlp", label, lambda: tm.ln_dwmlp(*args))
             n = native_launches(lambda: tm.ln_dwmlp(*args))
             plan = tm.dwmlp_plan(B, H, H, d, hid, x.device.index)
@@ -1234,7 +1243,6 @@ def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
             if plan != es.dwmlp_plan(B, H, H, d, hid):
                 raise AssertionError(f"ln_dwmlp {label}: the library's plan {plan} is not the "
                                      "mirror's")
-            want = tm.ln_dwmlp_ref(*args)
             centre = zeros(hid, 1, 3, 3, dtype=bf)
             centre[..., 1, 1] = k3[..., 1, 1]
             faults = {"centre tap only": lambda: tm.ln_dwmlp_ref(x, g, b, w1, b1, centre, c3,
@@ -1256,11 +1264,11 @@ def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
                 label = (f"{H}px B{B} C{C} nh{nh} "
                          f"{'shifted' if mask is not None else 'unshifted'}")
                 am = (bias[None] + (0 if mask is None else mask[:, None])).to(bf)
-                checks.compare("window_attn", bf, label, lambda: ta.window_attn(*args, nh),
-                               lambda: ta.window_attn_ref(*args, nh), reps=10, inputs=args,
-                               flops=ops(bf, 8 * M * C * C + 4 * M * N * C, 8 * M * nh * N),
-                               lib=lambda: window_attn_lib(x, g, b, wqkv, bqkv, am, wp,
-                                                           zeros(C), nh))
+                want = checks.compare(
+                    "window_attn", bf, label, lambda: ta.window_attn(*args, nh),
+                    lambda: ta.window_attn_ref(*args, nh), reps=10, inputs=args,
+                    flops=ops(bf, 8 * M * C * C + 4 * M * N * C, 8 * M * nh * N),
+                    lib=lambda: window_attn_lib(x, g, b, wqkv, bqkv, am, wp, zeros(C), nh))
                 del am
                 same_bits("window_attn", label, lambda: ta.window_attn(*args, nh))
                 n = native_launches(lambda: ta.window_attn(*args, nh))
@@ -1274,7 +1282,6 @@ def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
                 if plan != {k: mirror[k] for k in plan}:
                     raise AssertionError(f"window_attn {label}: the library's plan {plan} is "
                                          f"not the mirror's {mirror}")
-                want = ta.window_attn_ref(*args, nh)
                 # q = 0 and no bias: uniform over each window's unmasked keys
                 wkv, bkv = wqkv.clone(), bqkv.clone()
                 wkv[:C], bkv[:C] = 0, 0
@@ -1349,10 +1356,11 @@ def check_sra(checks, dev, gen, batches=(2, 16)):
         args = (x, g, b, wq, bq, k, v, wp, zero)
         wide = (H, C, nh, Lk) in K12_SHAPES_WIDE
         label = f"{'wide ' if wide else ''}{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}"
-        checks.compare("sra", bf, label, lambda: ta.sra(*args, nh),
-                       lambda: ta.sra_ref(*args, nh), reps=10, inputs=args,
-                       flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C, 6 * M * nh * Lk + 10 * M * C),
-                       lib=lambda: sra_lib(*args, nh))
+        want = checks.compare("sra", bf, label, lambda: ta.sra(*args, nh),
+                              lambda: ta.sra_ref(*args, nh), reps=10, inputs=args,
+                              flops=ops(bf, 4 * M * C * C + 4 * M * Lk * C,
+                                        6 * M * nh * Lk + 10 * M * C),
+                              lib=lambda: sra_lib(*args, nh))
         if not torch.equal(ta.sra(*args, nh), ta.sra(*args, nh)):
             raise AssertionError(f"sra {label}: two launches differ")
         n = native_launches(lambda: ta.sra(*args, nh))
@@ -1362,7 +1370,6 @@ def check_sra(checks, dev, gen, batches=(2, 16)):
             raise AssertionError(f"sra {label}: {n} native launches a call, not {1 + 2 * wide}")
         if plan != es.sra_plan(B, H * H, C, nh, Lk):
             raise AssertionError(f"sra {label}: the library's plan {plan} is not the mirror's")
-        want = ta.sra_ref(*args, nh)
         faults = {"uniform softmax": lambda: ta.sra_ref(  # q = 0: uniform over the keys
             x, g, b, torch.zeros_like(wq), zero, k, v, wp, zero, nh)}
         if B == batches[0]:
@@ -1425,16 +1432,15 @@ def check_linear_scan(checks, dev, gen):
                                  "mirror's")
         for rev in (False, True):
             tag = f"{label} B4 {'rev' if rev else 'fwd'} ({R}, {L}, {C})"
-            checks.compare("linear_scan", torch.float32, tag,
-                           lambda: ts.linear_scan(a, b, rev), lambda: ts.linear_scan_ref(a, b, rev),
-                           reps=5, inputs=(a, b), flops=ops(torch.float32, 0, 2 * a.numel()),
-                           plain_warmup=0)
+            want = checks.compare("linear_scan", torch.float32, tag,
+                                  lambda: ts.linear_scan(a, b, rev),
+                                  lambda: ts.linear_scan_ref(a, b, rev), reps=5, inputs=(a, b),
+                                  flops=ops(torch.float32, 0, 2 * a.numel()))
             if not torch.equal(ts.linear_scan(a, b, rev), ts.linear_scan(a, b, rev)):
                 raise AssertionError(f"linear_scan {tag}: two launches differ")
             n = native_launches(lambda: ts.linear_scan(a, b, rev))
             if n != 1:
                 raise AssertionError(f"linear_scan {tag}: {n} native launches a call, not 1")
-            want = ts.linear_scan_ref(a, b, rev)
             mirror = functools.partial(sm.linear_scan_segmented, a, b, rev, plan["seg"],
                                        plan["parts"])
             torch.testing.assert_close(mirror(), want, **KERNEL_TOL)
@@ -1448,6 +1454,111 @@ def check_linear_scan(checks, dev, gen):
                 checks.planted("linear_scan", tag, want, faults, tol=KERNEL_TOL)
             del want
         del a, b
+
+
+FP32, BF16 = torch.float32, torch.bfloat16
+# Phase 3's walk, in order: (check, keyword arguments); main() calls
+# check(checks, dev, gen, **kwargs) for each.  phase3_rows() reads from it,
+# without a card, the (kernel, tag, shape) rows the walk adds to Checks.rows.
+PHASE3 = (
+    (check_ss2d_expand, dict(dt=FP32)),
+    (check_ss2d_expand, dict(dt=BF16)),
+    # K3 / K4 at the batch of the timed bf16 forward, where their B2 calls are
+    # dominated by the host's clock
+    (check_ss2d_expand, dict(dt=BF16, ss2d_shapes=(), B=16)),
+    (check_bf16_only, {}),
+    (check_lgp, {}),
+    (check_encoder_kernels, {}),
+    (check_dwms_grid_shape, {}),
+    # K1-K4 at Tramba-P's and -R's decoders
+    *((check_ss2d_expand, dict(dt=dt, ss2d_shapes=s, expand_shapes=e, head_c=c))
+      for dt in (FP32, BF16)
+      for s, e, c in ((SS2D_SHAPES_P, EXPAND_SHAPES_P, 64), (SS2D_SHAPES_R, EXPAND_SHAPES_R, 256))),
+    (check_bf16_only, dict(shapes=BF16_SHAPES_P)),
+    (check_bf16_only, dict(shapes=BF16_SHAPES_R)),
+    *((check_train_kernels, dict(dt=dt, shapes=s))
+      for dt in (FP32, BF16) for s in (SS2D_SHAPES, SS2D_SHAPES_P, SS2D_SHAPES_R)),
+    *((check_mlp_bwd, dict(shapes=s))
+      for s in (MLP_BWD_SHAPES, MLP_BWD_SHAPES_P, MLP_BWD_SHAPES_R)),
+    (check_linear_scan, {}),
+    (check_segmented_scans, {}),
+    # K1 / K2 over the other scan orders; the train variants and K8 over a K=8 one
+    *(entry for dt in (FP32, BF16) for entry in (
+        (check_ss2d_expand, dict(dt=dt, ss2d_shapes=NEW_ORDER_SHAPES, expand_shapes=(),
+                                 head_c=None, table_fault=True)),
+        (check_train_kernels, dict(dt=dt, shapes=NEW_ORDER_SHAPES[2:3])))))
+
+
+def ss2d_label(kind, H, d_model, param, B):
+    """:func:`ss2d_case`'s label of an SS2D shape (d_inner 2 d_model)."""
+    from tramba_tpu_torch.ops.scan_orders import get_order
+
+    return f"{kind}{param or ''} {H}px B{B} K{get_order(kind, H, H, param).K} D{2 * d_model}"
+
+
+def planned_rows(check, **kwargs):
+    """The (kernel, tag, shape label) rows that ``check(checks, dev, gen,
+    **kwargs)`` adds to :class:`Checks`, from its shape tables alone."""
+    import inspect
+
+    a = inspect.signature(check).bind(None, None, None, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    rows, name = [], check.__name__
+    if name in ("check_ss2d_expand", "check_train_kernels"):
+        train = name == "check_train_kernels"
+        B, tag = (2, f"{NAMES[a['dt']]} train") if train else (a["B"], NAMES[a["dt"]])
+        for kind, H, d_model, param in a["shapes" if train else "ss2d_shapes"]:
+            label = ss2d_label(kind, H, d_model, param, B)
+            rows += [("ss2d_scan", tag, label), ("ss2d_merge", tag, label)]
+            rows += [("ss2d_scan_bwd", tag, label)] if train else []
+        if not train:
+            rows += [("expand_ln", tag, f"f{f} {H}px B{B} C{C}") for H, C, f in a["expand_shapes"]]
+            if a["head_c"] is not None:
+                rows.append(("final_head", tag, f"96px B{B} C{a['head_c']}"))
+    elif name == "check_bf16_only":
+        sh = a["shapes"]
+        rows += [("prologue", "bf16", f"{'enc/dec LN' if ln else 'guide'} {H}px B2 dm{dm} "
+                  f"D{2 * dm}") for H, dm, ln in sh["prologue"]]
+        rows += [(k, "bf16", f"{H}px B2 d{d} hid{4 * d}") for k in ("ln_mlp", "ln_dwms_mlp")
+                 for H, d in sh[k]]
+    elif name == "check_lgp":
+        rows += [("ss2d_merge", tag, "lgp 24px B2 K1 D1024") for tag in ("fp32", "bf16")]
+    elif name == "check_encoder_kernels":
+        for B in a["batches"]:
+            rows += [("ln_dwmlp", "bf16", f"{H}px B{B} d{d} hid{hid}") for H, d, hid in K11_SHAPES]
+            rows += [("window_attn", "bf16", f"{H}px B{B} C{C} nh{nh} {shift}")
+                     for H, C, nh in K13_SHAPES for shift in ("unshifted", "shifted")]
+        rows += planned_rows(check_sra, batches=a["batches"])
+    elif name == "check_sra":
+        B0 = a["batches"][0]
+        shapes = [(B, H, C, nh, 144, "") for B in a["batches"] for H, C, nh in K12_SHAPES]
+        shapes += [(B0, H, C, nh, Lk, "") for H, C, nh, Lk in K12_SHAPES_512]
+        shapes += [(B0, H, C, nh, Lk, "wide ") for H, C, nh, Lk in K12_SHAPES_WIDE]
+        rows += [("sra", "bf16", f"{w}{H}px N{H * H} B{B} C{C} nh{nh} Lk{Lk}")
+                 for B, H, C, nh, Lk, w in shapes]
+    elif name == "check_dwms_grid_shape":
+        rows.append(("ln_dwms_mlp", "bf16", "#21 12x8px B2 d16 hid256"))
+    elif name == "check_mlp_bwd":
+        rows += [("ln_dwms_mlp_bwd" if dwms else "ln_mlp_bwd", "bf16 train",
+                  f"{H}px B2 d{d} hid{4 * d}") for H, d, dwms in a["shapes"]]
+    elif name == "check_linear_scan":
+        rows += [("linear_scan", "fp32", f"{label} B4 {d} ({R}, {L}, {C})")
+                 for label, R, L, C in (*LINEAR_SCAN_SHAPES, LINEAR_SCAN_RAGGED)
+                 for d in ("fwd", "rev")]
+    elif name == "check_segmented_scans":
+        for dt in (FP32, BF16):
+            for kind in ("raster", "line"):
+                rows += [("ss2d_scan", NAMES[dt], ss2d_label(kind, 96, 128, 0, 1)),
+                         ("ss2d_scan_bwd", f"{NAMES[dt]} train", ss2d_label(kind, 96, 128, 0, 4))]
+    else:
+        raise ValueError(f"no planned rows for {name}")
+    return rows
+
+
+def phase3_rows():
+    """Every (kernel, tag, shape label) row of phase 3, in the walk's order."""
+    return [row for check, kwargs in PHASE3 for row in planned_rows(check, **kwargs)]
 
 
 def run_model(dev, dtype, x, cpu_fp32_heads=None, method="Tramba-V-TSOD"):
@@ -1522,9 +1633,11 @@ def encoder_weights_cast_once(model):
     return once
 
 
-def run_dump_entry_point(tmp, method, *flags):
+def run_dump_entry_point(tmp, method, *flags, in_process=False):
     """Phase 5: the port's dump CLI for ``method`` on synthetic images of odd
-    sizes."""
+    sizes, as ``python -m tramba_tpu_torch.dump`` or, with ``in_process``,
+    through its ``main(argv)`` in this process (the same code, without a new
+    interpreter's start)."""
     from PIL import Image
 
     rng = np.random.default_rng(0)
@@ -1537,17 +1650,23 @@ def run_dump_entry_point(tmp, method, *flags):
         mask = (rng.random((h, w)) > 0.5).astype(np.uint8) * 255
         Image.fromarray(mask, "L").save(os.path.join(tmp, "data", "Test", "mask", name + ".png"))
     save_root = os.path.join(tmp, "out")
-    subprocess.run([sys.executable, "-m", "tramba_tpu_torch.dump", "--data_root",
-                    os.path.join(tmp, "data"), "--save_root", save_root, "--batch_size", "2",
-                    "--method", method, *flags],
-                   check=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    argv = ["--data_root", os.path.join(tmp, "data"), "--save_root", save_root, "--batch_size",
+            "2", "--method", method, *flags]
+    if in_process:
+        from tramba_tpu_torch import dump
+
+        dump.main(argv)
+    else:
+        subprocess.run([sys.executable, "-m", "tramba_tpu_torch.dump", *argv], check=True,
+                       timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
     out_dir = os.path.join(save_root, method, "TSOD")
     for name, size in sizes.items():
         with Image.open(os.path.join(out_dir, name + ".png")) as im:
             if im.size != size or im.mode != "L":
                 raise AssertionError(f"{name}: map {im.size} {im.mode}, expected {size} L")
-    print(f"dump --method {method} {' '.join(flags)} wrote {len(sizes)} maps at their original "
-          "sizes", flush=True)
+    how = "main(argv)" if in_process else "python -m"
+    print(f"dump ({how}) --method {method} {' '.join(flags)} wrote {len(sizes)} maps at their "
+          "original sizes", flush=True)
 
 
 def _results_rows(out, method, datasets):
@@ -1574,7 +1693,9 @@ def run_sod_entry_points(tmp, method, *flags, score=True):
     datasets, each against its own masks) and ``evaluate_tsod`` (the SOD
     folder as its dataset, against the first dataset's masks) on those
     maps: each exits 0, prints a results row of finite metrics per dataset
-    and writes the PR curves."""
+    and writes the PR curves.  Without ``score`` the dump runs through
+    ``dump_sod.main(argv)`` in this process (the same code, without a new
+    interpreter's start)."""
     from PIL import Image
 
     rng = np.random.default_rng(5)
@@ -1597,9 +1718,14 @@ def run_sod_entry_points(tmp, method, *flags, score=True):
                                  f"{res.stderr[-3000:]}")
         return res.stdout
 
-    cli("tramba_tpu_torch.dump_sod", "--method", method, "--image_save_path", out,
-        "--batch_size", "2", "--datasets", *(f"{ds}={os.path.join(tmp, ds)}" for ds in sizes),
-        *flags)
+    argv = ["--method", method, "--image_save_path", out, "--batch_size", "2", "--datasets",
+            *(f"{ds}={os.path.join(tmp, ds)}" for ds in sizes), *flags]
+    if score:
+        cli("tramba_tpu_torch.dump_sod", *argv)
+    else:
+        from tramba_tpu_torch import dump_sod
+
+        dump_sod.main(argv)
     sod = os.path.join(out, method, "SOD")
     want = {f"{n}.png": size for imgs in sizes.values() for n, size in imgs.items()}
     if sorted(os.listdir(sod)) != sorted(want):
@@ -1608,7 +1734,8 @@ def run_sod_entry_points(tmp, method, *flags, score=True):
         with Image.open(os.path.join(sod, f)) as im:
             if im.size != size or im.mode != "L":
                 raise AssertionError(f"{f}: map {im.size} {im.mode}, expected {size} L")
-    print(f"dump_sod --method {method} {' '.join(flags)} wrote {len(want)} maps of "
+    how = "python -m" if score else "main(argv)"
+    print(f"dump_sod ({how}) --method {method} {' '.join(flags)} wrote {len(want)} maps of "
           f"{len(sizes)} datasets to <image_save_path>/{method}/SOD at their original sizes",
           flush=True)
     if not score:
@@ -1716,6 +1843,9 @@ def train_batch(B, size, seed):
 # the trained models of phase 8, and the reduced-depth step each is held to
 # the CPU with: (image size, build overrides)
 TRAINED = ("Tramba-V-TSOD", "Tramba-S-TSOD", "Tramba-P-TSOD", "Tramba-R-TSOD", "BaseUMamba-SOD")
+# the models whose phase 8 steps are also timed and profiled (the others'
+# are in ``chip_ab.py --train-times``)
+TRAIN_TIMED = ("Tramba-V-TSOD",)
 REDUCED = {"Tramba-V-TSOD": (96, dict(dims=128, enc_depths=(1, 1, 2, 1), dec_depths=(1, 1, 1, 1))),
            "BaseUMamba-SOD": (96, dict(dims=128, enc_depths=(1, 1, 2, 1),
                                        dec_depths=(1, 1, 1, 1))),
@@ -1734,9 +1864,12 @@ def unused_parameter(name: str) -> bool:
     return name.startswith("encoder.layer4.")
 
 
-def run_training(dev, card, dtype, method="Tramba-V-TSOD"):
+def run_training(dev, card, dtype, method="Tramba-V-TSOD", measure=True):
     """Phase 8: train steps of the full-width ``method`` at batch 4 in the
-    compute dtype ``dtype`` (parameters fp32)."""
+    compute dtype ``dtype`` (parameters fp32): the launches of one step,
+    every gradient finite and the fall of the loss over 10 steps; with
+    ``measure`` also ms per step, peak memory and the device time by kernel
+    group."""
     from tramba_tpu_torch.models.registry import build
     from tramba_tpu_torch.nn.layers import set_drop_path_generator
     from tramba_tpu_torch.train.optim import make_optimizer
@@ -1775,6 +1908,8 @@ def run_training(dev, card, dtype, method="Tramba-V-TSOD"):
     print("loss over 10 steps on one batch: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
     if not (all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0]):
         raise AssertionError(f"the loss did not fall over 10 steps: {losses}")
+    if not measure:
+        return
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1788,7 +1923,6 @@ def run_training(dev, card, dtype, method="Tramba-V-TSOD"):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3 * 1e3
     profile_breakdown(step, wall, f"{method} {name} train B4", grad=True, per="step")
-    return ms, peak
 
 
 def _rel(a, b):
@@ -1986,13 +2120,18 @@ def run_loader(tmp, card):
           f"[{card}] [{host_cpu()}]", flush=True)
 
 
-def run_train_entry_point(tmp, dtype):
+def run_train_entry_point(tmp, dtype, resume_in_process=False):
     """Phase 9: the training CLI at full width, batch 4, ``--dtype`` of
     ``dtype``, 2 epochs on 8 train images with the in-loop eval of 4 test
     images from epoch 2, in this process (for the launch counts); a
     weights-only resume from the best-MAE file to epoch 5, which writes the
     rolling resume dict; then ``--resume last`` to epoch 6 as ``python -m
-    tramba_tpu_torch.run``.  Returns the launch counts of the first run."""
+    tramba_tpu_torch.run`` or, with ``resume_in_process``, through the same
+    ``run.main(argv)`` in this process.  Returns the launch counts of the
+    first run."""
+    import contextlib
+    import io
+
     from tramba_tpu_torch import run
 
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "results")
@@ -2025,15 +2164,23 @@ def run_train_entry_point(tmp, dtype):
         raise AssertionError(f"weights-only resume: {opt.count} steps; {os.listdir(save_dir)}")
     del model, opt
     torch.cuda.empty_cache()
-    res = subprocess.run([sys.executable, "-m", "tramba_tpu_torch.run", *flags,
-                          "--train_epochs", "6", "--resume", "last"], capture_output=True,
-                         text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
-    if res.returncode != 0 or "starting from epoch 6" not in res.stdout \
-            or "Epoch [006/006] loss" not in res.stdout:
-        raise AssertionError(f"--resume last failed ({res.returncode}):\n{res.stdout[-2000:]}\n"
-                             f"{res.stderr[-3000:]}")
-    print("python -m tramba_tpu_torch.run --resume last: " + next(
-        ln for ln in res.stdout.splitlines() if ln.startswith("Epoch [006/006]")), flush=True)
+    argv = [*flags, "--train_epochs", "6", "--resume", "last"]
+    if resume_in_process:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run.main(argv)
+        rc, text, err, how = 0, out.getvalue(), "", "run.main(argv)"
+        torch.cuda.empty_cache()
+    else:
+        res = subprocess.run([sys.executable, "-m", "tramba_tpu_torch.run", *argv],
+                             capture_output=True, text=True, timeout=600,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        rc, text, err = res.returncode, res.stdout, res.stderr
+        how = "python -m tramba_tpu_torch.run"
+    if rc != 0 or "starting from epoch 6" not in text or "Epoch [006/006] loss" not in text:
+        raise AssertionError(f"--resume last failed ({rc}):\n{text[-2000:]}\n{err[-3000:]}")
+    print(f"{how} --resume last: " + next(
+        ln for ln in text.splitlines() if ln.startswith("Epoch [006/006]")), flush=True)
     return launches
 
 
@@ -2094,18 +2241,19 @@ def run_graft_entry_point(tmp, method):
 BACKENDS = ("tensor_parallel", "seq_parallel", "hybrid_tp_sp")
 
 
-def run_parallel(dev, card, x, default_heads, noise):
+def run_parallel(dev, card, x, default_heads, noise, measure=True):
     """Phase 10: the parallel layer on an NCCL world of one process.  The
     full-width 384 px Tramba-V forward on each parallel backend, fp32 and
     bf16, at batch 2, with exact launches, its heads against the default
     route's (``default_heads``, phase 4; fp32 mean abs <= 1e-3 per head;
     bf16 phase 4's gate, max(2e-2, 1.25 x ``noise``, the CPU's bf16-vs-fp32
-    gap of the head)) and its ms per forward in turns with the default
-    route; then one train step
-    of each of the four dry-run phases at full width, batch 2, fp32, with
-    exact launches (K14 once forward and once reversed per SS2D), ms per step,
-    peak memory and profiles; then ``python -m tramba_tpu_torch.dryrun --n 1``.
-    Returns the launches of the tensor-parallel train step."""
+    gap of the head)); then one train step of each of the four dry-run
+    phases at full width, batch 2, fp32, with exact launches (K14 once
+    forward and once reversed per SS2D); then ``python -m
+    tramba_tpu_torch.dryrun --n 1``.  With ``measure`` also each backend's
+    ms per forward in turns with the default route and its fp32 profile,
+    and each step's ms, peak memory and profile.  Returns the launches of
+    the tensor-parallel train step."""
     import torch.distributed as dist
 
     from tramba_tpu_torch import dryrun
@@ -2144,14 +2292,19 @@ def run_parallel(dev, card, x, default_heads, noise):
                             if not (torch.isfinite(o).all().item() and diff <= tol):
                                 raise AssertionError(f"{backend} {NAMES[dtype]} head {i}: {diff}")
                         del outs
-                        ms = [cuda_ms(lambda: m(x), 2) for m in (default, model, model, default)]
-                        print(f"Tramba-V-TSOD 384px {NAMES[dtype]} B2 forward: {backend} "
-                              f"{ms[1]:.2f} / {ms[2]:.2f} ms, default route {ms[0]:.2f} / "
-                              f"{ms[3]:.2f} ms; K14 {launches['linear_scan']} launches "
-                              f"[{card}]", flush=True)
-                        if dtype == torch.float32:
-                            profile_breakdown(lambda: model(x), ms[1],
-                                              f"{backend} fp32 B2 forward")
+                        if measure:
+                            ms = [cuda_ms(lambda: m(x), 2)
+                                  for m in (default, model, model, default)]
+                            print(f"Tramba-V-TSOD 384px {NAMES[dtype]} B2 forward: {backend} "
+                                  f"{ms[1]:.2f} / {ms[2]:.2f} ms, default route {ms[0]:.2f} / "
+                                  f"{ms[3]:.2f} ms; K14 {launches['linear_scan']} launches "
+                                  f"[{card}]", flush=True)
+                            if dtype == torch.float32:
+                                profile_breakdown(lambda: model(x), ms[1],
+                                                  f"{backend} fp32 B2 forward")
+                        else:
+                            print(f"Tramba-V-TSOD 384px {NAMES[dtype]} B2 forward on {backend}: "
+                                  f"K14 {launches['linear_scan']} launches", flush=True)
                         del model
                     del default
                     torch.cuda.empty_cache()
@@ -2166,6 +2319,10 @@ def run_parallel(dev, card, x, default_heads, noise):
                 if launches != want:
                     raise AssertionError(f"{name} step launches {launches}, expected {want}")
                 step_launches[name] = launches
+                if not measure:
+                    print(f"dry-run phase {name}: full-width Tramba-V 384px fp32 train step B2; "
+                          f"K14 {launches['linear_scan']} launches", flush=True)
+                    return
                 torch.cuda.reset_peak_memory_stats()
                 ms = cuda_ms(step, reps=2)
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2192,6 +2349,51 @@ def run_parallel(dev, card, x, default_heads, noise):
     return step_launches["dp x tp"]
 
 
+# the kernels' summary line: each wrapper's CUDA source and the TPU kernel it
+# replaces (file:line)
+_CSRC = "tramba_tpu_torch/csrc/"
+SOURCES = {"ss2d_scan": (_CSRC + "ss2d.cu", "tramba_tpu/ops/fused_ss2d.py:1505"),
+           "ss2d_merge": (_CSRC + "ss2d.cu", "tramba_tpu/ops/fused_ss2d.py:1561"),
+           "expand_ln": (_CSRC + "expand.cu", "tramba_tpu/ops/fused_expand.py:59"),
+           "final_head": (_CSRC + "expand.cu", "tramba_tpu/ops/fused_expand.py:165"),
+           "prologue": (_CSRC + "prologue.cu", "tramba_tpu/ops/fused_prologue.py:94"),
+           "ln_mlp": (_CSRC + "mlp.cu", "tramba_tpu/ops/fused_mlp.py:130"),
+           "ln_dwms_mlp": (_CSRC + "mlp.cu", "tramba_tpu/ops/fused_mlp.py:360 (_dwms_pallas), "
+                                             "tramba_tpu/ops/fused_mlp.py:457 (_dwms_pallas2)"),
+           "ss2d_scan_bwd": (_CSRC + "ss2d_bwd.cu", "tramba_tpu/ops/fused_ss2d.py:638"),
+           "ln_mlp_bwd": (_CSRC + "mlp_bwd.cu", "tramba_tpu/ops/fused_mlp.py:233"),
+           "ln_dwms_mlp_bwd": (_CSRC + "mlp_bwd.cu", "tramba_tpu/ops/fused_mlp.py:674"),
+           "ln_dwmlp": (_CSRC + "mlp.cu", "tramba_tpu/ops/fused_mlp.py:844"),
+           "sra": (_CSRC + "attn.cu", "tramba_tpu/ops/fused_attn.py:96"),
+           "window_attn": (_CSRC + "attn.cu", "tramba_tpu/ops/fused_attn.py:254"),
+           "linear_scan": (_CSRC + "scan.cu", "tramba_tpu/ops/selective_scan.py:642")}
+# in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13), and
+# their bf16 train variants for its emit_train; in training K1 is #1's
+# emit-carries variant and #2's materialising rows/cols kernels, K2 #10's
+# emit_ysum and #3's merge (TRAMBA_TWO_PHASE_TRAIN=0); K8 stands for #4
+# (_dirs_bwd_call) and #5 (_seq_bwd_pallas, fused_ss2d.py:747)
+_F, _SMALL = "tramba_tpu/ops/fused_ss2d.py", "tramba_tpu/ops/fused_ss2d_small.py:233"
+_ROWS_COLS = f"{_F}:294 (_rows_pallas), {_F}:344 (_cols_pallas)"
+REPLACED = {("ss2d_scan", "bf16"): _SMALL,
+            ("ss2d_merge", "bf16"): _SMALL,
+            ("ss2d_scan", "fp32 train"): f"{_F}:101 (_fused_pallas), {_ROWS_COLS}",
+            ("ss2d_merge", "fp32 train"): f"{_F}:1561 (_pair_phase2_rows_merge), "
+                                          f"{_F}:426 (_merge_pallas)",
+            ("ss2d_scan", "bf16 train"): f"{_SMALL} (_small_pallas), {_ROWS_COLS}",
+            ("ss2d_merge", "bf16 train"): f"{_SMALL} (_small_pallas), {_F}:426 (_merge_pallas)"}
+# the shape whose time the summary reports: the largest map of each kernel
+SHOWN = {"ss2d_scan": "line 96px", "ss2d_merge": "line 96px", "ss2d_scan_bwd": "line 96px",
+         "expand_ln": "f2 48px", "final_head": "96px", "prologue": "enc/dec LN 96px",
+         "ln_mlp": "96px", "ln_dwms_mlp": "96px", "ln_mlp_bwd": "96px",
+         "ln_dwms_mlp_bwd": "96px", "ln_dwmlp": "96px", "sra": "96px",
+         "window_attn": "96px", "linear_scan": "tp raster 96px B4 fwd"}
+# `launches`: the forward of the model whose main path the kernel is on (K11 /
+# K12 Tramba-P, K13 Tramba-S, the rest Tramba-V), or the training CLI's run;
+# K14: phase 10's tensor-parallel train step (forward and reversed launches),
+# its forward and reversed rows under one entry
+HOME = {"ln_dwmlp": "Tramba-P-TSOD", "sra": "Tramba-P-TSOD", "window_attn": "Tramba-S-TSOD"}
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2215,32 +2417,12 @@ def main() -> int:
     phase("3 kernels vs plain versions")
     checks = Checks()
     gen = torch.Generator().manual_seed(0)
-    check_ss2d_expand(checks, dev, gen, torch.float32)
-    check_ss2d_expand(checks, dev, gen, torch.bfloat16)
-    # K3 / K4 at the batch of the timed bf16 forward, where their B2 calls
-    # are dominated by the host's clock
-    check_ss2d_expand(checks, dev, gen, torch.bfloat16, (), B=16)
-    check_bf16_only(checks, dev, gen)
-    check_lgp(checks, dev, gen)
-    check_encoder_kernels(checks, dev, gen)
-    check_dwms_grid_shape(checks, dev, gen)
-    for dtype in (torch.float32, torch.bfloat16):  # K1-K4 at Tramba-P's and -R's decoders
-        check_ss2d_expand(checks, dev, gen, dtype, SS2D_SHAPES_P, EXPAND_SHAPES_P, head_c=64)
-        check_ss2d_expand(checks, dev, gen, dtype, SS2D_SHAPES_R, EXPAND_SHAPES_R, head_c=256)
-    check_bf16_only(checks, dev, gen, BF16_SHAPES_P)
-    check_bf16_only(checks, dev, gen, BF16_SHAPES_R)
-    for dtype in (torch.float32, torch.bfloat16):
-        for shapes in (SS2D_SHAPES, SS2D_SHAPES_P, SS2D_SHAPES_R):
-            check_train_kernels(checks, dev, gen, dtype, shapes)
-    for shapes in (MLP_BWD_SHAPES, MLP_BWD_SHAPES_P, MLP_BWD_SHAPES_R):
-        check_mlp_bwd(checks, dev, gen, shapes)
-    check_linear_scan(checks, dev, gen)
-    check_segmented_scans(checks, dev, gen)
-    # K1 / K2 over the other scan orders; the train variants and K8 over a K=8 one
-    for dtype in (torch.float32, torch.bfloat16):
-        check_ss2d_expand(checks, dev, gen, dtype, NEW_ORDER_SHAPES, (), head_c=None,
-                          table_fault=True)
-        check_train_kernels(checks, dev, gen, dtype, NEW_ORDER_SHAPES[2:3])
+    for check, kwargs in PHASE3:
+        check(checks, dev, gen, **kwargs)
+    walked = [(name, tag, r[0]) for (name, tag), rows in checks.rows.items() for r in rows]
+    if sorted(walked) != sorted(phase3_rows()):
+        raise AssertionError(f"phase 3 checked {sorted(set(walked) ^ set(phase3_rows()))[:5]} "
+                             "against its table")
     torch.cuda.empty_cache()
 
     phase("4 model")
@@ -2266,13 +2448,15 @@ def main() -> int:
     heads.clear()
 
     phase("5 dump entry point")
+    # python -m once; the bf16 dumps through the same main(argv) in this process
     for method, flags in (("Tramba-V-TSOD", ("--measure_fps",)),
                           ("Tramba-V-TSOD", ("--dtype", "bfloat16")),
                           ("Tramba-P-TSOD", ("--dtype", "bfloat16")),
                           ("Tramba-S-TSOD", ("--dtype", "bfloat16")),
                           ("Tramba-R-TSOD", ("--dtype", "bfloat16"))):
         with tempfile.TemporaryDirectory() as tmp:
-            run_dump_entry_point(tmp, method, *flags)
+            run_dump_entry_point(tmp, method, *flags, in_process="--dtype" in flags)
+        torch.cuda.empty_cache()
     for flags in ((), ("--dtype", "bfloat16")):  # the scoring CLIs on the fp32 maps
         with tempfile.TemporaryDirectory() as tmp:
             run_sod_entry_points(tmp, "BaseUMamba-SOD", *flags, score=not flags)
@@ -2319,7 +2503,7 @@ def main() -> int:
     phase("8 train")
     for method in TRAINED:
         for dtype in (torch.float32, torch.bfloat16):
-            run_training(dev, card, dtype, method)
+            run_training(dev, card, dtype, method, measure=method in TRAIN_TIMED)
             compare_reduced_step(dev, dtype, method)
             torch.cuda.empty_cache()
 
@@ -2331,7 +2515,9 @@ def main() -> int:
     train_launches = {}
     for dtype in (torch.float32, torch.bfloat16):
         with tempfile.TemporaryDirectory() as tmp:
-            train_launches[f"{NAMES[dtype]} train"] = run_train_entry_point(tmp, dtype)
+            # python -m for the fp32 resume; the bf16 one through the same main(argv)
+            train_launches[f"{NAMES[dtype]} train"] = run_train_entry_point(
+                tmp, dtype, resume_in_process=dtype == torch.bfloat16)
         torch.cuda.empty_cache()
     for method in GRAFTED:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2339,75 +2525,29 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phase("10 parallel")
-    parallel_launches = run_parallel(dev, card, x, v_heads, v_noise)
+    parallel_launches = run_parallel(dev, card, x, v_heads, v_noise, measure=False)
     torch.cuda.empty_cache()
 
-    ss2d, expand = "tramba_tpu_torch/csrc/ss2d.cu", "tramba_tpu_torch/csrc/expand.cu"
-    mlp, mlp_bwd = "tramba_tpu_torch/csrc/mlp.cu", "tramba_tpu_torch/csrc/mlp_bwd.cu"
-    attn = "tramba_tpu_torch/csrc/attn.cu"
-    sources = {"ss2d_scan": (ss2d, "tramba_tpu/ops/fused_ss2d.py:1505"),
-               "ss2d_merge": (ss2d, "tramba_tpu/ops/fused_ss2d.py:1561"),
-               "expand_ln": (expand, "tramba_tpu/ops/fused_expand.py:59"),
-               "final_head": (expand, "tramba_tpu/ops/fused_expand.py:165"),
-               "prologue": ("tramba_tpu_torch/csrc/prologue.cu",
-                            "tramba_tpu/ops/fused_prologue.py:94"),
-               "ln_mlp": (mlp, "tramba_tpu/ops/fused_mlp.py:130"),
-               "ln_dwms_mlp": (mlp, "tramba_tpu/ops/fused_mlp.py:360 (_dwms_pallas), "
-                                    "tramba_tpu/ops/fused_mlp.py:457 (_dwms_pallas2)"),
-               "ss2d_scan_bwd": ("tramba_tpu_torch/csrc/ss2d_bwd.cu",
-                                 "tramba_tpu/ops/fused_ss2d.py:638"),
-               "ln_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:233"),
-               "ln_dwms_mlp_bwd": (mlp_bwd, "tramba_tpu/ops/fused_mlp.py:674"),
-               "ln_dwmlp": (mlp, "tramba_tpu/ops/fused_mlp.py:844"),
-               "sra": (attn, "tramba_tpu/ops/fused_attn.py:96"),
-               "window_attn": (attn, "tramba_tpu/ops/fused_attn.py:254"),
-               "linear_scan": ("tramba_tpu_torch/csrc/scan.cu",
-                               "tramba_tpu/ops/selective_scan.py:642")}
-    # in bf16, K1/K2 also stand in for the whole-map _small_pallas (#13), and
-    # their bf16 train variants for its emit_train; in training K1 is #1's
-    # emit-carries variant and #2's materialising rows/cols kernels, K2
-    # #10's emit_ysum and #3's merge (TRAMBA_TWO_PHASE_TRAIN=0); K8 stands
-    # for #4 (_dirs_bwd_call) and #5 (_seq_bwd_pallas, fused_ss2d.py:747)
-    f, small = "tramba_tpu/ops/fused_ss2d.py", "tramba_tpu/ops/fused_ss2d_small.py:233"
-    rows_cols = f"{f}:294 (_rows_pallas), {f}:344 (_cols_pallas)"
-    replaced = {("ss2d_scan", "bf16"): small,
-                ("ss2d_merge", "bf16"): small,
-                ("ss2d_scan", "fp32 train"): f"{f}:101 (_fused_pallas), {rows_cols}",
-                ("ss2d_merge", "fp32 train"): f"{f}:1561 (_pair_phase2_rows_merge), "
-                                              f"{f}:426 (_merge_pallas)",
-                ("ss2d_scan", "bf16 train"): f"{small} (_small_pallas), {rows_cols}",
-                ("ss2d_merge", "bf16 train"): f"{small} (_small_pallas), "
-                                              f"{f}:426 (_merge_pallas)"}
-    # the shape whose time the summary reports: the largest map of each kernel
-    shown = {"ss2d_scan": "line 96px", "ss2d_merge": "line 96px", "ss2d_scan_bwd": "line 96px",
-             "expand_ln": "f2 48px", "final_head": "96px", "prologue": "enc/dec LN 96px",
-             "ln_mlp": "96px", "ln_dwms_mlp": "96px", "ln_mlp_bwd": "96px",
-             "ln_dwms_mlp_bwd": "96px", "ln_dwmlp": "96px", "sra": "96px",
-             "window_attn": "96px", "linear_scan": "tp raster 96px B4 fwd"}
-    # `launches`: the forward of the model whose main path the kernel is on
-    # (K11 / K12 Tramba-P, K13 Tramba-S, the rest Tramba-V), or the training
-    # CLI's run; K14: phase 10's tensor-parallel train step (forward and
-    # reversed launches), its forward and reversed rows under one entry
-    home = {"ln_dwmlp": "Tramba-P-TSOD", "sra": "Tramba-P-TSOD", "window_attn": "Tramba-S-TSOD"}
     summary = []
     for (name, tag), rows in checks.rows.items():
         label, _, ms, plain_ms, bound_ms, bound_by = next(r for r in rows
-                                                          if r[0].startswith(shown[name]))
+                                                          if r[0].startswith(SHOWN[name]))
         dt = torch.bfloat16 if tag.startswith("bf16") else torch.float32
         if name == "linear_scan":
             n = parallel_launches[name]
         elif tag.endswith("train"):
             n = train_launches[tag][name]
         else:
-            n = launches[home.get(name, "Tramba-V-TSOD"), dt][name]
+            n = launches[HOME.get(name, "Tramba-V-TSOD"), dt][name]
         # no single PyTorch call computes any of these fused functions
         summary.append({"name": name, "dtype": tag, "route": "cuda",
-                        "source": sources[name][0],
-                        "replaces": replaced.get((name, tag), sources[name][1]),
+                        "source": SOURCES[name][0],
+                        "replaces": REPLACED.get((name, tag), SOURCES[name][1]),
                         "launches": n,
                         "max_abs_err": max(r[1] for r in rows), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                         "shape": label})
+    print(f"phase seconds: {phase_seconds()} [{card}] [{host_cpu()}]", flush=True)
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,9 @@ package's (``tramba_tpu/ops/dct.py``) and scipy.
 On the CPU, fp32, inputs seeded with numpy: each helper equals JAX's at
 rtol / atol 1e-5 at ``tests/test_dct.py``'s shapes, ``dct2d`` equals
 ``scipy.fft.dctn(norm="ortho")`` at 1e-4, both inverses undo their
-transforms, and ``split_high_low(dct2d(x))`` is ``dct2d_quadrants(x)`` bit
-for bit, as in JAX.
+transforms, and ``split_high_low(dct2d(x))`` and ``dct2d_quadrants(x)`` lie
+within 1e-6 of their largest magnitude of scipy's fp64 quadrants and of
+each other.
 """
 
 import jax.numpy as jnp
@@ -75,10 +76,36 @@ def test_round_trips():
                                rtol=1e-4, atol=1e-5)
 
 
+# The quadrants two ways against an fp64 witness: max abs difference over the
+# witness's largest magnitude.  ``split_high_low(dct2d(x))`` sums 12 terms a
+# stage over the whole basis and ``dct2d_quadrants`` over its halves, in
+# other orders: on an AVX512 host with MKL they differ by 4.77e-7 at a largest
+# value of 3.63 (a share of 1.3e-7), and each lies within 4.8e-7 of
+# ``scipy.fft.dctn`` in fp64.  1e-6 is about eight units in the last place
+# of the largest value.
+QUADRANT_SHARE = 1e-6
+
+
 def test_split_of_dct2d_is_dct2d_quadrants():
-    x = torch.from_numpy(_x((2, 12, 12, 5), 5))
-    for a, b in zip(tdct.split_high_low(tdct.dct2d(x)), tdct.dct2d_quadrants(x)):
-        assert torch.equal(a, b)
+    """``split_high_low(dct2d(x))`` and ``dct2d_quadrants(x)`` each lie within
+    :data:`QUADRANT_SHARE` of the fp64 quadrants of ``scipy.fft.dctn``, and
+    of each other; a low quadrant taken from the high half of the H basis
+    fails the same check."""
+    x = _x((2, 12, 12, 5), 5)
+    full = scipy.fft.dctn(x.astype(np.float64), type=2, norm="ortho", axes=(1, 2))
+    witness = (full[:, 6:, 6:], full[:, :6, :6])  # (high, low)
+    xt = torch.from_numpy(x)
+    split, quadrants = tdct.split_high_low(tdct.dct2d(xt)), tdct.dct2d_quadrants(xt)
+    for a, b, w in zip(split, quadrants, witness):
+        a, b, scale = a.double().numpy(), b.double().numpy(), np.abs(w).max()
+        for got, want in ((a, w), (b, w), (a, b)):
+            assert got.shape == want.shape == (2, 6, 6, 5)
+            assert np.abs(got - want).max() <= QUADRANT_SHARE * scale
+    basis = tdct.dct_basis(12, "cpu")
+    wrong_half = torch.einsum("bhvc,kh->bkvc", torch.einsum("bhwc,vw->bhvc", xt, basis[:6]),
+                              basis[6:])
+    assert np.abs(wrong_half.double().numpy() - witness[1]).max() > \
+        QUADRANT_SHARE * np.abs(witness[1]).max()
 
 
 def test_helpers_keep_dtype_and_refuse_ragged_blocks():

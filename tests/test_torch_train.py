@@ -472,16 +472,25 @@ def _detached(fn):
     return launch
 
 
-def test_card_branch_carries_gradients(monkeypatch):
-    """On the card, ss2d_full under autograd runs SS2DCore (K1 / K2 train
-    variants forward, K8 backward) and K3 / K4 run inside autograd Functions:
-    with the launches stubbed by detached plain results, the outputs keep a
-    grad_fn and every input's gradient equals plain autograd's (rtol 1e-5)."""
+# The card branch's input gradients against plain autograd: max abs
+# difference over each gradient's largest magnitude.  K8's explicit adjoint
+# and autograd sum the projections' gradients over 72 rows and 8 directions
+# in other orders: on an AVX512 host with MKL, 2 of input 1's 512 entries
+# left rtol 1e-5 / atol 1e-6, at 3.81e-6 of a largest |gradient| of 8.05 (a
+# share of 4.7e-7).  1e-5 keeps a twentyfold margin over that.
+GRAD_SHARE = 1e-5
+
+
+def _card_branch_grads(monkeypatch, scan_bwd):
+    """Input gradients of ``ss2d_full`` on the card branch with its launches
+    stubbed by detached plain results (``scan_bwd`` stands in for K8's), and
+    of plain autograd, on the same seeded inputs and cotangent: each
+    gradient's max abs difference over its largest magnitude, and the
+    generator that drew them."""
     monkeypatch.setattr(tf, "on_card", lambda t: True)
-    monkeypatch.setattr(te, "on_card", lambda t: True)
     stubs = {"ss2d_scan": _detached(tf.ss2d_scan_train_ref),
              "ss2d_merge": _detached(tf.ss2d_merge_train_ref),
-             "ss2d_scan_bwd": _detached(tf.ss2d_scan_bwd_ref)}
+             "ss2d_scan_bwd": _detached(scan_bwd)}
     monkeypatch.setattr(tf, "ss2d_scan", lambda *a, emit: stubs["ss2d_scan"](*a))
     monkeypatch.setattr(tf, "ss2d_merge", lambda *a, emit_ysum: stubs["ss2d_merge"](*a))
     monkeypatch.setattr(tf, "ss2d_scan_bwd", stubs["ss2d_scan_bwd"])
@@ -502,9 +511,25 @@ def test_card_branch_carries_gradients(monkeypatch):
     got = torch.autograd.grad(out, card, cot)
     want = torch.autograd.grad(want_out, plain, cot)
     assert [s.calls for s in stubs.values()] == [1, 1, 1]
-    for i, (a, b) in enumerate(zip(got, want)):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=f"input {i}")
+    return [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)], g
 
+
+def test_card_branch_carries_gradients(monkeypatch):
+    """On the card, ss2d_full under autograd runs SS2DCore (K1 / K2 train
+    variants forward, K8 backward) and K3 / K4 run inside autograd Functions:
+    with the launches stubbed by detached plain results, the outputs keep a
+    grad_fn and every input's gradient equals plain autograd's to within
+    :data:`GRAD_SHARE` of its largest magnitude, a check that a K8 whose
+    dt_b is moved by 1e-3 fails (rtol 1e-5 for K3's)."""
+    shares, g = _card_branch_grads(monkeypatch, tf.ss2d_scan_bwd_ref)
+    assert max(shares) <= GRAD_SHARE, shares
+
+    def moved_dt_b(*args, **kwargs):
+        return tf.ss2d_scan_bwd_ref(*args[:8], args[8] + 1e-3, *args[9:], **kwargs)
+
+    assert max(_card_branch_grads(monkeypatch, moved_dt_b)[0]) > GRAD_SHARE
+
+    monkeypatch.setattr(te, "on_card", lambda t: True)
     launch = _detached(te.expand_ln_ref)
     monkeypatch.setattr(te, "_expand_ln_launch", launch)
     x = torch.randn(2, 3, 3, 8, generator=g, requires_grad=True)

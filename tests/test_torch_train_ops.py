@@ -63,22 +63,43 @@ SHAPES = [("raster", 4, 12, 0), ("raster", 4, 7, 0), ("raster", 4, 3, 0), ("line
           ("dilation", 4, 4, 4)]
 
 
+# ys and the projections dbc of K1's train variant against the inference
+# plain version and an einsum in scan order: max abs difference over the
+# largest magnitude.  The train variant projects every pixel once for all
+# directions, the others each direction's rows, so fp32 rounding of those
+# 16-term sums shows: on an AVX512 host with MKL, dbc 4.77e-7 at a largest
+# value of 2.69 (a share of 1.8e-7) and ys 1.19e-6 at 13.9 (8.6e-8, 8,422 of
+# 18,432 entries apart); bit-equal on other hosts.  1e-6 is about eight
+# units in the last place of the largest value.
+YS_SHARE = 1e-6
+
+
+def _max_share(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
 def test_train_ref_carries_are_states_at_chunk_starts():
-    """K1's train variant: ys equal the inference plain version, and carries
-    [:, :, c] is the state entering step 64c, read off an independent scan
-    (rtol 1e-6, atol 1e-6: the projections are summed in another order)."""
+    """K1's train variant: ys equal the inference plain version, and dbc the
+    projections in scan order, to within :data:`YS_SHARE` of their largest
+    magnitude, a check that the plain version with dt_b moved by 1e-3 fails;
+    and carries [:, :, c] is the state entering step 64c, read off an
+    independent scan (rtol 1e-6, atol 1e-6: the projections are summed in
+    another order)."""
     p = _inputs("raster", 4, 12, seed=0)
     x, core = _t(p["x"]), _core(p)
     idx, _ = order_tables("raster", 12, 12, 0, "cpu")
     ys, carries, dbc = tf.ss2d_scan_train_ref(x, idx, *core)
-    assert torch.equal(ys, tf.ss2d_scan_ref(x, idx, *core))
+    want_ys = tf.ss2d_scan_ref(x, idx, *core)
+    assert _max_share(ys, want_ys) <= YS_SHARE
+    moved = core[:2] + [core[2] + 1e-3] + core[3:]
+    assert _max_share(tf.ss2d_scan_ref(x, idx, *moved), want_ys) > YS_SHARE
     K, L = idx.shape
     R = core[1].shape[-1]
     assert carries.shape == (2, K, 3, 16) and dbc.shape == (2, L, K, R + 2)
     xs = x[:, idx.long()]
     want_dbc = torch.einsum("bkld,kcd->bklc", xs, core[0])
-    for k in range(K):
-        torch.testing.assert_close(dbc[:, idx[k].long(), k], want_dbc[:, k], rtol=0, atol=0)
+    got_dbc = torch.stack([dbc[:, idx[k].long(), k] for k in range(K)], dim=1)
+    assert _max_share(got_dbc, want_dbc) <= YS_SHARE
     dts = torch.einsum("bklr,kdr->bkld", want_dbc[..., :R], core[1]) + core[2][:, None]
     delta = torch.nn.functional.softplus(dts)
     a = torch.exp(delta * -torch.exp(core[3][..., 0])[:, None])
