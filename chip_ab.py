@@ -42,7 +42,15 @@ train step of each dry-run phase). ``--train-times`` runs phase 8's measurements
 (its checks, then ms per step, peak memory and the device time by kernel group), and
 ``--parallel-times`` phase 10 with its measurements (``run_parallel`` against phase 4's
 Tramba-V heads: each backend's forward in turns with the default route and its profile, each
-dry-run step's ms, peak memory and profile). Every run prints its wall seconds, and the
+dry-run step's ms, peak memory and profile). ``--yardsticks`` times each tree's kernels in
+turns with PyTorch's own chain for each one's function (``chip_smoke.yardsticks``: cuBLAS
+with TF32 off, cuDNN, F.layer_norm, SDPA, autograd for the adjoints) at phase 3's shapes at
+B2 and Tramba-V's at B16; ``--k1-proj`` times K1's projection launch at Tramba-V's 13 SS2D
+shapes at B2 and B16 (its device time inside ``ss2d_scan`` by the profiler, alone where the
+tree has ``ss2d_proj``, beside ``x.float() @ wx^T``, with K1's dbc against an fp64 product;
+``chip_smoke.k1_proj_sweep``), then Tramba-V's, -R's and BaseUMamba's bf16 B16 forwards with
+their profiles. Both run this checkout's ``chip_smoke.py`` functions, loaded by path, on each
+tree's own kernels, and tabulate the runs side by side. Every run prints its wall seconds, and the
 seconds of each phase where the tree prints them (``phase seconds:``, else from the phases'
 start times), with the host CPU. Exits with the first failing run's code.
 """
@@ -330,6 +338,42 @@ PARALLEL_TIMES = ("import torch, chip_smoke as cs\n"
                   "noise = [(b - f).abs().mean().item() for b, f in zip(cpu[bf], cpu[fp])]\n"
                   "cs.run_parallel(dev, card, x, heads, noise)\n"
                   "print(f'host [{cs.host_cpu()}]')\n")
+# the code of --yardsticks and --k1-proj: this checkout's chip_smoke.py, loaded
+# by its path (@HERE@), drives each tree's own kernels (the tree's package is
+# imported from its root), so a parent older than these functions is timed by
+# the same code as the change
+_HERE_SMOKE = ("import importlib.util, time, torch\n"
+               "spec = importlib.util.spec_from_file_location('here_smoke', @HERE@)\n"
+               "hs = importlib.util.module_from_spec(spec)\n"
+               "spec.loader.exec_module(hs)\n"
+               "torch.backends.cuda.matmul.allow_tf32 = False\n"
+               "torch.backends.cudnn.allow_tf32 = False\n"
+               "dev, gen, card = torch.device('cuda'), torch.Generator().manual_seed(0), "
+               "hs.card_line()\n")
+# every kernel beside PyTorch's own chain for its function (--yardsticks)
+YARDSTICKS = _HERE_SMOKE + ("hs.yardsticks(dev, gen, card)\n"
+                            "print(f'host [{hs.host_cpu()}]')\n")
+# K1's projection at Tramba-V's SS2D shapes (--k1-proj), then Tramba-V's, -R's
+# and BaseUMamba's bf16 B16 forwards with their profiles (each tree's groups)
+K1_PROJ = _HERE_SMOKE + ("import chip_smoke as cs\n"
+                         "from tramba_tpu_torch.models.registry import build\n"
+                         "hs.k1_proj_sweep(dev, gen, card)\n"
+                         "for method in ('Tramba-V-TSOD', 'Tramba-R-TSOD', 'BaseUMamba-SOD'):\n"
+                         "    model = build(method, 384, device=dev, seed=0, dtype=torch.bfloat16)\n"
+                         "    xb = torch.randn(16, 384, 384, 3, generator=gen).to(dev)\n"
+                         "    with torch.no_grad():\n"
+                         "        ms = cs.cuda_ms(lambda: model(xb), 5, warmup=2)\n"
+                         "        print(f'{method} 384px bf16 B16: {ms:.2f} ms/forward [{card}]', "
+                         "flush=True)\n"
+                         "        t0 = time.perf_counter()\n"
+                         "        for _ in range(3):\n"
+                         "            model(xb)\n"
+                         "        torch.cuda.synchronize()\n"
+                         "    cs.profile_breakdown(lambda: model(xb), (time.perf_counter() - t0) "
+                         "/ 3 * 1e3, f'{method} bf16 B16')\n"
+                         "    del model, xb\n"
+                         "    torch.cuda.empty_cache()\n"
+                         "print(f'host [{hs.host_cpu()}]')\n")
 # each narrow mode: its flag, the code it runs in each tree's root, its help
 MODES = {"--ffn-bwd": (FFN_BWD, "run only phase 3's K9 / K10 checks of each tree"),
          "--k5-k10": (K5_K10, "run only phase 3's K5 / K10 checks of each tree"),
@@ -341,6 +385,13 @@ MODES = {"--ffn-bwd": (FFN_BWD, "run only phase 3's K9 / K10 checks of each tree
          "--k12-k14": (K12_K14, "run only phase 3's K12 / K14 checks of each tree, time them at "
                                 "B2 and B16, time and profile Tramba-P's bf16 B16 forward and "
                                 "time phase 10's parallel backends"),
+         "--yardsticks": (YARDSTICKS, "time each tree's kernels in turns with PyTorch's own "
+                                      "chain for each one's function, at phase 3's shapes at "
+                                      "B2 and Tramba-V's at B16"),
+         "--k1-proj": (K1_PROJ, "time K1's projection of each tree at Tramba-V's SS2D shapes "
+                                "(B2, B16) beside x.float() @ wx^T with its error against fp64, "
+                                "then Tramba-V's, -R's and BaseUMamba's bf16 B16 forwards with "
+                                "their profiles"),
          "--train-times": (TRAIN_TIMES, "run phase 8's steps of every model but Tramba-V with "
                                         "their ms per step, peak memory and profiles"),
          "--parallel-times": (PARALLEL_TIMES, "run phase 10 with each backend's ms per forward "
@@ -369,6 +420,29 @@ def phase_times(stdout: str, wall: float) -> dict:
     return {name: end - at for (name, at), end in zip(starts, ends)}
 
 
+# a --yardsticks line: kernel, tag, shape, the kernel's two ms, the chain's two
+YARD = re.compile(r"^yard (\S+) ((?:fp32|bf16)(?: train)?) (.*?): kernel ([\d.]+) / ([\d.]+) "
+                  r"ms, lib ([\d.]+) / ([\d.]+) ms")
+# a --k1-proj line: tag, shape, in-scan ms, alone ms (nan without ss2d_proj),
+# lib ms, bound ms, dbc's error as a share of max |fp64|
+K1PROJ = re.compile(r"^k1proj (fp32|bf16) (.*?): in-scan ([\d.]+) ms, alone ([\d.]+|nan) ms, "
+                    r"lib ([\d.]+) ms, bound ([\d.]+) ms \(\w+\), dbc err/max\|fp64\| (\S+)")
+
+
+def side_times(stdout: str) -> dict:
+    """{("yard", kernel, tag, shape): (kernel ms, lib ms)}, each the mean of
+    its two turns, and {("k1proj", tag, shape): (in-scan ms, alone ms, lib
+    ms, bound ms, error share)} of a --yardsticks or --k1-proj run."""
+    out = {}
+    for line in stdout.splitlines():
+        if m := YARD.match(line):
+            out["yard", m[1], m[2], m[3]] = ((float(m[4]) + float(m[5])) / 2,
+                                             (float(m[6]) + float(m[7])) / 2)
+        elif m := K1PROJ.match(line):
+            out["k1proj", m[1], m[2]] = tuple(float(v) for v in m.group(3, 4, 5, 6, 7))
+    return out
+
+
 # a line of the K3_K4, K11_K13 or K12_K14 snippet's timing: name, dtype, shape,
 # ms, plain ms
 B16 = re.compile(r"^(?:b16|time) (expand_ln|final_head|ln_dwmlp|sra|window_attn|linear_scan) "
@@ -391,7 +465,9 @@ def main(argv=None) -> int:
     runs, phases = [], []
     for i, tree in enumerate(args.trees):
         root = os.path.abspath(tree)
-        cmd = ["-c", MODES[mode][0]] if mode else [os.path.join(root, "chip_smoke.py")]
+        here = repr(os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py"))
+        cmd = (["-c", MODES[mode][0].replace("@HERE@", here)] if mode
+               else [os.path.join(root, "chip_smoke.py")])
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, *cmd], cwd=root, capture_output=True, text=True,
                              timeout=1500)
@@ -403,7 +479,7 @@ def main(argv=None) -> int:
             print(f"{tree}: chip_smoke.py exited {res.returncode}\n{res.stdout[-2000:]}\n"
                   f"{res.stderr[-4000:]}", file=sys.stderr)
             return res.returncode
-        runs.append((tree, times(res.stdout), kernel_times(res.stdout)))
+        runs.append((tree, times(res.stdout), kernel_times(res.stdout), side_times(res.stdout)))
         host = HOST_CPU.search(res.stdout)
         phases.append((tree, wall, phase_times(res.stdout, wall), host[1] if host else "?"))
         print(f"run {i} {tree}: {wall:.1f} s wall [{phases[-1][3]}]; {runs[-1][1]}, "
@@ -417,15 +493,31 @@ def main(argv=None) -> int:
     print(f"ms per forward or step, runs in order [{card}]")
     for key in runs[0][1]:
         print(f"{key:14s} " + "  ".join(f"{tree}: {t.get(key, float('nan')):.2f}"
-                                        for tree, t, _ in runs))
+                                        for tree, t, _, _ in runs))
     print(f"kernels: ms per call (bound ms; gemm ms; plain ms), runs in order [{card}]")
-    keys = list(dict.fromkeys(k for _, _, sc in runs for k in sc))
+    keys = list(dict.fromkeys(k for _, _, sc, _ in runs for k in sc))
     for key in keys:
         cells = []
-        for tree, _, sc in runs:
+        for tree, _, sc, _ in runs:
             ms, bound, gemm, plain = sc.get(key, (float("nan"),) * 4)
             cells.append(f"{tree}: {ms:.4f} ({bound:.4f}; {gemm:.4f}; {plain:.4f})")
         print(f"{' '.join(key):48s} " + "  ".join(cells))
+    side = list(dict.fromkeys(k for *_, st in runs for k in st))
+    if side:
+        print(f"yardsticks: kernel ms / lib ms (lib / kernel); K1's projection: in-scan ms, "
+              f"alone ms, lib ms, bound ms, error share; runs in order [{card}]")
+    for key in side:
+        cells = []
+        for tree, *_, st in runs:
+            v = st.get(key)
+            if v is None:
+                cells.append(f"{tree}: -")
+            elif key[0] == "yard":
+                cells.append(f"{tree}: {v[0]:.4f} / {v[1]:.4f} ({v[1] / v[0]:.2f})")
+            else:
+                cells.append(f"{tree}: {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}, {v[3]:.4f}, "
+                             f"{v[4]:.2e}")
+        print(f"{' '.join(key):56s} " + "  ".join(cells))
     return 0
 
 

@@ -106,7 +106,16 @@ Phases, each of which must pass (any failure exits non-zero):
                where the K1 check must also reject the plain version
                reading its last direction's table backwards and K2's
                planted faults fail as above, and K1's and K2's train
-               variants and K8 over spiral8 (K = 8) in both dtypes
+               variants and K8 over spiral8 (K = 8) in both dtypes; at
+               every SS2D shape of the K1 checks (fp32, bf16), K1's
+               projection launch alone (``ss2d_proj``) within PROJ_REL_TOL
+               (1e-6) x max |fp64 product|, launched twice for the same
+               bits, one native launch at ops/proj_stages.py's plan, K1's
+               own dbc equal to it, the mirror of its tiling and split
+               passing the bar and with each planted fault (no second and
+               third terms, no last column tile, row tiles from row 0)
+               failing it, timed beside ``x.float() @ wx^T`` ("lib", a
+               yardstick the port never calls) and its bound
   4. model     full-width Tramba-V-TSOD, Tramba-P-TSOD, Tramba-S-TSOD,
                Tramba-R-TSOD and BaseUMamba-SOD at
                384px, seeded weights, batch 2 on the card, each in fp32
@@ -244,6 +253,10 @@ BWD_REL_TOL = 1e-4
 # long sums of dW1 and dx, to bf16, so one flipped rounding moves a whole sum:
 # each output's max abs error is held to this share of its largest magnitude
 BWD_REL_TOL_BF16 = 1e-2
+# K1's projection (ss2d_proj, on wgmma with its fp32 operands split into
+# bf16 terms): max abs difference from an fp64 product of the same inputs,
+# as a share of that product's largest magnitude, at every shape and dtype
+PROJ_REL_TOL = 1e-6
 # reduced-depth train step, card vs CPU: fp32; bf16 as the forward's heads
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-4, 1e-3
 NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
@@ -415,6 +428,9 @@ class Checks:
 
     def __init__(self):
         self.rows = {}
+        # K1's projection launch: {tag: [(label, max_abs_err, ms, plain_ms,
+        # lib_ms, bound_ms, bound_by)]}
+        self.proj = {}
 
     def compare(self, name, dt, label, kernel, plain, reps, inputs, flops, tag=None,
                 rel_tol=None, gemm=None, lib=None):
@@ -555,6 +571,78 @@ def scan_ops(x, core):
     B, L, D = x.shape
     K, C, _ = core[0].shape
     return ops(torch.float32, 2 * B * K * L * D * (2 * C - 2), 12 * B * K * L * D)
+
+
+def proj_bound(x, x_proj_w):
+    """(bound_ms, bound_by) of K1's projection: x read once, dbc (fp32)
+    written once, and its 2 M N D operations at the tensor cores' bf16 rate
+    (the least an fp32-accurate product on them could take)."""
+    B, L, D = x.shape
+    K, C, _ = x_proj_w.shape
+    dbc = torch.empty(B, L, K, C, device="meta")
+    return bound((x, x_proj_w, dbc), {"bf16": 2 * B * L * K * C * D})
+
+
+def proj_error(dbc, x, x_proj_w) -> tuple:
+    """(max |dbc - the fp64 product|, that over max |the fp64 product|)."""
+    B, L, D = x.shape
+    K, C, _ = x_proj_w.shape
+    ref = (x.double().reshape(B * L, D) @ x_proj_w.double().reshape(K * C, D).t())
+    err = (dbc.double().reshape(B * L, K * C) - ref).abs().max().item()
+    return err, err / ref.abs().max().item()
+
+
+def check_proj(checks, dt, label, x, x_proj_w, idx, core):
+    """K1's projection launch alone (``ss2d_proj``) at one SS2D shape: within
+    :data:`PROJ_REL_TOL` of an fp64 product; two launches give the same bits;
+    one native launch a call, at the plan of ops/proj_stages.py's
+    ``proj_plan``, whose mirror of the tiling and split passes the same bar
+    and, with each planted fault, fails it; K1's train variant's dbc is this
+    launch's, bit for bit (K1 runs it); timed beside ``x.float() @ wx^T`` as
+    one fp32 cuBLAS call (TF32 off: "lib", a yardstick the port never calls)
+    and its bound.  The result goes to ``checks.proj`` (the kernels line)."""
+    from tramba_tpu_torch.ops import fused_ss2d as tf
+    from tramba_tpu_torch.ops import proj_stages as ps
+
+    tag = NAMES[dt]
+    got = tf.ss2d_proj(x, x_proj_w)
+    err, share = proj_error(got, x, x_proj_w)
+    if not share <= PROJ_REL_TOL:
+        raise AssertionError(f"ss2d_proj {tag} {label}: max abs error {share:.3e} of max|fp64| "
+                             f"> {PROJ_REL_TOL}")
+    if not torch.equal(got, tf.ss2d_proj(x, x_proj_w)):
+        raise AssertionError(f"ss2d_proj {tag} {label}: two launches differ")
+    _, _, dbc = tf.ss2d_scan(x, idx, *core, emit=True)
+    if not torch.equal(dbc, got):
+        raise AssertionError(f"ss2d_proj {tag} {label}: K1's dbc is not the projection launch's")
+    del dbc
+    n = native_launches(lambda: tf.ss2d_proj(x, x_proj_w))
+    B, L, D = x.shape
+    K, C, _ = x_proj_w.shape
+    plan = tf.ss2d_proj_plan(B * L, D, K * C, dt)
+    if n != 1 or plan != ps.proj_plan(B * L, D, K * C, dt):
+        raise AssertionError(f"ss2d_proj {tag} {label}: {n} native launches a call, plan {plan}, "
+                             f"the mirror's {ps.proj_plan(B * L, D, K * C, dt)}")
+    mirror = proj_error(ps.proj_tiled_ref(x, x_proj_w, plan), x, x_proj_w)[1]
+    if not mirror <= PROJ_REL_TOL:
+        raise AssertionError(f"ss2d_proj {tag} {label}: the mirror reads {mirror:.3e}")
+    faults = {f: proj_error(ps.proj_tiled_ref(x, x_proj_w, plan, fault=f), x, x_proj_w)[1]
+              for f in ps.PROJ_FAULTS}
+    passed = [f for f, e in faults.items() if e <= PROJ_REL_TOL]
+    if passed:
+        raise AssertionError(f"ss2d_proj {tag} {label}: planted faults {passed} pass the bar")
+    ms = cuda_ms(lambda: tf.ss2d_proj(x, x_proj_w), 5, warmup=1)
+    plain_ms = cuda_ms(lambda: tf.ss2d_proj_ref(x, x_proj_w), 1, warmup=0)
+    lib_ms = cuda_ms(lambda: proj_lib(x, x_proj_w), 5, warmup=2)
+    bound_ms, bound_by = proj_bound(x, x_proj_w)
+    checks.proj.setdefault(tag, []).append((label, err, ms, plain_ms, lib_ms, bound_ms,
+                                            bound_by))
+    print(f"ss2d_proj       {tag:10s} {label:34s} max_abs_err {err:.3e} err/max|fp64| "
+          f"{share:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms lib {lib_ms:.4f} ms bound "
+          f"{bound_ms:.4f} ms ({bound_by}); 1 native launch, rows "
+          f"{plan['rows']} wn {plan['wn']} x {plan['ctiles']} column tiles, "
+          f"{plan['tiles']} row tiles; mirror {mirror:.3e}, faults "
+          + ", ".join(f"{f!r} {e:.1e}" for f, e in faults.items()), flush=True)
 
 
 def merge_ops(ys, w_out):
@@ -898,6 +986,7 @@ def check_ss2d_expand(checks, dev, gen, dt, ss2d_shapes=SS2D_SHAPES, expand_shap
         want = checks.compare("ss2d_scan", dt, label, lambda: tf.ss2d_scan(x, idx, *core),
                               lambda: tf.ss2d_scan_ref(x, idx, *core), reps=5,
                               inputs=(x, idx, *core), flops=scan_ops(x, core))
+        check_proj(checks, dt, label, x, core[0], idx, core)
         if table_fault:
             flipped = idx.clone()
             flipped[-1] = idx[-1].flip(0)
@@ -1183,6 +1272,103 @@ def window_attn_lib(x, ln_w, ln_b, wqkv, bqkv, am, wp, bp, nh, eps=1e-5):
     out = F.linear(o.transpose(-2, -3).reshape(win.shape), wp, bp.to(bf))
     out = out.reshape(B, H // w, W // w, w, w, C).permute(0, 1, 3, 2, 4, 5)
     return out.reshape(B, H, W, C)
+
+
+# PyTorch's own spellings of the other kernels' functions ("lib": yardsticks
+# the port never calls; ``chip_ab.py --yardsticks`` times each beside its
+# kernel): cuBLAS in the compute dtype (TF32 off), cuDNN's depthwise convs,
+# F.layer_norm and exact GELU.  K1's scans, K8 and K14 have none: no PyTorch
+# call computes a first-order linear recurrence.
+def proj_lib(x, x_proj_w):
+    """K1's projection as one fp32 cuBLAS product: x.float() @ wx^T, x (B,
+    L, D), x_proj_w (K, R+2, D) -> (B, L, K, R+2)."""
+    B, L, D = x.shape
+    K, C, _ = x_proj_w.shape
+    return (x.float().reshape(B * L, D) @ x_proj_w.reshape(K * C, D).t()).reshape(B, L, K, C)
+
+
+def merge_lib(ys, idx, ln_w, ln_b, w_out):
+    """K2's function: each pixel's sum of its direction outputs by one
+    index_add_ through the forward table idx (K, L) (the same sum as the
+    inverse table's gather: slot m of pixel l in direction k is the step t
+    with idx[k, t] = l), F.layer_norm (eps 1e-5), exact GELU, then F.linear
+    in w_out's dtype."""
+    F = torch.nn.functional
+    B, K, L, D = ys.shape
+    y = ys.new_zeros(B, L, D).index_add_(1, idx.reshape(-1).long(), ys.reshape(B, K * L, D))
+    a = F.gelu(F.layer_norm(y, (D,), ln_w, ln_b, 1e-5))
+    return F.linear(a.to(w_out.dtype), w_out)
+
+
+def expand_lib(x, w, ln_w, ln_b):
+    """K3's function: F.linear, the x2 pixel shuffle, F.layer_norm."""
+    F = torch.nn.functional
+    B, H, W, _ = x.shape
+    e = F.linear(x, w)
+    co = e.shape[-1] // 4
+    e = e.reshape(B, H, W, 2, 2, co).permute(0, 1, 3, 2, 4, 5).reshape(B, 2 * H, 2 * W, co)
+    return F.layer_norm(e, (co,), ln_w.to(x.dtype), ln_b.to(x.dtype), 1e-5)
+
+
+def head_lib(x, w1, ln_w, ln_b, seg_w, seg_b):
+    """K4's function: K3's F.linear, F.layer_norm of each of the 16 slots,
+    then the per-slot head as F.linear."""
+    F = torch.nn.functional
+    B, h, w, C = x.shape
+    e = F.linear(x, w1).reshape(B, h, w, 16, C)
+    y = F.layer_norm(e, (C,), ln_w.to(x.dtype), ln_b.to(x.dtype), 1e-5)
+    return F.linear(y, seg_w.to(x.dtype)[None], seg_b.to(x.dtype))[..., 0]
+
+
+def prologue_lib(x, ln_w, ln_b, w_in, conv_k):
+    """K5's function: F.layer_norm (none for a guide), in_proj as F.linear,
+    cuDNN's depthwise 3x3, SiLU."""
+    F = torch.nn.functional
+    y = x if ln_w is None else F.layer_norm(x, (x.shape[-1],), ln_w.to(x.dtype),
+                                            ln_b.to(x.dtype), 1e-5)
+    u = F.linear(y, w_in).permute(0, 3, 1, 2)
+    return F.silu(F.conv2d(u, conv_k, padding=1, groups=w_in.shape[0])).permute(0, 2, 3, 1)
+
+
+def ln_mlp_lib(x, ln_w, ln_b, w1, b1, w2, b2):
+    """K6's function: F.layer_norm, fc1, exact GELU, fc2."""
+    F, dt = torch.nn.functional, x.dtype
+    y = F.layer_norm(x, (x.shape[-1],), ln_w.to(dt), ln_b.to(dt), 1e-5)
+    return F.linear(F.gelu(F.linear(y, w1, b1.to(dt))), w2, b2.to(dt))
+
+
+def ln_dwms_mlp_lib(x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2):
+    """K7's function: F.layer_norm, fc1, the map plus cuDNN's three
+    depthwise convs (3, 5, 7, with biases), exact GELU, fc2."""
+    F, dt = torch.nn.functional, x.dtype
+    y = F.layer_norm(x, (x.shape[-1],), ln_w.to(dt), ln_b.to(dt), 1e-5)
+    h = F.linear(y, w1, b1.to(dt)).permute(0, 3, 1, 2)
+    a = h
+    for k, c in ((k3, c3), (k5, c5), (k7, c7)):
+        a = a + F.conv2d(h, k, c.to(dt), padding=k.shape[-1] // 2, groups=h.shape[1])
+    return F.linear(F.gelu(a).permute(0, 2, 3, 1), w2, b2.to(dt))
+
+
+def _grads(fn, x, g, params):
+    """torch.autograd.grad of fn(x, *params) for the cotangent g, with
+    respect to x and every parameter."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (x, *params)]
+        return torch.autograd.grad(fn(*xs), xs, g)
+
+
+def ln_mlp_bwd_lib(x, g, ln_w, ln_b, w1, b1, w2):
+    """K9's function: autograd through :func:`ln_mlp_lib` (b2 0): (dx,
+    d_ln_w, d_ln_b, dw1, db1, dw2, db2)."""
+    b2 = torch.zeros(w2.shape[0], device=x.device, dtype=b1.dtype)
+    return _grads(ln_mlp_lib, x, g, (ln_w, ln_b, w1, b1, w2, b2))
+
+
+def ln_dwms_mlp_bwd_lib(x, g, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2):
+    """K10's function: autograd through :func:`ln_dwms_mlp_lib` (b2 0): (dx,
+    d_ln_w, d_ln_b, dw1, db1, dk3, dc3, dk5, dc5, dk7, dc7, dw2, db2)."""
+    b2 = torch.zeros(w2.shape[0], device=x.device, dtype=b1.dtype)
+    return _grads(ln_dwms_mlp_lib, x, g, (ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2))
 
 
 def check_encoder_kernels(checks, dev, gen, batches=(2, 16)):
@@ -1786,7 +1972,8 @@ GROUPS = (("linear_scan_", "K14 linear_scan"),  # both routes' kernels
           ("bwd_wgrad_kernel", "K8 ss2d_scan_bwd, (d) weight partials"),
           ("sum_parts_kernel", "K8 ss2d_scan_bwd, (e) partial sums"),
           ("ss2d_seg_kernel", "K1 ss2d_scan, segment scans"),
-          ("ss2d_proj_kernel", "K1 ss2d_scan, projection launch"),
+          ("ss2d_proj_split_kernel", "K1 ss2d_scan, projection launch"),
+          ("proj_terms_kernel", "K1 ss2d_scan, weight terms (once a weight version)"),
           ("ss2d_merge_kernel", "K2 ss2d_merge"),
           ("expand_wgmma_kernel", "K3 expand_ln"), ("expand_simt_kernel", "K3 expand_ln"),
           ("head_wgmma_kernel", "K4 final_head"), ("head_simt_kernel", "K4 final_head"),
@@ -2349,6 +2536,186 @@ def run_parallel(dev, card, x, default_heads, noise, measure=True):
     return step_launches["dp x tp"]
 
 
+def proj_in_scan_ms(x, idx, core, iters=5) -> float:
+    """Device ms a call of K1's projection launch inside ``ss2d_scan``, from
+    torch.profiler: the kernels whose name holds "ss2d_proj" (a tree whose
+    projection has no entry point of its own is timed so too)."""
+    from tramba_tpu_torch.ops import fused_ss2d as tf
+    from tramba_tpu_torch.utils.profiling import device_time_by_kernel
+
+    times = device_time_by_kernel(lambda: tf.ss2d_scan(x, idx, *core), iters=iters)
+    return sum(us for name, (us, _) in times.items() if "ss2d_proj" in name) / iters / 1e3
+
+
+def k1_proj_sweep(dev, gen, card, batches=(2, 16)):
+    """K1's projection at Tramba-V's 13 SS2D shapes, fp32 and bf16, at each
+    batch of ``batches``: its device time inside ``ss2d_scan``
+    (:func:`proj_in_scan_ms`), its time alone by CUDA events where the tree
+    has ``ss2d_proj``, ``x.float() @ wx^T`` (:func:`proj_lib`), the bound,
+    and K1's own dbc against an fp64 product (``chip_ab.py --k1-proj`` runs it
+    in each tree)."""
+    from tramba_tpu_torch.ops import fused_ss2d as tf
+
+    for B in batches:
+        for dt in (FP32, BF16):
+            for kind, H, d_model, param in SS2D_SHAPES:
+                _, x, core, idx, _, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
+                wx = core[0]
+                err, share = proj_error(tf.ss2d_scan(x, idx, *core, emit=True)[2], x, wx)
+                scan_ms = proj_in_scan_ms(x, idx, core)
+                alone = (cuda_ms(lambda: tf.ss2d_proj(x, wx), 20, warmup=2)
+                         if hasattr(tf, "ss2d_proj") else float("nan"))
+                lib_ms = cuda_ms(lambda: proj_lib(x, wx), 20, warmup=2)
+                bound_ms, bound_by = proj_bound(x, wx)
+                print(f"k1proj {NAMES[dt]} {label}: in-scan {scan_ms:.4f} ms, alone {alone:.4f} "
+                      f"ms, lib {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), dbc "
+                      f"err/max|fp64| {share:.3e} max_abs {err:.3e} [{card}]", flush=True)
+                del x, core, idx
+        torch.cuda.empty_cache()
+
+
+def yardsticks(dev, gen, card, batches=(2, 16)):
+    """Each kernel beside its function as PyTorch's own calls ("lib"), timed
+    in turns (kernel, lib, kernel, lib; CUDA events, each warmed) at the
+    main-path shapes of phase 3 at the first batch (Tramba-V's, -P's and
+    -R's) and at Tramba-V's (K11-K13: Tramba-P's and -S's) at the others:
+    K1's projection (:func:`proj_lib`; a tree without ``ss2d_proj`` is
+    timed inside ``ss2d_scan`` by the profiler), K2 :func:`merge_lib`, K3
+    :func:`expand_lib`, K4 :func:`head_lib` (fp32 and bf16), K5
+    :func:`prologue_lib`, K6 :func:`ln_mlp_lib`, K7 :func:`ln_dwms_mlp_lib`,
+    K9 :func:`ln_mlp_bwd_lib`, K10 :func:`ln_dwms_mlp_bwd_lib`, K11
+    :func:`dwmlp_lib`, K12 :func:`sra_lib`, K13 :func:`window_attn_lib`
+    (bf16).  One line each: ``yard <kernel> <tag> <shape>: kernel a / b ms,
+    lib c / d ms``.  ``chip_ab.py --yardsticks`` runs it in each tree."""
+    from tramba_tpu_torch.models.swin import shift_attn_mask
+    from tramba_tpu_torch.nn.init import init_weights
+    from tramba_tpu_torch.nn.layers import _Expand
+    from tramba_tpu_torch.nn.ssm import SS2D
+    from tramba_tpu_torch.ops import fused_attn as ta
+    from tramba_tpu_torch.ops import fused_expand as te
+    from tramba_tpu_torch.ops import fused_mlp as tm
+    from tramba_tpu_torch.ops import fused_prologue as tp
+    from tramba_tpu_torch.ops import fused_ss2d as tf
+
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+
+    def ln(d):
+        return rnd(d, scale=0.1, shift=1.0), rnd(d, scale=0.1)
+
+    def timed(name, tag, label, kernel, lib, reps=10, note=""):
+        t = [cuda_ms(f, reps, warmup=2) for f in (kernel, lib, kernel, lib)]
+        print(f"yard {name} {tag} {label}: kernel {t[0]:.4f} / {t[2]:.4f} ms, lib {t[1]:.4f} / "
+              f"{t[3]:.4f} ms{note} [{card}]", flush=True)
+
+    for B in batches:
+        first = B == batches[0]
+        for dt in (FP32, BF16):
+            tag = NAMES[dt]
+            for kind, H, d_model, param in SS2D_SHAPES + (SS2D_SHAPES_P + SS2D_SHAPES_R
+                                                          if first else ()):
+                m, x, core, idx, inv, label = ss2d_case(dev, gen, dt, kind, H, d_model, param, B)
+                wx = core[0]
+                if hasattr(tf, "ss2d_proj"):
+                    timed("ss2d_proj", tag, label, lambda: tf.ss2d_proj(x, wx),
+                          lambda: proj_lib(x, wx))
+                else:
+                    k = [proj_in_scan_ms(x, idx, core) for _ in range(2)]
+                    lib = [cuda_ms(lambda: proj_lib(x, wx), 10, warmup=2) for _ in range(2)]
+                    print(f"yard ss2d_proj {tag} {label}: kernel {k[0]:.4f} / {k[1]:.4f} ms, lib "
+                          f"{lib[0]:.4f} / {lib[1]:.4f} ms (kernel: device time inside "
+                          f"ss2d_scan) [{card}]", flush=True)
+                ys = rnd(B, idx.shape[0], H * H, x.shape[-1])
+                tail = (m.out_norm.weight.data, m.out_norm.bias.data, m.out_proj.weight.data.to(dt))
+                timed("ss2d_merge", tag, label, lambda: tf.ss2d_merge(ys, inv, *tail),
+                      lambda: merge_lib(ys, idx, *tail))
+                del x, core, idx, inv, ys
+            for H, C, f in EXPAND_SHAPES + (EXPAND_SHAPES_P + EXPAND_SHAPES_R if first else ()):
+                e = init_weights(_Expand(C, f), gen).to(dev)
+                args = (rnd(B, H, H, C).to(dt), e.expand.weight.data.to(dt), e.norm.weight.data,
+                        e.norm.bias.data)
+                timed("expand_ln", tag, f"f{f} {H}px B{B} C{C}", lambda: te.expand_ln(*args),
+                      lambda: expand_lib(*args))
+            for C in (128, 64, 256) if first else (128,):
+                args = head_inputs(dev, gen, dt, C, B)
+                timed("final_head", tag, f"96px B{B} C{C}", lambda: te.final_head(*args),
+                      lambda: head_lib(*args))
+            if first:  # K2 as _lgp_pallas (check_lgp): K=1, the identity table
+                L, D, dm = 24 * 24, 1024, 512
+                idx = torch.arange(L, dtype=torch.int32, device=dev)
+                ys, tail = rnd(B, 1, L, D), (*ln(D), rnd(dm, D, scale=D ** -0.5).to(dt))
+                timed("ss2d_merge", tag, f"lgp 24px B{B} K1 D{D}",
+                      lambda: tf.ss2d_merge(ys, idx.reshape(1, 1, L), *tail),
+                      lambda: merge_lib(ys, idx.reshape(1, L), *tail))
+            torch.cuda.empty_cache()
+        for shapes in (BF16_SHAPES, BF16_SHAPES_P, BF16_SHAPES_R) if first else (BF16_SHAPES,):
+            for H, dm, with_ln in shapes["prologue"]:
+                m = init_weights(SS2D(dm), gen).to(dev)
+                norm = ln(dm) if with_ln else (None, None)
+                args = (rnd(B, H, H, dm).to(bf), *norm, m.in_proj.weight.data.to(bf),
+                        m.conv2d.weight.data.to(bf))
+                label = f"{'enc/dec LN' if with_ln else 'guide'} {H}px B{B} dm{dm} D{2 * dm}"
+                timed("prologue", "bf16", label, lambda: tp.prologue(*args),
+                      lambda: prologue_lib(*args))
+            for name, kernel, lib, dwms in (("ln_mlp", tm.ln_mlp, ln_mlp_lib, False),
+                                            ("ln_dwms_mlp", tm.ln_dwms_mlp, ln_dwms_mlp_lib,
+                                             True)):
+                for H, d in shapes[name]:
+                    params = [p.to(bf) if p.dim() > 1 else p for p in ffn_case(gen, dev, d, dwms)]
+                    x = rnd(B, H, H, d).to(bf) if dwms else rnd(B, H * H, d).to(bf)
+                    timed(name, "bf16", f"{H}px B{B} d{d} hid{4 * d}",
+                          lambda: kernel(x, *params), lambda: lib(x, *params))
+        if first:  # K7 at Queue 2 #21's shape (check_dwms_grid_shape)
+            H, W, d, hid = 12, 8, 16, 256
+            convs = [t for n in (3, 5, 7) for t in (rnd(hid, 1, n, n, scale=0.2).to(bf),
+                                                    rnd(hid, scale=0.2))]
+            args = (rnd(B, H, W, d).to(bf), *ln(d), rnd(hid, d, scale=0.2).to(bf),
+                    rnd(hid, scale=0.2), *convs, rnd(d, hid, scale=0.2).to(bf), rnd(d, scale=0.2))
+            timed("ln_dwms_mlp", "bf16", f"#21 {H}x{W}px B{B} d{d} hid{hid}",
+                  lambda: tm.ln_dwms_mlp(*args), lambda: ln_dwms_mlp_lib(*args))
+        for shapes in (MLP_BWD_SHAPES, MLP_BWD_SHAPES_P, MLP_BWD_SHAPES_R) if first else (
+                MLP_BWD_SHAPES,):
+            for H, d, dwms in shapes:
+                params = ffn_case(gen, dev, d, dwms)[:-1]
+                lib_params = [p.to(bf) if p.dim() > 1 else p for p in params]
+                x, g = rnd(B, H, H, d).to(bf), rnd(B, H, H, d).to(bf)
+                name, kernel, lib = (("ln_dwms_mlp_bwd", tm.ln_dwms_mlp_bwd, ln_dwms_mlp_bwd_lib)
+                                     if dwms else ("ln_mlp_bwd", tm.ln_mlp_bwd, ln_mlp_bwd_lib))
+                timed(name, "bf16 train", f"{H}px B{B} d{d} hid{4 * d}",
+                      lambda: kernel(x, g, *params), lambda: lib(x, g, *lib_params), reps=5)
+            torch.cuda.empty_cache()
+        zeros = functools.partial(torch.zeros, device=dev)
+        for H, d, hid in K11_SHAPES:
+            (g, b), k3 = ln(d), rnd(hid, 1, 3, 3, scale=1 / 3).to(bf)
+            args = (rnd(B, H, H, d).to(bf), g, b, rnd(hid, d, scale=d ** -0.5).to(bf),
+                    rnd(hid, scale=0.1), k3, rnd(hid, scale=0.1),
+                    rnd(d, hid, scale=hid ** -0.5).to(bf), zeros(d))
+            timed("ln_dwmlp", "bf16", f"{H}px B{B} d{d} hid{hid}", lambda: tm.ln_dwmlp(*args),
+                  lambda: dwmlp_lib(*args))
+        for H, C, nh in K12_SHAPES:
+            (g, b), wq, wp = ln(C), rnd(C, C, scale=C ** -0.5).to(bf), rnd(
+                C, C, scale=C ** -0.5).to(bf)
+            args = (rnd(B, H * H, C, scale=2.0).to(bf), g, b, wq, rnd(C, scale=0.1),
+                    rnd(B, nh, 144, C // nh).to(bf), rnd(B, nh, 144, C // nh).to(bf), wp, zeros(C))
+            timed("sra", "bf16", f"{H}px N{H * H} B{B} C{C} nh{nh} Lk144",
+                  lambda: ta.sra(*args, nh), lambda: sra_lib(*args, nh))
+        for H, C, nh in K13_SHAPES:
+            bias = rnd(nh, 144, 144)
+            for mask in (None, torch.from_numpy(shift_attn_mask(H, H, 12, 6)).to(dev)):
+                (g, b), wqkv, bqkv, wp = ln(C), rnd(3 * C, C, scale=C ** -0.5).to(bf), rnd(
+                    3 * C, scale=0.1), rnd(C, C, scale=C ** -0.5).to(bf)
+                x = rnd(B, H, H, C, scale=2.0).to(bf)
+                args = (x, g, b, wqkv, bqkv, bias, mask, wp, zeros(C))
+                am = (bias[None] + (0 if mask is None else mask[:, None])).to(bf)
+                timed("window_attn", "bf16", f"{H}px B{B} C{C} nh{nh} "
+                      f"{'shifted' if mask is not None else 'unshifted'}",
+                      lambda: ta.window_attn(*args, nh),
+                      lambda: window_attn_lib(x, g, b, wqkv, bqkv, am, wp, zeros(C), nh))
+        torch.cuda.empty_cache()
+
+
 # the kernels' summary line: each wrapper's CUDA source and the TPU kernel it
 # replaces (file:line)
 _CSRC = "tramba_tpu_torch/csrc/"
@@ -2546,6 +2913,17 @@ def main() -> int:
                         "launches": n,
                         "max_abs_err": max(r[1] for r in rows), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                        "shape": label})
+    for tag, rows in checks.proj.items():  # K1's projection launch, in K1's launches
+        label, _, ms, plain_ms, lib_ms, bound_ms, bound_by = next(
+            r for r in rows if r[0].startswith(SHOWN["ss2d_scan"]))
+        summary.append({"name": "ss2d_proj", "dtype": tag, "route": "cuda",
+                        "source": SOURCES["ss2d_scan"][0],
+                        "replaces": REPLACED.get(("ss2d_scan", tag), SOURCES["ss2d_scan"][1]),
+                        "launches": launches["Tramba-V-TSOD", torch.bfloat16 if tag == "bf16"
+                                             else torch.float32]["ss2d_scan"],
+                        "max_abs_err": max(r[1] for r in rows), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                         "shape": label})
     print(f"phase seconds: {phase_seconds()} [{card}] [{host_cpu()}]", flush=True)
     print(json.dumps({"kernels": summary}))

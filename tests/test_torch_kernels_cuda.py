@@ -918,3 +918,88 @@ def test_linear_scan_gradient_is_k14_reversed(dev):
     assert got[1].dtype == torch.bfloat16
     torch.testing.assert_close(got[0].cpu(), want[0], **TOL)
     torch.testing.assert_close(got[1].cpu().float(), want[1].float(), **TOL_BF16)
+
+
+# K1's projection launch (ss2d_proj): N = K (R + 2) of the main path's SS2Ds
+# (24 Tramba-P 96 px, 40 / 48 96 px, 72 / 80 48 px, 88 / 176 Tramba-P 24 px,
+# 136 / 144 24 px, 264 12 px, 272 the 24 px line), each as (K, R), at a D of
+# the main path and a ragged M (no multiple of a row tile)
+PROJ_SHAPES = [(24, 4, 4, 128), (40, 4, 8, 256), (48, 8, 4, 128), (72, 4, 16, 512),
+               (80, 8, 8, 256), (88, 4, 20, 640), (136, 4, 32, 1024), (144, 8, 16, 512),
+               (176, 8, 20, 640), (264, 4, 64, 2048), (272, 8, 32, 1024)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N,K,R,D", PROJ_SHAPES)
+def test_proj_matches_fp64_product(dev, dt, N, K, R, D):
+    """Within 1e-6 x max |dbc| of an fp64 product; two launches give the same
+    bits; one native launch at the mirror's plan (the weight's terms split
+    before); K1's train variant's dbc is that launch's, and K1 adds one
+    native launch to its scans."""
+    from tramba_tpu_torch.ops import _native
+    from tramba_tpu_torch.ops import proj_stages as ps
+
+    gen = torch.Generator().manual_seed(N + D)
+    B, L = 3, 277
+    x = torch.nn.functional.silu(_rand(gen, B, L, D)).to(dt)
+    wx = _rand(gen, K, R + 2, D, scale=D ** -0.5)
+    assert K * (R + 2) == N
+    xd, wd = x.to(dev), wx.to(dev)
+    tf.proj_weight_terms(wd)  # the weight's terms, split once for the calls below
+    n = tf.ss2d_proj.launches
+    n0 = _native.native_launch_count()
+    got = tf.ss2d_proj(xd, wd)
+    assert _native.native_launch_count() - n0 == 1 and tf.ss2d_proj.launches == n + 1
+    assert tf.ss2d_proj_plan(B * L, D, N, dt) == ps.proj_plan(B * L, D, N, dt)
+    assert torch.equal(got, tf.ss2d_proj(xd, wd))
+    ref = torch.einsum("bld,kcd->blkc", x.double(), wx.double())
+    err = (got.cpu().double() - ref).abs().max().item()
+    assert err <= 1e-6 * ref.abs().max().item(), err / ref.abs().max().item()
+    p = _ss2d_params(gen, K, D, R, 16)
+    core = [wd] + [p[k].to(dev) for k in ("wdt", "bias", "A_logs", "Ds")]
+    idx, _ = order_tables("raster", 1, L, 0, dev)
+    idx = idx[:1].expand(K, L).contiguous()
+    n0 = _native.native_launch_count()
+    ys, carries, dbc = tf.ss2d_scan(xd, idx, *core, emit=True)
+    steps = tf.scan_segment_steps(B, L, D, K)
+    assert _native.native_launch_count() - n0 == 1 + (1 if steps < L else 0) + 1
+    assert torch.equal(dbc, got)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_proj_takes_odd_widths(dev, dt):
+    """D not a multiple of 64 (a zero-filled last slab; fp32 D % 8 == 4), N
+    odd, one row: the plain product."""
+    gen = torch.Generator().manual_seed(3)
+    for B, L, D, K, C in ((1, 1, 8 if dt == torch.bfloat16 else 4, 1, 3), (2, 65, 200, 3, 7),
+                          (1, 130, 36 if dt == torch.float32 else 40, 5, 41)):
+        x, wx = _rand(gen, B, L, D).to(dt), _rand(gen, K, C, D)
+        got = tf.ss2d_proj(x.to(dev), wx.to(dev)).cpu().double()
+        ref = torch.einsum("bld,kcd->blkc", x.double(), wx.double())
+        assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+def test_proj_weight_terms_follow_the_weight(dev):
+    """The weight's split terms are made by one launch for a new weight and
+    again after an in-place update (its version counter moves), and kept
+    otherwise: each call's dbc is the fp64 product of the weight it saw."""
+    from tramba_tpu_torch.ops import _native
+
+    gen = torch.Generator().manual_seed(11)
+    x = _rand(gen, 2, 100, 64).to(dev)
+    w = _rand(gen, 4, 6, 64, scale=0.2).to(dev)
+
+    def launches_and_error():
+        n0 = _native.native_launch_count()
+        got = tf.ss2d_proj(x, w)
+        n = _native.native_launch_count() - n0
+        ref = torch.einsum("bld,kcd->blkc", x.double(), w.double())
+        return n, ((got.double() - ref).abs().max() / ref.abs().max()).item()
+
+    assert launches_and_error()[0] == 2  # a new weight: its terms, then the projection
+    assert launches_and_error()[0] == 1
+    with torch.no_grad():
+        w.mul_(-3.0)
+    n, err = launches_and_error()
+    assert n == 2 and err <= 1e-6
+    assert launches_and_error() == (1, err)

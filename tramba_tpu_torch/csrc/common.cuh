@@ -5,12 +5,8 @@
 // arithmetic is always fp32, and a bf16 result is rounded once, to nearest
 // even (`__float2bfloat16_rn`, as jnp's astype), where the TPU kernel rounds.
 //
-// Two patterns for matrix products inside the kernels:
-// * "row blocks" (K1's projection): a block stages P activation rows in
-//   shared memory as fp32, and each thread owns one output column j, reading
-//   row j of the weight 16 bytes at a time and keeping P accumulators in
-//   registers.  Plain SIMT FMA work (no tensor cores, no TMA).
-// * "staged tiles" (K2-K7, K9-K13): the weight streams through a ring of
+// Matrix products inside the kernels run from "staged tiles" (K1's
+// projection, K2-K7, K9-K13): the weight streams through a ring of
 //   shared-memory stages filled several stages ahead of use, and the product
 //   runs from shared memory.  K2: 16-byte cp.async copies (zero-filled past
 //   the edges) into padded rows; bf16 as mma.sync m16n8k16 fragments loaded
@@ -32,6 +28,9 @@
 //   m64n256k16 (wgmma_m64nk16) with the LayerNorm and the head computed from
 //   the accumulators; in fp32 register micro-tiles of SIMT FMAs from a
 //   cp.async ring, K3's column chunks of a group in a thread block cluster.
+//   K1's projection (ss2d.cu) keeps its fp32 operands' accuracy on wgmma:
+//   the weight comes by TMA as three bf16 terms split once a weight version,
+//   an fp32 x as raw boxes that the threads split per slab.
 // bf16 x bf16 products are exact in fp32, so only the summation order
 // differs from the TPU's fp32-accumulating MXU.
 #pragma once
@@ -63,16 +62,6 @@ inline long& native_launch_count() {
     if (e__ != cudaSuccess) return (int)e__;  \
   } while (0)
 
-// Rows per block P in {32, 16, 8, 4, 2, 1}: the largest whose shared-memory
-// tile of P rows of `floats_per_row` floats fits in `budget_bytes`, lowered
-// until the M rows make at least one block per SM (132 on an H100), so that
-// small maps still spread over the card.
-static inline int rows_per_block(long M, long floats_per_row, long budget_bytes) {
-  int p = 32;
-  while (p > 1 && ((long)p * floats_per_row * 4 > budget_bytes || M < 132L * p)) p /= 2;
-  return p;
-}
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
@@ -87,86 +76,10 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat1
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
 
-// 16 bytes of T from global memory as fp32: 4 floats or 8 bf16.
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  }
-};
-template <>
-struct Vec16<bf16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const bf16* p, float (&v)[8]) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-};
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// acc[p] = sum_k As[p * lda + k] * w[k] for p < P.
-// As: shared memory fp32, rows 16-byte aligned (lda % 4 == 0); w: one weight
-// row of T in global memory, 16-byte aligned; Kd a multiple of 16 / sizeof(T).
-template <int P, typename T>
-__device__ __forceinline__ void rows_dot(const float* __restrict__ As, int lda,
-                                         const T* __restrict__ w, int Kd, float acc[P]) {
-  constexpr int N = Vec16<T>::N;
-#pragma unroll
-  for (int p = 0; p < P; ++p) acc[p] = 0.f;
-  for (int kv = 0; kv < Kd / N; ++kv) {
-    float b[N];
-    Vec16<T>::load(w + kv * N, b);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const float4* a4 = reinterpret_cast<const float4*>(As + p * lda + kv * N);
-#pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const float4 a = a4[q];
-        acc[p] = fmaf(a.x, b[4 * q], acc[p]);
-        acc[p] = fmaf(a.y, b[4 * q + 1], acc[p]);
-        acc[p] = fmaf(a.z, b[4 * q + 2], acc[p]);
-        acc[p] = fmaf(a.w, b[4 * q + 3], acc[p]);
-      }
-    }
-  }
-}
-
-// Copy rows [m0, m0 + P) of a row-major (M, K) global matrix of T into shared
-// memory as fp32 (row stride K), zero-filling rows past M.  K a multiple of
-// 16 / sizeof(T).
-template <int P, typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, long M, int K, long m0,
-                                          float* __restrict__ dst) {
-  constexpr int N = Vec16<T>::N;
-  const int kvn = K / N;
-  for (int i = threadIdx.x; i < P * kvn; i += blockDim.x) {
-    const int p = i / kvn, kv = i - p * kvn;
-    float v[N];
-    if (m0 + p < M) {
-      Vec16<T>::load(src + (m0 + p) * K + kv * N, v);
-    } else {
-#pragma unroll
-      for (int q = 0; q < N; ++q) v[q] = 0.f;
-    }
-    float4* d4 = reinterpret_cast<float4*>(dst + p * K + kv * N);
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) d4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  }
 }
 
 // LayerNorm statistics of one shared-memory row of n floats, computed by one
@@ -194,8 +107,6 @@ __device__ __forceinline__ float softplus(float v) {
   // log(1 + e^v) = max(v, 0) + log1p(e^-|v|), as jax.nn.softplus computes it
   return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
 }
-
-constexpr long kRowBudget = 64 * 1024;  // shared-memory bytes for a block's row tile
 
 // Steps per chunk of the SS2D scans and the carries' stride: K1 (ss2d.cu)
 // writes the state entering each chunk, K8 (ss2d_bwd.cu) recomputes a
@@ -331,16 +242,6 @@ __device__ __forceinline__ void load_steps_back(float (&v)[kScanAhead],
 static inline size_t scan_rows_smem(int C) {
   return (size_t)2 * kScanChunk * (row_stride(C) * 4 + 4);
 }
-
-#define TRAMBA_DISPATCH_P(P, ...)        \
-  switch (P) {                           \
-    case 32: { constexpr int kP = 32; __VA_ARGS__; } break; \
-    case 16: { constexpr int kP = 16; __VA_ARGS__; } break; \
-    case 8: { constexpr int kP = 8; __VA_ARGS__; } break;   \
-    case 4: { constexpr int kP = 4; __VA_ARGS__; } break;   \
-    case 2: { constexpr int kP = 2; __VA_ARGS__; } break;   \
-    default: { constexpr int kP = 1; __VA_ARGS__; } break;  \
-  }
 
 // Sets the dynamic shared-memory limit of a kernel before its first launch.
 template <typename Kern>
@@ -503,7 +404,9 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
       : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// d (+)= A B for one warpgroup at N = 64, 128, 192 or 256 columns: A 64 x 16
+// d (+)= A B for one warpgroup at N = 32, 48, 64, 72, 80, 96, 128, 144, 192
+// or 256 columns (the widths the kernels use; wgmma takes any multiple of 8
+// up to 256): A 64 x 16
 // and B N x 16 (K-major: N rows of 16 k), bf16, in the sw128_offset layout
 // (descriptors a, b; B's N rows may span several 64-row boxes stacked in
 // shared memory, 8-row groups 1024 bytes apart throughout).  d the 64 x N
@@ -610,6 +513,118 @@ __device__ __forceinline__ void wgmma_m64nk16<256>(float (&d)[128], uint64_t a, 
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nk16<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_m64nk16<48>(float (&d)[24], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_m64nk16<72>(float (&d)[36], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, %36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_m64nk16<80>(float (&d)[40], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_m64nk16<96>(float (&d)[48], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_m64nk16<144>(float (&d)[72], uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71"
+      "}, %72, %73, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -44,8 +44,8 @@
 // so the chunk's (dt, B, C) rows and table entries are staged once for all
 // of them, and each thread holds its u kScanAhead steps ahead in registers.
 // What bounds it now is the bytes: x is read twice per direction and ys
-// written once (bound: chip_smoke.py's `bound`).  K1's projection is a
-// small SIMT product ("row blocks", common.cuh).
+// written once (bound: chip_smoke.py's `bound`).  K1's projection is its
+// own launch before the scans, on the tensor cores (below).
 //
 // K2 reads the fp32 ys once (K D 4 bytes a pixel) and does 2 D dm product
 // operations a pixel: dm / (2 K) operations a byte, at most 128 on the main
@@ -67,22 +67,332 @@
 
 namespace {
 
-// dbc[m, n] = sum_d x[m, d] * wx[n, d]: the per-pixel (dt, B, C) projections
-// of all K directions at once (m = b*L + l, n = k*(R+2) + c).
-template <int P, typename T>
-__global__ void ss2d_proj_kernel(const T* __restrict__ x, const float* __restrict__ wx,
-                                 float* __restrict__ dbc, long M, int D, int N) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  const long m0 = (long)blockIdx.x * P;
-  load_rows<P>(x, M, D, m0, xs);
-  __syncthreads();
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    float acc[P];
-    rows_dot<P>(xs, D, wx + (long)j * D, D, acc);
+// ---- K1's projection ----------------------------------------------------------
+//
+// dbc[m, n] = sum_d x[m, d] wx[n, d]: the per-pixel (dt, B, C) projections of
+// all K directions at once (m = b L + l, n = k (R+2) + c), fp32, with x in the
+// compute dtype and wx fp32 (N = K (R+2) from 24 to 272 on the main path, D =
+// d_inner from 128 to 2048).  It replaces the projection half of the TPU
+// kernels K1 replaces (fused_ss2d.py:1505 and the others above, and
+// fused_ss2d_small.py:233 in bf16).
+//
+// What bounds it on an H100: its bytes (x read once, dbc written once) and,
+// with the split below, its tensor-core products; each weight byte serves a
+// whole row tile.  So it runs on warpgroup wgmma with the fp32 weight split
+// into three bf16 terms, w = h + m + l (h = bf16(w), m = bf16(w - h), l =
+// bf16(w - h - m): 24 bits in three 8-bit pieces, exact), each bf16 x bf16
+// product exact in the fp32 accumulator, so the sum keeps fp32's accuracy
+// where one bf16 pass (the TPU's Precision.DEFAULT) would keep 8 bits of the
+// weight.  A bf16 x runs the three products x h + x m + x l; an fp32 x (TF32
+// off) is split the same way and runs the six whose terms reach 2^-24 of the
+// whole: xh h, xh m, xm h, xh l, xm m, xl h.  The weight's terms are split by
+// proj_terms_kernel into a (3, N, D) bf16 scratch that the wrapper keeps
+// while the weight is unchanged (one launch a weight version: none on a
+// forward of a model already run, one a train step).  The tensor cores add
+// each k16 step's products to the accumulator without rounding to nearest,
+// so each k-slab of 64 sums into a fresh accumulator that is then added to
+// the running fp32 sum in registers: the running sum sees one rounding a
+// slab.
+//
+// Block (row tile, column tile), grid x = row tile * column tiles + column
+// tile (a row tile's column tiles run side by side, so x comes from device
+// memory once).  Two warpgroups: at rows = 128 warpgroup w owns rows [64 w,
+// 64 w + 64) and the tile's WN columns; at rows = 64 both own the 64 rows and
+// w the columns [w WN, (w + 1) WN) of the tile's 2 WN.  A ring of `stages`
+// slots, each one k-slab of 64: x's rows (bf16: a 128-byte-swizzled TMA box;
+// fp32: a raw fp32 box) and the three terms of the tile's weight rows
+// (swizzled TMA boxes, zeros past N and D), all on one mbarrier; thread 0
+// keeps the next stages - 1 slabs in flight.  Per slab the warpgroups issue
+// the products (wgmma, asynchronous), then (fp32 x) the threads split the
+// next slab's raw rows into three swizzled bf16 tiles (double-buffered),
+// wait, and add the slab's sums; one barrier frees the slot.  dbc is written
+// from the accumulators (masked past M and N).  Every sum runs in a fixed
+// order and no atomics: two launches give the same bits.  The plan
+// (plan_proj; ss2d_proj_plan reports it, ops/proj_stages.py mirrors it)
+// picks rows and WN: the fewest waves of blocks over 132 SMs (two blocks an
+// SM where they fit) times a block's padded work.  Every shape the kernel
+// takes runs this one route: N past a tile's columns takes more column
+// tiles, a ragged D or M zero-filled slabs and masked rows.
+constexpr int kProjWns[] = {32, 48, 72, 80, 96, 144};  // a warpgroup's columns
+constexpr int kProjMaxSplitWn = 96;  // rows = 64 (the warpgroups split the columns) up to it
+constexpr size_t kProjHalfSm = 113 * 1024;  // two blocks an SM below this
+
+struct ProjPlan {
+  int rows;      // 128 (the warpgroups split the rows) or 64 (they split the columns)
+  int wn;        // columns a warpgroup owns: the wgmma N
+  int ctiles;    // column tiles (of wn columns at rows 128, 2 wn at 64)
+  long tiles;    // row tiles
+  int stages;    // ring slots
+  size_t smem;   // dynamic shared memory
+};
+
+__host__ __device__ __forceinline__ int proj_cols(int rows, int wn) {
+  return rows == 128 ? wn : 2 * wn;
+}
+
+// A ring slot: x's rows (bf16 128 bytes a row, fp32 256) and the weight's
+// three terms (128 bytes a row).  Besides the ring: alignment and mbarriers,
+// and for an fp32 x two buffers of its split terms.
+static inline size_t proj_stage(int rows, int cols, bool f32x) {
+  return (size_t)rows * (f32x ? 256 : 128) + (size_t)3 * cols * 128;
+}
+static inline size_t proj_fixed(int rows, bool f32x) {
+  return 2048 + (f32x ? (size_t)2 * 3 * rows * 128 : 0);
+}
+
+static inline bool plan_proj(long M, int D, int N, bool f32x, ProjPlan* p) {
+  if (M < 1 || N < 1 || D < 1 || D % (f32x ? 4 : 8)) return false;
+  long best = -1, best_blocks = 0;
+  const int row_tiles[2] = {128, 64};
+  for (int rows : row_tiles) {
+    for (int wn : kProjWns) {
+      if (rows == 64 && wn > kProjMaxSplitWn) continue;
+      const int cols = proj_cols(rows, wn);
+      const size_t stage = proj_stage(rows, cols, f32x), fixed = proj_fixed(rows, f32x);
+      // two blocks an SM where three slots fit in half of it, else one (an
+      // fp32 x's split buffers never leave room for two)
+      const bool two = wn <= 96 && !f32x && fixed + 3 * stage <= kProjHalfSm;
+      const size_t budget = two ? kProjHalfSm : kSmemBlock;
+      if (fixed + 2 * stage > budget) continue;
+      const int stages = (int)std::min<size_t>(4, (budget - fixed) / stage);
+      const int ct = (N + cols - 1) / cols;
+      const long tiles = (M + rows - 1) / rows, blocks = tiles * ct;
+      // waves of blocks x a block's work: its padded products, and per row
+      // the loads and stores that do not shrink with the columns
+      const long cost = (blocks + 132L * (two ? 2 : 1) - 1) / (132L * (two ? 2 : 1)) *
+                        (two ? 2 : 1) * (rows + 32) * (cols + 48);
+      if (best < 0 || cost < best || (cost == best && blocks < best_blocks)) {
+        best = cost;
+        best_blocks = blocks;
+        *p = {rows, wn, ct, tiles, stages, fixed + stages * stage};
+      }
+    }
+  }
+  return best >= 0;
+}
+
+// v = h + m + l, each bf16: h = bf16(v), m = bf16(v - h), l = bf16(v - h -
+// m), each difference exact in fp32 and l exactly a bf16 (normal v).
+__device__ __forceinline__ void split3(float v, bf16& h, bf16& m, bf16& l) {
+  h = __float2bfloat16_rn(v);
+  const float r = v - __bfloat162float(h);
+  m = __float2bfloat16_rn(r);
+  l = __float2bfloat16_rn(r - __bfloat162float(m));
+}
+
+// The weight's three terms: wx (N, D) fp32 -> terms (3, N, Dp) bf16, Dp = D
+// rounded up to 8 (16-byte rows for TMA; the padding columns zero), term q of
+// wx[n, d] at terms[(q N + n) Dp + d]; D % 4 == 0.
+__global__ void __launch_bounds__(256) proj_terms_kernel(const float* __restrict__ wx,
+                                                         bf16* __restrict__ terms, int N, int D) {
+  const int Dp = (D + 7) & ~7, per = Dp / 4;  // 4-column groups a row
+  const long plane = (long)N * Dp, n4 = (long)N * per;
+  for (long g = (long)blockIdx.x * blockDim.x + threadIdx.x; g < n4;
+       g += (long)gridDim.x * blockDim.x) {
+    const long n = g / per;
+    const int d = (int)(g - n * per) * 4;
+    const float4 v = d < D ? __ldg(reinterpret_cast<const float4*>(wx + n * D + d))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    __align__(8) bf16 t[3][4];
 #pragma unroll
-    for (int p = 0; p < P; ++p)
-      if (m0 + p < M) dbc[(m0 + p) * N + j] = acc[p];
+    for (int e = 0; e < 4; ++e) split3(f[e], t[0][e], t[1][e], t[2][e]);
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      *reinterpret_cast<uint2*>(terms + q * plane + n * Dp + d) =
+          *reinterpret_cast<const uint2*>(t[q]);
+  }
+}
+
+// The three bf16 terms of a raw stage of nrows x 64 floats into three nrows
+// x 64 bf16 tiles in the sw128_offset layout, nrows * 64 elements apart.  A
+// thread splits 8 values a chunk.
+__device__ __forceinline__ void split_raw(const float* raw, int nrows, bf16* dst) {
+  for (int i = threadIdx.x; i < nrows * 8; i += blockDim.x) {
+    const int r = i >> 3;
+    const float4* src = reinterpret_cast<const float4*>(raw + (r << 6) + ((i & 7) << 3));
+    const float4 a = src[0], b = src[1];
+    const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    unsigned pk[3][4];  // each term's 8 values, two a word
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bf16 lo[3], hi[3];
+      split3(f[2 * e], lo[0], lo[1], lo[2]);
+      split3(f[2 * e + 1], hi[0], hi[1], hi[2]);
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        pk[q][e] = (unsigned)__bfloat16_as_ushort(lo[q]) |
+                   ((unsigned)__bfloat16_as_ushort(hi[q]) << 16);
+    }
+    const int off = (r << 6) + (((i & 7) ^ (r & 7)) << 3);
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      *reinterpret_cast<uint4*>(dst + (size_t)q * nrows * 64 + off) =
+          make_uint4(pk[q][0], pk[q][1], pk[q][2], pk[q][3]);
+  }
+}
+
+template <int WN, bool kF32X>
+__global__ void __launch_bounds__(256, WN <= 96 && !kF32X ? 2 : 1)
+    ss2d_proj_split_kernel(const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_w, float* __restrict__ dbc,
+                           long M, int D, int N, int rows, int ctiles, int stages) {
+  constexpr int NACC = WN / 2;
+  extern __shared__ float4 smem4[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);  // one mbarrier a ring slot
+  const int cols = proj_cols(rows, WN);
+  const int xbytes = rows * (kF32X ? 256 : 128);       // x's share of a slot
+  const int slot_bytes = xbytes + 3 * cols * 128;
+  char* ring = reinterpret_cast<char*>(tiles_start(smem4, 64));
+  bf16* xsplit = reinterpret_cast<bf16*>(ring + (size_t)stages * slot_bytes);  // fp32: [2][3][rows][64]
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long tile = blockIdx.x / ctiles;
+  const int n0 = (int)(blockIdx.x - tile * ctiles) * cols;
+  const long m0 = tile * rows;
+  const int nk = (D + 63) / 64;
+  auto issue = [&](int t) {  // slab t into slot t % stages: x's rows, w's three terms
+    const int slot = t % stages;
+    char* dst = ring + (size_t)slot * slot_bytes;
+    mbar_expect_tx(full + slot, slot_bytes);
+    tma_load_2d(dst, &map_x, 64 * t, (int)m0, full + slot);
+    for (int q = 0; q < 3; ++q)
+      tma_load_4d(dst + xbytes + q * cols * 128, &map_w, 64 * t, n0, q, 0, full + slot);
+  };
+  auto wait_slab = [&](int t) { mbar_wait(full + t % stages, (t / stages) & 1); };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+    for (int t = 0; t < min(nk, stages); ++t) issue(t);
+  }
+  __syncthreads();  // the barriers are initialised
+  if constexpr (kF32X) {
+    wait_slab(0);
+    split_raw(reinterpret_cast<const float*>(ring), rows, xsplit);
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  float acc[NACC], part[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  const int arow = rows == 128 ? 64 * wg : 0;   // this warpgroup's rows of the tile
+  const int bcol = rows == 128 ? 0 : WN * wg;   // and its columns
+  for (int t = 0; t < nk; ++t) {
+    const char* slot = ring + (size_t)(t % stages) * slot_bytes;
+    const bf16* wt = reinterpret_cast<const bf16*>(slot + xbytes) + bcol * 64;
+    const bf16* xt;
+    if constexpr (kF32X) {
+      xt = xsplit + (size_t)(t & 1) * 3 * rows * 64 + arow * 64;
+    } else {
+      wait_slab(t);
+      xt = reinterpret_cast<const bf16*>(slot) + arow * 64;
+    }
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      // x term xi times w term wi at k16 step s into the slab's fresh sums;
+      // the small products first
+      auto mma = [&](int xi, int wi, int scale) {
+        wgmma_m64nk16<WN>(part, wgmma_desc_sw128(xt + (size_t)xi * rows * 64 + 16 * s),
+                          wgmma_desc_sw128(wt + (size_t)wi * cols * 64 + 16 * s), scale);
+      };
+      if constexpr (kF32X) {
+        mma(2, 0, s > 0); mma(1, 1, 1); mma(0, 2, 1); mma(1, 0, 1); mma(0, 1, 1); mma(0, 0, 1);
+      } else {
+        mma(0, 2, s > 0); mma(0, 1, 1); mma(0, 0, 1);
+      }
+    }
+    wgmma_commit();
+    if constexpr (kF32X) {
+      if (t + 1 < nk) {  // the next slab's x terms, under the products of slab t
+        wait_slab(t + 1);
+        split_raw(reinterpret_cast<const float*>(ring + (size_t)((t + 1) % stages) * slot_bytes),
+                  rows, xsplit + (size_t)((t + 1) & 1) * 3 * rows * 64);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] += part[i];
+    if constexpr (kF32X) fence_proxy_async();  // the split's writes before the next wgmma
+    __syncthreads();  // every warpgroup is done with slab t's slot
+    if (threadIdx.x == 0 && t + stages < nk) issue(t + stages);
+  }
+
+  // element i of this thread: row 16 (warp % 4) + lane / 4 + 8 ((i / 2) % 2),
+  // columns 8 (i / 4) + 2 (lane % 4) and + 1 of the warpgroup's
+  const long row0 = m0 + arow + 16 * (warp & 3) + (lane >> 2);
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < NACC; i += 2) {
+    const long row = row0 + 8 * ((i >> 1) & 1);
+    const int col = n0 + bcol + 8 * (i >> 2) + 2 * (lane & 3);
+    if (row >= M || col >= N) continue;
+    float* o = dbc + row * N + col;
+    if (pairs) {
+      *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
+    } else {
+      o[0] = acc[i];
+      if (col + 1 < N) o[1] = acc[i + 1];
+    }
+  }
+}
+
+// Tensor maps of the projection's operands: x (M, D) in boxes of 64 columns
+// x rows (bf16: 128-byte swizzle; fp32: raw), and the weight's terms (3, N,
+// Dp) bf16 (proj_terms_kernel's) as a 4-D map {D, N, 3, 1} in boxes of 64 x
+// cols x 1 x 1 (128-byte swizzle); zeros outside.
+static inline bool proj_maps(CUtensorMap* map_x, CUtensorMap* map_w, const void* x, bool f32x,
+                             const bf16* terms, long M, int D, int N, int rows, int cols) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return false;
+  const int esz = f32x ? 4 : 2;
+  const cuuint64_t xd[2] = {(cuuint64_t)D, (cuuint64_t)M}, xs[1] = {(cuuint64_t)D * esz};
+  const cuuint32_t xb[2] = {64, (cuuint32_t)rows}, e2[2] = {1, 1};
+  const cuuint64_t Dp = (cuuint64_t)((D + 7) & ~7);
+  const cuuint64_t wd[4] = {(cuuint64_t)D, (cuuint64_t)N, 3, 1};
+  const cuuint64_t ws[3] = {Dp * 2, (cuuint64_t)N * Dp * 2, (cuuint64_t)3 * N * Dp * 2};
+  const cuuint32_t wb[4] = {64, (cuuint32_t)cols, 1, 1}, e4[4] = {1, 1, 1, 1};
+  return encode(map_x, f32x ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, const_cast<void*>(x), xd, xs, xb, e2, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                f32x ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+             CUDA_SUCCESS &&
+         encode(map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(terms), wd, ws, wb,
+                e4, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+             CUDA_SUCCESS;
+}
+
+template <int WN>
+int proj_launch_wn(const ProjPlan& p, bool f32x, const CUtensorMap& map_x,
+                   const CUtensorMap& map_w, float* dbc, long M, int D, int N, cudaStream_t s) {
+  auto kern = f32x ? ss2d_proj_split_kernel<WN, true> : ss2d_proj_split_kernel<WN, false>;
+  cudaError_t e = allow_smem(kern, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)(p.tiles * p.ctiles), 256, p.smem, s>>>(map_x, map_w, dbc, M, D, N, p.rows,
+                                                          p.ctiles, p.stages);
+  TRAMBA_CHECK_LAUNCH();
+  return 0;
+}
+
+// One launch: x (M, D) fp32 or bf16, the weight's terms (3, N, Dp) bf16
+// (proj_terms_kernel's), dbc (M, N) fp32.
+int proj_launch(const void* x, bool f32x, const bf16* terms, float* dbc, long M, int D, int N,
+                cudaStream_t s) {
+  ProjPlan p;
+  if (!plan_proj(M, D, N, f32x, &p)) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_x, map_w;
+  if (!proj_maps(&map_x, &map_w, x, f32x, terms, M, D, N, p.rows, proj_cols(p.rows, p.wn)))
+    return (int)cudaErrorInvalidValue;
+  switch (p.wn) {
+    case 32: return proj_launch_wn<32>(p, f32x, map_x, map_w, dbc, M, D, N, s);
+    case 48: return proj_launch_wn<48>(p, f32x, map_x, map_w, dbc, M, D, N, s);
+    case 72: return proj_launch_wn<72>(p, f32x, map_x, map_w, dbc, M, D, N, s);
+    case 80: return proj_launch_wn<80>(p, f32x, map_x, map_w, dbc, M, D, N, s);
+    case 96: return proj_launch_wn<96>(p, f32x, map_x, map_w, dbc, M, D, N, s);
+    default: return proj_launch_wn<144>(p, f32x, map_x, map_w, dbc, M, D, N, s);
   }
 }
 
@@ -210,22 +520,12 @@ cudaError_t launch_scan(const T* x, const int* idx, const float* dbc, const floa
 }
 
 template <typename T>
-int scan_launch(const T* x, const int* idx, const float* wx, const float* wdt,
+int scan_launch(const T* x, const int* idx, const bf16* wterms, const float* wdt,
                 const float* dt_bias, const float* A_logs, const float* Ds, float* dbc,
                 float* summ, float* ys, float* carries, int B, int L, int D, int K, int R,
                 cudaStream_t s) {
-  const long M = (long)B * L;
-  const int C = R + 2, N = K * C;
-  const int P = rows_per_block(M, D, kRowBudget);
-  const size_t proj_smem = (size_t)P * D * 4;
-  const int proj_threads = N >= 256 ? 256 : ((N + 31) / 32) * 32;
-  const unsigned proj_blocks = (unsigned)((M + P - 1) / P);
-  TRAMBA_DISPATCH_P(P, {
-    cudaError_t e = allow_smem(ss2d_proj_kernel<kP, T>, proj_smem);
-    if (e != cudaSuccess) return (int)e;
-    ss2d_proj_kernel<kP, T><<<proj_blocks, proj_threads, proj_smem, s>>>(x, wx, dbc, M, D, N);
-  });
-  TRAMBA_CHECK_LAUNCH();
+  const int rc = proj_launch(x, sizeof(T) == 4, wterms, dbc, (long)B * L, D, K * (R + 2), s);
+  if (rc != 0) return rc;
 #define TRAMBA_SCAN(RM) \
   launch_scan<RM>(x, idx, dbc, wdt, dt_bias, A_logs, Ds, summ, ys, carries, B, L, D, K, R, s)
   cudaError_t e;
@@ -269,7 +569,7 @@ int scan_launch(const T* x, const int* idx, const float* wx, const float* wdt,
 //      (the ring runs on from one tile to the next): bf16 on the tensor
 //      cores (mma.sync m16n8k16, ldmatrix; warp tile 16 x BM), fp32 as 4 x 4
 //      micro-tiles of SIMT FMAs (rows tm + TM i, columns tn + 32 j) in k
-//      order, as rows_dot summed.
+//      order.
 // The launch takes BM and cpb from the grid it would make (merge_launch):
 // large maps take the large tile and all columns per block, so ys is
 // gathered once and each w_out slab serves 32-64 pixels; small ones split
@@ -617,21 +917,60 @@ int ss2d_scan_segment_steps(int B, int L, int D, int K, int bwd) {
 }
 
 // K1.  x (B, L, D) fp32 (bf16 = 0) or bf16 (bf16 = 1); idx (K, L) int32;
-// wx (K, R+2, D); wdt (K, D, R); dt_bias (K, D); A_logs (K, D); Ds (K, D);
-// dbc (B, L, K, R+2) (the projections, kept by training); summ (2, B, K, S,
-// D) scratch, S = ceil(L / ss2d_scan_segment_steps(B, L, D, K, 0)); ys
+// wterms (3, K (R+2), Dp) bf16, the three terms of x_proj_weight (K, R+2, D)
+// (ss2d_proj_terms_launch); wdt (K, D, R); dt_bias (K, D); A_logs (K, D); Ds
+// (K, D); dbc (B, L, K, R+2) (the projections, kept by training); summ (2, B,
+// K, S, D) scratch, S = ceil(L / ss2d_scan_segment_steps(B, L, D, K, 0)); ys
 // (B, K, L, D); carries (B, K, ceil(L / ss2d_scan_chunk()), D) or null
-// (inference); all fp32 but x.  D % 32 == 0, R <= 64.
-int ss2d_scan_launch(const void* x, const int* idx, const float* wx, const float* wdt,
+// (inference); all fp32 but x and wterms.  D % 32 == 0, R <= 64.
+int ss2d_scan_launch(const void* x, const int* idx, const void* wterms, const float* wdt,
                      const float* dt_bias, const float* A_logs, const float* Ds, float* dbc,
                      float* summ, float* ys, float* carries, int B, int L, int D, int K, int R,
                      int bf16_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* w = static_cast<const bf16*>(wterms);
   if (bf16_x)
-    return scan_launch(static_cast<const bf16*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, summ,
+    return scan_launch(static_cast<const bf16*>(x), idx, w, wdt, dt_bias, A_logs, Ds, dbc, summ,
                        ys, carries, B, L, D, K, R, s);
-  return scan_launch(static_cast<const float*>(x), idx, wx, wdt, dt_bias, A_logs, Ds, dbc, summ,
+  return scan_launch(static_cast<const float*>(x), idx, w, wdt, dt_bias, A_logs, Ds, dbc, summ,
                      ys, carries, B, L, D, K, R, s);
+}
+
+// The three bf16 terms of K1's fp32 weight: wx (N, D) fp32 -> terms (3, N,
+// Dp) bf16, Dp = D rounded up to 8 (zeros past D): h = bf16(w), m = bf16(w -
+// h), l = bf16(w - h - m).  D % 4 == 0.  One launch.
+int ss2d_proj_terms_launch(const float* wx, void* terms, int N, int D, void* stream) {
+  if (N < 1 || D < 4 || D % 4) return (int)cudaErrorInvalidValue;
+  const long groups = (long)N * (((D + 7) & ~7) / 4);
+  const long blocks = std::min<long>((groups + 255) / 256, 132L * 8);
+  proj_terms_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      wx, static_cast<bf16*>(terms), N, D);
+  TRAMBA_CHECK_LAUNCH();
+  return 0;
+}
+
+// K1's projection alone (the launch K1 makes first): x (M, D) fp32 (bf16 = 0)
+// or bf16 (bf16 = 1); wterms (3, N, Dp) bf16 (ss2d_proj_terms_launch's); dbc
+// (M, N) fp32.  D % 4 == 0 (fp32) or D % 8 == 0 (bf16).  One launch.
+int ss2d_proj_launch(const void* x, const void* wterms, float* dbc, long M, int D, int N,
+                     int bf16_x, void* stream) {
+  return proj_launch(x, !bf16_x, static_cast<const bf16*>(wterms), dbc, M, D, N,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The projection's plan at these sizes: plan[0..5] = rows, wn, column tiles,
+// row tiles, ring slots, shared-memory bytes; an error for shapes it does not
+// take.
+int ss2d_proj_plan(long M, int D, int N, int bf16_x, int* plan) {
+  ProjPlan p;
+  if (!plan_proj(M, D, N, !bf16_x, &p)) return (int)cudaErrorInvalidValue;
+  plan[0] = p.rows;
+  plan[1] = p.wn;
+  plan[2] = p.ctiles;
+  plan[3] = (int)p.tiles;
+  plan[4] = p.stages;
+  plan[5] = (int)p.smem;
+  return 0;
 }
 
 // K2.  ys (B, K, L, D) fp32; inv (K, Mslots, L) int32; ln_w, ln_b (D) fp32;

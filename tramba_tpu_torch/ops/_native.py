@@ -38,6 +38,9 @@ _LP = ctypes.POINTER(ctypes.c_long)
 _SIGNATURES = {
     "ss2d_scan_launch": [_P] * 11 + [_I] * 6 + [_P],
     "ss2d_scan_segment_steps": [_I] * 5,
+    "ss2d_proj_launch": [_P] * 3 + [_L, _I, _I, _I, _P],
+    "ss2d_proj_terms_launch": [_P, _P, _I, _I, _P],
+    "ss2d_proj_plan": [_L, _I, _I, _I, _IP],
     "ss2d_merge_launch": [_P] * 7 + [_I] * 7 + [_P],
     "ss2d_scan_chunk": [],
     "ss2d_scan_bwd_rows": [],

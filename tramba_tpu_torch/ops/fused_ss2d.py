@@ -9,7 +9,12 @@ direction).  Here every order is one gather table and one inverse table
 * K1 ``ss2d_scan`` (``csrc/ss2d.cu``): ys[b, k, t] = selective scan of
   x[b, idx[k, t]] with the per-direction Δ/B/C projections; fp32 state,
   d_state 1.  Train variant: also the fp32 state entering each chunk of
-  :func:`scan_chunk` steps and the projections ``dbc``.
+  :func:`scan_chunk` steps and the projections ``dbc``.  Its first launch
+  is the projection (:func:`ss2d_proj` runs it alone): ``wgmma`` with the
+  fp32 weight (and an fp32 x) split into three bf16 terms, as accurate as
+  an fp32 product; the weight's terms are split once a weight version
+  (:func:`proj_weight_terms`); ``ops/proj_stages.py`` mirrors the tiling
+  and split.
 * K2 ``ss2d_merge`` (``csrc/ss2d.cu``): sum of each pixel's direction
   outputs through the inverse table, LayerNorm, exact GELU, out projection.
   Train variant: also the pre-LN sum ``y_sum``, in the compute dtype (the
@@ -40,16 +45,21 @@ the plain versions.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, on_card
+from tramba_tpu_torch.ops.proj_stages import PLAN_FIELDS
 from tramba_tpu_torch.ops.scan_orders import order_tables
 from tramba_tpu_torch.ops.selective_scan import dt_projection, linear_scan, linear_scan_ref
 
 __all__ = ["composed_ss2d_core", "ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref",
-           "ss2d_scan_train_ref", "ss2d_merge", "ss2d_merge_ref", "ss2d_merge_train_ref",
+           "ss2d_scan_train_ref", "ss2d_proj", "ss2d_proj_ref", "ss2d_proj_plan",
+           "proj_weight_terms", "ss2d_merge", "ss2d_merge_ref", "ss2d_merge_train_ref",
            "check_merge_shape", "ss2d_scan_bwd", "ss2d_scan_bwd_ref", "SS2DCore", "ss2d_full",
            "SCAN_CHUNK", "scan_chunk", "scan_segment_steps"]
 
@@ -132,13 +142,19 @@ def _decay_terms(dbcs, dt_w, dt_b, A_logs):
     return v, delta, torch.exp(delta * A), A
 
 
+def ss2d_proj_ref(x, x_proj_w):
+    """K1's projection: x (B, L, D), x_proj_w (K, R+2, D) -> dbc (B, L, K,
+    R+2), the per-pixel projections of every direction, an fp32 product."""
+    return torch.einsum("bld,kcd->blkc", x.float(), x_proj_w.float())
+
+
 def ss2d_scan_train_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, chunk=SCAN_CHUNK):
     """K1's train variant: (ys (B, K, L, D), carries (B, K, ceil(L / chunk),
     D), dbc (B, L, K, R+2)).  carries[:, :, c] is the state entering step
     chunk * c (0 for c = 0); dbc are the per-pixel projections of every
-    direction."""
+    direction (:func:`ss2d_proj_ref`)."""
     K, L = idx.shape
-    dbc = torch.einsum("bld,kcd->blkc", x.float(), x_proj_w.float())
+    dbc = ss2d_proj_ref(x, x_proj_w)
     xs, dbcs = _in_scan_order(x, idx, dbc)
     R = dt_w.shape[-1]
     _, delta, a, _ = _decay_terms(dbcs, dt_w, dt_b, A_logs)
@@ -268,7 +284,8 @@ def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, *, emit=False):
     ys = torch.empty(B, K, L, D, device=x.device, dtype=torch.float32)
     carries = (torch.empty(B, K, -(-L // scan_chunk()), D, device=x.device,
                            dtype=torch.float32) if emit else None)
-    _native.launch("ss2d_scan_launch", x.data_ptr(), idx.data_ptr(), x_proj_w.data_ptr(),
+    terms = proj_weight_terms(x_proj_w)
+    _native.launch("ss2d_scan_launch", x.data_ptr(), idx.data_ptr(), terms.data_ptr(),
                    dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
                    dbc.data_ptr(), summ.data_ptr(), ys.data_ptr(),
                    carries.data_ptr() if emit else None,
@@ -278,6 +295,68 @@ def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, *, emit=False):
 
 
 ss2d_scan.launches = 0
+
+
+# x_proj_w -> (its version, its data pointer, its three bf16 terms): the
+# projection's split weight, kept while the weight lives and is unchanged
+_TERMS = WeakIdKeyDictionary()
+
+
+def proj_weight_terms(x_proj_w):
+    """The three bf16 terms of K1's fp32 weight x_proj_w (K, R+2, D) on the
+    card, (3, K (R+2), Dp) with Dp = D rounded up to 8: split by one launch
+    (``ss2d_proj_terms_launch``: h = bf16(w), m = bf16(w - h), l = bf16(w -
+    h - m)) where the weight is new or its version counter or storage has
+    moved since (an optimizer step, ``copy_``, ``load_state_dict``), else the
+    terms kept from before.  A write that bypasses the tensor's version
+    counter (through ``.data``) is not seen."""
+    key = (x_proj_w._version, x_proj_w.data_ptr())
+    kept = _TERMS.get(x_proj_w)
+    if kept is not None and kept[:2] == key:
+        return kept[2]
+    K, C, D = x_proj_w.shape
+    shape = (3, K * C, -(-D // 8) * 8)
+    terms = kept[2] if kept is not None and tuple(kept[2].shape) == shape else torch.empty(
+        shape, device=x_proj_w.device, dtype=torch.bfloat16)
+    _native.launch("ss2d_proj_terms_launch", x_proj_w.data_ptr(), terms.data_ptr(), K * C, D,
+                   _native.stream_handle(x_proj_w))
+    _TERMS[x_proj_w] = (*key, terms)
+    return terms
+
+
+def ss2d_proj(x, x_proj_w):
+    """K1's projection launch alone on CUDA tensors (the one K1 makes before
+    its scans), :func:`ss2d_proj_ref` on CPU tensors: x (B, L, D) fp32 or
+    bf16 (D a multiple of 4 or 8), x_proj_w (K, R+2, D) fp32 -> dbc (B, L, K,
+    R+2) fp32.  Its weight's terms come from :func:`proj_weight_terms`."""
+    if not on_card(x):
+        return ss2d_proj_ref(x, x_proj_w)
+    B, L, D = x.shape
+    K, C, _ = x_proj_w.shape
+    check_args(x=(x, F32_BF16), x_proj_w=(x_proj_w, F32))
+    vec = 8 if x.dtype == torch.bfloat16 else 4
+    if x_proj_w.shape[2] != D or D % vec or B * L < 1:
+        raise ValueError(f"ss2d_proj: x_proj_w {tuple(x_proj_w.shape)} must match D={D}, a "
+                         f"multiple of {vec}, and x rows")
+    terms = proj_weight_terms(x_proj_w)
+    dbc = torch.empty(B, L, K, C, device=x.device, dtype=torch.float32)
+    _native.launch("ss2d_proj_launch", x.data_ptr(), terms.data_ptr(), dbc.data_ptr(), B * L, D,
+                   K * C, int(x.dtype == torch.bfloat16), _native.stream_handle(x))
+    ss2d_proj.launches += 1
+    return dbc
+
+
+ss2d_proj.launches = 0
+
+
+def ss2d_proj_plan(M: int, D: int, N: int, dtype: torch.dtype) -> dict:
+    """The projection's plan as the built library makes it (``plan_proj`` in
+    ``csrc/ss2d.cu``; :func:`tramba_tpu_torch.ops.proj_stages.proj_plan` is its
+    plain mirror), {field: value} over ``proj_stages.PLAN_FIELDS``.  No launch;
+    raises for shapes the kernel does not take."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    _native.launch("ss2d_proj_plan", M, D, N, int(dtype == torch.bfloat16), out)
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def check_merge_shape(K: int, slots: int, D: int, dm: int, dtype) -> None:
