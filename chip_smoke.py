@@ -1944,26 +1944,27 @@ def run_sod_entry_points(tmp, method, *flags, score=True):
             print(f"{module.rsplit('.', 1)[1]}: {row}", flush=True)
 
 
-# the wrappers' record_function ranges (ops/fused_mlp.py) whose launches the
-# profiles tell apart: K9 and K10 launch the same tail kernels (c) - (e)
-RANGES = ("ln_mlp_bwd", "ln_dwms_mlp_bwd")
+# the wrappers' spans (utils/profiling.py) whose launches the profiles tell
+# apart: K9 and K10 launch the same tail kernels (c) - (e)
+RANGES = ("K9 ln_mlp_bwd", "K10 ln_dwms_mlp_bwd")
 # kernel-name fragments (a tuple: all of them) -> group of the phase 7 / 8
-# breakdowns, first match wins; a kernel launched in a range of RANGES is
-# named "<kernel> @ <range>"
+# breakdowns, first match wins; a kernel launched in a span of RANGES is
+# named "<kernel> @ <span>"
 GROUPS = (("linear_scan_", "K14 linear_scan"),  # both routes' kernels
           ("memset", "memsets (K14's flag reset among them)"),
           ("ln_fc_kernel<1>", "K9 ln_mlp_bwd, front: LN, h and g w2, GELU adjoint"),
-          (("mlp_bwd_dx_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (c) dh w1 and LN adjoint"),
-          (("mlp_bwd_wgrad_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (d) dW1, dW2 products"),
-          (("mlp_bwd_sum_kernel", "@ ln_mlp_bwd"), "K9 ln_mlp_bwd, (e) partial sums"),
+          (("mlp_bwd_dx_kernel", "@ K9 ln_mlp_bwd"), "K9 ln_mlp_bwd, (c) dh w1 and LN adjoint"),
+          (("mlp_bwd_wgrad_kernel", "@ K9 ln_mlp_bwd"), "K9 ln_mlp_bwd, (d) dW1, dW2 products"),
+          (("mlp_bwd_sum_kernel", "@ K9 ln_mlp_bwd"), "K9 ln_mlp_bwd, (e) partial sums"),
           ("ln_fc_kernel<2>", "K10 ln_dwms_mlp_bwd, front: LN, h and g w2 maps"),
           ("mlp_bwd_dwms_acc", "K10 ln_dwms_mlp_bwd, (b1) stencil, dacc, hg"),
           ("mlp_bwd_dwms_adj", "K10 ln_dwms_mlp_bwd, (b2) dh and tap gradients"),
-          (("mlp_bwd_dx_kernel", "@ ln_dwms_mlp_bwd"),
+          (("mlp_bwd_dx_kernel", "@ K10 ln_dwms_mlp_bwd"),
            "K10 ln_dwms_mlp_bwd, (c) dh w1 and LN adjoint"),
-          (("mlp_bwd_wgrad_kernel", "@ ln_dwms_mlp_bwd"),
+          (("mlp_bwd_wgrad_kernel", "@ K10 ln_dwms_mlp_bwd"),
            "K10 ln_dwms_mlp_bwd, (d) dW1, dW2 products"),
-          (("mlp_bwd_sum_kernel", "@ ln_dwms_mlp_bwd"), "K10 ln_dwms_mlp_bwd, (e) partial sums"),
+          (("mlp_bwd_sum_kernel", "@ K10 ln_dwms_mlp_bwd"),
+           "K10 ln_dwms_mlp_bwd, (e) partial sums"),
           ("mlp_bwd_", "K9 / K10 tail, launched outside their ranges"),
           ("bwd_summary_kernel", "K8 ss2d_scan_bwd, (a1) segment summaries"),
           ("bwd_scan_kernel", "K8 ss2d_scan_bwd, (a2) adjoint scan"),

@@ -22,6 +22,7 @@ from PIL import Image
 
 from tramba_tpu_torch.data.pipeline import BatchLoader, SODDataset, natural_sort
 from tramba_tpu_torch.eval.metrics import SODMetrics
+from tramba_tpu_torch.utils.profiling import span
 
 __all__ = ["dump_saliency_maps", "model_device", "evaluate_maps", "format_results_row"]
 
@@ -42,22 +43,32 @@ def dump_saliency_maps(model: torch.nn.Module, data_root: str, save_path: str,
     """Writes ``<save_path>/<name>.png`` for every image of ``sets`` under
     ``data_root`` ({set}/image + {set}/mask); returns the number written.
     The images go to ``device``, by default the model's own
-    (:func:`model_device`)."""
+    (:func:`model_device`).  A batch is the spans ``dump.load`` (waiting on
+    the loader), ``dump.copy_in``, the model's, ``dump.to_host`` and
+    ``dump.write``."""
     device = model_device(model, device)
     os.makedirs(save_path, exist_ok=True)
     ds = SODDataset(data_root, list(sets), img_size, mode="test")
     loader = BatchLoader(ds, batch_size=batch_size, shuffle=False)
-    count = 0
-    for batch in loader:
-        images = torch.from_numpy(batch["image"]).to(device)
-        logits = model(images)[-1][..., 0].float().cpu().numpy()
-        for i, name in enumerate(batch["name"]):
-            w, h = batch["shape"][i]  # PIL (W, H)
-            up = cv2.resize(logits[i], (w, h), interpolation=cv2.INTER_LINEAR)
-            pred = 1.0 / (1.0 + np.exp(-up))
-            cv2.imwrite(os.path.join(save_path, name + ".png"), (pred * 255).astype(np.uint8))
-            count += 1
-    return count
+    count, batches = 0, iter(loader)
+    while True:
+        with span("dump.load"):
+            batch = next(batches, None)
+        if batch is None:
+            return count
+        with span("dump.copy_in"):
+            images = torch.from_numpy(batch["image"]).to(device)
+        head = model(images)[-1][..., 0]
+        with span("dump.to_host"):
+            logits = head.float().cpu().numpy()
+        with span("dump.write"):
+            for i, name in enumerate(batch["name"]):
+                w, h = batch["shape"][i]  # PIL (W, H)
+                up = cv2.resize(logits[i], (w, h), interpolation=cv2.INTER_LINEAR)
+                pred = 1.0 / (1.0 + np.exp(-up))
+                cv2.imwrite(os.path.join(save_path, name + ".png"),
+                            (pred * 255).astype(np.uint8))
+                count += 1
 
 
 def evaluate_maps(salmap_root: str, gt_root: str, save_pr_dir: Optional[str] = None) -> dict:

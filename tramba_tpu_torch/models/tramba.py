@@ -22,6 +22,8 @@ Module names follow the reference state dict (``decoder.expand_layers.{s}``,
 in ``train()`` mode only.
 ``ssm_backend`` goes to every SS2D (``tramba.py:92-250``): None (the default
 kernels) or a backend of ``nn/ssm.BACKENDS``; the parameters are the same.
+A forward is the span ``model.forward`` around ``model.encoder`` and
+``model.decoder`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from tramba_tpu_torch.models.vssm_encoder import VSSMEncoder, _Stage
 from tramba_tpu_torch.nn.blocks import MultiScaleDecoderBlock, VSSMDecoderBlock
 from tramba_tpu_torch.nn.freq import FreqBlock
 from tramba_tpu_torch.nn.layers import FinalPatchExpandX4, PatchExpand, check_dtype
+from tramba_tpu_torch.utils.profiling import span
 
 __all__ = ["TrambaDecoder", "TrambaV", "TrambaEnc", "BaseUMamba", "window_for_resolution"]
 
@@ -139,7 +142,11 @@ class TrambaV(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the
         model dtype."""
-        return self.decoder(self.vssm_encoder(x.to(self.dtype)))
+        with span("model.forward"):
+            with span("model.encoder"):
+                skips = self.vssm_encoder(x.to(self.dtype))
+            with span("model.decoder"):
+                return self.decoder(skips)
 
 
 class BaseUMamba(nn.Module):
@@ -163,7 +170,11 @@ class BaseUMamba(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the
         model dtype."""
-        return self.decoder(self.vssm_encoder(x.to(self.dtype)))
+        with span("model.forward"):
+            with span("model.encoder"):
+                skips = self.vssm_encoder(x.to(self.dtype))
+            with span("model.decoder"):
+                return self.decoder(skips)
 
 
 class TrambaEnc(nn.Module):
@@ -218,13 +229,16 @@ class TrambaEnc(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) normalized image -> 4 logit maps (B, h, w, 1) in the
         model dtype."""
-        x = x.to(self.dtype)
-        if self.enc_type == "swin":
-            skips = [x] + self.encoder(x)
-        elif self.enc_type == "pvt":
-            skips = [x] + self.encoder(x)[::-1]
-        else:
-            n = self.encoder.n_stages
-            outs = self.encoder(x, n if self.training else n - 1)
-            skips = [x] + outs[-4:-1][::-1]  # stages 1-3
-        return self.decoder(skips)
+        with span("model.forward"):
+            with span("model.encoder"):
+                x = x.to(self.dtype)
+                if self.enc_type == "swin":
+                    skips = [x] + self.encoder(x)
+                elif self.enc_type == "pvt":
+                    skips = [x] + self.encoder(x)[::-1]
+                else:
+                    n = self.encoder.n_stages
+                    outs = self.encoder(x, n if self.training else n - 1)
+                    skips = [x] + outs[-4:-1][::-1]  # stages 1-3
+            with span("model.decoder"):
+                return self.decoder(skips)

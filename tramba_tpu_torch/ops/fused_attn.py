@@ -40,6 +40,7 @@ import torch
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_card
 from tramba_tpu_torch.ops.fused_mlp import _linear, _ln_rounded
+from tramba_tpu_torch.utils.profiling import span
 
 __all__ = ["sra", "sra_ref", "sra_fusable", "check_sra_shape", "sra_plan", "sra_smem",
            "sra_least_slots", "sra_wide_smem", "sra_wide_keys",
@@ -152,10 +153,11 @@ def window_attn_ref(x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp, nh, eps=1e-5)
 def sra(x, ln_w, ln_b, wq, bq, k, v, wp, bp, nh, eps=1e-6):
     """Kernel K12 on CUDA tensors, :func:`sra_ref` on CPU tensors; under
     autograd in bf16 (and on the card) :class:`Sra`."""
-    args = (x, ln_w, ln_b, wq, bq, k, v, wp, bp)
-    if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
-        return Sra.apply(*args, nh, eps)
-    return _sra_launch(*args, nh, eps) if on_card(x) else sra_ref(*args, nh, eps)
+    with span("K12 sra"):
+        args = (x, ln_w, ln_b, wq, bq, k, v, wp, bp)
+        if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
+            return Sra.apply(*args, nh, eps)
+        return _sra_launch(*args, nh, eps) if on_card(x) else sra_ref(*args, nh, eps)
 
 
 def _up(n: int, m: int) -> int:
@@ -411,10 +413,13 @@ sra.launches = 0
 def window_attn(x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp, nh, eps=1e-5):
     """Kernel K13 on CUDA tensors, :func:`window_attn_ref` on CPU tensors;
     under autograd in bf16 (and on the card) :class:`WindowAttn`."""
-    args = (x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp)
-    if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
-        return WindowAttn.apply(*args, nh, eps)
-    return _window_attn_launch(*args, nh, eps) if on_card(x) else window_attn_ref(*args, nh, eps)
+    with span("K13 window_attn"):
+        args = (x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp)
+        if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
+            return WindowAttn.apply(*args, nh, eps)
+        if on_card(x):
+            return _window_attn_launch(*args, nh, eps)
+        return window_attn_ref(*args, nh, eps)
 
 
 def _window_attn_launch(x, ln_w, ln_b, wqkv, bqkv, bias, mask, wp, bp, nh, eps):

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, on_card
+from tramba_tpu_torch.utils.profiling import span
 
 __all__ = ["pixel_shuffle", "expand_ln", "expand_ln_ref", "final_head", "final_head_ref",
            "expand_plan", "head_plan"]
@@ -100,11 +101,12 @@ class _KernelWithPlainVjp(torch.autograd.Function):
 
 def expand_ln(x, w, ln_w, ln_b):
     """Kernel K3 on CUDA tensors, :func:`expand_ln_ref` on CPU tensors."""
-    if not on_card(x):
-        return expand_ln_ref(x, w, ln_w, ln_b)
-    if needs_grad(x, w, ln_w, ln_b):
-        return _KernelWithPlainVjp.apply(_expand_ln_launch, expand_ln_ref, x, w, ln_w, ln_b)
-    return _expand_ln_launch(x, w, ln_w, ln_b)
+    with span("K3 expand_ln"):
+        if not on_card(x):
+            return expand_ln_ref(x, w, ln_w, ln_b)
+        if needs_grad(x, w, ln_w, ln_b):
+            return _KernelWithPlainVjp.apply(_expand_ln_launch, expand_ln_ref, x, w, ln_w, ln_b)
+        return _expand_ln_launch(x, w, ln_w, ln_b)
 
 
 def _expand_ln_launch(x, w, ln_w, ln_b):
@@ -127,12 +129,13 @@ expand_ln.launches = 0
 
 def final_head(x, w1, ln_w, ln_b, seg_w, seg_b):
     """Kernel K4 on CUDA tensors, :func:`final_head_ref` on CPU tensors."""
-    args = (x, w1, ln_w, ln_b, seg_w, seg_b)
-    if not on_card(x):
-        return final_head_ref(*args)
-    if needs_grad(*args):
-        return _KernelWithPlainVjp.apply(_final_head_launch, final_head_ref, *args)
-    return _final_head_launch(*args)
+    with span("K4 final_head"):
+        args = (x, w1, ln_w, ln_b, seg_w, seg_b)
+        if not on_card(x):
+            return final_head_ref(*args)
+        if needs_grad(*args):
+            return _KernelWithPlainVjp.apply(_final_head_launch, final_head_ref, *args)
+        return _final_head_launch(*args)
 
 
 def _final_head_launch(x, w1, ln_w, ln_b, seg_w, seg_b):

@@ -46,10 +46,10 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_card
+from tramba_tpu_torch.utils.profiling import span
 
 __all__ = ["ln_mlp", "ln_mlp_ref", "check_ln_mlp_shape", "ln_dwms_mlp",
            "ln_dwms_mlp_ref", "check_ln_dwms_mlp_shape", "ln_dwmlp", "ln_dwmlp_ref",
@@ -249,10 +249,11 @@ def ln_dwms_mlp_bwd_ref(x, g, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2):
 def ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2):
     """Kernel K6 on CUDA tensors, :func:`ln_mlp_ref` on CPU tensors; under
     autograd in bf16 (and on the card) :class:`LnMlp`."""
-    args = (x, ln_w, ln_b, w1, b1, w2, b2)
-    if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
-        return LnMlp.apply(*args)
-    return _ln_mlp_launch(*args) if on_card(x) else ln_mlp_ref(*args)
+    with span("K6 ln_mlp"):
+        args = (x, ln_w, ln_b, w1, b1, w2, b2)
+        if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
+            return LnMlp.apply(*args)
+        return _ln_mlp_launch(*args) if on_card(x) else ln_mlp_ref(*args)
 
 
 def _mlp_shapes(name, x, w1, b1, w2, b2):
@@ -299,10 +300,11 @@ ln_mlp.launches = 0
 def ln_dwms_mlp(x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2):
     """Kernel K7 on CUDA tensors, :func:`ln_dwms_mlp_ref` on CPU tensors;
     under autograd in bf16 (and on the card) :class:`LnDwmsMlp`."""
-    args = (x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2)
-    if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
-        return LnDwmsMlp.apply(*args)
-    return _ln_dwms_mlp_launch(*args) if on_card(x) else ln_dwms_mlp_ref(*args)
+    with span("K7 ln_dwms_mlp"):
+        args = (x, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2, b2)
+        if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
+            return LnDwmsMlp.apply(*args)
+        return _ln_dwms_mlp_launch(*args) if on_card(x) else ln_dwms_mlp_ref(*args)
 
 
 def _dwms_checks(name, x, w1, b1, taps, w2, b2):
@@ -356,10 +358,11 @@ ln_dwms_mlp.launches = 0
 def ln_dwmlp(x, ln_w, ln_b, w1, b1, k3, c3, w2, b2, eps=1e-6):
     """Kernel K11 on CUDA tensors, :func:`ln_dwmlp_ref` on CPU tensors; under
     autograd in bf16 (and on the card) :class:`LnDwMlp`."""
-    args = (x, ln_w, ln_b, w1, b1, k3, c3, w2, b2)
-    if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
-        return LnDwMlp.apply(*args, eps)
-    return _ln_dwmlp_launch(*args, eps) if on_card(x) else ln_dwmlp_ref(*args, eps)
+    with span("K11 ln_dwmlp"):
+        args = (x, ln_w, ln_b, w1, b1, k3, c3, w2, b2)
+        if needs_grad(*args) and (on_card(x) or x.dtype == torch.bfloat16):
+            return LnDwMlp.apply(*args, eps)
+        return _ln_dwmlp_launch(*args, eps) if on_card(x) else ln_dwmlp_ref(*args, eps)
 
 
 # the plan ln_dwmlp_plan reports (csrc/mlp.cu plan_dwmlp, pick_dwmlp_splits;
@@ -445,29 +448,29 @@ def mlp_bwd_column_groups(M: int, d: int, hid: int) -> int:
 
 def ln_mlp_bwd(x, g, ln_w, ln_b, w1, b1, w2):
     """Kernel K9 on CUDA tensors, :func:`ln_mlp_bwd_ref` on CPU tensors."""
-    if not on_card(x):
-        return ln_mlp_bwd_ref(x, g, ln_w, ln_b, w1, b1, w2)
-    g = g.to(x.dtype).contiguous()
-    w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
-    check_args(x=(x, BF16), g=(g, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32), w1=(w1c, BF16),
-               b1=(b1, F32), w2=(w2c, BF16))
-    d, hid = _mlp_shapes("ln_mlp_bwd", x, w1c, b1, w2c, None)
-    M = x.numel() // d
-    check_ln_mlp_bwd_shape(M, d, hid)
-    if g.shape != x.shape or ln_w.numel() != d or ln_b.numel() != d:
-        raise ValueError("ln_mlp_bwd: g must have x's shape, LN parameters d elements")
-    dx = torch.empty_like(x)
-    dw1, db1, dw2 = _f32(hid, d, like=x), _f32(hid, like=x), _f32(d, hid, like=x)
-    db2, dln_w, dln_b = _f32(d, like=x), _f32(d, like=x), _f32(d, like=x)
-    scratch = _bwd_scratch(x, 0, M, 1, 1, d, hid)
-    with record_function("ln_mlp_bwd"):  # tells K9's launches from K10's in a profile
+    with span("K9 ln_mlp_bwd"):
+        if not on_card(x):
+            return ln_mlp_bwd_ref(x, g, ln_w, ln_b, w1, b1, w2)
+        g = g.to(x.dtype).contiguous()
+        w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
+        check_args(x=(x, BF16), g=(g, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32), w1=(w1c, BF16),
+                   b1=(b1, F32), w2=(w2c, BF16))
+        d, hid = _mlp_shapes("ln_mlp_bwd", x, w1c, b1, w2c, None)
+        M = x.numel() // d
+        check_ln_mlp_bwd_shape(M, d, hid)
+        if g.shape != x.shape or ln_w.numel() != d or ln_b.numel() != d:
+            raise ValueError("ln_mlp_bwd: g must have x's shape, LN parameters d elements")
+        dx = torch.empty_like(x)
+        dw1, db1, dw2 = _f32(hid, d, like=x), _f32(hid, like=x), _f32(d, hid, like=x)
+        db2, dln_w, dln_b = _f32(d, like=x), _f32(d, like=x), _f32(d, like=x)
+        scratch = _bwd_scratch(x, 0, M, 1, 1, d, hid)
         _native.launch("ln_mlp_bwd_launch", x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
                        ln_b.data_ptr(), w1c.data_ptr(), b1.data_ptr(), w2c.data_ptr(),
                        dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
                        db2.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(), scratch.data_ptr(),
                        M, d, hid, _native.stream_handle(x))
-    ln_mlp_bwd.launches += 1
-    return dx, dln_w, dln_b, dw1, db1, dw2, db2
+        ln_mlp_bwd.launches += 1
+        return dx, dln_w, dln_b, dw1, db1, dw2, db2
 
 
 ln_mlp_bwd.launches = 0
@@ -475,24 +478,24 @@ ln_mlp_bwd.launches = 0
 
 def ln_dwms_mlp_bwd(x, g, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2):
     """Kernel K10 on CUDA tensors, :func:`ln_dwms_mlp_bwd_ref` on CPU tensors."""
-    if not on_card(x):
-        return ln_dwms_mlp_bwd_ref(x, g, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2)
-    cd = x.dtype
-    g = g.to(cd).contiguous()
-    w1c, w2c = w1.to(cd), w2.to(cd)
-    taps = ((k3.to(cd), c3), (k5.to(cd), c5), (k7.to(cd), c7))
-    check_args(g=(g, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
-    d, hid = _dwms_checks("ln_dwms_mlp_bwd", x, w1c, b1, taps, w2c, None)
-    if g.shape != x.shape or ln_w.numel() != d or ln_b.numel() != d:
-        raise ValueError("ln_dwms_mlp_bwd: g must have x's shape, LN parameters d elements")
-    B, H, W, _ = x.shape
-    check_ln_mlp_bwd_shape(B * H * W, d, hid, "ln_dwms_mlp_bwd")
-    dx = torch.empty_like(x)
-    dw1, db1, dw2 = _f32(hid, d, like=x), _f32(hid, like=x), _f32(d, hid, like=x)
-    dk = [t for n in (3, 5, 7) for t in (_f32(hid, 1, n, n, like=x), _f32(hid, like=x))]
-    db2, dln_w, dln_b = _f32(d, like=x), _f32(d, like=x), _f32(d, like=x)
-    scratch = _bwd_scratch(x, 1, B, H, W, d, hid)
-    with record_function("ln_dwms_mlp_bwd"):
+    with span("K10 ln_dwms_mlp_bwd"):
+        if not on_card(x):
+            return ln_dwms_mlp_bwd_ref(x, g, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2)
+        cd = x.dtype
+        g = g.to(cd).contiguous()
+        w1c, w2c = w1.to(cd), w2.to(cd)
+        taps = ((k3.to(cd), c3), (k5.to(cd), c5), (k7.to(cd), c7))
+        check_args(g=(g, BF16), ln_w=(ln_w, F32), ln_b=(ln_b, F32))
+        d, hid = _dwms_checks("ln_dwms_mlp_bwd", x, w1c, b1, taps, w2c, None)
+        if g.shape != x.shape or ln_w.numel() != d or ln_b.numel() != d:
+            raise ValueError("ln_dwms_mlp_bwd: g must have x's shape, LN parameters d elements")
+        B, H, W, _ = x.shape
+        check_ln_mlp_bwd_shape(B * H * W, d, hid, "ln_dwms_mlp_bwd")
+        dx = torch.empty_like(x)
+        dw1, db1, dw2 = _f32(hid, d, like=x), _f32(hid, like=x), _f32(d, hid, like=x)
+        dk = [t for n in (3, 5, 7) for t in (_f32(hid, 1, n, n, like=x), _f32(hid, like=x))]
+        db2, dln_w, dln_b = _f32(d, like=x), _f32(d, like=x), _f32(d, like=x)
+        scratch = _bwd_scratch(x, 1, B, H, W, d, hid)
         _native.launch("ln_dwms_mlp_bwd_launch", x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
                        ln_b.data_ptr(), w1c.data_ptr(), b1.data_ptr(),
                        *(t.data_ptr() for kc in taps for t in kc), w2c.data_ptr(),
@@ -500,8 +503,8 @@ def ln_dwms_mlp_bwd(x, g, ln_w, ln_b, w1, b1, k3, c3, k5, c5, k7, c7, w2):
                        *(t.data_ptr() for t in dk), dw2.data_ptr(), db2.data_ptr(),
                        dln_w.data_ptr(), dln_b.data_ptr(), scratch.data_ptr(),
                        B, H, W, d, hid, _native.stream_handle(x))
-    ln_dwms_mlp_bwd.launches += 1
-    return (dx, dln_w, dln_b, dw1, db1, *dk, dw2, db2)
+        ln_dwms_mlp_bwd.launches += 1
+        return (dx, dln_w, dln_b, dw1, db1, *dk, dw2, db2)
 
 
 ln_dwms_mlp_bwd.launches = 0

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import BF16, F32, check_args, needs_grad, on_card
 from tramba_tpu_torch.ops.fused_mlp import _linear, _ln_rounded
+from tramba_tpu_torch.utils.profiling import span
 
 __all__ = ["prologue", "prologue_ref", "check_prologue_shape", "prologue_plan", "Prologue"]
 
@@ -51,12 +52,13 @@ def prologue_ref(x, ln_w, ln_b, w_in, conv_k):
 def prologue(x, ln_w, ln_b, w_in, conv_k):
     """Kernel K5 on CUDA tensors (under autograd :class:`Prologue`),
     :func:`prologue_ref` on CPU tensors."""
-    args = (x, ln_w, ln_b, w_in, conv_k)
-    if not on_card(x):
-        return prologue_ref(*args)
-    if needs_grad(*args):
-        return Prologue.apply(*args)
-    return _prologue_launch(*args)
+    with span("K5 prologue"):
+        args = (x, ln_w, ln_b, w_in, conv_k)
+        if not on_card(x):
+            return prologue_ref(*args)
+        if needs_grad(*args):
+            return Prologue.apply(*args)
+        return _prologue_launch(*args)
 
 
 def check_prologue_shape(B: int, H: int, W: int, dm: int, D: int) -> None:

@@ -56,6 +56,7 @@ from tramba_tpu_torch.ops._native import F32, F32_BF16, check_args, needs_grad, 
 from tramba_tpu_torch.ops.proj_stages import PLAN_FIELDS
 from tramba_tpu_torch.ops.scan_orders import order_tables
 from tramba_tpu_torch.ops.selective_scan import dt_projection, linear_scan, linear_scan_ref
+from tramba_tpu_torch.utils.profiling import span
 
 __all__ = ["composed_ss2d_core", "ss2d_core_ref", "ss2d_scan", "ss2d_scan_ref",
            "ss2d_scan_train_ref", "ss2d_proj", "ss2d_proj_ref", "ss2d_proj_plan",
@@ -263,35 +264,36 @@ def ss2d_scan(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds, *, emit=False):
     """Kernel K1 on CUDA tensors, :func:`ss2d_scan_ref` on CPU tensors.
     ``emit=True`` (training): returns (ys, carries, dbc) as
     :func:`ss2d_scan_train_ref` does."""
-    if not on_card(x):
-        if emit:
-            return ss2d_scan_train_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds)
-        return ss2d_scan_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds)
-    B, L, D = x.shape
-    K, C, _ = x_proj_w.shape
-    R = C - 2
-    check_args(x=(x, F32_BF16), x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32),
-               dt_b=(dt_b, F32), A_logs=(A_logs, F32), Ds=(Ds, F32))
-    _check_table("idx", idx, (K, L))
-    if D % 32 or R > 64:
-        raise ValueError(f"ss2d_scan: D={D} must be a multiple of 32 and R={R} at most 64")
-    if (tuple(x_proj_w.shape) != (K, C, D) or tuple(dt_w.shape) != (K, D, R)
-            or dt_b.numel() != K * D or A_logs.numel() != K * D or Ds.numel() != K * D):
-        raise ValueError("ss2d_scan: parameter shapes do not match x and x_proj_w")
-    dbc = torch.empty(B, L, K, C, device=x.device, dtype=torch.float32)
-    summ = torch.empty(2, B, K, -(-L // scan_segment_steps(B, L, D, K)), D, device=x.device,
-                       dtype=torch.float32)
-    ys = torch.empty(B, K, L, D, device=x.device, dtype=torch.float32)
-    carries = (torch.empty(B, K, -(-L // scan_chunk()), D, device=x.device,
-                           dtype=torch.float32) if emit else None)
-    terms = proj_weight_terms(x_proj_w)
-    _native.launch("ss2d_scan_launch", x.data_ptr(), idx.data_ptr(), terms.data_ptr(),
-                   dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
-                   dbc.data_ptr(), summ.data_ptr(), ys.data_ptr(),
-                   carries.data_ptr() if emit else None,
-                   B, L, D, K, R, int(x.dtype == torch.bfloat16), _native.stream_handle(x))
-    ss2d_scan.launches += 1
-    return (ys, carries, dbc) if emit else ys
+    with span("K1 ss2d_scan"):
+        if not on_card(x):
+            if emit:
+                return ss2d_scan_train_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds)
+            return ss2d_scan_ref(x, idx, x_proj_w, dt_w, dt_b, A_logs, Ds)
+        B, L, D = x.shape
+        K, C, _ = x_proj_w.shape
+        R = C - 2
+        check_args(x=(x, F32_BF16), x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32),
+                   dt_b=(dt_b, F32), A_logs=(A_logs, F32), Ds=(Ds, F32))
+        _check_table("idx", idx, (K, L))
+        if D % 32 or R > 64:
+            raise ValueError(f"ss2d_scan: D={D} must be a multiple of 32 and R={R} at most 64")
+        if (tuple(x_proj_w.shape) != (K, C, D) or tuple(dt_w.shape) != (K, D, R)
+                or dt_b.numel() != K * D or A_logs.numel() != K * D or Ds.numel() != K * D):
+            raise ValueError("ss2d_scan: parameter shapes do not match x and x_proj_w")
+        dbc = torch.empty(B, L, K, C, device=x.device, dtype=torch.float32)
+        summ = torch.empty(2, B, K, -(-L // scan_segment_steps(B, L, D, K)), D, device=x.device,
+                           dtype=torch.float32)
+        ys = torch.empty(B, K, L, D, device=x.device, dtype=torch.float32)
+        carries = (torch.empty(B, K, -(-L // scan_chunk()), D, device=x.device,
+                               dtype=torch.float32) if emit else None)
+        terms = proj_weight_terms(x_proj_w)
+        _native.launch("ss2d_scan_launch", x.data_ptr(), idx.data_ptr(), terms.data_ptr(),
+                       dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
+                       dbc.data_ptr(), summ.data_ptr(), ys.data_ptr(),
+                       carries.data_ptr() if emit else None,
+                       B, L, D, K, R, int(x.dtype == torch.bfloat16), _native.stream_handle(x))
+        ss2d_scan.launches += 1
+        return (ys, carries, dbc) if emit else ys
 
 
 ss2d_scan.launches = 0
@@ -306,21 +308,22 @@ def proj_weight_terms(x_proj_w):
     """The three bf16 terms of K1's fp32 weight x_proj_w (K, R+2, D) on the
     card, (3, K (R+2), Dp) with Dp = D rounded up to 8: split by one launch
     (``ss2d_proj_terms_launch``: h = bf16(w), m = bf16(w - h), l = bf16(w -
-    h - m)) where the weight is new or its version counter or storage has
-    moved since (an optimizer step, ``copy_``, ``load_state_dict``), else the
-    terms kept from before.  A write that bypasses the tensor's version
-    counter (through ``.data``) is not seen."""
+    h - m), the span ``K1 weight terms``) where the weight is new or its
+    version counter or storage has moved since (an optimizer step, ``copy_``,
+    ``load_state_dict``), else the terms kept from before.  A write that
+    bypasses the tensor's version counter (through ``.data``) is not seen."""
     key = (x_proj_w._version, x_proj_w.data_ptr())
     kept = _TERMS.get(x_proj_w)
     if kept is not None and kept[:2] == key:
         return kept[2]
-    K, C, D = x_proj_w.shape
-    shape = (3, K * C, -(-D // 8) * 8)
-    terms = kept[2] if kept is not None and tuple(kept[2].shape) == shape else torch.empty(
-        shape, device=x_proj_w.device, dtype=torch.bfloat16)
-    _native.launch("ss2d_proj_terms_launch", x_proj_w.data_ptr(), terms.data_ptr(), K * C, D,
-                   _native.stream_handle(x_proj_w))
-    _TERMS[x_proj_w] = (*key, terms)
+    with span("K1 weight terms"):
+        K, C, D = x_proj_w.shape
+        shape = (3, K * C, -(-D // 8) * 8)
+        terms = kept[2] if kept is not None and tuple(kept[2].shape) == shape else torch.empty(
+            shape, device=x_proj_w.device, dtype=torch.bfloat16)
+        _native.launch("ss2d_proj_terms_launch", x_proj_w.data_ptr(), terms.data_ptr(), K * C,
+                       D, _native.stream_handle(x_proj_w))
+        _TERMS[x_proj_w] = (*key, terms)
     return terms
 
 
@@ -329,21 +332,22 @@ def ss2d_proj(x, x_proj_w):
     its scans), :func:`ss2d_proj_ref` on CPU tensors: x (B, L, D) fp32 or
     bf16 (D a multiple of 4 or 8), x_proj_w (K, R+2, D) fp32 -> dbc (B, L, K,
     R+2) fp32.  Its weight's terms come from :func:`proj_weight_terms`."""
-    if not on_card(x):
-        return ss2d_proj_ref(x, x_proj_w)
-    B, L, D = x.shape
-    K, C, _ = x_proj_w.shape
-    check_args(x=(x, F32_BF16), x_proj_w=(x_proj_w, F32))
-    vec = 8 if x.dtype == torch.bfloat16 else 4
-    if x_proj_w.shape[2] != D or D % vec or B * L < 1:
-        raise ValueError(f"ss2d_proj: x_proj_w {tuple(x_proj_w.shape)} must match D={D}, a "
-                         f"multiple of {vec}, and x rows")
-    terms = proj_weight_terms(x_proj_w)
-    dbc = torch.empty(B, L, K, C, device=x.device, dtype=torch.float32)
-    _native.launch("ss2d_proj_launch", x.data_ptr(), terms.data_ptr(), dbc.data_ptr(), B * L, D,
-                   K * C, int(x.dtype == torch.bfloat16), _native.stream_handle(x))
-    ss2d_proj.launches += 1
-    return dbc
+    with span("K1 ss2d_proj"):
+        if not on_card(x):
+            return ss2d_proj_ref(x, x_proj_w)
+        B, L, D = x.shape
+        K, C, _ = x_proj_w.shape
+        check_args(x=(x, F32_BF16), x_proj_w=(x_proj_w, F32))
+        vec = 8 if x.dtype == torch.bfloat16 else 4
+        if x_proj_w.shape[2] != D or D % vec or B * L < 1:
+            raise ValueError(f"ss2d_proj: x_proj_w {tuple(x_proj_w.shape)} must match D={D}, a "
+                             f"multiple of {vec}, and x rows")
+        terms = proj_weight_terms(x_proj_w)
+        dbc = torch.empty(B, L, K, C, device=x.device, dtype=torch.float32)
+        _native.launch("ss2d_proj_launch", x.data_ptr(), terms.data_ptr(), dbc.data_ptr(), B * L, D,
+                       K * C, int(x.dtype == torch.bfloat16), _native.stream_handle(x))
+        ss2d_proj.launches += 1
+        return dbc
 
 
 ss2d_proj.launches = 0
@@ -377,26 +381,27 @@ def ss2d_merge(ys, inv, ln_w, ln_b, w_out, *, emit_ysum=False):
     """Kernel K2 on CUDA tensors, :func:`ss2d_merge_ref` on CPU tensors.
     ``emit_ysum=True`` (training): returns (out, y_sum) as
     :func:`ss2d_merge_train_ref` does."""
-    if not on_card(ys):
-        if emit_ysum:
-            return ss2d_merge_train_ref(ys, inv, ln_w, ln_b, w_out)
-        return ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out)
-    B, K, L, D = ys.shape
-    dm = w_out.shape[0]
-    check_args(ys=(ys, F32), ln_w=(ln_w, F32), ln_b=(ln_b, F32),
-               w_out=(w_out, F32_BF16))
-    _check_table("inv", inv, (K, inv.shape[1], L))
-    check_merge_shape(K, inv.shape[1], D, dm, w_out.dtype)
-    if tuple(w_out.shape) != (dm, D) or ln_w.numel() != D or ln_b.numel() != D:
-        raise ValueError("ss2d_merge: w_out must be (dm, D) and the LN parameters (D,)")
-    out = torch.empty(B, L, dm, device=ys.device, dtype=w_out.dtype)
-    y_sum = torch.empty(B, L, D, device=ys.device, dtype=w_out.dtype) if emit_ysum else None
-    _native.launch("ss2d_merge_launch", ys.data_ptr(), inv.data_ptr(), ln_w.data_ptr(),
-                   ln_b.data_ptr(), w_out.data_ptr(), out.data_ptr(),
-                   y_sum.data_ptr() if emit_ysum else None, B, K, inv.shape[1], L, D, dm,
-                   int(w_out.dtype == torch.bfloat16), _native.stream_handle(ys))
-    ss2d_merge.launches += 1
-    return (out, y_sum) if emit_ysum else out
+    with span("K2 ss2d_merge"):
+        if not on_card(ys):
+            if emit_ysum:
+                return ss2d_merge_train_ref(ys, inv, ln_w, ln_b, w_out)
+            return ss2d_merge_ref(ys, inv, ln_w, ln_b, w_out)
+        B, K, L, D = ys.shape
+        dm = w_out.shape[0]
+        check_args(ys=(ys, F32), ln_w=(ln_w, F32), ln_b=(ln_b, F32),
+                   w_out=(w_out, F32_BF16))
+        _check_table("inv", inv, (K, inv.shape[1], L))
+        check_merge_shape(K, inv.shape[1], D, dm, w_out.dtype)
+        if tuple(w_out.shape) != (dm, D) or ln_w.numel() != D or ln_b.numel() != D:
+            raise ValueError("ss2d_merge: w_out must be (dm, D) and the LN parameters (D,)")
+        out = torch.empty(B, L, dm, device=ys.device, dtype=w_out.dtype)
+        y_sum = torch.empty(B, L, D, device=ys.device, dtype=w_out.dtype) if emit_ysum else None
+        _native.launch("ss2d_merge_launch", ys.data_ptr(), inv.data_ptr(), ln_w.data_ptr(),
+                       ln_b.data_ptr(), w_out.data_ptr(), out.data_ptr(),
+                       y_sum.data_ptr() if emit_ysum else None, B, K, inv.shape[1], L, D, dm,
+                       int(w_out.dtype == torch.bfloat16), _native.stream_handle(ys))
+        ss2d_merge.launches += 1
+        return (out, y_sum) if emit_ysum else out
 
 
 ss2d_merge.launches = 0
@@ -404,48 +409,49 @@ ss2d_merge.launches = 0
 
 def ss2d_scan_bwd(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs, Ds):
     """Kernel K8 on CUDA tensors, :func:`ss2d_scan_bwd_ref` on CPU tensors."""
-    if not on_card(x):
-        return ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs,
-                                 Ds)
-    B, L, D = x.shape
-    K, C, _ = x_proj_w.shape
-    R = C - 2
-    check_args(x=(x, F32_BF16), g_y=(g_y, (x.dtype,)), carries=(carries, F32), dbc=(dbc, F32),
-               x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32), dt_b=(dt_b, F32),
-               A_logs=(A_logs, F32), Ds=(Ds, F32))
-    _check_table("idx", idx, (K, L))
-    _check_table("inv", inv, (K, inv.shape[1], L))
-    if D % 32 or R > 64:
-        raise ValueError(f"ss2d_scan_bwd: D={D} must be a multiple of 32 and R={R} at most 64")
-    if (tuple(g_y.shape) != (B, L, D) or tuple(dbc.shape) != (B, L, K, C)
-            or tuple(carries.shape) != (B, K, -(-L // scan_chunk()), D)
-            or tuple(dt_w.shape) != (K, D, R) or dt_b.numel() != K * D
-            or A_logs.numel() != K * D or Ds.numel() != K * D):
-        raise ValueError("ss2d_scan_bwd: shapes do not match x, idx and x_proj_w")
-    chunks = -(-B * L // _native.library().ss2d_scan_bwd_rows())
-    S = -(-L // scan_segment_steps(B, L, D, K, bwd=True))
+    with span("K8 ss2d_scan_bwd"):
+        if not on_card(x):
+            return ss2d_scan_bwd_ref(x, idx, inv, g_y, carries, dbc, x_proj_w, dt_w, dt_b, A_logs,
+                                     Ds)
+        B, L, D = x.shape
+        K, C, _ = x_proj_w.shape
+        R = C - 2
+        check_args(x=(x, F32_BF16), g_y=(g_y, (x.dtype,)), carries=(carries, F32), dbc=(dbc, F32),
+                   x_proj_w=(x_proj_w, F32), dt_w=(dt_w, F32), dt_b=(dt_b, F32),
+                   A_logs=(A_logs, F32), Ds=(Ds, F32))
+        _check_table("idx", idx, (K, L))
+        _check_table("inv", inv, (K, inv.shape[1], L))
+        if D % 32 or R > 64:
+            raise ValueError(f"ss2d_scan_bwd: D={D} must be a multiple of 32 and R={R} at most 64")
+        if (tuple(g_y.shape) != (B, L, D) or tuple(dbc.shape) != (B, L, K, C)
+                or tuple(carries.shape) != (B, K, -(-L // scan_chunk()), D)
+                or tuple(dt_w.shape) != (K, D, R) or dt_b.numel() != K * D
+                or A_logs.numel() != K * D or Ds.numel() != K * D):
+            raise ValueError("ss2d_scan_bwd: shapes do not match x, idx and x_proj_w")
+        chunks = -(-B * L // _native.library().ss2d_scan_bwd_rows())
+        S = -(-L // scan_segment_steps(B, L, D, K, bwd=True))
 
-    def f32(*shape):
-        return torch.empty(*shape, device=x.device, dtype=torch.float32)
+        def f32(*shape):
+            return torch.empty(*shape, device=x.device, dtype=torch.float32)
 
-    dx = torch.empty(B, L, D, device=x.device, dtype=x.dtype)
-    dwx, dwdt, sums = f32(K, C, D), f32(K, D, R), f32(3, B * S, K, D)
-    # summaries, dxs, ddt, dB / dC partials, d_dbc (rows padded to 16 bytes),
-    # the weight partials
-    scratch = (f32(2, B, K, S, D), f32(B, K, L, D), f32(B, K, L, D), f32(B, K, L, D // 32),
-               f32(B, K, L, D // 32), f32(B, K, L, -(-C // 4) * 4), f32(chunks, K, C, D),
-               f32(chunks, K, D, R))
-    _native.launch("ss2d_scan_bwd_launch", x.data_ptr(), idx.data_ptr(), inv.data_ptr(),
-                   g_y.data_ptr(), carries.data_ptr(), dbc.data_ptr(), x_proj_w.data_ptr(),
-                   dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
-                   dx.data_ptr(), dwx.data_ptr(), dwdt.data_ptr(), sums.data_ptr(),
-                   *(t.data_ptr() for t in scratch), B, L, D, K, R, inv.shape[1],
-                   int(x.dtype == torch.bfloat16), _native.stream_handle(x))
-    ss2d_scan_bwd.launches += 1
-    # the per-image, per-segment (K, D) partials summed in a fixed order, as
-    # _full_bwd sums the per-image ones in XLA (:1081)
-    dbias, dA, dDs = sums.sum(1)
-    return dx, dwx, dwdt, dbias, dA * -torch.exp(A_logs.reshape(K, D)), dDs
+        dx = torch.empty(B, L, D, device=x.device, dtype=x.dtype)
+        dwx, dwdt, sums = f32(K, C, D), f32(K, D, R), f32(3, B * S, K, D)
+        # summaries, dxs, ddt, dB / dC partials, d_dbc (rows padded to 16 bytes),
+        # the weight partials
+        scratch = (f32(2, B, K, S, D), f32(B, K, L, D), f32(B, K, L, D), f32(B, K, L, D // 32),
+                   f32(B, K, L, D // 32), f32(B, K, L, -(-C // 4) * 4), f32(chunks, K, C, D),
+                   f32(chunks, K, D, R))
+        _native.launch("ss2d_scan_bwd_launch", x.data_ptr(), idx.data_ptr(), inv.data_ptr(),
+                       g_y.data_ptr(), carries.data_ptr(), dbc.data_ptr(), x_proj_w.data_ptr(),
+                       dt_w.data_ptr(), dt_b.data_ptr(), A_logs.data_ptr(), Ds.data_ptr(),
+                       dx.data_ptr(), dwx.data_ptr(), dwdt.data_ptr(), sums.data_ptr(),
+                       *(t.data_ptr() for t in scratch), B, L, D, K, R, inv.shape[1],
+                       int(x.dtype == torch.bfloat16), _native.stream_handle(x))
+        ss2d_scan_bwd.launches += 1
+        # the per-image, per-segment (K, D) partials summed in a fixed order, as
+        # _full_bwd sums the per-image ones in XLA (:1081)
+        dbias, dA, dDs = sums.sum(1)
+        return dx, dwx, dwdt, dbias, dA * -torch.exp(A_logs.reshape(K, D)), dDs
 
 
 ss2d_scan_bwd.launches = 0

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from tramba_tpu_torch.ops import _native
 from tramba_tpu_torch.ops._native import F32, check_args, needs_grad, on_card
+from tramba_tpu_torch.utils.profiling import span
 
 __all__ = ["linear_scan", "linear_scan_ref", "linear_scan_plan", "SCAN_PLAN_FIELDS",
            "LinearScan", "dt_projection", "selective_scan"]
@@ -151,9 +152,10 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, reverse: bool = False) -> torc
     """h over axis -2 of (..., L, C) tensors, in fp32 (``reverse``: from the
     last row back): kernel K14 on CUDA tensors, the plain version on CPU
     tensors; differentiable in both."""
-    if needs_grad(a, b):
-        return LinearScan.apply(a, b, reverse)
-    return _scan(a, b, reverse)
+    with span("K14 linear_scan"):
+        if needs_grad(a, b):
+            return LinearScan.apply(a, b, reverse)
+        return _scan(a, b, reverse)
 
 
 linear_scan.launches = 0

@@ -24,6 +24,8 @@ from typing import Dict, Iterable, Sequence, Tuple
 import numpy as np
 import torch
 
+from tramba_tpu_torch.utils.profiling import span
+
 __all__ = ["step_decay_schedule", "encoder_label", "Adam", "make_optimizer",
            "fast_forward_schedule"]
 
@@ -83,38 +85,40 @@ class Adam:
     def step(self) -> None:
         """One update of every parameter that has a gradient, as ``torch._foreach``
         ops over each group (no host sync: the LR and bias corrections are
-        host scalars from the counters)."""
-        b1, b2 = self.b1, self.b2
-        for label, (sched, named) in self.groups.items():
-            named = [(n, p) for n, p in named if p.grad is not None]
-            n = self.count[label] + 1
-            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(n))
-            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(n))
-            step_size = -float(sched(self.sched_count[label]))
-            self.count[label] = n
-            self.sched_count[label] += 1
-            if not named:
-                continue
-            params = [p for _, p in named]
-            grads = [p.grad.float() for p in params]
-            nus = [self.nu[name] for name, _ in named]
-            # b1 mu in mu's dtype, b1 rounded to it first as JAX rounds a weak
-            # Python scalar, then the sum in fp32 (optax's update_moment)
-            b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
-            mus = [m.float() for m in
-                   torch._foreach_mul([self.mu[name] for name, _ in named], b1_mu)]
-            torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
-            upd = torch._foreach_div(mus, bc1)
-            den = torch._foreach_div(nus, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, self.eps)
-            torch._foreach_div_(upd, den)
-            torch._foreach_mul_(upd, step_size)
-            torch._foreach_add_(params, upd)
-            for (name, _), m in zip(named, mus):
-                self.mu[name] = m.to(self.mu_dtype)
+        host scalars from the counters); the span ``optim.step``."""
+        with span("optim.step"):
+            b1, b2 = self.b1, self.b2
+            for label, (sched, named) in self.groups.items():
+                named = [(n, p) for n, p in named if p.grad is not None]
+                n = self.count[label] + 1
+                bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(n))
+                bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(n))
+                step_size = -float(sched(self.sched_count[label]))
+                self.count[label] = n
+                self.sched_count[label] += 1
+                if not named:
+                    continue
+                params = [p for _, p in named]
+                grads = [p.grad.float() for p in params]
+                nus = [self.nu[name] for name, _ in named]
+                # b1 mu in mu's dtype, b1 rounded to it first as JAX rounds a
+                # weak Python scalar, then the sum in fp32 (optax's update_moment)
+                b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+                mus = [m.float() for m in
+                       torch._foreach_mul([self.mu[name] for name, _ in named], b1_mu)]
+                torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+                torch._foreach_mul_(nus, b2)
+                torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads),
+                                                            1 - b2))
+                upd = torch._foreach_div(mus, bc1)
+                den = torch._foreach_div(nus, bc2)
+                torch._foreach_sqrt_(den)
+                torch._foreach_add_(den, self.eps)
+                torch._foreach_div_(upd, den)
+                torch._foreach_mul_(upd, step_size)
+                torch._foreach_add_(params, upd)
+                for (name, _), m in zip(named, mus):
+                    self.mu[name] = m.to(self.mu_dtype)
 
     def zero_grad(self) -> None:
         for _, named in self.groups.values():
